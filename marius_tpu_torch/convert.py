@@ -1,0 +1,64 @@
+"""Carry a JAX training state into the port.
+
+The JAX package's ``TrainState`` (``marius_tpu/train/trainer.py:55-62``),
+turned into numpy by the caller (``jax.tree.map(np.asarray, state)``), becomes
+the port's :class:`~marius_tpu_torch.train.trainer.TrainState`. Fields are
+read by name from attributes or dict keys, so a nested dict works as well as
+the mapped dataclass; this module never imports JAX. The PRNG key has no
+counterpart (the port samples with ``torch.Generator``s) and is dropped.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from marius_tpu_torch.nn.optimizers import OptState, tree_leaves, tree_map
+from marius_tpu_torch.parallel.embedding_table import EmbeddingTable
+from marius_tpu_torch.train.trainer import TrainState
+
+
+def _field(obj: Any, name: str):
+    return obj[name] if isinstance(obj, dict) else getattr(obj, name)
+
+
+def _tensor(a, device, requires_grad=False) -> torch.Tensor:
+    t = torch.from_numpy(np.array(a, copy=True)).to(device)
+    return t.requires_grad_(requires_grad)
+
+
+def train_state_from_jax(np_state, device="cpu") -> TrainState:
+    """The table (``values``, ``state``), the params (``encoder`` per-layer
+    dicts, ``decoder`` relation tables; every leaf requires grad), the
+    optimizer state (``step`` and ``slots``) and the epoch, on ``device``."""
+    table = _field(np_state, "table")
+    if table is not None:
+        table = EmbeddingTable(values=_tensor(_field(table, "values"), device),
+                               state=_tensor(_field(table, "state"), device))
+    params = tree_map(lambda a: _tensor(a, device, True), _field(np_state, "params"))
+    opt = _field(np_state, "opt_state")
+    slots = tree_map(lambda a: _tensor(a, device), _field(opt, "slots"))
+    return TrainState(table=table, params=params,
+                      opt_state=OptState(step=int(_field(opt, "step")), slots=slots),
+                      epoch=int(_field(np_state, "epoch")))
+
+
+@torch.no_grad()
+def copy_train_state_(dst: TrainState, src: TrainState) -> None:
+    """Copy ``src`` into ``dst`` in place, keeping ``dst``'s tensors (a
+    trainer's decoder parameters are its decoder module's own)."""
+    if (dst.table is None) != (src.table is None):
+        raise ValueError("one state has an embedding table and the other has none")
+    if dst.table is not None:
+        dst.table.values.copy_(src.table.values)
+        dst.table.state.copy_(src.table.state)
+    for pairs in ((dst.params, src.params), (dst.opt_state.slots, src.opt_state.slots)):
+        d_leaves, s_leaves = tree_leaves(pairs[0]), tree_leaves(pairs[1])
+        if len(d_leaves) != len(s_leaves):
+            raise ValueError("the two states' parameter structures differ")
+        for d, s in zip(d_leaves, s_leaves):
+            d.copy_(s)
+    dst.opt_state = OptState(step=src.opt_state.step, slots=dst.opt_state.slots)
+    dst.epoch = src.epoch

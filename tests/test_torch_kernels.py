@@ -1,0 +1,193 @@
+"""The port's two kernels (marius_tpu_torch/ops/cuda) against the JAX package.
+
+On the CPU the wrappers run their plain PyTorch versions; these are held
+against the Pallas kernels in interpret mode (as tests/test_pallas_kernels.py
+runs them) and against the XLA table ops of marius_tpu/parallel/
+embedding_table.py. The hand-written CUDA kernels are held against the plain
+versions in the tests marked ``cuda``, which skip without a GPU (chip_smoke.py
+runs the same comparison on the card).
+
+Tolerances: a gather copies, so it must match exactly. The Adagrad update is
+a handful of float32 operations per element; XLA may fuse them differently,
+so it is held to rtol=1e-6, atol=1e-7, and untouched rows must be
+bit-identical. The CUDA kernels round every operation on its own and must
+match the plain versions bit for bit.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from marius_tpu.ops.pallas.adagrad import sparse_adagrad_update_pallas
+from marius_tpu.ops.pallas.gather import gather_rows_pallas
+from marius_tpu.parallel import embedding_table as jet
+from marius_tpu_torch.ops.cuda import adagrad as tadagrad
+from marius_tpu_torch.ops.cuda import build
+from marius_tpu_torch.ops.cuda import gather as tgather
+from marius_tpu_torch.parallel import embedding_table as tet
+
+RTOL, ATOL = 1e-6, 1e-7
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; chip_smoke.py runs this comparison on the card")
+    return torch.device("cuda")
+
+
+def test_plain_gather_matches_pallas_interpret():
+    rng = np.random.default_rng(0)
+    table = rng.standard_normal((777, 128)).astype(np.float32)
+    ids = rng.integers(0, 777, 2048).astype(np.int32)
+    ref = gather_rows_pallas(jnp.asarray(table), jnp.asarray(ids), interpret=True)
+    out = tgather.gather_rows(torch.from_numpy(table), torch.from_numpy(ids).long())
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
+def test_plain_gather_matches_jax_gather_rows_with_padding():
+    rng = np.random.default_rng(1)
+    n, d = 300, 50
+    table = rng.standard_normal((n, d)).astype(np.float32)
+    ids = rng.integers(0, n + 1, 1111).astype(np.int32)   # n == padding id
+    ids[:5] = n
+    ref = jet.gather_rows(jnp.asarray(table), jnp.asarray(ids))
+    before = tgather.launches
+    out = tet.gather_rows(torch.from_numpy(table), torch.from_numpy(ids).long())
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+    assert tgather.launches == before  # CPU tensors never launch the kernel
+
+
+def _adagrad_inputs(rng, n, d, k, pad):
+    vals = rng.standard_normal((n, d)).astype(np.float32)
+    state = np.abs(rng.standard_normal((n, d))).astype(np.float32)
+    uids = rng.permutation(n)[:k].astype(np.int32)
+    if pad:
+        uids[-pad:] = n   # padding id, dropped
+    grads = rng.standard_normal((k, d)).astype(np.float32)
+    return vals, state, uids, grads
+
+
+def _plain_adagrad(vals, state, ids, grads, lr=0.1):
+    v, s = torch.from_numpy(vals.copy()), torch.from_numpy(state.copy())
+    tadagrad.sparse_adagrad_update_(v, s, torch.from_numpy(ids).long(),
+                                    torch.from_numpy(grads), lr)
+    return v.numpy(), s.numpy()
+
+
+def test_plain_adagrad_matches_pallas_interpret():
+    """The Pallas kernel pads with a scratch row (here row n of an n + 1-row
+    table) whose gradients are zero; the port pads with id n and skips it."""
+    rng = np.random.default_rng(2)
+    n, pad = 600, 20
+    vals, state, uids, grads = _adagrad_inputs(rng, n, 128, 256, pad=pad)
+    grads[-pad:] = 0.0
+    scratch = rng.standard_normal((1, 128)).astype(np.float32)
+    nv, ns = sparse_adagrad_update_pallas(
+        jnp.asarray(np.concatenate([vals, scratch])),
+        jnp.asarray(np.concatenate([state, np.abs(scratch)])),
+        jnp.asarray(uids), jnp.asarray(grads), 0.1, interpret=True)
+    nv, ns = np.asarray(nv), np.asarray(ns)
+    np.testing.assert_array_equal(nv[n], scratch[0])   # the scratch row is unchanged
+    v, s = _plain_adagrad(vals, state, uids, grads)
+    np.testing.assert_allclose(s, ns[:n], rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(v, nv[:n], rtol=RTOL, atol=ATOL)
+    rest = np.setdiff1d(np.arange(n), uids)
+    np.testing.assert_array_equal(v[rest], vals[rest])
+    np.testing.assert_array_equal(s[rest], state[rest])
+
+
+def test_plain_adagrad_matches_jax_sparse_update_with_padding():
+    rng = np.random.default_rng(3)
+    n, d = 400, 50
+    vals, state, uids, grads = _adagrad_inputs(rng, n, d, 150, pad=7)
+    ref = jet.sparse_adagrad_update(
+        jet.EmbeddingTable(jnp.asarray(vals), jnp.asarray(state)),
+        jnp.asarray(uids), jnp.asarray(grads), 0.1)
+    table = tet.EmbeddingTable(torch.from_numpy(vals.copy()), torch.from_numpy(state.copy()))
+    tet.sparse_adagrad_update(table, torch.from_numpy(uids).long(),
+                              torch.from_numpy(grads), 0.1)
+    np.testing.assert_allclose(table.state.numpy(), np.asarray(ref.state), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(table.values.numpy(), np.asarray(ref.values),
+                               rtol=RTOL, atol=ATOL)
+    rest = np.setdiff1d(np.arange(n), uids)
+    np.testing.assert_array_equal(table.values.numpy()[rest], vals[rest])
+    np.testing.assert_array_equal(table.state.numpy()[rest], state[rest])
+
+
+def test_plain_dense_accum_matches_jax():
+    rng = np.random.default_rng(4)
+    n, d = 120, 50
+    vals = rng.standard_normal((n, d)).astype(np.float32)
+    state = np.abs(rng.standard_normal((n, d))).astype(np.float32)
+    ids = rng.integers(0, n // 2, 300).astype(np.int32)   # duplicates, half the rows
+    ids[-9:] = n                                          # padding
+    grads = rng.standard_normal((300, d)).astype(np.float32)
+    ref = jet.sparse_adagrad_update_dense_accum(
+        jet.EmbeddingTable(jnp.asarray(vals), jnp.asarray(state)),
+        jnp.asarray(ids), jnp.asarray(grads), 0.1)
+    table = tet.EmbeddingTable(torch.from_numpy(vals.copy()), torch.from_numpy(state.copy()))
+    tet.sparse_adagrad_update_dense_accum(table, torch.from_numpy(ids).long(),
+                                          torch.from_numpy(grads), 0.1)
+    # duplicate ids sum in another order: 1e-5 relative covers float32 sums of ~10 terms
+    np.testing.assert_allclose(table.state.numpy(), np.asarray(ref.state), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(table.values.numpy(), np.asarray(ref.values),
+                               rtol=1e-5, atol=1e-6)
+    rest = np.setdiff1d(np.arange(n), ids)
+    np.testing.assert_array_equal(table.values.numpy()[rest], vals[rest])
+    np.testing.assert_array_equal(table.state.numpy()[rest], state[rest])
+
+
+def test_build_without_nvcc_raises(monkeypatch):
+    import torch.utils.cpp_extension as cpp
+
+    monkeypatch.setattr(cpp, "CUDA_HOME", None)
+    monkeypatch.setenv("PATH", "")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.nvcc_path()
+
+
+# -- CUDA kernels against their plain versions (GPU only) ------------------
+
+SHAPES = [(14541, 50, 12000), (100, 1, 37), (1000, 33, 1001), (77, 257, 333), (500, 128, 2048)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,k", SHAPES)
+@pytest.mark.parametrize("id_dtype", [torch.int64, torch.int32])
+def test_cuda_gather_matches_plain(cuda_device, n, d, k, id_dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(n + d + k)
+    table = torch.randn(n, d, device=cuda_device, generator=g)
+    ids = torch.randint(0, n + 1, (k,), device=cuda_device, generator=g).to(id_dtype)
+    before = tgather.launches
+    out = tgather.gather_rows(table, ids)
+    torch.cuda.synchronize()
+    assert tgather.launches == before + 1
+    assert torch.equal(out, tgather.gather_rows_plain(table, ids))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,k", SHAPES)
+def test_cuda_adagrad_matches_plain(cuda_device, n, d, k):
+    g = torch.Generator(device=cuda_device).manual_seed(n + d + k)
+    vals = torch.randn(n, d, device=cuda_device, generator=g)
+    state = torch.rand(n, d, device=cuda_device, generator=g)
+    ids = torch.randperm(n + 5, device=cuda_device, generator=g)[:min(k, n)]  # some >= n
+    grads = torch.randn(ids.shape[0], d, device=cuda_device, generator=g)
+    v1, s1, v2, s2 = vals.clone(), state.clone(), vals.clone(), state.clone()
+    tadagrad.sparse_adagrad_update_(v1, s1, ids, grads, 0.1)
+    tadagrad.sparse_adagrad_update_plain_(v2, s2, ids, grads, 0.1)
+    torch.cuda.synchronize()
+    assert torch.equal(v1, v2) and torch.equal(s1, s2)
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_reject_bad_inputs(cuda_device):
+    table = torch.randn(10, 4, device=cuda_device)
+    with pytest.raises(TypeError):
+        tgather.gather_rows(table.double(), torch.zeros(3, dtype=torch.long, device=cuda_device))
+    with pytest.raises(ValueError):
+        tgather.gather_rows(table.t(), torch.zeros(3, dtype=torch.long, device=cuda_device))
+    with pytest.raises(ValueError):
+        tgather.gather_rows(table, torch.zeros(3, dtype=torch.long))
