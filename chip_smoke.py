@@ -3,15 +3,26 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``marius_tpu_torch/csrc`` with nvcc, holds
-each against its plain PyTorch version on the card (flagship shapes and odd
-shapes), times each (kernel, plain version, one-call PyTorch equivalent), then
-trains the flagship workload at full width through the port's public entry
-point: FB15K-237-shaped DistMult (14,541 nodes, 237 relations, 272,115
-synthetic train edges, d=50, batch 1000, 10 chunks x 500 negatives, Adam
-lr 0.1, row-sparse Adagrad lr 0.1) for one warm-up and two timed epochs. The
-launch counters show that the trainer went through both kernels. A small
-training run on the card is compared with the same run on the CPU (plain
+Builds the port's CUDA kernels from ``marius_tpu_torch/csrc`` with nvcc (one
+process per source, in parallel), holds each against its plain PyTorch
+version on the card (main-path shapes and odd shapes, bit for bit), times each
+(kernel, plain version, one-call PyTorch equivalent, bound), then drives the
+port's two main paths through their public entry points, each with the
+launch counters set to 0 just before it and read just after:
+
+1. link prediction: FB15K-237-shaped DistMult (14,541 nodes, 237 relations,
+   272,115 synthetic train edges, d=50, batch 1000, 10 chunks x 500
+   negatives, Adam lr 0.1, row-sparse Adagrad lr 0.1), one warm-up and two
+   timed epochs, through the row gather and the row-sparse Adagrad;
+2. full-graph node classification at ogbn-arxiv shape (169,343 nodes,
+   1,166,243 power-law edges, 128 features, 40 classes, 90,941 train nodes,
+   FEATURE + 3 x GraphSAGE MEAN d=128 with bias, CE SUM, Adam lr 0.01, batch
+   1000): the default linear-collapse trainer (setup timed, one warm-up and
+   two timed epochs), then the general seed-restricted trainer
+   (fg_linear_collapse=False, one warm-up and two timed epochs, evaluation
+   on the non-train nodes), through the bucketed neighbour gather-sum.
+
+Small runs on the card are compared with the same runs on the CPU (plain
 versions, which tests/test_torch_*.py hold against the JAX package).
 
 The last line is {"ok": true, "device": {...}}; the line before it lists the
@@ -37,6 +48,12 @@ NUM_NODES, NUM_RELS, NUM_EDGES, DIM, BATCH = 14_541, 237, 272_115, 50, 1000
 CHUNKS, NEGATIVES = 10, 500
 GATHER_IDS = 2 * BATCH + 2 * CHUNKS * NEGATIVES   # ids per batch on the dense branch
 ODD_DIMS = (1, 33, 50, 128, 257)
+# ogbn-arxiv shape (bench_nc_full.py:29-37) and its model (examples/configuration/ogbn_arxiv.yaml)
+ARXIV_NODES, ARXIV_EDGES, ARXIV_FEATS, ARXIV_CLASSES = 169_343, 1_166_243, 128, 40
+ARXIV_TRAIN, ARXIV_HUB = 90_941, 13_161
+NC_DIM, NC_GNN_STAGES, NC_LR = 128, 3, 0.01
+# the neighbour sum's widths: d=1 (GCN counts), the model's 128, the collapse's 129/259/519
+SUM_DIMS = (1, 33, 128, 129, 259, 519)
 
 
 def card_rates(name: str):
@@ -50,6 +67,12 @@ def card_rates(name: str):
 def bound_ms(nbytes: float, ops: float, rates) -> tuple:
     t_bytes, t_ops = nbytes / rates[0], ops / rates[1]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def card_name() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
 
 
 def time_ms(fn, reps: int = 50, samples: int = 7) -> float:
@@ -237,8 +260,8 @@ def _batch_negatives(cfg, edges, num_nodes, inverse):
     return NegativeSample(torch.cat([edges[:, col][rows], uni], dim=1), rows)
 
 
-def compare_with_cpu():
-    """A small run on the card against the same run on the CPU (plain kernels)."""
+def compare_lp_with_cpu():
+    """A small LP run on the card against the same run on the CPU (plain kernels)."""
     from marius_tpu_torch.data.samplers.negative import NegativeSamplingConfig
     from marius_tpu_torch.train.trainer import LinkPredictionTrainer
 
@@ -266,7 +289,263 @@ def compare_with_cpu():
             b = b.detach().cpu()
             worst = max(worst, float((a.detach() - b).abs().max()))
             torch.testing.assert_close(b, a.detach(), rtol=1e-4, atol=1e-5)
-    print(f"small run, card against CPU (both update branches, 2 epochs): "
+    print(f"small LP run, card against CPU (both update branches, 2 epochs): "
+          f"max abs difference {worst:.3g} (tolerance rtol 1e-4, atol 1e-5)", flush=True)
+
+
+# -- full-graph node classification -------------------------------------------
+
+def arxiv_edges() -> np.ndarray:
+    """Arxiv-shaped citation graph, a copy of bench_nc_full.py:make_graph
+    (:40-66): power-law in-degrees matched to ogbn-arxiv's (max 13,161, mean
+    ~6.9), uniform sources."""
+    rng = np.random.default_rng(0)
+    w = (np.arange(ARXIV_NODES) + 1.0) ** -0.78
+    lo, hi = 0.5, 4.0
+    for _ in range(40):  # bisect the scale so the clipped sum hits ARXIV_EDGES
+        mid = (lo + hi) / 2
+        s = np.minimum(np.round(w * (ARXIV_EDGES / w.sum()) * mid), ARXIV_HUB).sum()
+        lo, hi = (mid, hi) if s < ARXIV_EDGES else (lo, mid)
+    deg = np.minimum(np.round(w * (ARXIV_EDGES / w.sum()) * lo), ARXIV_HUB).astype(np.int64)
+    short = ARXIV_EDGES - int(deg.sum())
+    if short > 0:
+        np.add.at(deg, rng.integers(0, ARXIV_NODES, short), 1)
+    elif short < 0:
+        deg[np.argsort(deg)[::-1][:-short]] -= 1
+    if int(deg.sum()) != ARXIV_EDGES:
+        raise AssertionError("the degree sequence does not sum to the edge count")
+    dst = rng.permutation(ARXIV_NODES)[np.repeat(np.arange(ARXIV_NODES), deg)]
+    src = rng.integers(0, ARXIV_NODES, ARXIV_EDGES)
+    return np.stack([src, dst], 1).astype(np.int32)
+
+
+def nc_data(seed: int, edges: np.ndarray, num_nodes: int, feat_dim: int, classes: int,
+            num_train: int):
+    """Features, labels (a random linear function of the features, so
+    training can fit them) and train nodes, from ``seed``."""
+    rng = np.random.default_rng(seed)
+    features = rng.standard_normal((num_nodes, feat_dim)).astype(np.float32)
+    labels = np.argmax(features @ rng.standard_normal((feat_dim, classes)), 1).astype(np.int32)
+    train_nodes = rng.permutation(num_nodes)[:num_train].astype(np.int32)
+    return edges, features, labels, train_nodes
+
+
+def nc_model(feat_dim: int, dims):
+    """FEATURE (bias) + GraphSAGE MEAN stages with bias and no activation,
+    CE SUM, Adam lr 0.01 (examples/configuration/ogbn_arxiv.yaml)."""
+    from marius_tpu_torch.nn.encoder import EncoderConfig
+    from marius_tpu_torch.nn.layers import LayerConfig
+    from marius_tpu_torch.nn.model import NODE_CLASSIFICATION, Model
+    from marius_tpu_torch.nn.optimizers import OptimizerConfig
+
+    stages = [(LayerConfig("FEATURE", output_dim=feat_dim, bias=True),)]
+    for din, dout in zip((feat_dim,) + tuple(dims[:-1]), dims):
+        stages.append((LayerConfig("GNN", input_dim=din, output_dim=dout,
+                                   gnn_type="GRAPH_SAGE", aggregator="MEAN", bias=True),))
+    return Model(NODE_CLASSIFICATION, EncoderConfig(tuple(stages)), None,
+                 loss_type="CROSS_ENTROPY", loss_reduction="SUM",
+                 dense_optimizer=OptimizerConfig("ADAM", learning_rate=NC_LR))
+
+
+def check_gather_sum(adj, rates):
+    """The gather-sum kernel against its plain version on the arxiv
+    adjacency's real buckets (every width the NC paths use, forward and
+    backward, f32 and bf16) and on single buckets of odd shapes up to a
+    13k-slot hub; then one whole neighbour sum at d=128, timed."""
+    import torch.nn.functional as F
+
+    from marius_tpu_torch.data.full_graph import make_nbr_sums, nbr_sum_layout
+    from marius_tpu_torch.ops.cuda import nbr_sum as ns
+
+    dev, n = adj.device, adj.num_nodes
+    g = torch.Generator(device=dev).manual_seed(3)
+    layout = nbr_sum_layout(adj)
+
+    def same(a, b, what):
+        torch.cuda.synchronize()
+        if a.shape != b.shape or not torch.equal(a, b):
+            err = float((a - b).abs().max()) if a.shape == b.shape else float("nan")
+            raise AssertionError(f"gather-sum differs from plain ({what}): {err}")
+
+    for d in SUM_DIMS:
+        x = torch.randn(n, d, device=dev, generator=g)
+        same(ns.nbr_sum(x, layout), ns.nbr_sum_plain(x, layout), f"arxiv buckets, d={d}")
+    x = torch.randn(n, NC_DIM, device=dev, generator=g).requires_grad_(True)
+    u = torch.randn(n, NC_DIM, device=dev, generator=g)
+    make_nbr_sums(adj)(x).backward(u)
+    same(x.grad, ns.nbr_sum_plain(u, layout), "arxiv buckets, backward")
+    xb = x.detach().to(torch.bfloat16)
+    same(ns.nbr_sum(xb, layout), ns.nbr_sum_plain(xb, layout), "arxiv buckets, bf16")
+    for d in SUM_DIMS:
+        for rows, cap in [(1000, 1), (777, 3), (300, 40), (20, 700), (2, ARXIV_HUB)]:
+            x = torch.randn(5000, d, device=dev, generator=g)
+            ids = torch.randint(0, 5001, (rows, cap), device=dev, generator=g,
+                                dtype=torch.int32)   # 5000 = padding id
+            for dtype in (torch.float32, torch.bfloat16):
+                same(ns.gather_sum(x.to(dtype), ids), ns.gather_sum_plain(x.to(dtype), ids),
+                     f"one bucket ({rows}, {cap}), d={d}, {dtype}")
+
+    x = torch.randn(n, NC_DIM, device=dev, generator=g)
+    out = ns.nbr_sum(x, layout)
+    err = float((out - ns.nbr_sum_plain(x, layout)).abs().max())
+    if err != 0.0:
+        raise AssertionError(f"gather-sum differs from plain by {err}")
+    x_pad = torch.cat([x, torch.zeros(1, NC_DIM, device=dev)])
+    inv_pos = adj.inv_pos.long()
+
+    def library():   # one embedding_bag per bucket, then back to original order
+        return torch.cat([F.embedding_bag(b, x_pad, mode="sum", padding_idx=n)
+                          for b in adj.nbrs])[inv_pos]
+
+    # other summation order: 1e-3 absolute on sums of up to 13k unit normals
+    torch.testing.assert_close(library(), out, rtol=1e-4, atol=1e-3)
+    valid = layout.ids[(layout.ids >= 0) & (layout.ids < n)]
+    rows_read = int(torch.unique(valid).numel())
+    tasks, folds = layout.task_start.numel(), layout.fold_first.numel()
+    nbytes = (rows_read * NC_DIM * 4 + layout.ids.numel() * 4 + tasks * 16 + folds * 12
+              + n * NC_DIM * 4)
+    b_ms, b_by = bound_ms(nbytes, (valid.numel() + layout.num_partials) * NC_DIM, rates)
+    print(f"gather-sum at arxiv shape: {len(adj.nbrs)} buckets, {layout.ids.numel()} slots "
+          f"({valid.numel()} real), {tasks} tasks, {folds} hub rows in "
+          f"{layout.num_partials} pieces, {rows_read} distinct rows read", flush=True)
+    return {
+        "name": "gather_sum", "route": "cuda", "source": "marius_tpu_torch/csrc/nbr_sum.cu",
+        "replaces": "marius_tpu/ops/pallas/nbr_sum.py:114", "max_abs_err": err,
+        "ms": time_ms(lambda: ns.nbr_sum(x, layout)),
+        "plain_ms": time_ms(lambda: ns.nbr_sum_plain(x, layout), reps=2, samples=3),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": time_ms(library, reps=10, samples=5),
+    }
+
+
+def _report_epochs(tag: str, results, card: str) -> None:
+    for i, r in enumerate(results):
+        kind = "warm-up" if i == 0 else "timed"
+        print(f"{tag} epoch {i} ({kind}): loss {r['loss']:.6f}  {r['epoch_time_s']:.4f} s  "
+              f"{r['nodes_per_sec']:.1f} nodes/s  [{card}]", flush=True)
+    losses = [r["loss"] for r in results]
+    if not all(math.isfinite(x) for x in losses) or not all(
+            b < a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"{tag} losses are not finite and decreasing: {losses}")
+    timed = results[1:]
+    nps = sum(r["num_nodes"] for r in timed) / sum(r["epoch_time_s"] for r in timed)
+    print(f"{tag} timed epochs: {nps:.1f} nodes/s over {len(timed)} epochs  [{card}]",
+          flush=True)
+
+
+def train_nc(card: str, adj, data) -> dict:
+    """Arxiv-shaped full-graph NC through the port's entry points: the
+    collapse trainer, then the general trainer and its evaluation. Each part
+    runs with the gather-sum counters set to 0 just before it and read just
+    after, and each reading is checked against what the code implies.
+    Returns {part: (gather-sum launches, fold launches)}."""
+    from marius_tpu_torch.data.graph import build_device_graph
+    from marius_tpu_torch.ops.cuda import nbr_sum as ns
+    from marius_tpu_torch.train.nc import NodeClassificationEvaluator, NodeClassificationTrainer
+
+    edges, features, labels, train_nodes = data
+    graph = build_device_graph(edges, ARXIV_NODES)
+    model = nc_model(ARXIV_FEATS, (NC_DIM, NC_DIM, ARXIV_CLASSES))
+    epochs = 3   # one warm-up, two timed
+    # every call on the arxiv adjacency launches the fold too: it has hub rows
+    if max(b.shape[1] for b in adj.nbrs) <= ns.MAX_CAP:
+        raise AssertionError("the arxiv-shaped adjacency must have hub rows")
+    counts = {}
+
+    def part(name, expected, fn):
+        ns.launches = ns.fold_launches = 0
+        out = fn()
+        counts[name] = (ns.launches, ns.fold_launches)
+        if counts[name] != (expected, expected):
+            raise AssertionError(f"nc {name}: gather-sum and fold launched {counts[name]} "
+                                 f"times, expected {expected} each")
+        return out
+
+    def build(**kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer = NodeClassificationTrainer(model, graph, features, labels, train_nodes,
+                                            batch_size=BATCH, seed=0, full_graph=adj, **kwargs)
+        torch.cuda.synchronize()
+        return trainer, time.perf_counter() - t0
+
+    # the collapse: one neighbour sum per GNN stage at setup, none per batch
+    collapse, setup_s = part("collapse setup", NC_GNN_STAGES, build)
+    if collapse.device.type != "cuda" or collapse._fg_collapse is None:
+        raise AssertionError("the arxiv model must train on the GPU through the collapse")
+    phi = collapse._fg_collapse.phi
+    print(f"nc collapse setup: {setup_s:.4f} s (phi {tuple(phi.shape)}, "
+          f"{phi.numel() * 4 / 1e9:.3f} GB)  [{card}]", flush=True)
+    col_res = part("collapse epochs", 0, lambda: collapse.train(epochs))
+    _report_epochs("nc collapse", col_res, card)
+    del collapse, phi
+
+    # the general path: the first stage's constant input summed once at
+    # setup; each batch runs the middle stages forward and backward (the
+    # first is the constant, the last seed-restricted); evaluation runs
+    # stages 2.. forward
+    general, setup_s = part("general setup", 1, lambda: build(fg_linear_collapse=False))
+    if general._fg_collapse is not None or not general._fg_seed_restrict:
+        raise AssertionError("fg_linear_collapse=False must take the seed-restricted path")
+    print(f"nc general setup: {setup_s:.4f} s  [{card}]", flush=True)
+    gen_res = part("general epochs", epochs * general.num_batches * 2 * (NC_GNN_STAGES - 2),
+                   lambda: general.train(epochs))
+    _report_epochs("nc general", gen_res, card)
+    # the collapse is exact up to float associativity: the same first epoch
+    rel = abs(col_res[0]["loss"] - gen_res[0]["loss"]) / abs(gen_res[0]["loss"])
+    print(f"nc first-epoch loss, collapse against general: relative difference {rel:.3g} "
+          f"(tolerance 1e-3)", flush=True)
+    if rel > 1e-3:
+        raise AssertionError("the collapse and the general path disagree")
+
+    eval_nodes = np.setdiff1d(np.arange(ARXIV_NODES), train_nodes)
+    evaluator = NodeClassificationEvaluator(general, eval_nodes)
+    res = part("evaluation", NC_GNN_STAGES - 1, lambda: evaluator.evaluate(general.state))
+    if res["num_evaluated"] != len(eval_nodes) or not 1.0 / ARXIV_CLASSES < res["accuracy"] <= 1:
+        raise AssertionError(f"evaluation is not above chance over the eval nodes: {res}")
+    print(f"nc general evaluation: accuracy {res['accuracy']:.6f} over "
+          f"{int(res['num_evaluated'])} non-train nodes (chance {1 / ARXIV_CLASSES})", flush=True)
+    print("nc launches (gather-sum kernel, fold kernel) per part: " + ", ".join(
+        f"{k} {v}" for k, v in counts.items()) + f"; {general.num_batches} batches per epoch",
+        flush=True)
+    return counts
+
+
+def compare_nc_with_cpu():
+    """A small NC run on the card against the same run on the CPU (plain
+    gather-sum), on both paths."""
+    from marius_tpu_torch.data.full_graph import build_full_graph_adjacency
+    from marius_tpu_torch.data.graph import build_device_graph
+    from marius_tpu_torch.nn.optimizers import tree_leaves
+    from marius_tpu_torch.train.nc import NodeClassificationTrainer
+
+    n, e, f = 300, 3000, 16
+    rng = np.random.default_rng(5)
+    w = (np.arange(n) + 1.0) ** -1.0    # Zipf destinations: hub rows wider than 256 slots
+    edges = np.stack([rng.integers(0, n, e), rng.choice(n, e, p=w / w.sum())], 1)
+    _, features, labels, train_nodes = nc_data(6, edges, n, f, 5, 200)
+    adj = build_full_graph_adjacency(edges, n)
+    if max(b.shape[1] for b in adj.nbrs) <= 256:
+        raise AssertionError("the small graph must have hub rows")
+    graph = build_device_graph(edges, n)
+    model = nc_model(f, (16, 16, 5))
+    worst = 0.0
+    for collapse in (True, False):
+        cpu, gpu = [NodeClassificationTrainer(model, graph, features, labels, train_nodes,
+                                              batch_size=50, seed=1, full_graph=adj,
+                                              fg_linear_collapse=collapse, device=dev)
+                    for dev in ("cpu", "cuda")]
+        gpu._epoch_permutation = lambda s, _c=cpu, _g=gpu: _c._epoch_permutation(s).to(_g.device)
+        for _ in range(2):
+            lc, lg = cpu.train_epoch()["loss"], gpu.train_epoch()["loss"]
+            if not math.isclose(lc, lg, rel_tol=1e-4):
+                raise AssertionError(f"NC loss on the card {lg} != on the CPU {lc}")
+        for a, b in zip(tree_leaves([cpu.state.params, cpu.state.opt_state.slots]),
+                        tree_leaves([gpu.state.params, gpu.state.opt_state.slots])):
+            b = b.detach().cpu()
+            worst = max(worst, float((a.detach() - b).abs().max()))
+            torch.testing.assert_close(b, a.detach(), rtol=1e-4, atol=1e-5)
+    print(f"small NC run, card against CPU (collapse and general, 2 epochs): "
           f"max abs difference {worst:.3g} (tolerance rtol 1e-4, atol 1e-5)", flush=True)
 
 
@@ -276,6 +555,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     import marius_tpu_torch
+    from marius_tpu_torch.data.full_graph import build_full_graph_adjacency
     from marius_tpu_torch.ops.cuda import adagrad, build, gather
 
     here = Path(__file__).resolve().parent
@@ -283,12 +563,10 @@ def main() -> int:
         raise RuntimeError(f"marius_tpu_torch was imported from {marius_tpu_torch.__file__}, "
                            f"not from this checkout ({here})")
 
-    # f32 scoring stays full f32: TF32 would shift ranks
+    # f32 matmuls stay full f32: TF32 would shift ranks and the card-CPU comparisons
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          check=True).stdout.strip().splitlines()[0]
+    card = card_name()
     print(card, flush=True)
     kind = torch.cuda.get_device_name(0)
     rates = card_rates(kind)
@@ -302,8 +580,16 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
 
+    t0 = time.perf_counter()
+    nc = nc_data(0, arxiv_edges(), ARXIV_NODES, ARXIV_FEATS, ARXIV_CLASSES, ARXIV_TRAIN)
+    adj = build_full_graph_adjacency(nc[0], ARXIV_NODES)
+    print(f"arxiv-shaped graph and adjacency on the host: {time.perf_counter() - t0:.2f} s "
+          f"({adj.total_slots} padded slots, {len(adj.nbrs)} buckets, widest "
+          f"{max(b.shape[1] for b in adj.nbrs)})", flush=True)
+
     kernels = [check_gather(gather, torch.device("cuda"), rates),
-               check_adagrad(adagrad, torch.device("cuda"), rates)]
+               check_adagrad(adagrad, torch.device("cuda"), rates),
+               check_gather_sum(adj.to("cuda"), rates)]
     for k in kernels:
         lib = "-" if k["library_ms"] is None else f"{k['library_ms'] * 1e3:.2f} us"
         print(f"{k['name']}: max_abs_err {k['max_abs_err']} (bit for bit against the plain "
@@ -312,10 +598,19 @@ def main() -> int:
               flush=True)
 
     launches = train_flagship(card)
-    compare_with_cpu()
+    compare_lp_with_cpu()
+    nc_counts = train_nc(card, adj, nc)
+    compare_nc_with_cpu()
 
+    # the gather-sum row: launches of both of its kernels on the NC path,
+    # with each kernel's count and each part's beside them
+    launches["gather_sum"] = sum(a + b for a, b in nc_counts.values())
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        if k["name"] == "gather_sum":
+            k["launches_gather_sum_kernel"] = sum(a for a, _ in nc_counts.values())
+            k["launches_fold_kernel"] = sum(b for _, b in nc_counts.values())
+            k["launches_by_part"] = {name: list(v) for name, v in nc_counts.items()}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -6,6 +6,9 @@ the port's :class:`~marius_tpu_torch.train.trainer.TrainState`. Fields are
 read by name from attributes or dict keys, so a nested dict works as well as
 the mapped dataclass; this module never imports JAX. The PRNG key has no
 counterpart (the port samples with ``torch.Generator``s) and is dropped.
+Link-prediction and node-classification states alike: an NC state has
+``table=None``, the staged encoder params (``{"encoder": [[{...}], ...]}``)
+and their Adam slots.
 """
 
 from __future__ import annotations
@@ -54,11 +57,11 @@ def copy_train_state_(dst: TrainState, src: TrainState) -> None:
     if dst.table is not None:
         dst.table.values.copy_(src.table.values)
         dst.table.state.copy_(src.table.state)
-    for pairs in ((dst.params, src.params), (dst.opt_state.slots, src.opt_state.slots)):
-        d_leaves, s_leaves = tree_leaves(pairs[0]), tree_leaves(pairs[1])
-        if len(d_leaves) != len(s_leaves):
+    for d_tree, s_tree in ((dst.params, src.params), (dst.opt_state.slots, src.opt_state.slots)):
+        if len(tree_leaves(d_tree)) != len(tree_leaves(s_tree)):
             raise ValueError("the two states' parameter structures differ")
-        for d, s in zip(d_leaves, s_leaves):
-            d.copy_(s)
+        # matched by key and position: the JAX side's dicts come back with
+        # sorted keys ("bias", "w1", "w2"), the port's in insertion order
+        tree_map(lambda d, s: d.copy_(s), d_tree, s_tree)
     dst.opt_state = OptState(step=src.opt_state.step, slots=dst.opt_state.slots)
     dst.epoch = src.epoch

@@ -1,0 +1,243 @@
+"""Full-graph padded adjacency and the exact ALL-neighbour sum over it.
+
+Port of ``marius_tpu/data/full_graph.py`` (FullGraphAdjacency :44-93,
+_greedy_buckets :96-118, build_full_graph_adjacency :121-192,
+host_csr_from_adjacency :195-220, device_csr :223-230,
+device_seed_flat_lists :233-267, make_nbr_sums :333-408). Every GNN layer
+runs over ALL nodes with one fixed adjacency and the batch's rows are sliced
+from the result, which equals unbounded ALL sampling.
+
+- **One symmetrised structure.** Each node's in- and out-neighbours form
+  ONE combined list. The combined multiset is symmetric, so the
+  neighbour-sum operator equals its transpose and its backward is the same
+  gather-sum on the cotangent: no scatter.
+- **Greedy degree buckets**, the same numpy as the JAX package, so the
+  buckets match exactly: nodes in ascending-degree order, each bucket padded
+  to its own max degree with the padding id N.
+- **The kernel's own layout.** Where the JAX package lays each bucket out
+  for XLA (``transpose_buckets``, ``_chunked_gather_sum``,
+  ``relabel_buckets_sorted``, the ``sorted_space`` mode: TPU layout trades),
+  the port hands every bucket to one call of the hand-written gather-sum
+  kernel (``ops/cuda/nbr_sum.py``): each sorted row is written straight to
+  its original-order row, and padding ids add zero without a sentinel row.
+
+RGCN's relational companion, GAT's inverse map and ``locality_reorder``
+come with later slices and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from marius_tpu_torch.ops.cuda import nbr_sum as nbr_sum_kernel
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class FullGraphAdjacency:
+    """Bucketed padded combined (in+out) neighbour lists for ALL nodes.
+
+    Nodes are reordered ascending by total degree; bucket ``b`` occupies
+    sorted rows [starts[b], starts[b] + nbrs[b].shape[0]). ``inv_pos[i]`` is
+    node i's row in sorted order. Neighbour ids are ORIGINAL node ids;
+    padding slots hold ``N``.
+    """
+
+    nbrs: Tuple[Tensor, ...]   # per bucket: (n_b, cap_b) int32, pad id = N
+    inv_pos: Tensor            # (N,) int32: original id -> sorted row
+    in_deg: Tensor             # (N,) int32, original order
+    out_deg: Tensor            # (N,) int32, original order
+    num_nodes: int
+
+    @property
+    def total_slots(self) -> int:
+        return sum(int(a.numel()) for a in self.nbrs)
+
+    @property
+    def bucket_starts(self) -> Tuple[int, ...]:
+        out, s = [], 0
+        for b in self.nbrs:
+            out.append(s)
+            s += int(b.shape[0])
+        return tuple(out)
+
+    @property
+    def device(self) -> torch.device:
+        return self.inv_pos.device
+
+    def to(self, device) -> "FullGraphAdjacency":
+        return dataclasses.replace(
+            self, nbrs=tuple(b.to(device) for b in self.nbrs), inv_pos=self.inv_pos.to(device),
+            in_deg=self.in_deg.to(device), out_deg=self.out_deg.to(device))
+
+
+def _greedy_buckets(deg_sorted: np.ndarray, waste: float = 1.15,
+                    max_buckets: int = 40) -> np.ndarray:
+    """Split an ascending degree sequence into bucket boundaries. A bucket
+    closes when its max/min degree ratio exceeds ``waste``; then the
+    cheapest adjacent pairs (least added padding) are merged until at most
+    ``max_buckets`` remain, so a lone hub never forces wide padding onto a
+    block of low-degree rows."""
+    n = len(deg_sorted)
+    bounds = [0]
+    i = 0
+    while i < n:
+        lo = max(int(deg_sorted[i]), 1)
+        j = int(np.searchsorted(deg_sorted, lo * waste, side="right"))
+        i = min(max(j, i + 1), n)
+        bounds.append(i)
+    bounds = np.asarray(bounds, np.int64)
+    while len(bounds) - 1 > max_buckets:
+        caps = np.maximum(deg_sorted[bounds[1:] - 1], 1)
+        rows = np.diff(bounds)
+        merge_cost = rows[:-1] * (caps[1:] - caps[:-1])
+        k = int(np.argmin(merge_cost))
+        bounds = np.delete(bounds, k + 1)
+    return bounds
+
+
+def build_full_graph_adjacency(
+        edges: np.ndarray, num_nodes: int,
+        with_relations: bool = False,
+        locality_reorder: bool = False) -> Optional[FullGraphAdjacency]:
+    """Build the bucketed symmetric adjacency on the host (CPU tensors; the
+    trainer moves it to its device)."""
+    if with_relations:
+        raise NotImplementedError("the relational companion (RGCN) is not ported yet; "
+                                  "it comes with the RGCN slice")
+    if locality_reorder:
+        raise NotImplementedError("locality_reorder is not ported yet; it comes with a "
+                                  "later full-graph slice")
+    e = np.asarray(edges)
+    if len(e) == 0 or num_nodes == 0:
+        return None
+    src = e[:, 0].astype(np.int64)
+    dst = e[:, -1].astype(np.int64)
+    # combined multiset: anchor sees BOTH directions (self-transpose)
+    anchor = np.concatenate([dst, src])
+    other = np.concatenate([src, dst]).astype(np.int32)
+    order = np.argsort(anchor, kind="stable")
+    nbrs_sorted = other[order]
+    offsets = np.searchsorted(anchor[order], np.arange(num_nodes + 1))
+    in_deg = np.bincount(dst, minlength=num_nodes).astype(np.int32)
+    out_deg = np.bincount(src, minlength=num_nodes).astype(np.int32)
+    deg = (offsets[1:] - offsets[:-1]).astype(np.int64)
+
+    perm = np.argsort(deg, kind="stable")
+    inv_pos = np.empty(num_nodes, np.int32)
+    inv_pos[perm] = np.arange(num_nodes, dtype=np.int32)
+    bounds = _greedy_buckets(deg[perm])
+
+    buckets = []
+    for s, t in zip(bounds[:-1], bounds[1:]):
+        nodes = perm[s:t]
+        d_b = deg[nodes]
+        cap = max(int(d_b.max()) if len(d_b) else 0, 1)
+        nbr = np.full((len(nodes), cap), num_nodes, np.int32)  # sentinel pad
+        rows = np.repeat(np.arange(len(nodes)), d_b)
+        cols = np.arange(int(d_b.sum())) - np.repeat(np.cumsum(d_b) - d_b, d_b)
+        nbr[rows, cols] = nbrs_sorted[np.repeat(offsets[nodes], d_b) + cols]
+        buckets.append(torch.from_numpy(nbr))
+
+    return FullGraphAdjacency(
+        nbrs=tuple(buckets), inv_pos=torch.from_numpy(inv_pos),
+        in_deg=torch.from_numpy(in_deg), out_deg=torch.from_numpy(out_deg),
+        num_nodes=int(num_nodes))
+
+
+def host_csr_from_adjacency(adj: FullGraphAdjacency) -> Tuple[np.ndarray, np.ndarray]:
+    """Host-side combined-neighbour CSR (offsets int64, nbrs int32) in
+    ORIGINAL node order, derived from the buckets (no re-sort of the edge
+    list). It feeds the per-batch seed lists of the seed-restricted final
+    GNN stage."""
+    deg = (adj.in_deg.cpu().numpy() + adj.out_deg.cpu().numpy()).astype(np.int64)
+    offsets = np.zeros(adj.num_nodes + 1, np.int64)
+    np.cumsum(deg, out=offsets[1:])
+    nbrs = np.empty(int(offsets[-1]), np.int32)
+    perm = np.argsort(adj.inv_pos.cpu().numpy(), kind="stable")  # sorted row -> id
+    row0 = 0
+    for b in adj.nbrs:
+        nb_ = b.cpu().numpy()
+        nodes = perm[row0:row0 + nb_.shape[0]]
+        d = deg[nodes]
+        rows = np.repeat(np.arange(nb_.shape[0]), d)
+        cols = np.arange(int(d.sum())) - np.repeat(np.cumsum(d) - d, d)
+        nbrs[np.repeat(offsets[nodes], d) + cols] = nb_[rows, cols]
+        row0 += nb_.shape[0]
+    return offsets, nbrs
+
+
+def device_csr(csr, device) -> Tuple[Tensor, Tensor]:
+    """int32 copy of ``host_csr_from_adjacency``'s output on ``device``."""
+    offsets, nbrs = csr
+    if int(offsets[-1]) >= np.iinfo(np.int32).max:
+        raise ValueError("full-graph CSR exceeds int32 slots; use the sampled path")
+    return (torch.as_tensor(offsets.astype(np.int32), device=device),
+            torch.as_tensor(nbrs, device=device))
+
+
+def device_seed_flat_lists(csr_dev: Tuple[Tensor, Tensor], seeds: Tensor, mask: Tensor,
+                           budget: int, num_nodes: int) -> Tuple[Tensor, Tensor]:
+    """Flat CSR neighbour list of one seed batch, built on the device.
+
+    Returns (flat_nbr, flat_seg), both (budget,) int64: ``flat_nbr`` holds
+    the concatenated neighbour ids of the batch's valid seeds (pad =
+    num_nodes), ``flat_seg`` the seed row each slot belongs to (pad =
+    batch size, dropped by segment ops). Masked seeds contribute no slots;
+    slots are in seed-major CSR order. The caller passes a ``budget`` of at
+    least the batch's degree sum; the trainer passes exactly that sum."""
+    offsets, nbrs = csr_dev
+    offsets = offsets.long()
+    b = seeds.shape[0]
+    s = seeds.long().clamp(max=num_nodes - 1)
+    deg = (offsets[s + 1] - offsets[s]) * mask.long()
+    cum = torch.cumsum(deg, 0)
+    slots = torch.arange(budget, device=seeds.device)
+    seg = torch.searchsorted(cum, slots, right=True)
+    valid = slots < cum[-1]
+    seg_c = seg.clamp(max=b - 1)
+    start = cum[seg_c] - deg[seg_c]
+    idx = offsets[s[seg_c]] + (slots - start)
+    vals = nbrs[idx.clamp(0, max(nbrs.shape[0] - 1, 0))].long()
+    flat_nbr = torch.where(valid, vals, num_nodes)
+    flat_seg = torch.where(valid, seg_c, b)
+    return flat_nbr, flat_seg
+
+
+class _NbrSum(torch.autograd.Function):
+    """(A x)^T's vjp is A^T u = A u: the combined multiset is symmetric, so
+    the backward is the same gather-sum on the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, layout):
+        ctx.layout, ctx.dtype = layout, x.dtype
+        return nbr_sum_kernel.nbr_sum(x.contiguous(), layout).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, u):
+        g = nbr_sum_kernel.nbr_sum(u.to(ctx.dtype).contiguous(), ctx.layout)
+        return g.to(ctx.dtype), None
+
+
+def nbr_sum_layout(adj: FullGraphAdjacency) -> nbr_sum_kernel.GatherSumLayout:
+    """One kernel call's layout over every bucket: sorted row r writes the
+    original-order row perm[r]."""
+    perm = torch.argsort(adj.inv_pos.long(), stable=True)  # sorted row -> id
+    return nbr_sum_kernel.bucket_layout(adj.nbrs, perm, adj.num_nodes)
+
+
+def make_nbr_sums(adj: FullGraphAdjacency):
+    """Returns ``nbr_sum``: x:(N, d) -> (N, d), the sum of each node's
+    combined (in+out) neighbour rows, in original node order. One kernel
+    call per pass, forward and backward alike."""
+    layout = nbr_sum_layout(adj)
+
+    def nbr_sum(x: Tensor) -> Tensor:
+        return _NbrSum.apply(x, layout)
+
+    return nbr_sum

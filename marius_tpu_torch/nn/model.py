@@ -1,13 +1,15 @@
-"""Model: encoder + decoder + loss + optimizers, and the per-batch LP math.
+"""Model: encoder + decoder + loss + optimizers, and the per-batch LP and NC math.
 
 Port of ``marius_tpu/nn/model.py`` (Model :32-59, init_model_params :62-67,
-lp_batch_loss :70-98, lp_batch_loss_direct :101-134; reference nn/model.cpp
-forward_lp :252-288 and train_batch :290-333). ``Model`` is a description
-that owns its ``EdgeDecoder`` module, whose relation tables are the decoder
-parameters; the encoder's parameters are plain tensors. The params structure
-is the JAX package's: ``{"encoder": [[{...}]], "decoder": {"relations": ...,
+lp_batch_loss :70-98, lp_batch_loss_direct :101-134, nc_batch_loss
+:163-167; reference nn/model.cpp forward_nc :246-250, forward_lp :252-288
+and train_batch :290-333). ``Model`` is a description that owns its
+``EdgeDecoder`` module, whose relation tables are the decoder parameters; the
+encoder's parameters are plain tensors. The params structure is the JAX
+package's: ``{"encoder": [[{...}]], "decoder": {"relations": ...,
 "inverse_relations": ...}}``, where the decoder entries are the module's own
-``nn.Parameter``s. Node classification and CORRUPT_REL wait for later slices.
+``nn.Parameter``s; a node-classification model has ``decoder=None`` and no
+"decoder" entry. CORRUPT_REL waits for a later slice.
 """
 
 from __future__ import annotations
@@ -19,12 +21,13 @@ import torch
 
 from marius_tpu_torch.nn.decoders.edge import EdgeDecoder
 from marius_tpu_torch.nn.encoder import EncoderConfig, init_encoder_params
-from marius_tpu_torch.nn.losses import get_loss_function
+from marius_tpu_torch.nn.losses import classification_cross_entropy, get_loss_function
 from marius_tpu_torch.nn.optimizers import OptimizerConfig
 
 Tensor = torch.Tensor
 
 LINK_PREDICTION = "LINK_PREDICTION"
+NODE_CLASSIFICATION = "NODE_CLASSIFICATION"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,3 +132,10 @@ def lp_batch_loss_direct(
 
     aux = {"pos": pos, "neg": neg, "inv_pos": inv_pos, "inv_neg": inv_neg}
     return loss, aux
+
+
+def nc_batch_loss(model: Model, logits: Tensor, labels: Tensor, mask: Tensor) -> Tensor:
+    """Node-classification CE over seed logits (model.cpp:318-320)."""
+    loss = classification_cross_entropy(logits, labels, reduction=model.loss_reduction,
+                                        mask=mask)
+    return loss * model.loss_scale if model.loss_scale != 1.0 else loss

@@ -10,15 +10,15 @@ under ``torch.profiler`` and sums the device time of every kernel, copy and
 set. It prints the card, the host time per batch, the device time per batch,
 the device's busy share (device time over host time without the profiler; one
 stream, so kernels do not overlap), device operations per batch, the
-kernels that take the most device time and the port's own two kernels'
+kernels that take the most device time and the port's own kernels'
 time and share. The last line is one JSON object
 with the same numbers; device numbers the profiler did not report are null.
+``profile_batches`` is shared with profile_torch_nc.py.
 """
 
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import time
 from collections import defaultdict
@@ -26,10 +26,11 @@ from collections import defaultdict
 import torch
 
 from chip_smoke import (BATCH, CHUNKS, DIM, NEGATIVES, NUM_EDGES, NUM_NODES, NUM_RELS,
-                        lp_model, synthetic_edges)
+                        card_name, lp_model, synthetic_edges)
 
 # the hand-written kernels (marius_tpu_torch/csrc) as the profiler names them
-PORT_KERNELS = ("::gather_rows_kernel<", "::adagrad_kernel<")
+PORT_KERNELS = ("::gather_rows_kernel<", "::adagrad_kernel<", "::gather_sum_kernel<",
+                "::fold_kernel(")
 
 
 def run_batches(trainer, shuffled, masks) -> float:
@@ -43,33 +44,16 @@ def run_batches(trainer, shuffled, masks) -> float:
     return time.perf_counter() - t0
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("profile_torch_lp: no CUDA device", file=sys.stderr)
-        return 1
+def profile_batches(run, nb: int, card: str, tag: str = "") -> dict:
+    """Time ``run()`` (``nb`` batches ending in a sync; returns host seconds)
+    on the host clock, then again under the profiler; print and return the
+    breakdown."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from marius_tpu_torch.data.samplers.negative import NegativeSamplingConfig
-    from marius_tpu_torch.train.trainer import LinkPredictionTrainer
-
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          check=True).stdout.strip().splitlines()[0]
-    print(card, flush=True)
-    trainer = LinkPredictionTrainer(
-        lp_model(NUM_RELS, DIM), NUM_NODES, NUM_RELS,
-        synthetic_edges(0, NUM_NODES, NUM_RELS, NUM_EDGES),
-        NegativeSamplingConfig(num_chunks=CHUNKS, negatives_per_positive=NEGATIVES),
-        batch_size=BATCH, seed=0)
-    trainer.train_epoch()   # warm-up: kernel build, allocator, library handles
-    perm = trainer._epoch_permutation(1)
-    shuffled, masks = trainer.edges[perm], perm < trainer.num_edges
-    nb = trainer.num_batches
-
-    host_s = run_batches(trainer, shuffled, masks)
+    host_s = run()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        profiled_s = run_batches(trainer, shuffled, masks)
+        profiled_s = run()
 
     by_name = defaultdict(lambda: [0, 0.0])
     for e in prof.events():
@@ -86,7 +70,7 @@ def main() -> int:
                 "share_of_device": v[1] / device_us}
 
     result = {
-        "card": card, "batches": nb, "host_ms_per_batch": host_ms,
+        "tag": tag, "card": card, "batches": nb, "host_ms_per_batch": host_ms,
         "profiled_host_ms_per_batch": profiled_s * 1e3 / nb,
         "device_ms_per_batch": device_us / 1e3 / nb if ops else None,
         "busy_share": device_us / 1e3 / nb / host_ms if ops else None,
@@ -94,10 +78,10 @@ def main() -> int:
         "top": [row(k, v) for k, v in ranked[:15]],
         "port_kernels": [row(k, v) for k, v in ranked if any(p in k for p in PORT_KERNELS)],
     }
-    print(f"host {host_ms:.4f} ms/batch ({nb} batches; {profiled_s * 1e3 / nb:.4f} under the "
-          f"profiler)  [{card}]")
+    print(f"{tag}host {host_ms:.4f} ms/batch ({nb} batches; {profiled_s * 1e3 / nb:.4f} under "
+          f"the profiler)  [{card}]")
     if ops:
-        print(f"device {result['device_ms_per_batch']:.4f} ms/batch, busy share "
+        print(f"{tag}device {result['device_ms_per_batch']:.4f} ms/batch, busy share "
               f"{result['busy_share']:.4f}, {result['device_ops_per_batch']:.1f} device "
               f"operations per batch  [{card}]")
         for t in result["top"] + [{"name": "-- the port's own kernels --"}] + result[
@@ -108,7 +92,29 @@ def main() -> int:
             print(f"  {t['us_per_batch']:9.3f} us/batch  {t['per_batch']:6.1f}x  "
                   f"{t['share_of_device']:.4f}  {t['name']}")
     else:
-        print("device time: not measured (the profiler reported no device events)")
+        print(f"{tag}device time: not measured (the profiler reported no device events)")
+    return result
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_torch_lp: no CUDA device", file=sys.stderr)
+        return 1
+    from marius_tpu_torch.data.samplers.negative import NegativeSamplingConfig
+    from marius_tpu_torch.train.trainer import LinkPredictionTrainer
+
+    card = card_name()
+    print(card, flush=True)
+    trainer = LinkPredictionTrainer(
+        lp_model(NUM_RELS, DIM), NUM_NODES, NUM_RELS,
+        synthetic_edges(0, NUM_NODES, NUM_RELS, NUM_EDGES),
+        NegativeSamplingConfig(num_chunks=CHUNKS, negatives_per_positive=NEGATIVES),
+        batch_size=BATCH, seed=0)
+    trainer.train_epoch()   # warm-up: kernel build, allocator, library handles
+    perm = trainer._epoch_permutation(1)
+    shuffled, masks = trainer.edges[perm], perm < trainer.num_edges
+    result = profile_batches(lambda: run_batches(trainer, shuffled, masks),
+                             trainer.num_batches, card)
     print(json.dumps(result), flush=True)
     return 0
 

@@ -1,0 +1,304 @@
+"""The port's full-graph pieces against marius_tpu's, on the CPU.
+
+A power-law graph of 220 nodes (20 of them isolated) with hub rows wider
+than 256 slots, features 8-16 wide, 3 GNN stages. Inputs are made from a
+seed with numpy and fed to the JAX function and to the port's.
+
+Tolerances:
+- the adjacency, the host CSR and the seed lists are integer structures and
+  must match exactly;
+- the gather-sum adds each row's slots in order in float32; the Pallas
+  kernel (interpret mode) sums groups of 8 first and XLA's reduce uses its
+  own order, so sums are held to rtol 1e-5, atol 1e-5 (the Pallas test's own
+  tolerance), with atol growing as cap / 64 for wider rows: a sum of cap
+  terms is rounded cap times (the 700-slot hub rows: atol 1.1e-4 on sums of
+  ~200);
+- encoder outputs, gradients and the collapsed ``phi`` and logits: rtol
+  1e-5, atol 1e-5 — float32 sums in another order than XLA's, through 3
+  stages and matmuls.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from marius_tpu.data import full_graph as jfg
+from marius_tpu.nn import full_graph_encoder as jfge
+from marius_tpu.nn import linear_collapse as jlc
+from marius_tpu.nn.encoder import EncoderConfig as JEncoderConfig
+from marius_tpu.nn.layers import LayerConfig as JLayerConfig
+from marius_tpu.ops.pallas.nbr_sum import gather_sum_pallas
+from marius_tpu_torch.data import full_graph as tfg
+from marius_tpu_torch.nn import full_graph_encoder as tfge
+from marius_tpu_torch.nn import linear_collapse as tlc
+from marius_tpu_torch.nn.encoder import EncoderConfig as TEncoderConfig
+from marius_tpu_torch.nn.layers import LayerConfig as TLayerConfig
+from marius_tpu_torch.ops.cuda import nbr_sum as tns
+
+RTOL, ATOL = 1e-5, 1e-5
+N, N_LINKED, E, F = 220, 200, 2000, 8
+
+
+def power_law_edges(seed=0, n=N_LINKED, e=E):
+    """Uniform sources, Zipf destinations: the first-ranked node gets ~350
+    combined slots, so the adjacency has hub rows wider than 256."""
+    rng = np.random.default_rng(seed)
+    w = (np.arange(n) + 1.0) ** -1.0
+    dst = rng.permutation(n)[rng.choice(n, e, p=w / w.sum())]
+    return np.stack([rng.integers(0, n, e), dst], 1).astype(np.int32)
+
+
+@pytest.fixture(scope="module")
+def graph():
+    edges = power_law_edges()
+    return edges, jfg.build_full_graph_adjacency(edges, N), tfg.build_full_graph_adjacency(edges, N)
+
+
+def _np(t):
+    return t.detach().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def _close(t, j, rtol=RTOL, atol=ATOL):
+    np.testing.assert_allclose(_np(t), _np(j), rtol=rtol, atol=atol)
+
+
+# -- the adjacency ------------------------------------------------------------
+
+def test_adjacency_matches_jax_exactly(graph):
+    _, jadj, tadj = graph
+    assert len(tadj.nbrs) == len(jadj.nbrs) and tadj.total_slots == jadj.total_slots
+    assert max(b.shape[1] for b in tadj.nbrs) > tns.MAX_CAP   # hub rows
+    assert tadj.nbrs[0].shape[1] == 1 and int(tadj.nbrs[0][0, 0]) == N   # isolated nodes
+    for tb, jb in zip(tadj.nbrs, jadj.nbrs):
+        np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
+    for name in ("inv_pos", "in_deg", "out_deg"):
+        np.testing.assert_array_equal(getattr(tadj, name).numpy(), np.asarray(getattr(jadj, name)))
+    assert tadj.bucket_starts == jadj.bucket_starts
+    for t, j in zip(tfg.host_csr_from_adjacency(tadj), jfg.host_csr_from_adjacency(jadj)):
+        np.testing.assert_array_equal(t, j)
+
+
+def test_greedy_buckets_match_jax():
+    rng = np.random.default_rng(1)
+    deg = np.sort(np.minimum(rng.zipf(1.6, 5000), 20000))
+    np.testing.assert_array_equal(tfg._greedy_buckets(deg), jfg._greedy_buckets(deg))
+
+
+def test_adjacency_rejects_later_slices():
+    edges = power_law_edges()
+    for kw in (dict(with_relations=True), dict(locality_reorder=True)):
+        with pytest.raises(NotImplementedError):
+            tfg.build_full_graph_adjacency(edges, N, **kw)
+
+
+def test_seed_flat_lists_same_multiset_per_seed(graph):
+    _, jadj, tadj = graph
+    rng = np.random.default_rng(2)
+    b = 24
+    seeds = rng.integers(0, N, b)
+    mask = rng.random(b) < 0.8
+    csr = tfg.host_csr_from_adjacency(tadj)
+    need = int(((csr[0][seeds + 1] - csr[0][seeds]) * mask).sum())
+    jnbr, jseg = jfg.device_seed_flat_lists(jfg.device_csr(jfg.host_csr_from_adjacency(jadj)),
+                                            jnp.asarray(seeds, jnp.int32), jnp.asarray(mask),
+                                            need + 37, N)
+    jnbr, jseg = np.asarray(jnbr), np.asarray(jseg)
+    for budget in (need, need + 37):   # exact, as the trainer builds them, and padded
+        tnbr, tseg = tfg.device_seed_flat_lists(tfg.device_csr(csr, "cpu"),
+                                                torch.from_numpy(seeds), torch.from_numpy(mask),
+                                                budget, N)
+        tnbr, tseg = tnbr.numpy(), tseg.numpy()
+        assert tnbr.shape == (budget,)
+        for r in range(b):
+            np.testing.assert_array_equal(np.sort(tnbr[tseg == r]), np.sort(jnbr[jseg == r]))
+        assert (tnbr[tseg == b] == N).all() and (tseg == b).sum() == budget - need
+
+
+# -- the gather-sum -----------------------------------------------------------
+
+@pytest.mark.parametrize("n,cap", [(17, 3), (5, 1), (64, 40), (3, 700)])
+def test_gather_sum_plain_matches_pallas_interpret(n, cap):
+    rng = np.random.default_rng(3)
+    rows, d = 60, 128                       # the Pallas kernel needs d % 128 == 0
+    x = rng.standard_normal((rows, d)).astype(np.float32)
+    ids = rng.integers(0, rows + 1, (n, cap)).astype(np.int32)   # rows = padding id
+    x_pad = np.concatenate([x, np.zeros((1, d), np.float32)])
+    ref = gather_sum_pallas(jnp.asarray(x_pad), jnp.asarray(ids), interpret=True)
+    before = (tns.launches, tns.fold_launches)
+    out = tns.gather_sum(torch.from_numpy(x), torch.from_numpy(ids))
+    assert (tns.launches, tns.fold_launches) == before   # CPU tensors never launch
+    assert out.dtype == torch.float32 and out.shape == (n, d)
+    atol = ATOL * max(1.0, cap / 64)
+    _close(out, ref, atol=atol)
+    _close(out, x_pad[ids].astype(np.float64).sum(1), atol=atol)
+
+
+def test_gather_sum_plain_bf16_accumulates_in_f32():
+    rng = np.random.default_rng(4)
+    rows, d = 60, 128
+    xb = jnp.asarray((rng.standard_normal((rows, d)) * 0.01).astype(np.float32), jnp.bfloat16)
+    ids = rng.integers(0, rows, (4, 50)).astype(np.int32)
+    xb_pad = jnp.concatenate([xb, jnp.zeros((1, d), jnp.bfloat16)], 0)
+    ref = gather_sum_pallas(xb_pad, jnp.asarray(ids), interpret=True)
+    x32 = np.asarray(xb, np.float32)
+    out = tns.gather_sum(torch.from_numpy(x32).to(torch.bfloat16), torch.from_numpy(ids))
+    assert out.dtype == torch.float32
+    # the same bf16 values summed in f32: only the order of the adds differs
+    _close(out, ref, rtol=1e-5, atol=1e-6)
+    _close(out, x32[ids].astype(np.float64).sum(1), rtol=1e-5, atol=1e-6)
+
+
+def test_layout_splits_hub_rows_and_writes_each_row_once(graph):
+    _, _, tadj = graph
+    layout = tfg.nbr_sum_layout(tadj)
+    assert int(layout.task_len.max()) == tns.MAX_CAP and layout.num_partials > 0
+    dest = torch.cat([layout.task_dest[layout.task_dest >= 0], layout.fold_dest])
+    assert torch.equal(torch.sort(dest).values, torch.arange(N, dtype=torch.int32))
+    assert layout.ids.numel() == tadj.total_slots
+    # the plain version against a float64 sum of each node's neighbours
+    x = np.random.default_rng(5).standard_normal((N, 3)).astype(np.float32)
+    ref = np.zeros((N, 3))
+    edges = power_law_edges()
+    np.add.at(ref, edges[:, 1], x[edges[:, 0]])
+    np.add.at(ref, edges[:, 0], x[edges[:, 1]])
+    _close(tns.nbr_sum_plain(torch.from_numpy(x), layout), ref)
+
+
+@pytest.mark.parametrize("sorted_space", [False, True], ids=["original", "sorted"])
+def test_nbr_sum_matches_jax_forward_and_vjp(graph, sorted_space):
+    _, jadj, tadj = graph
+    rng = np.random.default_rng(6)
+    d = 16
+    x = rng.standard_normal((N, d)).astype(np.float32)
+    u = rng.standard_normal((N, d)).astype(np.float32)
+    inv_pos = np.asarray(jadj.inv_pos)
+    perm = np.argsort(inv_pos, kind="stable")
+    jfn = jfg.make_nbr_sums(jadj, sorted_space=sorted_space)
+    if sorted_space:   # JAX rows in degree-sorted order; map back to original order
+        jy, jvjp = jax.vjp(jfn, jnp.asarray(x[perm]))
+        jy, jg = np.asarray(jy)[inv_pos], np.asarray(jvjp(jnp.asarray(u[perm]))[0])[inv_pos]
+    else:
+        jy, jvjp = jax.vjp(jfn, jnp.asarray(x))
+        jg = jvjp(jnp.asarray(u))[0]
+    tx = torch.from_numpy(x).requires_grad_(True)
+    ty = tfg.make_nbr_sums(tadj)(tx)
+    ty.backward(torch.from_numpy(u))
+    _close(ty, jy)
+    _close(tx.grad, jg)
+
+
+# -- the encoder and the collapse --------------------------------------------
+
+GNN_KINDS = {"sage-mean": ("GRAPH_SAGE", "MEAN"), "sage-gcn": ("GRAPH_SAGE", "GCN"),
+             "gcn": ("GCN", "MEAN")}
+DIMS = (F, 16, 16, 5)
+
+
+def _stages(layer_cls, kind, activation="NONE"):
+    gnn_type, agg = GNN_KINDS[kind]
+    stages = [(layer_cls("FEATURE", output_dim=F, bias=True),)]
+    for din, dout in zip(DIMS[:-1], DIMS[1:]):
+        stages.append((layer_cls("GNN", input_dim=din, output_dim=dout, gnn_type=gnn_type,
+                                 aggregator=agg, bias=True, activation=activation),))
+    return tuple(stages)
+
+
+def _params(kind, rng):
+    """The same random params as JAX and torch pytrees."""
+    gnn_type, agg = GNN_KINDS[kind]
+    stages = [{"bias": rng.standard_normal(F).astype(np.float32) * 0.1}]
+    for din, dout in zip(DIMS[:-1], DIMS[1:]):
+        names = ["w1", "w2"] if (gnn_type, agg) == ("GRAPH_SAGE", "MEAN") else \
+            (["w1"] if gnn_type == "GRAPH_SAGE" else ["w"])
+        p = {k: (rng.standard_normal((din, dout)) / np.sqrt(din)).astype(np.float32)
+             for k in names}
+        p["bias"] = rng.standard_normal(dout).astype(np.float32) * 0.1
+        stages.append(p)
+    jp = [[{k: jnp.asarray(v) for k, v in p.items()}] for p in stages]
+    tp = [[{k: torch.tensor(v, requires_grad=True) for k, v in p.items()}] for p in stages]
+    return jp, tp
+
+
+@pytest.mark.parametrize("kind", list(GNN_KINDS))
+@pytest.mark.parametrize("seed_restrict", [False, True], ids=["all-n", "seed-restrict"])
+def test_full_graph_encoder_matches_jax(graph, kind, seed_restrict):
+    _, jadj, tadj = graph
+    rng = np.random.default_rng(7)
+    feats = rng.standard_normal((N, F)).astype(np.float32)
+    jp, tp = _params(kind, rng)
+    jcfg = JEncoderConfig(_stages(JLayerConfig, kind, "RELU"))
+    tcfg = TEncoderConfig(_stages(TLayerConfig, kind, "RELU"))
+    jadj2, jops = jfge.prepare_full_graph(jadj, jcfg, jnp.asarray(feats))
+    tadj2, tops = tfge.prepare_full_graph(tadj, tcfg, torch.from_numpy(feats))
+    assert jops.get("sorted") and isinstance(tops["const_agg"][(1, 0)], tfge.AffineConst)
+
+    b = 30
+    seeds = rng.integers(0, N, b)
+    mask = np.ones(b, bool)
+    jsr = tsr = None
+    if seed_restrict:
+        csr = tfg.host_csr_from_adjacency(tadj)
+        need = int((csr[0][seeds + 1] - csr[0][seeds]).sum())
+        tnbr, tseg = tfg.device_seed_flat_lists(tfg.device_csr(csr, "cpu"),
+                                                torch.from_numpy(seeds), torch.from_numpy(mask),
+                                                need, N)
+        tsr = (torch.from_numpy(seeds), tnbr, tseg)
+        # JAX runs this model in its degree-sorted row space: seed lists hold sorted rows
+        inv_ext = np.append(np.asarray(jadj.inv_pos), N).astype(np.int32)
+        jsr = (jnp.asarray(seeds, jnp.int32), jnp.asarray(inv_ext[tnbr.numpy()]),
+               jnp.asarray(tseg.numpy().astype(np.int32)))
+    w = rng.standard_normal((b if seed_restrict else N, DIMS[-1])).astype(np.float32)
+
+    def jloss(p):
+        out = jfge.full_graph_encoder_forward(jcfg, p, None, jnp.asarray(feats), jadj2,
+                                              ops=jops, train=True, seed_restrict=jsr)
+        return jnp.sum(out * w), out
+
+    (_, jout), jgrad = jax.value_and_grad(jloss, has_aux=True)(jp)
+    tout = tfge.full_graph_encoder_forward(tcfg, tp, None, torch.from_numpy(feats), tadj2,
+                                           ops=tops, seed_restrict=tsr)
+    (tout * torch.from_numpy(w)).sum().backward()
+    _close(tout, jout)
+    for tstage, jstage in zip(tp, jgrad):
+        for k, t in tstage[0].items():
+            _close(t.grad, jstage[0][k])
+
+
+def test_full_graph_encoder_rejects_later_slices(graph):
+    _, _, tadj = graph
+    for gnn in ("GAT", "RGCN"):
+        cfg = TEncoderConfig(((TLayerConfig("FEATURE", output_dim=F),),
+                              (TLayerConfig("GNN", input_dim=F, output_dim=4, gnn_type=gnn),)))
+        assert not tfge.supports_full_graph(cfg)
+        assert not tfge.supports_seed_restrict(cfg)
+        with pytest.raises(NotImplementedError):
+            tfge.prepare_full_graph(tadj, cfg, torch.zeros(N, F))
+    with pytest.raises(NotImplementedError):
+        tfge.full_graph_encoder_forward(TEncoderConfig(_stages(TLayerConfig, "gcn")), None,
+                                        torch.zeros(N, F), torch.zeros(N, F), tadj)
+
+
+@pytest.mark.parametrize("kind", list(GNN_KINDS))
+def test_linear_collapse_matches_jax(graph, kind):
+    _, jadj, tadj = graph
+    rng = np.random.default_rng(8)
+    feats = rng.standard_normal((N, F)).astype(np.float32)
+    jp, tp = _params(kind, rng)
+    jcfg = JEncoderConfig(_stages(JLayerConfig, kind))
+    tcfg = TEncoderConfig(_stages(TLayerConfig, kind))
+    assert tlc.linear_collapse_eligible(tcfg, True) == jlc.linear_collapse_eligible(jcfg, True)
+    assert not tlc.linear_collapse_eligible(TEncoderConfig(_stages(TLayerConfig, kind, "RELU")),
+                                            True)
+    jcol = jlc.build_linear_collapse(jadj, jcfg, jnp.asarray(feats))
+    tcol = tlc.build_linear_collapse(tadj, tcfg, torch.from_numpy(feats))
+    assert tcol.kinds == jcol.kinds and tcol.phi.shape == jcol.phi.shape
+    _close(tcol.phi, jcol.phi)
+    rows = rng.integers(0, N, 40)
+    _close(tcol.logits(tp, torch.from_numpy(rows)), jcol.logits(jp, jnp.asarray(rows)))
+    # the collapsed form equals the layerwise network it replaces
+    _, tops = tfge.prepare_full_graph(tadj, tcfg, torch.from_numpy(feats))
+    layerwise = tfge.full_graph_encoder_forward(tcfg, tp, None, torch.from_numpy(feats), tadj,
+                                                ops=tops)
+    _close(tcol.logits_all(tp), layerwise, rtol=1e-4, atol=1e-4)

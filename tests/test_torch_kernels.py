@@ -1,4 +1,4 @@
-"""The port's two kernels (marius_tpu_torch/ops/cuda) against the JAX package.
+"""The port's kernels (marius_tpu_torch/ops/cuda) against the JAX package.
 
 On the CPU the wrappers run their plain PyTorch versions; these are held
 against the Pallas kernels in interpret mode (as tests/test_pallas_kernels.py
@@ -10,8 +10,9 @@ runs the same comparison on the card).
 Tolerances: a gather copies, so it must match exactly. The Adagrad update is
 a handful of float32 operations per element; XLA may fuse them differently,
 so it is held to rtol=1e-6, atol=1e-7, and untouched rows must be
-bit-identical. The CUDA kernels round every operation on its own and must
-match the plain versions bit for bit.
+bit-identical. The gather-sum's plain version is held against the Pallas
+kernel in tests/test_torch_full_graph.py. The CUDA kernels round every
+operation on its own and must match the plain versions bit for bit.
 """
 
 import jax.numpy as jnp
@@ -25,6 +26,7 @@ from marius_tpu.parallel import embedding_table as jet
 from marius_tpu_torch.ops.cuda import adagrad as tadagrad
 from marius_tpu_torch.ops.cuda import build
 from marius_tpu_torch.ops.cuda import gather as tgather
+from marius_tpu_torch.ops.cuda import nbr_sum as tns
 from marius_tpu_torch.parallel import embedding_table as tet
 
 RTOL, ATOL = 1e-6, 1e-7
@@ -191,3 +193,56 @@ def test_cuda_wrappers_reject_bad_inputs(cuda_device):
         tgather.gather_rows(table.t(), torch.zeros(3, dtype=torch.long, device=cuda_device))
     with pytest.raises(ValueError):
         tgather.gather_rows(table, torch.zeros(3, dtype=torch.long))
+
+
+# caps from one slot to a 13k-slot hub (split into 256-slot pieces and folded)
+SUM_SHAPES = [(1000, 1), (777, 3), (300, 40), (20, 700), (2, 13161)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 33, 128, 129, 259, 519])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_gather_sum_matches_plain(cuda_device, d, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    x = torch.randn(5000, d, device=cuda_device, generator=g).to(dtype)
+    for rows, cap in SUM_SHAPES:
+        ids = torch.randint(0, 5001, (rows, cap), device=cuda_device, generator=g,
+                            dtype=torch.int32)   # 5000 = padding id
+        before, folds = tns.launches, tns.fold_launches
+        out = tns.gather_sum(x, ids)
+        torch.cuda.synchronize()
+        assert tns.launches == before + 1 and out.dtype == torch.float32
+        assert tns.fold_launches == folds + (cap > tns.MAX_CAP)   # hubs need the fold
+        assert torch.equal(out, tns.gather_sum_plain(x, ids))
+
+
+@pytest.mark.cuda
+def test_cuda_nbr_sum_forward_and_backward_match_plain(cuda_device):
+    from marius_tpu_torch.data import full_graph as tfg
+
+    rng = np.random.default_rng(5)
+    n, e = 3000, 40000
+    w = (np.arange(n) + 1.0) ** -1.0
+    edges = np.stack([rng.integers(0, n, e), rng.choice(n, e, p=w / w.sum())], 1)
+    adj = tfg.build_full_graph_adjacency(edges, n).to(cuda_device)
+    layout = tfg.nbr_sum_layout(adj)
+    assert layout.num_partials > 0
+    x = torch.randn(n, 128, device=cuda_device, requires_grad=True)
+    u = torch.randn(n, 128, device=cuda_device)
+    y = tfg.make_nbr_sums(adj)(x)
+    y.backward(u)
+    torch.cuda.synchronize()
+    assert torch.equal(y, tns.nbr_sum_plain(x.detach(), layout))
+    assert torch.equal(x.grad, tns.nbr_sum_plain(u, layout))
+
+
+@pytest.mark.cuda
+def test_cuda_gather_sum_rejects_bad_inputs(cuda_device):
+    ids = torch.zeros((3, 2), dtype=torch.int32, device=cuda_device)
+    x = torch.randn(10, 4, device=cuda_device)
+    with pytest.raises(TypeError):
+        tns.gather_sum(x.double(), ids)
+    with pytest.raises(ValueError):
+        tns.gather_sum(x.t(), ids)
+    with pytest.raises(ValueError):
+        tns.nbr_sum(x, tns.bucket_layout([ids.cpu()], torch.arange(3), 3))

@@ -1,0 +1,153 @@
+"""The port's full-graph NodeClassificationTrainer against marius_tpu's.
+
+Both trainers start from the JAX initial state (carried across with
+``train_state_from_jax``) and see the same permutation (JAX's, passed
+through the port's ``_epoch_permutation`` seam). They train 2 epochs on a
+220-node power-law graph with hub rows wider than 256 slots, FEATURE (bias)
++ 3 x GraphSAGE MEAN (bias), CE SUM, Adam lr 0.01: on the linear-collapse
+path (the default for this activation-free model), on the general
+seed-restricted path (``fg_linear_collapse=False``) and on the general all-N
+path (``fg_seed_restrict=False``). After each epoch the loss, the parameters
+and the Adam slots must agree to rtol 1e-4, atol 1e-5 (the LP trainer test's
+tolerance): both run float32, but sums run in another order, and 8 Adam
+steps carry those differences forward. Evaluation (accuracy and the
+predicted labels) must then agree exactly.
+"""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from marius_tpu.data import full_graph as jfg
+from marius_tpu.data.graph import build_device_graph as j_build_graph
+from marius_tpu.data.samplers.neighbor import NeighborSamplingConfig
+from marius_tpu.nn.encoder import EncoderConfig as JEncoderConfig
+from marius_tpu.nn.layers import LayerConfig as JLayerConfig
+from marius_tpu.nn.model import Model as JModel
+from marius_tpu.nn.optimizers import OptimizerConfig as JOptimizerConfig
+from marius_tpu.train import nc as jnc
+from marius_tpu_torch.convert import copy_train_state_, train_state_from_jax
+from marius_tpu_torch.data import full_graph as tfg
+from marius_tpu_torch.data.graph import build_device_graph as t_build_graph
+from marius_tpu_torch.nn.encoder import EncoderConfig as TEncoderConfig
+from marius_tpu_torch.nn.layers import LayerConfig as TLayerConfig
+from marius_tpu_torch.nn.model import Model as TModel
+from marius_tpu_torch.nn.optimizers import OptimizerConfig as TOptimizerConfig
+from marius_tpu_torch.train import nc as tnc
+
+RTOL, ATOL = 1e-4, 1e-5
+N, N_LINKED, E, F, CLASSES, DIMS, B = 220, 200, 2000, 8, 5, (16, 16, 5), 32
+
+
+def _data():
+    rng = np.random.default_rng(0)
+    w = (np.arange(N_LINKED) + 1.0) ** -1.0
+    dst = rng.permutation(N_LINKED)[rng.choice(N_LINKED, E, p=w / w.sum())]
+    edges = np.stack([rng.integers(0, N_LINKED, E), dst], 1).astype(np.int32)
+    feats = rng.standard_normal((N, F)).astype(np.float32)
+    labels = np.argmax(feats @ rng.standard_normal((F, CLASSES)), 1).astype(np.int32)
+    train = rng.permutation(N)[:120].astype(np.int32)
+    return edges, feats, labels, train
+
+
+def _model(model_cls, enc_cls, layer_cls, opt_cls, activation="NONE"):
+    stages = [(layer_cls("FEATURE", output_dim=F, bias=True),)]
+    for din, dout in zip((F,) + DIMS[:-1], DIMS):
+        stages.append((layer_cls("GNN", input_dim=din, output_dim=dout, gnn_type="GRAPH_SAGE",
+                                 aggregator="MEAN", bias=True, activation=activation),))
+    return model_cls("NODE_CLASSIFICATION", enc_cls(tuple(stages)), None,
+                     loss_type="CROSS_ENTROPY", loss_reduction="SUM",
+                     dense_optimizer=opt_cls("ADAM", learning_rate=0.01))
+
+
+def _np_state(jstate):
+    # the typed PRNG key has no numpy form and no counterpart in the port
+    return jax.tree.map(np.asarray, dataclasses.replace(jstate, key=None))
+
+
+def _close(t, j):
+    np.testing.assert_allclose(t.detach().numpy(), np.asarray(j), rtol=RTOL, atol=ATOL)
+
+
+def _trainers(fg_kwargs, activation="NONE"):
+    edges, feats, labels, train = _data()
+    jmodel = _model(JModel, JEncoderConfig, JLayerConfig, JOptimizerConfig, activation)
+    jtr = jnc.NodeClassificationTrainer(
+        jmodel, j_build_graph(edges, N), feats, labels, train,
+        [NeighborSamplingConfig("ALL", max_neighbors=1)] * 3, batch_size=B, seed=0,
+        full_graph=jfg.build_full_graph_adjacency(edges, N), **fg_kwargs)
+    tmodel = _model(TModel, TEncoderConfig, TLayerConfig, TOptimizerConfig, activation)
+    ttr = tnc.NodeClassificationTrainer(
+        tmodel, t_build_graph(edges, N), feats, labels, train, batch_size=B, seed=0,
+        full_graph=tfg.build_full_graph_adjacency(edges, N), device="cpu", **fg_kwargs)
+    size = jtr.num_batches * B
+    ttr._epoch_permutation = lambda e: torch.from_numpy(np.array(jax.random.permutation(
+        jax.random.fold_in(jax.random.key(54321), e), size))).long()
+    copy_train_state_(ttr.state, train_state_from_jax(_np_state(jtr.state)))
+    return jtr, ttr, np.setdiff1d(np.arange(N), train)
+
+
+PATHS = {"collapse": {}, "general-seed-restrict": {"fg_linear_collapse": False},
+         "general-all-n": {"fg_seed_restrict": False}}
+
+
+@pytest.mark.parametrize("path", list(PATHS))
+def test_nc_trainer_matches_jax_over_two_epochs(path):
+    jtr, ttr, eval_nodes = _trainers(PATHS[path])
+    assert (ttr._fg_collapse is not None) == (path == "collapse")
+    assert ttr._fg_seed_restrict == jtr._fg_seed_restrict == (path == "general-seed-restrict")
+    for _ in range(2):
+        jres, tres = jtr.train_epoch(), ttr.train_epoch()
+        np.testing.assert_allclose(tres["loss"], jres["loss"], rtol=RTOL)
+        assert tres["num_nodes"] == jres["num_nodes"]
+        js, ts = _np_state(jtr.state), ttr.state
+        assert ts.table is None and js.table is None
+        for t_stage, j_stage in zip(ts.params["encoder"], js.params["encoder"]):
+            for k, t in t_stage[0].items():
+                _close(t, j_stage[0][k])
+        for slot in ("exp_avg", "exp_avg_sq"):
+            for t_stage, j_stage in zip(ts.opt_state.slots[slot]["encoder"],
+                                        js.opt_state.slots[slot]["encoder"]):
+                for k, t in t_stage[0].items():
+                    _close(t, j_stage[0][k])
+        assert ts.opt_state.step == int(js.opt_state.step) and ts.epoch == int(js.epoch)
+
+    jev = jnc.NodeClassificationEvaluator(jtr, eval_nodes)
+    tev = tnc.NodeClassificationEvaluator(ttr, eval_nodes)
+    jacc, tacc = jev.evaluate(jtr.state), tev.evaluate(ttr.state)
+    assert set(tacc) == set(jacc)
+    assert tacc["num_evaluated"] == jacc["num_evaluated"] == len(eval_nodes)
+    assert tacc["accuracy"] == pytest.approx(jacc["accuracy"], abs=1e-12)
+    np.testing.assert_array_equal(tev.predict_labels(ttr.state), jev.predict_labels(jtr.state))
+
+
+def test_nc_trainer_with_activation_takes_the_general_path():
+    """A RELU encoder cannot collapse: the auto choice is the seed-restricted
+    general path on both sides; one epoch agrees."""
+    jtr, ttr, _ = _trainers({}, activation="RELU")
+    assert ttr._fg_collapse is None and jtr._fg_collapse is None
+    assert ttr._fg_seed_restrict and jtr._fg_seed_restrict
+    np.testing.assert_allclose(ttr.train_epoch()["loss"], jtr.train_epoch()["loss"], rtol=RTOL)
+
+
+def test_nc_trainer_rejects_later_slices():
+    edges, feats, labels, train = _data()
+    model = _model(TModel, TEncoderConfig, TLayerConfig, TOptimizerConfig)
+    graph, adj = t_build_graph(edges, N), tfg.build_full_graph_adjacency(edges, N)
+    for kwargs in [dict(full_graph=None), dict(full_graph=adj, mesh=object()),
+                   dict(full_graph=adj, dtype=torch.bfloat16)]:
+        with pytest.raises(NotImplementedError):
+            tnc.NodeClassificationTrainer(model, graph, feats, labels, train, batch_size=B,
+                                          device="cpu", **kwargs)
+    gat = dataclasses.replace(model, encoder=TEncoderConfig(
+        model.encoder.stages[:1] + ((TLayerConfig("GNN", input_dim=F, output_dim=CLASSES,
+                                                  gnn_type="GAT"),),)))
+    with pytest.raises(NotImplementedError):
+        tnc.NodeClassificationTrainer(gat, graph, feats, labels, train, batch_size=B,
+                                      full_graph=adj, device="cpu")
+    with pytest.raises(ValueError):
+        tnc.NodeClassificationTrainer(dataclasses.replace(model, learning_task="LINK_PREDICTION"),
+                                      graph, feats, labels, train, full_graph=adj, device="cpu")

@@ -1,4 +1,4 @@
-"""Modules of the port's LP slice against their marius_tpu counterparts.
+"""Modules of the port (LP and NC slices) against their marius_tpu counterparts.
 
 Each test feeds the same seed-made numpy inputs to the JAX function and to
 the port's, on the CPU. Tolerance: rtol=1e-5, atol=1e-6 for values and
@@ -293,8 +293,14 @@ def test_encoder_forward_matches_jax():
     g = torch.Generator().manual_seed(0)
     tinit_p = tenc.init_encoder_params(g, tcfg)
     assert set(tinit_p[0][0]) == {"bias"} and tinit_p[0][1] == {}
+    # GraphSAGE/GCN stages have parameters now (test_gnn_layer_params_match_jax);
+    # GAT and the sampled GNN forward wait for later slices
     with pytest.raises(NotImplementedError):
-        tenc.init_encoder_params(g, tenc.EncoderConfig(((TLayerConfig("GNN", 4, 4),),)))
+        tenc.init_encoder_params(g, tenc.EncoderConfig(((TLayerConfig("GNN", 4, 4,
+                                                                      gnn_type="GAT"),),)))
+    with pytest.raises(NotImplementedError):
+        tenc.encoder_forward(tenc.EncoderConfig(((TLayerConfig("GNN", 4, 4),),)),
+                             [[{}]], None, torch.zeros(3, 4))
 
 
 def test_lp_batch_loss_matches_jax():
@@ -335,3 +341,84 @@ def test_lp_batch_loss_matches_jax():
     tv.backward()
     _close(tv, jv)
     _close(te.grad, jg)
+
+
+# -- node classification ----------------------------------------------------
+
+@pytest.mark.parametrize("gnn_type,aggregator,names", [
+    ("GRAPH_SAGE", "MEAN", {"w1", "w2", "bias"}), ("GRAPH_SAGE", "GCN", {"w1", "bias"}),
+    ("GCN", "MEAN", {"w", "bias"})])
+def test_gnn_layer_params_match_jax(gnn_type, aggregator, names):
+    """Same names and shapes as the JAX package; Glorot-uniform bounds."""
+    from marius_tpu.nn.layers.layers import init_layer_params as j_init
+    from marius_tpu_torch.nn.layers import init_layer_params as t_init
+
+    kw = dict(layer_type="GNN", input_dim=24, output_dim=40, gnn_type=gnn_type,
+              aggregator=aggregator, bias=True)
+    jp = j_init(jax.random.key(0), JLayerConfig(**kw))
+    tp = t_init(torch.Generator().manual_seed(0), TLayerConfig(**kw))
+    assert set(tp) == set(jp) == names
+    limit = math.sqrt(6.0 / 64)
+    for k, t in tp.items():
+        assert tuple(t.shape) == tuple(jp[k].shape) and t.dtype == torch.float32
+        if k == "bias":
+            assert not t.any()
+        else:
+            assert float(t.abs().max()) <= limit and float(t.std()) > 0.5 * limit / math.sqrt(3)
+
+
+@pytest.mark.parametrize("reduction", ["SUM", "MEAN"])
+def test_nc_batch_loss_matches_jax(reduction):
+    rng = np.random.default_rng(9)
+    logits = rng.standard_normal((20, 7)).astype(np.float32) * 3
+    labels = rng.integers(0, 7, 20)
+    mask = rng.random(20) < 0.7
+    stages = ((JLayerConfig("FEATURE", output_dim=7),),)
+    jm = jmodel.Model(jmodel.NODE_CLASSIFICATION, jenc.EncoderConfig(stages),
+                      loss_type="CROSS_ENTROPY", loss_reduction=reduction)
+    tm = tmodel.Model(tmodel.NODE_CLASSIFICATION,
+                      tenc.EncoderConfig(((TLayerConfig("FEATURE", output_dim=7),),)),
+                      loss_type="CROSS_ENTROPY", loss_reduction=reduction)
+    jv, jg = jax.value_and_grad(lambda x: jmodel.nc_batch_loss(
+        jm, x, jnp.asarray(labels), jnp.asarray(mask)))(jnp.asarray(logits))
+    tx = _t(logits, True)
+    tv = tmodel.nc_batch_loss(tm, tx, torch.from_numpy(labels), torch.from_numpy(mask))
+    tv.backward()
+    _close(tv, jv)
+    _close(tx.grad, jg)
+    _close(tlosses.classification_cross_entropy(tx.detach(), torch.from_numpy(labels),
+                                                reduction="NONE"),
+           jlosses.classification_cross_entropy(jnp.asarray(logits), jnp.asarray(labels),
+                                                reduction="NONE"))
+
+
+def test_nc_model_params_have_no_decoder():
+    cfg = tenc.EncoderConfig(((TLayerConfig("FEATURE", output_dim=4, bias=True),),
+                              (TLayerConfig("GNN", 4, 3, bias=True),)))
+    params = tmodel.init_model_params(torch.Generator(), tmodel.Model(
+        tmodel.NODE_CLASSIFICATION, cfg))
+    assert set(params) == {"encoder"}
+    assert set(params["encoder"][1][0]) == {"w1", "w2", "bias"}
+    assert all(p.requires_grad for s in params["encoder"] for layer in s for p in layer.values())
+
+
+def test_categorical_accuracy_and_segment_sum_match_jax():
+    from marius_tpu.ops.segment import segment_sum as j_segment_sum
+    from marius_tpu.reporting.metrics import categorical_accuracy_statistics as j_acc
+    from marius_tpu_torch.ops.segment import segment_sum as t_segment_sum
+    from marius_tpu_torch.reporting.metrics import categorical_accuracy_statistics as t_acc
+
+    rng = np.random.default_rng(10)
+    logits = rng.standard_normal((50, 6)).astype(np.float32)
+    logits[:5] = 0.0   # ties: both take the first maximum
+    labels = rng.integers(0, 6, 50)
+    mask = rng.random(50) < 0.6
+    for m in (None, mask):
+        j = j_acc(jnp.asarray(logits), jnp.asarray(labels), None if m is None else jnp.asarray(m))
+        t = t_acc(torch.from_numpy(logits), torch.from_numpy(labels),
+                  None if m is None else torch.from_numpy(m))
+        assert float(t["correct"]) == float(j["correct"]) and float(t["count"]) == float(j["count"])
+    data = rng.standard_normal((40, 3)).astype(np.float32)
+    seg = rng.integers(0, 9, 40)
+    _close(t_segment_sum(torch.from_numpy(data), torch.from_numpy(seg), 9),
+           j_segment_sum(jnp.asarray(data), jnp.asarray(seg), 9))
