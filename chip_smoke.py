@@ -54,6 +54,12 @@ ARXIV_TRAIN, ARXIV_HUB = 90_941, 13_161
 NC_DIM, NC_GNN_STAGES, NC_LR = 128, 3, 0.01
 # the neighbour sum's widths: d=1 (GCN counts), the model's 128, the collapse's 129/259/519
 SUM_DIMS = (1, 33, 128, 129, 259, 519)
+# the edges of the gather-sum kernel's 128-byte column slabs (32 f32 or 64 bf16 columns)
+SLAB_EDGE_DIMS = (15, 16, 17, 31, 32, 63, 64, 65)
+# single buckets: caps from one slot to the 13k-slot hub, with the hub split's edges
+# (256 slots: one task; 257 and 512: two pieces)
+SUM_SHAPES = ((1000, 1), (777, 3), (300, 40), (5, 256), (4, 257), (3, 512), (20, 700),
+              (2, ARXIV_HUB))
 
 
 def card_rates(name: str):
@@ -347,13 +353,29 @@ def nc_model(feat_dim: int, dims):
                  dense_optimizer=OptimizerConfig("ADAM", learning_rate=NC_LR))
 
 
+def sum_matrix(adj, layout):
+    """The combined adjacency as an (N, N) f32 CSR matrix in original order,
+    repeated neighbours as counts and padding dropped: torch.sparse.mm(A, x)
+    is the neighbour sum in one library call (cuSPARSE)."""
+    n, dev = adj.num_nodes, adj.device
+    perm = torch.argsort(adj.inv_pos.long(), stable=True)   # sorted row -> id
+    rows = torch.cat([perm[s:s + b.shape[0]].repeat_interleave(b.shape[1])
+                      for s, b in zip(adj.bucket_starts, adj.nbrs)])
+    cols = layout.ids.long()
+    keep = cols < n
+    coo = torch.sparse_coo_tensor(torch.stack([rows[keep], cols[keep]]),
+                                  torch.ones(int(keep.sum()), device=dev), (n, n),
+                                  check_invariants=False)
+    return coo.coalesce().to_sparse_csr()
+
+
 def check_gather_sum(adj, rates):
     """The gather-sum kernel against its plain version on the arxiv
     adjacency's real buckets (every width the NC paths use, forward and
-    backward, f32 and bf16) and on single buckets of odd shapes up to a
-    13k-slot hub; then one whole neighbour sum at d=128, timed."""
-    import torch.nn.functional as F
-
+    backward, f32 and bf16), on single buckets of odd shapes up to a 13k-slot
+    hub at those widths and at the slab edges, with x 16-byte aligned and
+    not, and on one layout with empty and all-padding buckets; then one
+    whole neighbour sum at d=128, timed."""
     from marius_tpu_torch.data.full_graph import make_nbr_sums, nbr_sum_layout
     from marius_tpu_torch.ops.cuda import nbr_sum as ns
 
@@ -376,28 +398,41 @@ def check_gather_sum(adj, rates):
     same(x.grad, ns.nbr_sum_plain(u, layout), "arxiv buckets, backward")
     xb = x.detach().to(torch.bfloat16)
     same(ns.nbr_sum(xb, layout), ns.nbr_sum_plain(xb, layout), "arxiv buckets, bf16")
-    for d in SUM_DIMS:
-        for rows, cap in [(1000, 1), (777, 3), (300, 40), (20, 700), (2, ARXIV_HUB)]:
-            x = torch.randn(5000, d, device=dev, generator=g)
-            ids = torch.randint(0, 5001, (rows, cap), device=dev, generator=g,
-                                dtype=torch.int32)   # 5000 = padding id
-            for dtype in (torch.float32, torch.bfloat16):
-                same(ns.gather_sum(x.to(dtype), ids), ns.gather_sum_plain(x.to(dtype), ids),
-                     f"one bucket ({rows}, {cap}), d={d}, {dtype}")
+    pad = lambda rows, cap: torch.full((rows, cap), 5000, dtype=torch.int32, device=dev)
+    for d in sorted(SUM_DIMS + SLAB_EDGE_DIMS):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(5000, d, device=dev, generator=g).to(dtype)
+            # the same values one element past a 16-byte boundary: one-element loads
+            x_off = torch.empty(5000 * d + 1, device=dev, dtype=dtype)[1:].view(5000, d)
+            x_off.copy_(x)
+            buckets = []
+            for rows, cap in SUM_SHAPES:
+                ids = torch.randint(0, 5001, (rows, cap), device=dev, generator=g,
+                                    dtype=torch.int32)   # 5000 = padding id
+                buckets.append(ids)
+                ref = ns.gather_sum_plain(x, ids)
+                for xs, where in ((x, "aligned"), (x_off, "offset")):
+                    same(ns.gather_sum(xs, ids), ref,
+                         f"one bucket ({rows}, {cap}), d={d}, {dtype}, {where}")
+            mixed = [buckets[1], pad(0, 9), pad(7, 5), buckets[4], pad(6, 300), buckets[-1],
+                     pad(0, 400)]
+            rows = sum(b.shape[0] for b in mixed)
+            mixed_layout = ns.bucket_layout(
+                mixed, torch.randperm(rows, device=dev, generator=g), rows)
+            same(ns.nbr_sum(x, mixed_layout), ns.nbr_sum_plain(x, mixed_layout),
+                 f"empty and all-padding buckets, d={d}, {dtype}")
 
     x = torch.randn(n, NC_DIM, device=dev, generator=g)
     out = ns.nbr_sum(x, layout)
     err = float((out - ns.nbr_sum_plain(x, layout)).abs().max())
     if err != 0.0:
         raise AssertionError(f"gather-sum differs from plain by {err}")
-    x_pad = torch.cat([x, torch.zeros(1, NC_DIM, device=dev)])
-    inv_pos = adj.inv_pos.long()
+    a = sum_matrix(adj, layout)
 
-    def library():   # one embedding_bag per bucket, then back to original order
-        return torch.cat([F.embedding_bag(b, x_pad, mode="sum", padding_idx=n)
-                          for b in adj.nbrs])[inv_pos]
+    def library():
+        return torch.sparse.mm(a, x)
 
-    # other summation order: 1e-3 absolute on sums of up to 13k unit normals
+    # cuSPARSE sums in another order: 1e-3 absolute on sums of up to 13k unit normals
     torch.testing.assert_close(library(), out, rtol=1e-4, atol=1e-3)
     valid = layout.ids[(layout.ids >= 0) & (layout.ids < n)]
     rows_read = int(torch.unique(valid).numel())
@@ -407,14 +442,21 @@ def check_gather_sum(adj, rates):
     b_ms, b_by = bound_ms(nbytes, (valid.numel() + layout.num_partials) * NC_DIM, rates)
     print(f"gather-sum at arxiv shape: {len(adj.nbrs)} buckets, {layout.ids.numel()} slots "
           f"({valid.numel()} real), {tasks} tasks, {folds} hub rows in "
-          f"{layout.num_partials} pieces, {rows_read} distinct rows read", flush=True)
+          f"{layout.num_partials} pieces, {rows_read} distinct rows read; "
+          f"sparse matrix {a._nnz()} nonzeros", flush=True)
+    ms = time_ms(lambda: ns.nbr_sum(x, layout))
+    # what the slot reads alone ask of the memory system: one d-wide row per real slot
+    slot_rate = valid.numel() * NC_DIM * 4 / (ms * 1e-3)
+    print(f"gather-sum slot reads: {valid.numel() * NC_DIM * 4 / 1e9:.4f} GB in {ms * 1e3:.2f} us"
+          f" = {slot_rate / 1e12:.3f} TB/s", flush=True)
     return {
         "name": "gather_sum", "route": "cuda", "source": "marius_tpu_torch/csrc/nbr_sum.cu",
         "replaces": "marius_tpu/ops/pallas/nbr_sum.py:114", "max_abs_err": err,
-        "ms": time_ms(lambda: ns.nbr_sum(x, layout)),
+        "ms": ms,
         "plain_ms": time_ms(lambda: ns.nbr_sum_plain(x, layout), reps=2, samples=3),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": time_ms(library, reps=10, samples=5),
+        "slot_read_bytes_per_s": slot_rate,
     }
 
 
@@ -436,9 +478,9 @@ def _report_epochs(tag: str, results, card: str) -> None:
 def train_nc(card: str, adj, data) -> dict:
     """Arxiv-shaped full-graph NC through the port's entry points: the
     collapse trainer, then the general trainer and its evaluation. Each part
-    runs with the gather-sum counters set to 0 just before it and read just
+    runs with the gather-sum counter set to 0 just before it and read just
     after, and each reading is checked against what the code implies.
-    Returns {part: (gather-sum launches, fold launches)}."""
+    Returns {part: gather-sum launches}."""
     from marius_tpu_torch.data.graph import build_device_graph
     from marius_tpu_torch.ops.cuda import nbr_sum as ns
     from marius_tpu_torch.train.nc import NodeClassificationEvaluator, NodeClassificationTrainer
@@ -447,18 +489,18 @@ def train_nc(card: str, adj, data) -> dict:
     graph = build_device_graph(edges, ARXIV_NODES)
     model = nc_model(ARXIV_FEATS, (NC_DIM, NC_DIM, ARXIV_CLASSES))
     epochs = 3   # one warm-up, two timed
-    # every call on the arxiv adjacency launches the fold too: it has hub rows
+    # every call on the arxiv adjacency folds hub pieces on-chip
     if max(b.shape[1] for b in adj.nbrs) <= ns.MAX_CAP:
         raise AssertionError("the arxiv-shaped adjacency must have hub rows")
     counts = {}
 
     def part(name, expected, fn):
-        ns.launches = ns.fold_launches = 0
+        ns.launches = 0
         out = fn()
-        counts[name] = (ns.launches, ns.fold_launches)
-        if counts[name] != (expected, expected):
-            raise AssertionError(f"nc {name}: gather-sum and fold launched {counts[name]} "
-                                 f"times, expected {expected} each")
+        counts[name] = ns.launches
+        if counts[name] != expected:
+            raise AssertionError(f"nc {name}: gather-sum launched {counts[name]} times, "
+                                 f"expected {expected}")
         return out
 
     def build(**kwargs):
@@ -505,7 +547,7 @@ def train_nc(card: str, adj, data) -> dict:
         raise AssertionError(f"evaluation is not above chance over the eval nodes: {res}")
     print(f"nc general evaluation: accuracy {res['accuracy']:.6f} over "
           f"{int(res['num_evaluated'])} non-train nodes (chance {1 / ARXIV_CLASSES})", flush=True)
-    print("nc launches (gather-sum kernel, fold kernel) per part: " + ", ".join(
+    print("nc gather-sum launches per part: " + ", ".join(
         f"{k} {v}" for k, v in counts.items()) + f"; {general.num_batches} batches per epoch",
         flush=True)
     return counts
@@ -602,15 +644,12 @@ def main() -> int:
     nc_counts = train_nc(card, adj, nc)
     compare_nc_with_cpu()
 
-    # the gather-sum row: launches of both of its kernels on the NC path,
-    # with each kernel's count and each part's beside them
-    launches["gather_sum"] = sum(a + b for a, b in nc_counts.values())
+    # the gather-sum row: its launches on the NC path, each part's beside them
+    launches["gather_sum"] = sum(nc_counts.values())
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if k["name"] == "gather_sum":
-            k["launches_gather_sum_kernel"] = sum(a for a, _ in nc_counts.values())
-            k["launches_fold_kernel"] = sum(b for _, b in nc_counts.values())
-            k["launches_by_part"] = {name: list(v) for name, v in nc_counts.items()}
+            k["launches_by_part"] = nc_counts
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -2,9 +2,11 @@
 accumulation, ids outside [0, N) adding zero.
 
 Port of the TPU kernel ``marius_tpu/ops/pallas/nbr_sum.py:gather_sum_pallas``
-as a CUDA C++ kernel (``marius_tpu_torch/csrc/nbr_sum.cu``: one warp per
-task, slots added in order, hub rows split into 256-slot pieces and folded
-in piece order by a second small pass; see the source for the design).
+as a CUDA C++ kernel (``marius_tpu_torch/csrc/nbr_sum.cu``: 128-byte column
+slabs run slab-major so that one slab of x stays in L2, four tasks per warp
+with their slots added in order, hub rows split into 256-slot pieces that
+are tasks like any other and that the group bringing a hub's last piece
+folds in piece order; one launch; see the source for the design).
 
 One call covers every degree bucket of an adjacency. A
 :class:`GatherSumLayout` lists the work: the bucket-major flat ids, and per
@@ -38,9 +40,6 @@ MAX_CAP = 256
 #: Launches of the gather-sum kernel (``gather_sum_kernel``) since the last
 #: reset: one per call.
 launches = 0
-#: Launches of its fold kernel (``fold_kernel``) since the last reset: one
-#: per call whose layout splits a hub row.
-fold_launches = 0
 
 _ENTRY = {torch.float32: "marius_gather_sum_f32", torch.bfloat16: "marius_gather_sum_bf16"}
 
@@ -49,17 +48,23 @@ Tensor = torch.Tensor
 
 @dataclasses.dataclass(frozen=True)
 class GatherSumLayout:
-    """The work of one gather-sum call, on one device."""
+    """The work of one gather-sum call, on one device.
+
+    The pieces of split rows are the first ``num_partials`` tasks, and piece
+    task ``p`` is partial row ``p``: split row ``h``'s pieces are the
+    ``fold_count[h]`` consecutive tasks from ``fold_first[h]``, in slot
+    order. The kernel reads a split row's pieces from there; the plain
+    version reads only ``task_dest``."""
 
     ids: Tensor          # (S,) int32 bucket-major slot ids
     task_start: Tensor   # (T,) int64 first slot of each task
     task_len: Tensor     # (T,) int32 slots of each task (<= MAX_CAP where split)
-    task_dest: Tensor    # (T,) int32 output row if >= 0, else scratch row -dest - 1
-    fold_first: Tensor   # (H,) int32 first scratch row of each split row
+    task_dest: Tensor    # (T,) int32 output row if >= 0, else partial row -dest - 1
+    fold_first: Tensor   # (H,) int32 first partial row (= task) of each split row
     fold_count: Tensor   # (H,) int32 its pieces
     fold_dest: Tensor    # (H,) int32 its output row
     num_out: int         # output rows
-    num_partials: int    # scratch rows
+    num_partials: int    # partial rows: the split rows' pieces
 
 
 def bucket_layout(buckets: Sequence[Tensor], out_rows: Tensor, num_out: int) -> GatherSumLayout:
@@ -70,7 +75,8 @@ def bucket_layout(buckets: Sequence[Tensor], out_rows: Tensor, num_out: int) -> 
     if int(out_rows.numel()) != num_out or sum(int(b.shape[0]) for b in buckets) != num_out:
         raise ValueError("the buckets' rows and out_rows must cover the output rows once each")
     i32, i64 = torch.int32, torch.int64
-    starts, lens, dests, f_first, f_count, f_dest = [], [], [], [], [], []
+    starts, lens, dests = [], [], []                         # unsplit rows
+    p_starts, p_lens, f_first, f_count, f_dest = [], [], [], [], []   # split rows
     slot0 = row0 = parts = 0
     for b in buckets:
         n, cap = int(b.shape[0]), int(b.shape[1])
@@ -83,9 +89,8 @@ def bucket_layout(buckets: Sequence[Tensor], out_rows: Tensor, num_out: int) -> 
         else:
             k = -(-cap // MAX_CAP)
             piece = torch.arange(k, dtype=i64, device=dev) * MAX_CAP
-            starts.append((row_start[:, None] + piece).reshape(-1))
-            lens.append((cap - piece).clamp(max=MAX_CAP).to(i32).repeat(n))
-            dests.append(-(parts + torch.arange(n * k, dtype=i32, device=dev)) - 1)
+            p_starts.append((row_start[:, None] + piece).reshape(-1))
+            p_lens.append((cap - piece).clamp(max=MAX_CAP).to(i32).repeat(n))
             f_first.append(parts + torch.arange(n, dtype=i32, device=dev) * k)
             f_count.append(torch.full((n,), k, dtype=i32, device=dev))
             f_dest.append(rows)
@@ -97,10 +102,14 @@ def bucket_layout(buckets: Sequence[Tensor], out_rows: Tensor, num_out: int) -> 
         return torch.cat(parts_) if parts_ else torch.zeros(0, dtype=dtype, device=dev)
 
     ids = cat([b.reshape(-1).to(device=dev, dtype=i32) for b in buckets], i32)
-    return GatherSumLayout(ids=ids, task_start=cat(starts, i64), task_len=cat(lens, i32),
-                           task_dest=cat(dests, i32), fold_first=cat(f_first, i32),
-                           fold_count=cat(f_count, i32), fold_dest=cat(f_dest, i32),
-                           num_out=int(num_out), num_partials=int(parts))
+    # the pieces first: piece task p writes partial row p
+    piece_dest = -torch.arange(parts, dtype=i32, device=dev) - 1
+    return GatherSumLayout(ids=ids, task_start=cat(p_starts + starts, i64),
+                           task_len=cat(p_lens + lens, i32),
+                           task_dest=cat([piece_dest] + dests, i32),
+                           fold_first=cat(f_first, i32), fold_count=cat(f_count, i32),
+                           fold_dest=cat(f_dest, i32), num_out=int(num_out),
+                           num_partials=int(parts))
 
 
 def nbr_sum_plain(x: Tensor, layout: GatherSumLayout) -> Tensor:
@@ -139,7 +148,7 @@ def _kernel(dtype: torch.dtype):
     fn = getattr(build.library("nbr_sum"), _ENTRY[dtype])
     if fn.argtypes is None:
         p, i64 = ctypes.c_void_p, ctypes.c_int64
-        fn.argtypes = [p, i64, i64, p, p, p, p, i64, p, p, p, i64, p, p, p]
+        fn.argtypes = [p, i64, i64, p, p, p, p, i64, i64, p, p, p, i64, p, p, p, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -152,7 +161,8 @@ def _check_layout(layout: GatherSumLayout, dev: torch.device) -> None:
         check_cuda_tensor(f"layout.{name}", getattr(layout, name), (dtype,), dev)
     t, h = layout.task_start.shape[0], layout.fold_first.shape[0]
     if layout.task_len.shape[0] != t or layout.task_dest.shape[0] != t or \
-            layout.fold_count.shape[0] != h or layout.fold_dest.shape[0] != h:
+            layout.fold_count.shape[0] != h or layout.fold_dest.shape[0] != h or \
+            not 0 <= layout.num_partials <= t:
         raise ValueError("layout arrays disagree in length")
 
 
@@ -161,7 +171,7 @@ def nbr_sum(x: Tensor, layout: GatherSumLayout) -> Tensor:
     layout's slots."""
     if x.device.type == "cpu":
         return nbr_sum_plain(x, layout)
-    global launches, fold_launches
+    global launches
     check_cuda_tensor("x", x, tuple(_ENTRY))
     if x.dim() != 2:
         raise ValueError(f"expected a 2-D x, got {tuple(x.shape)}")
@@ -170,21 +180,23 @@ def nbr_sum(x: Tensor, layout: GatherSumLayout) -> Tensor:
     out = torch.empty((layout.num_out, d), dtype=torch.float32, device=x.device)
     if layout.num_out == 0 or d == 0:
         return out
+    hubs = layout.fold_first.shape[0]
+    # the hub pieces' sums, and per hub and 128-byte column slab the pieces summed so far
+    slabs = -(-d // (128 // x.element_size()))
     partial = torch.empty((max(layout.num_partials, 1), d), dtype=torch.float32,
                           device=x.device)
+    arrivals = torch.empty((max(hubs, 1), slabs), dtype=torch.int32, device=x.device)
     fn = _kernel(x.dtype)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(x.data_ptr(), n, d, layout.ids.data_ptr(), layout.task_start.data_ptr(),
                 layout.task_len.data_ptr(), layout.task_dest.data_ptr(),
-                layout.task_start.shape[0], layout.fold_first.data_ptr(),
-                layout.fold_count.data_ptr(), layout.fold_dest.data_ptr(),
-                layout.fold_first.shape[0], out.data_ptr(), partial.data_ptr(), stream)
+                layout.task_start.shape[0], layout.num_partials, layout.fold_first.data_ptr(),
+                layout.fold_count.data_ptr(), layout.fold_dest.data_ptr(), hubs,
+                out.data_ptr(), partial.data_ptr(), arrivals.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"gather-sum kernel launch failed: CUDA error {rc}")
     launches += 1
-    if layout.fold_first.shape[0]:
-        fold_launches += 1
     return out
 
 

@@ -11,19 +11,60 @@ warm-up epoch, then times one ``train_epoch`` on the host clock and the next
 under ``torch.profiler`` (profile_torch_lp.profile_batches): host and device
 time per batch, the device's busy share, device operations per batch, the
 kernels that take the most device time and the gather-sum kernel's share.
-The last line is one JSON object with both breakdowns.
+It then times one whole neighbour sum at arxiv shape (d=128 f32, all 40
+buckets) and its parts: the hub rows' buckets (rows wider than 256 slots)
+alone, the other buckets alone, the other buckets with their ids folded
+into 4,096 rows (a 0.5 MB slab that L2 holds whatever the order, so every
+slot read is a hit: the kernel's own rate), and the whole sum at d=32 (one
+column slab, rows contiguous in x). The last line is one JSON object with
+both breakdowns and the gather-sum's parts.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import sys
 
 import torch
 
 from chip_smoke import (ARXIV_CLASSES, ARXIV_FEATS, ARXIV_NODES, ARXIV_TRAIN, BATCH, NC_DIM,
-                        arxiv_edges, card_name, nc_data, nc_model)
+                        arxiv_edges, card_name, nc_data, nc_model, time_ms)
 from profile_torch_lp import profile_batches
+
+
+def gather_sum_parts(adj, card: str) -> dict:
+    """Median µs of the gather-sum kernel over the whole arxiv-shaped sum and
+    its parts (see the module docstring), with the real slots' row-read
+    bytes over each time."""
+    from marius_tpu_torch.data.full_graph import nbr_sum_layout
+    from marius_tpu_torch.ops.cuda import nbr_sum as ns
+
+    dev = adj.inv_pos.device
+
+    def part(buckets):   # a layout of some buckets alone, rows in bucket order
+        rows = sum(int(b.shape[0]) for b in buckets)
+        return ns.bucket_layout(buckets, torch.arange(rows, device=dev), rows)
+
+    hubs = part([b for b in adj.nbrs if b.shape[1] > ns.MAX_CAP])
+    rest = part([b for b in adj.nbrs if b.shape[1] <= ns.MAX_CAP])
+    ids = rest.ids
+    layouts = {"whole": nbr_sum_layout(adj), "hub rows alone": hubs, "other rows alone": rest,
+               "other rows, ids in 4,096 rows": dataclasses.replace(
+                   rest, ids=torch.where(ids < ARXIV_NODES, ids % 4096, ids))}
+    x = torch.randn(ARXIV_NODES, NC_DIM, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+    x32 = x[:, :32].contiguous()
+    result = {"card": card}
+    for name, (lay, xs) in {**{k: (v, x) for k, v in layouts.items()},
+                            "whole, d=32": (layouts["whole"], x32)}.items():
+        us = time_ms(lambda: ns.nbr_sum(xs, lay)) * 1e3
+        real = int(((lay.ids >= 0) & (lay.ids < ARXIV_NODES)).sum())
+        rate = real * xs.shape[1] * 4 / us / 1e6   # TB/s of one row read per real slot
+        result[name] = {"us": us, "real_slots": real, "slot_read_tb_s": rate}
+        print(f"gather-sum, {name}: {us:.2f} us, {real} real slots, slot reads at "
+              f"{rate:.3f} TB/s  [{card}]", flush=True)
+    return result
 
 
 def main() -> int:
@@ -52,7 +93,8 @@ def main() -> int:
         results.append(profile_batches(lambda: trainer.train_epoch()["epoch_time_s"],
                                        trainer.num_batches, card, tag=f"nc {tag}: "))
         del trainer
-    print(json.dumps(results), flush=True)
+    parts = gather_sum_parts(adj.to("cuda"), card)
+    print(json.dumps({"breakdowns": results, "gather_sum_parts": parts}), flush=True)
     return 0
 
 

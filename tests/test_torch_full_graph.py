@@ -126,9 +126,9 @@ def test_gather_sum_plain_matches_pallas_interpret(n, cap):
     ids = rng.integers(0, rows + 1, (n, cap)).astype(np.int32)   # rows = padding id
     x_pad = np.concatenate([x, np.zeros((1, d), np.float32)])
     ref = gather_sum_pallas(jnp.asarray(x_pad), jnp.asarray(ids), interpret=True)
-    before = (tns.launches, tns.fold_launches)
+    before = tns.launches
     out = tns.gather_sum(torch.from_numpy(x), torch.from_numpy(ids))
-    assert (tns.launches, tns.fold_launches) == before   # CPU tensors never launch
+    assert tns.launches == before   # CPU tensors never launch
     assert out.dtype == torch.float32 and out.shape == (n, d)
     atol = ATOL * max(1.0, cap / 64)
     _close(out, ref, atol=atol)
@@ -164,6 +164,65 @@ def test_layout_splits_hub_rows_and_writes_each_row_once(graph):
     np.add.at(ref, edges[:, 1], x[edges[:, 0]])
     np.add.at(ref, edges[:, 0], x[edges[:, 1]])
     _close(tns.nbr_sum_plain(torch.from_numpy(x), layout), ref)
+
+
+def _mixed_buckets(tadj):
+    """The test graph's buckets, then an empty bucket and two all-padding
+    buckets (one of them split)."""
+    pad = lambda rows, cap: torch.full((rows, cap), N, dtype=torch.int32)
+    return list(tadj.nbrs) + [torch.zeros((0, 5), dtype=torch.int32), pad(3, 4), pad(2, 600)]
+
+
+def test_layout_lists_pieces_first_and_covers_each_slot_once(graph):
+    """What the kernel relies on: the split rows' pieces are the first tasks
+    (piece task p is partial row p), each split row's pieces are consecutive
+    256-slot runs of its slots in order, and the tasks cover every slot
+    exactly once."""
+    _, _, tadj = graph
+    buckets = _mixed_buckets(tadj)
+    rows = sum(b.shape[0] for b in buckets)
+    layout = tns.bucket_layout(buckets, torch.from_numpy(
+        np.random.default_rng(9).permutation(rows)), rows)
+    p = layout.num_partials
+    start, length = layout.task_start.numpy(), layout.task_len.numpy()
+    dest = layout.task_dest.numpy()
+    np.testing.assert_array_equal(dest[:p], -np.arange(p) - 1)
+    assert (dest[p:] >= 0).all() and (length >= 1).all() and (length <= tns.MAX_CAP).all()
+    count, first = layout.fold_count.numpy(), layout.fold_first.numpy()
+    assert count.sum() == p and len(count) == 1 + 2   # the graph's hub, 2 all-padding rows
+    np.testing.assert_array_equal(first, np.cumsum(count) - count)
+    for f, c in zip(first, count):
+        np.testing.assert_array_equal(start[f:f + c], start[f] + tns.MAX_CAP * np.arange(c))
+        assert (length[f:f + c - 1] == tns.MAX_CAP).all()
+    covered = np.zeros(layout.ids.numel(), np.int64)
+    for s, n in zip(start, length):
+        covered[s:s + n] += 1
+    assert (covered == 1).all()
+    out_rows = np.concatenate([dest[p:], layout.fold_dest.numpy()])
+    np.testing.assert_array_equal(np.sort(out_rows), np.arange(rows))
+
+
+def test_nbr_sum_plain_on_layout_matches_pallas_interpret(graph):
+    """One layout over several buckets (the hub among them, an empty and two
+    all-padding ones), rows written in a shuffled order, against the Pallas
+    kernel run per bucket in interpret mode."""
+    _, _, tadj = graph
+    buckets = [b for b in tadj.nbrs if b.shape[1] in (1, 8, 117, 367)] + \
+        _mixed_buckets(tadj)[-3:]
+    assert len(buckets) == 7
+    sizes = [b.shape[0] for b in buckets]
+    out_rows = np.random.default_rng(10).permutation(sum(sizes))
+    layout = tns.bucket_layout(buckets, torch.from_numpy(out_rows), sum(sizes))
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((N, 128)).astype(np.float32)   # the Pallas kernel needs d % 128 == 0
+    x_pad = jnp.asarray(np.concatenate([x, np.zeros((1, 128), np.float32)]))
+    ref = np.zeros((sum(sizes), 128), np.float32)
+    ref[out_rows] = np.concatenate([np.asarray(gather_sum_pallas(x_pad, jnp.asarray(b.numpy()),
+                                                                 interpret=True))
+                                    if b.shape[0] else np.zeros((0, 128), np.float32)
+                                    for b in buckets])
+    _close(tns.nbr_sum_plain(torch.from_numpy(x), layout), ref,
+           atol=ATOL * max(b.shape[1] for b in buckets) / 64)
 
 
 @pytest.mark.parametrize("sorted_space", [False, True], ids=["original", "sorted"])

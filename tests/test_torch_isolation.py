@@ -71,11 +71,11 @@ def test_nc_trainer_without_device_needs_cuda(monkeypatch):
     kw = dict(batch_size=2, full_graph=build_full_graph_adjacency(edges, 5))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         NodeClassificationTrainer(*args, **kw)
-    before = (nbr_sum.launches, nbr_sum.fold_launches)
+    before = nbr_sum.launches
     trainer = NodeClassificationTrainer(*args, device="cpu", **kw)
     assert trainer.device.type == "cpu" and trainer._fg_seed_restrict
     assert np.isfinite(trainer.train_epoch()["loss"])
     res = NodeClassificationEvaluator(trainer, np.array([3, 4])).evaluate(trainer.state)
     assert res["num_evaluated"] == 2.0 and 0.0 <= res["accuracy"] <= 1.0
     # the CPU path runs the plain version
-    assert (nbr_sum.launches, nbr_sum.fold_launches) == before
+    assert nbr_sum.launches == before

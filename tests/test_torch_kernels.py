@@ -195,25 +195,50 @@ def test_cuda_wrappers_reject_bad_inputs(cuda_device):
         tgather.gather_rows(table, torch.zeros(3, dtype=torch.long))
 
 
-# caps from one slot to a 13k-slot hub (split into 256-slot pieces and folded)
-SUM_SHAPES = [(1000, 1), (777, 3), (300, 40), (20, 700), (2, 13161)]
+# caps from one slot to a 13k-slot hub (split into 256-slot pieces and folded
+# on-chip), with the split's edges: 256 slots (one task), 257 and 512 (two pieces)
+SUM_SHAPES = [(1000, 1), (777, 3), (300, 40), (5, 256), (4, 257), (3, 512), (20, 700),
+              (2, 13161)]
+# the neighbour sum's widths (1, 33, 128, 129, 259, 519) and the edges of the
+# kernel's 128-byte column slabs: 32 f32 or 64 bf16 columns, 16-byte loads
+# where d % 4 (f32) or d % 8 (bf16) is 0
+SUM_DIMS = [1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 128, 129, 259, 519]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [1, 33, 128, 129, 259, 519])
+@pytest.mark.parametrize("d", SUM_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_gather_sum_matches_plain(cuda_device, d, dtype):
     g = torch.Generator(device=cuda_device).manual_seed(d)
     x = torch.randn(5000, d, device=cuda_device, generator=g).to(dtype)
+    # the same values one element past a 16-byte boundary: the one-element loads
+    x_off = torch.empty(5000 * d + 1, device=cuda_device, dtype=dtype)[1:].view(5000, d)
+    x_off.copy_(x)
+    buckets = []
     for rows, cap in SUM_SHAPES:
         ids = torch.randint(0, 5001, (rows, cap), device=cuda_device, generator=g,
                             dtype=torch.int32)   # 5000 = padding id
-        before, folds = tns.launches, tns.fold_launches
-        out = tns.gather_sum(x, ids)
-        torch.cuda.synchronize()
-        assert tns.launches == before + 1 and out.dtype == torch.float32
-        assert tns.fold_launches == folds + (cap > tns.MAX_CAP)   # hubs need the fold
-        assert torch.equal(out, tns.gather_sum_plain(x, ids))
+        buckets.append(ids)
+        for xs in (x, x_off):
+            before = tns.launches
+            out = tns.gather_sum(xs, ids)
+            torch.cuda.synchronize()
+            assert tns.launches == before + 1 and out.dtype == torch.float32
+            assert torch.equal(out, tns.gather_sum_plain(x, ids))
+    # one call over several buckets: empty buckets and rows that are all padding
+    pad = lambda rows, cap: torch.full((rows, cap), 5000, dtype=torch.int32, device=cuda_device)
+    empty = lambda cap: torch.zeros((0, cap), dtype=torch.int32, device=cuda_device)
+    mixed = [buckets[1], empty(9), pad(7, 5), buckets[4], pad(6, 300), buckets[-1], empty(400)]
+    sizes = [b.shape[0] for b in mixed]
+    out_rows = torch.randperm(sum(sizes), device=cuda_device, generator=g)
+    layout = tns.bucket_layout(mixed, out_rows, sum(sizes))
+    out = tns.nbr_sum(x, layout)
+    torch.cuda.synchronize()
+    assert torch.equal(out, tns.nbr_sum_plain(x, layout))
+    first = np.cumsum([0] + sizes)
+    for k in (2, 4):   # the all-padding buckets sum to +0.0
+        assert torch.equal(out[out_rows[first[k]:first[k + 1]]],
+                           torch.zeros(sizes[k], d, device=cuda_device))
 
 
 @pytest.mark.cuda
