@@ -6,7 +6,9 @@
 Builds the port's CUDA kernels from ``marius_tpu_torch/csrc`` with nvcc (one
 process per source, in parallel), holds each against its plain PyTorch
 version on the card (main-path shapes and odd shapes, bit for bit), times each
-(kernel, plain version, one-call PyTorch equivalent, bound), then drives the
+(kernel, plain version, one-call PyTorch equivalent, bound; the row gather
+also at the out-of-core batch, 30,000 distinct ids into a 17.2 GB partition
+buffer, and at K = 1, the launch floor), then drives the
 port's two main paths through their public entry points, each with the
 launch counters set to 0 just before it and read just after:
 
@@ -33,6 +35,7 @@ result. It imports nothing of JAX or marius_tpu.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import subprocess
@@ -48,6 +51,16 @@ NUM_NODES, NUM_RELS, NUM_EDGES, DIM, BATCH = 14_541, 237, 272_115, 50, 1000
 CHUNKS, NEGATIVES = 10, 500
 GATHER_IDS = 2 * BATCH + 2 * CHUNKS * NEGATIVES   # ids per batch on the dense branch
 ODD_DIMS = (1, 33, 50, 128, 257)
+# the row gather's widths: 4-, 8- and 16-byte vectors, d = 100 (the out-of-core width)
+GATHER_DIMS = (1, 2, 3, 5, 33, 50, 100, 128, 257)
+# the out-of-core batch: Freebase86m's resident partition buffer, 8 of 16 partitions of
+# 86,054,151 nodes at d = 100 (examples/configuration/freebase86m_comet.yaml), and that
+# config's one batch on the dedup branch, 2 x 10,000 + 2 x 10 x 500 ids made distinct
+FB86M_NODES, FB86M_PARTITIONS, FB86M_BUFFER, FB86M_DIM = 86_054_151, 16, 8, 100
+OOC_ROWS = FB86M_BUFFER * -(-FB86M_NODES // FB86M_PARTITIONS)   # 43,027,080 rows, 17.2 GB
+OOC_IDS = 2 * 10_000 + 2 * 10 * 500
+# batches cycled while timing it: 16 x 24 MB between two uses of one, far above L2's 50 MB
+OOC_BATCHES = 16
 # ogbn-arxiv shape (bench_nc_full.py:29-37) and its model (examples/configuration/ogbn_arxiv.yaml)
 ARXIV_NODES, ARXIV_EDGES, ARXIV_FEATS, ARXIV_CLASSES = 169_343, 1_166_243, 128, 40
 ARXIV_TRAIN, ARXIV_HUB = 90_941, 13_161
@@ -100,35 +113,101 @@ def time_ms(fn, reps: int = 50, samples: int = 7) -> float:
     return float(np.median(out))
 
 
-def check_gather(gather, dev, rates):
-    g = torch.Generator(device=dev).manual_seed(1)
-    err = 0.0
-    for d in ODD_DIMS:
-        n, k = 1009, 4099
-        table = torch.randn(n, d, device=dev, generator=g)
-        ids = torch.randint(0, n + 1, (k,), device=dev, generator=g)   # n = padding id
-        for idt in (torch.int64, torch.int32):
-            out = gather.gather_rows(table, ids.to(idt))
-            ref = gather.gather_rows_plain(table, ids.to(idt))
-            torch.cuda.synchronize()
-            if not torch.equal(out, ref):
-                raise AssertionError(f"gather_rows differs from plain at d={d} ({idt})")
-    table = torch.randn(NUM_NODES, DIM, device=dev, generator=g)
-    ids = torch.randint(0, NUM_NODES, (GATHER_IDS,), device=dev, generator=g)
-    out = gather.gather_rows(table, ids)
-    err = max(err, float((out - gather.gather_rows_plain(table, ids)).abs().max()))
-    if err != 0.0:
-        raise AssertionError(f"gather_rows differs from plain by {err}")
-    rows = int(torch.unique(ids).numel())
-    nbytes = rows * DIM * 4 + GATHER_IDS * 8 + GATHER_IDS * DIM * 4
+def gather_max_err(gather, table, ids) -> float:
+    """Max |kernel - plain version|; raises unless they agree bit for bit."""
+    out, ref = gather.gather_rows(table, ids), gather.gather_rows_plain(table, ids)
+    torch.cuda.synchronize()
+    if out.shape != ref.shape or not torch.equal(out, ref):
+        raise AssertionError(f"gather_rows differs from plain (table {tuple(table.shape)} at "
+                             f"{table.storage_offset()} elements into its storage, "
+                             f"{ids.shape[0]} {ids.dtype} ids)")
+    return float((out - ref).abs().max())
+
+
+def time_gather(gather, table, batches, rates) -> dict:
+    """Kernel, plain version, index_select (on clamped ids, which it needs) and
+    bound at one shape; the timed calls cycle through ``batches`` of ids."""
+    def cycled(fn, ids_list):
+        it = itertools.cycle(ids_list)
+        return lambda: fn(table, next(it))
+
+    n, d = table.shape
+    clamped = [ids.clamp(0, n - 1) for ids in batches]
+    rows = [int(torch.unique(c).numel()) for c in clamped]
+    k = batches[0].shape[0]
+    # each distinct row read once, the ids read once, K rows written
+    nbytes = float(np.mean(rows)) * d * 4 + k * batches[0].element_size() + k * d * 4
     b_ms, b_by = bound_ms(nbytes, 0.0, rates)
     return {
-        "name": "gather_rows", "route": "cuda", "source": "marius_tpu_torch/csrc/gather.cu",
-        "replaces": "marius_tpu/ops/pallas/gather.py:61", "max_abs_err": err,
-        "ms": time_ms(lambda: gather.gather_rows(table, ids)),
-        "plain_ms": time_ms(lambda: gather.gather_rows_plain(table, ids)),
+        "ms": time_ms(cycled(gather.gather_rows, batches)),
+        "plain_ms": time_ms(cycled(gather.gather_rows_plain, batches)),
         "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": time_ms(lambda: torch.index_select(table, 0, ids)),
+        "library_ms": time_ms(cycled(lambda t, i: torch.index_select(t, 0, i), clamped)),
+        "k": k, "d": d, "distinct_rows": float(np.mean(rows)), "bound_bytes": nbytes,
+    }
+
+
+def gather_shapes(gather, dev, rates) -> dict:
+    """The row gather timed, and checked bit for bit, at three shapes:
+    the flagship batch (K = 12,000 int64 ids into the 14,541 x 50 table,
+    L2-resident), the out-of-core batch (30,000 sorted distinct ids padded
+    with N into the 43,027,080 x 100 partition buffer, cycling through 16
+    batches so rows come from HBM) and the launch floor (K = 1, flagship
+    table)."""
+    from marius_tpu_torch.ops.unique import unique_padded
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    table = torch.randn(NUM_NODES, DIM, device=dev, generator=g)
+    ids = torch.randint(0, NUM_NODES, (GATHER_IDS,), device=dev, generator=g)
+    err = max(gather_max_err(gather, table, ids), gather_max_err(gather, table, ids[:1]))
+    shapes = {"flagship": time_gather(gather, table, [ids], rates),
+              "k1_floor": time_gather(gather, table, [ids[:1]], rates)}
+    del table, ids
+    big = torch.empty((OOC_ROWS, FB86M_DIM), device=dev).normal_(generator=g)
+    batches = [unique_padded(torch.randint(0, OOC_ROWS, (OOC_IDS,), device=dev, generator=g),
+                             OOC_IDS, OOC_ROWS).ids for _ in range(OOC_BATCHES)]
+    for idt in (torch.int64, torch.int32):
+        err = max(err, gather_max_err(gather, big, batches[0].to(idt)))
+    shapes["out_of_core"] = time_gather(gather, big, batches, rates)
+    del big, batches
+    torch.cuda.empty_cache()
+    shapes["max_abs_err"] = err
+    return shapes
+
+
+def print_gather_shapes(shapes: dict, card: str) -> None:
+    for name in [n for n in ("flagship", "out_of_core", "k1_floor") if n in shapes]:
+        s = shapes[name]
+        print(f"gather_rows, {name} (K={s['k']}, d={s['d']}, {s['distinct_rows']:.1f} distinct "
+              f"rows, {s['bound_bytes'] / 1e6:.4f} MB): kernel {s['ms'] * 1e3:.2f} us  plain "
+              f"{s['plain_ms'] * 1e3:.2f} us  index_select {s['library_ms'] * 1e3:.2f} us  bound "
+              f"{s['bound_ms'] * 1e3:.2f} us ({s['bound_by']})  [{card}]", flush=True)
+
+
+def check_gather(gather, dev, rates):
+    """Bit for bit against the plain version at every vector width, at tables
+    that are views 4 and 8 bytes into their storage, at K = 1, 33 and 4,099,
+    with both id types and ids below 0 and at or above N; then timed at the
+    flagship, out-of-core and K = 1 shapes."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    n = 1009
+    for d in GATHER_DIMS:
+        base = torch.randn(n * d + 2, device=dev, generator=g)
+        ids = torch.randint(-3, n + 3, (4099,), device=dev, generator=g)   # n: padding id
+        for off in (0, 1, 2):
+            table = base[off:off + n * d].view(n, d)
+            for k in (1, 33, 4099):
+                for idt in (torch.int64, torch.int32):
+                    gather_max_err(gather, table, ids[:k].to(idt))
+    shapes = gather_shapes(gather, dev, rates)
+    flagship = shapes["flagship"]
+    return {
+        "name": "gather_rows", "route": "cuda", "source": "marius_tpu_torch/csrc/gather.cu",
+        "replaces": "marius_tpu/ops/pallas/gather.py:61", "max_abs_err": shapes["max_abs_err"],
+        "ms": flagship["ms"], "plain_ms": flagship["plain_ms"],
+        "bound_ms": flagship["bound_ms"], "bound_by": flagship["bound_by"],
+        "library_ms": flagship["library_ms"],
+        "out_of_core": shapes["out_of_core"], "k1_floor": shapes["k1_floor"],
     }
 
 
@@ -638,6 +717,7 @@ def main() -> int:
               f"version)  kernel {k['ms'] * 1e3:.2f} us  plain {k['plain_ms'] * 1e3:.2f} us  "
               f"library {lib}  bound {k['bound_ms'] * 1e3:.2f} us ({k['bound_by']})  [{card}]",
               flush=True)
+    print_gather_shapes(kernels[0], card)
 
     launches = train_flagship(card)
     compare_lp_with_cpu()

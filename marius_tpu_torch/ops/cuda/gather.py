@@ -1,9 +1,12 @@
 """Embedding-row gather: ``out[k] = table[clamp(ids[k], 0, N - 1)]``.
 
 Port of the TPU kernel ``marius_tpu/ops/pallas/gather.py:gather_rows_pallas``
-as a CUDA C++ kernel (``marius_tpu_torch/csrc/gather.cu``: one warp per row,
-coalesced columns, masked tail, any K and d). The kernel is bound by the
+as a CUDA C++ kernel (``marius_tpu_torch/csrc/gather.cu``): the output is cut
+into 16-, 8- or 4-byte vectors, each thread loads 16 bytes of rows before it
+stores any, and the grid is one wave of the card. The kernel is bound by the
 bytes it moves; see the source for the design.
+:func:`plan` makes the launch's choices on the host, from shapes, addresses
+and the card's size alone: no device operation and no synchronisation.
 
 On a CUDA tensor :func:`gather_rows` always launches the kernel, and a build
 or launch failure raises. On a CPU tensor it runs :func:`gather_rows_plain`,
@@ -14,6 +17,7 @@ kernel with.
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -24,6 +28,36 @@ launches = 0
 
 #: id dtypes the kernels take, by the suffix of their C entry points
 ID_DTYPES = {torch.int64: "i64", torch.int32: "i32"}
+
+#: threads per block and bytes each thread moves per tile (``kThreads`` and
+#: ``kThreadBytes`` in csrc/gather.cu)
+THREADS, THREAD_BYTES = 128, 16
+
+#: per device index: (SM count, blocks of the kernel one SM keeps resident)
+_config: Dict[int, Tuple[int, int]] = {}
+
+
+class GatherPlan(NamedTuple):
+    vec_bytes: int        # V: bytes per vector, 16, 8 or 4
+    unroll: int           # U: vectors per thread per tile
+    vectors_per_row: int  # 4d / V
+    grid: int             # blocks; at most one wave, 0 when there is nothing to copy
+
+
+def plan(d: int, table_ptr: int, out_ptr: int, k: int, sm_count: int,
+         resident_blocks: int) -> GatherPlan:
+    """The launch of a (K, d) f32 gather: V is the widest of 16, 8 and 4
+    bytes that divides the row's 4d bytes and both base addresses (a table
+    may be a view at an offset); U = 16 / V vectors per thread; the grid
+    covers the K x 4d / V vectors in tiles of THREADS x U, but never with
+    more blocks than the card holds at once (the kernel loops over the rest)."""
+    row_bytes = 4 * d
+    vec = next(v for v in (16, 8, 4)
+               if row_bytes % v == 0 and table_ptr % v == 0 and out_ptr % v == 0)
+    vpr = row_bytes // vec
+    unroll = THREAD_BYTES // vec
+    tiles = -(-k * vpr // (THREADS * unroll))
+    return GatherPlan(vec, unroll, vpr, min(tiles, sm_count * resident_blocks))
 
 
 def check_cuda_tensor(name: str, t: torch.Tensor, dtypes, device=None) -> None:
@@ -48,9 +82,31 @@ def _kernel(id_dtype: torch.dtype):
     fn = getattr(build.library("gather"), f"marius_gather_rows_f32_{ID_DTYPES[id_dtype]}")
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+                       ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def device_config(device: torch.device) -> Tuple[int, int]:
+    """(SM count, resident blocks per SM) of ``device``, read from the CUDA
+    runtime at the first call and cached."""
+    index = device.index
+    if index not in _config:
+        fn = build.library("gather").marius_gather_rows_config
+        fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
+        fn.restype = ctypes.c_int
+        threads, sms, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        with torch.cuda.device(index):
+            rc = fn(index, ctypes.byref(threads), ctypes.byref(sms), ctypes.byref(blocks))
+        if rc != 0:
+            raise RuntimeError(f"gather_rows: reading the device's size failed: CUDA error {rc}")
+        if threads.value != THREADS or blocks.value < 1:
+            raise RuntimeError(f"gather_rows: the kernel has {threads.value} threads per block "
+                               f"and {blocks.value} resident blocks per SM; expected "
+                               f"{THREADS} and at least 1")
+        _config[index] = (sms.value, blocks.value)
+    return _config[index]
 
 
 def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -72,9 +128,11 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     if k == 0 or d == 0:
         return out
     fn = _kernel(ids.dtype)
+    p = plan(d, table.data_ptr(), out.data_ptr(), k, *device_config(table.device))
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(table.data_ptr(), ids.data_ptr(), out.data_ptr(), n, k, d, stream)
+        rc = fn(table.data_ptr(), ids.data_ptr(), out.data_ptr(), n, k, d, p.vec_bytes,
+                p.unroll, p.grid, stream)
     if rc != 0:
         raise RuntimeError(f"gather_rows kernel launch failed: CUDA error {rc}")
     launches += 1

@@ -11,8 +11,11 @@ set. It prints the card, the host time per batch, the device time per batch,
 the device's busy share (device time over host time without the profiler; one
 stream, so kernels do not overlap), device operations per batch, the
 kernels that take the most device time and the port's own kernels'
-time and share. The last line is one JSON object
-with the same numbers; device numbers the profiler did not report are null.
+time and share. Then it times the row-gather kernel, its plain version and
+``index_select`` against the bound at the flagship batch, the out-of-core
+batch and K = 1 (``chip_smoke.gather_shapes``), after printing the kernel's
+registers and spills. The last line is one JSON object with the same
+numbers; device numbers the profiler did not report are null.
 ``profile_batches`` is shared with profile_torch_nc.py.
 """
 
@@ -26,11 +29,11 @@ from collections import defaultdict
 import torch
 
 from chip_smoke import (BATCH, CHUNKS, DIM, NEGATIVES, NUM_EDGES, NUM_NODES, NUM_RELS,
-                        card_name, lp_model, synthetic_edges)
+                        card_name, card_rates, gather_shapes, lp_model, print_gather_shapes,
+                        synthetic_edges)
 
 # the hand-written kernels (marius_tpu_torch/csrc) as the profiler names them
-PORT_KERNELS = ("::gather_rows_kernel<", "::adagrad_kernel<", "::gather_sum_kernel<",
-                "::fold_kernel(")
+PORT_KERNELS = ("::gather_rows_kernel<", "::adagrad_kernel<", "::gather_sum_kernel<")
 
 
 def run_batches(trainer, shuffled, masks) -> float:
@@ -101,10 +104,14 @@ def main() -> int:
         print("profile_torch_lp: no CUDA device", file=sys.stderr)
         return 1
     from marius_tpu_torch.data.samplers.negative import NegativeSamplingConfig
+    from marius_tpu_torch.ops.cuda import build, gather
     from marius_tpu_torch.train.trainer import LinkPredictionTrainer
 
     card = card_name()
     print(card, flush=True)
+    for line in build.build_all(["gather"])["gather"].splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  gather: {line.strip()}", flush=True)
     trainer = LinkPredictionTrainer(
         lp_model(NUM_RELS, DIM), NUM_NODES, NUM_RELS,
         synthetic_edges(0, NUM_NODES, NUM_RELS, NUM_EDGES),
@@ -115,7 +122,10 @@ def main() -> int:
     shuffled, masks = trainer.edges[perm], perm < trainer.num_edges
     result = profile_batches(lambda: run_batches(trainer, shuffled, masks),
                              trainer.num_batches, card)
-    print(json.dumps(result), flush=True)
+    del trainer, shuffled, masks
+    shapes = gather_shapes(gather, torch.device("cuda"), card_rates(torch.cuda.get_device_name(0)))
+    print_gather_shapes(shapes, card)
+    print(json.dumps({"lp": result, "gather_shapes": shapes}), flush=True)
     return 0
 
 

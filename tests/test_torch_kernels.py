@@ -141,6 +141,31 @@ def test_plain_dense_accum_matches_jax():
     np.testing.assert_array_equal(table.state.numpy()[rest], state[rest])
 
 
+PLAN_BASE = 0x7F3A_0000_0000   # a device address on a 512-byte boundary
+PLAN_SMS, PLAN_RESIDENT = 132, 16   # an H100: 132 SMs, 16 blocks of 128 threads each
+
+
+@pytest.mark.parametrize("k", [0, 1, 31, 33, 12000, 30000])
+@pytest.mark.parametrize("offset", [0, 4, 8])
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 5, 8, 50, 100, 128, 257])
+def test_gather_plan(d, offset, k):
+    """The gather's launch plan, made on the host: the widest vector that the
+    row and a table at ``offset`` bytes past a boundary allow, tiles of
+    THREADS x U vectors, at most one wave, no block without work."""
+    p = tgather.plan(d, PLAN_BASE + offset, PLAN_BASE + (1 << 30), k, PLAN_SMS, PLAN_RESIDENT)
+    row_vec = 16 if d % 4 == 0 else 8 if d % 2 == 0 else 4
+    assert p.vec_bytes == min(row_vec, {0: 16, 4: 4, 8: 8}[offset])
+    assert p.vectors_per_row * p.vec_bytes == 4 * d
+    assert p.unroll * p.vec_bytes == tgather.THREAD_BYTES
+    total, tile, wave = k * p.vectors_per_row, tgather.THREADS * p.unroll, PLAN_SMS * PLAN_RESIDENT
+    assert (p.grid == 0) == (k == 0)
+    assert 0 <= p.grid <= wave and p.grid * tile < 2 ** 32   # the kernel counts in 32 bits
+    assert (p.grid - 1) * tile < total or k == 0              # every block has work
+    assert p.grid * tile >= total or p.grid == wave           # one pass, or a full wave looping
+    if offset == 0 and (d, k) == (50, 12000):   # the flagship batch: one pass of one wave
+        assert p.vectors_per_row == 25 and p.grid * tile >= total
+
+
 def test_build_without_nvcc_raises(monkeypatch):
     import torch.utils.cpp_extension as cpp
 
@@ -152,16 +177,23 @@ def test_build_without_nvcc_raises(monkeypatch):
 
 # -- CUDA kernels against their plain versions (GPU only) ------------------
 
-SHAPES = [(14541, 50, 12000), (100, 1, 37), (1000, 33, 1001), (77, 257, 333), (500, 128, 2048)]
+SHAPES = [(14541, 50, 12000), (100, 1, 37), (1000, 33, 1001), (77, 257, 333), (500, 128, 2048),
+          (3000, 100, 4099), (3000, 50, 1), (3000, 100, 33)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,d,k", SHAPES)
 @pytest.mark.parametrize("id_dtype", [torch.int64, torch.int32])
-def test_cuda_gather_matches_plain(cuda_device, n, d, k, id_dtype):
+@pytest.mark.parametrize("offset", ["none", "row", "4 bytes", "8 bytes"])
+def test_cuda_gather_matches_plain(cuda_device, n, d, k, id_dtype, offset):
+    """Tables that are contiguous views into their storage (``big[1:]``, or
+    4 or 8 bytes past a boundary) take narrower vectors; ids below 0 and at or
+    above N read the end rows."""
     g = torch.Generator(device=cuda_device).manual_seed(n + d + k)
-    table = torch.randn(n, d, device=cuda_device, generator=g)
-    ids = torch.randint(0, n + 1, (k,), device=cuda_device, generator=g).to(id_dtype)
+    skip = {"none": 0, "row": d, "4 bytes": 1, "8 bytes": 2}[offset]
+    big = torch.randn(n * d + skip, device=cuda_device, generator=g)
+    table = big[skip:].view(n, d)
+    ids = torch.randint(-3, n + 3, (k,), device=cuda_device, generator=g).to(id_dtype)
     before = tgather.launches
     out = tgather.gather_rows(table, ids)
     torch.cuda.synchronize()
