@@ -9,8 +9,8 @@ version on the card (main-path shapes and odd shapes, bit for bit), times each
 (kernel, plain version, one-call PyTorch equivalent, bound; the row gather
 also at the out-of-core batch, 30,000 distinct ids into a 17.2 GB partition
 buffer, and at K = 1, the launch floor), then drives the
-port's two main paths through their public entry points, each with the
-launch counters set to 0 just before it and read just after:
+port's main paths through their public entry points, each with the launch
+counters set to 0 just before it and read just after:
 
 1. link prediction: FB15K-237-shaped DistMult (14,541 nodes, 237 relations,
    272,115 synthetic train edges, d=50, batch 1000, 10 chunks x 500
@@ -22,7 +22,23 @@ launch counters set to 0 just before it and read just after:
    1000): the default linear-collapse trainer (setup timed, one warm-up and
    two timed epochs), then the general seed-restricted trainer
    (fg_linear_collapse=False, one warm-up and two timed epochs, evaluation
-   on the non-train nodes), through the bucketed neighbour gather-sum.
+   on the non-train nodes), through the bucketed neighbour gather-sum;
+3. config-driven LP through the manager (``lp_manager``): a synthetic dataset of
+   FB15K-237's shape and split sizes (14,541 nodes, 237 relations, 272,115 /
+   17,535 / 20,466 uniform edges from seed 0) written with the port's
+   ``storage/dataset.py``, ``examples/configuration/fb15k_237.yaml`` loaded
+   by the port's ``load_config`` with only dataset_dir and model_dir
+   redirected and num_epochs cut from 10 to 3, ``marius_train`` (a filtered
+   valid evaluation after each epoch, the filtered test evaluation at the
+   end, the model saved), then ``marius_eval`` on the same config, which must
+   reload the checkpoint and reproduce the test metrics exactly. The row
+   gather is counted apart for training (one per batch) and evaluation (two
+   per batch: source and destination rows).
+
+Then ``lp_accuracy``: DistMult, ComplEx and TransE trained on the card on the
+realizable knowledge graphs of tests/test_accuracy_regression.py (copied
+here), whose filtered test MRR and Hits@10 must land in the JAX package's
+pinned bands.
 
 Small runs on the card are compared with the same runs on the CPU (plain
 versions, which tests/test_torch_*.py hold against the JAX package).
@@ -40,11 +56,13 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
+import yaml
 
 # FB15K-237 shape (bench.py:21-25) and the flagship config (bench.py:42-51)
 NUM_NODES, NUM_RELS, NUM_EDGES, DIM, BATCH = 14_541, 237, 272_115, 50, 1000
@@ -61,6 +79,8 @@ OOC_ROWS = FB86M_BUFFER * -(-FB86M_NODES // FB86M_PARTITIONS)   # 43,027,080 row
 OOC_IDS = 2 * 10_000 + 2 * 10 * 500
 # batches cycled while timing it: 16 x 24 MB between two uses of one, far above L2's 50 MB
 OOC_BATCHES = 16
+# FB15K-237's published split sizes, and the one cut of fb15k_237.yaml (10 epochs)
+FB_VALID, FB_TEST, LP_MANAGER_EPOCHS = 17_535, 20_466, 3
 # ogbn-arxiv shape (bench_nc_full.py:29-37) and its model (examples/configuration/ogbn_arxiv.yaml)
 ARXIV_NODES, ARXIV_EDGES, ARXIV_FEATS, ARXIV_CLASSES = 169_343, 1_166_243, 128, 40
 ARXIV_TRAIN, ARXIV_HUB = 90_941, 13_161
@@ -148,19 +168,28 @@ def time_gather(gather, table, batches, rates) -> dict:
 
 
 def gather_shapes(gather, dev, rates) -> dict:
-    """The row gather timed, and checked bit for bit, at three shapes:
+    """The row gather timed, and checked bit for bit, at four shapes:
     the flagship batch (K = 12,000 int64 ids into the 14,541 x 50 table,
-    L2-resident), the out-of-core batch (30,000 sorted distinct ids padded
-    with N into the 43,027,080 x 100 partition buffer, cycling through 16
-    batches so rows come from HBM) and the launch floor (K = 1, flagship
-    table)."""
+    L2-resident), the evaluation batch (the source column of 1,000 edges, made
+    contiguous, into the same table, as int64 as the evaluator holds it and as
+    int32), the out-of-core batch (30,000 sorted distinct ids padded with N
+    into the 43,027,080 x 100 partition buffer, cycling through 16 batches so
+    rows come from HBM) and the launch floor (K = 1, flagship table)."""
     from marius_tpu_torch.ops.unique import unique_padded
+    from marius_tpu_torch.train.trainer import pad_edges
 
     g = torch.Generator(device=dev).manual_seed(4)
     table = torch.randn(NUM_NODES, DIM, device=dev, generator=g)
     ids = torch.randint(0, NUM_NODES, (GATHER_IDS,), device=dev, generator=g)
     err = max(gather_max_err(gather, table, ids), gather_max_err(gather, table, ids[:1]))
+    eval_edges = torch.as_tensor(pad_edges(synthetic_edges(5, NUM_NODES, NUM_RELS, BATCH),
+                                           BATCH)[0], device=dev)
+    eval_ids = [eval_edges[:, col].contiguous() for col in (0, -1)]
+    for col in eval_ids:
+        for idt in (torch.int64, torch.int32):
+            err = max(err, gather_max_err(gather, table, col.to(idt)))
     shapes = {"flagship": time_gather(gather, table, [ids], rates),
+              "eval_batch": time_gather(gather, table, eval_ids, rates),
               "k1_floor": time_gather(gather, table, [ids[:1]], rates)}
     del table, ids
     big = torch.empty((OOC_ROWS, FB86M_DIM), device=dev).normal_(generator=g)
@@ -176,7 +205,8 @@ def gather_shapes(gather, dev, rates) -> dict:
 
 
 def print_gather_shapes(shapes: dict, card: str) -> None:
-    for name in [n for n in ("flagship", "out_of_core", "k1_floor") if n in shapes]:
+    for name in [n for n in ("flagship", "eval_batch", "out_of_core", "k1_floor")
+                 if n in shapes]:
         s = shapes[name]
         print(f"gather_rows, {name} (K={s['k']}, d={s['d']}, {s['distinct_rows']:.1f} distinct "
               f"rows, {s['bound_bytes'] / 1e6:.4f} MB): kernel {s['ms'] * 1e3:.2f} us  plain "
@@ -187,8 +217,8 @@ def print_gather_shapes(shapes: dict, card: str) -> None:
 def check_gather(gather, dev, rates):
     """Bit for bit against the plain version at every vector width, at tables
     that are views 4 and 8 bytes into their storage, at K = 1, 33 and 4,099,
-    with both id types and ids below 0 and at or above N; then timed at the
-    flagship, out-of-core and K = 1 shapes."""
+    with both id types and ids below 0 and at or above N; then checked and
+    timed at the flagship, evaluation, out-of-core and K = 1 shapes."""
     g = torch.Generator(device=dev).manual_seed(1)
     n = 1009
     for d in GATHER_DIMS:
@@ -207,7 +237,8 @@ def check_gather(gather, dev, rates):
         "ms": flagship["ms"], "plain_ms": flagship["plain_ms"],
         "bound_ms": flagship["bound_ms"], "bound_by": flagship["bound_by"],
         "library_ms": flagship["library_ms"],
-        "out_of_core": shapes["out_of_core"], "k1_floor": shapes["k1_floor"],
+        "eval_batch": shapes["eval_batch"], "out_of_core": shapes["out_of_core"],
+        "k1_floor": shapes["k1_floor"],
     }
 
 
@@ -275,7 +306,7 @@ def check_adagrad(adagrad, dev, rates):
     }
 
 
-def lp_model(num_rels: int, dim: int):
+def lp_model(num_rels: int, dim: int, decoder: str = "DISTMULT"):
     from marius_tpu_torch.nn.decoders.edge import EdgeDecoder
     from marius_tpu_torch.nn.encoder import EncoderConfig
     from marius_tpu_torch.nn.layers import LayerConfig
@@ -283,7 +314,7 @@ def lp_model(num_rels: int, dim: int):
 
     return Model(LINK_PREDICTION,
                  EncoderConfig(((LayerConfig(layer_type="EMBEDDING", output_dim=dim),),)),
-                 EdgeDecoder("DISTMULT", num_rels, dim))
+                 EdgeDecoder(decoder, num_rels, dim))
 
 
 def synthetic_edges(seed: int, num_nodes: int, num_rels: int, num_edges: int) -> np.ndarray:
@@ -376,6 +407,296 @@ def compare_lp_with_cpu():
             torch.testing.assert_close(b, a.detach(), rtol=1e-4, atol=1e-5)
     print(f"small LP run, card against CPU (both update branches, 2 epochs): "
           f"max abs difference {worst:.3g} (tolerance rtol 1e-4, atol 1e-5)", flush=True)
+
+
+def compare_eval_with_cpu():
+    """LP evaluation on the card against the CPU: ranks equal exactly. The
+    table and relations are multiples of 1/4 in [-2, 2] at d = 32, so every
+    score is exact in float32 in any order of addition and ties are common;
+    300 nodes in chunks of 128 (the last partial), 250 edges (and 3
+    repeated) in batches of 64 (the last partial), typed, inverse relations
+    on; DistMult and ComplEx; filtered through the true-candidate list and
+    through the per-chunk membership test, and sampled with the ALL local
+    filter on negatives injected into both."""
+    from marius_tpu_torch.convert import copy_train_state_
+    from marius_tpu_torch.data.samplers.negative import NegativeSamplingConfig
+    from marius_tpu_torch.train import evaluator as evaluator_mod
+    from marius_tpu_torch.train.trainer import LinkPredictionTrainer
+
+    n, r, d, e, b = 300, 5, 32, 1200, 64
+    rng = np.random.default_rng(9)
+    edges = synthetic_edges(9, n, r, e)
+    hub = np.stack([np.full(80, 7), np.full(80, 1), rng.integers(0, n, 80)], 1)
+    edges = np.concatenate([edges, hub.astype(np.int32)])   # a run of 80 true tails
+    test = edges[rng.permutation(len(edges))[:250]]
+    test = np.concatenate([test, test[:3]])
+    neg = NegativeSamplingConfig(num_chunks=4, negatives_per_positive=16,
+                                 degree_fraction=0.25, local_filter_mode="ALL")
+
+    def inject(ev):
+        ev._sample_negatives = lambda edges_b, idx, inverse, valid_rows: _batch_negatives(
+            neg, edges_b, n, inverse)
+        return ev
+
+    checked = 0
+    for decoder in ("DISTMULT", "COMPLEX"):
+        # a model each: the decoder's relation tables live on its module
+        models = [lp_model(r, d, decoder) for _ in range(2)]
+        cpu, gpu = (LinkPredictionTrainer(m, n, r, edges, neg, batch_size=b, seed=1,
+                                          device=dev).state
+                    for m, dev in zip(models, ("cpu", "cuda")))
+        with torch.no_grad():
+            for t in [cpu.table.values] + list(cpu.params["decoder"].values()):
+                t.copy_(torch.from_numpy(rng.integers(-8, 9, t.shape).astype(np.float32) / 4))
+        copy_train_state_(gpu, cpu)
+        for filtered, tail_limit in ((True, evaluator_mod.TAIL_CAP_LIMIT), (True, 0),
+                                     (False, evaluator_mod.TAIL_CAP_LIMIT)):
+            limit, evaluator_mod.TAIL_CAP_LIMIT = evaluator_mod.TAIL_CAP_LIMIT, tail_limit
+            try:
+                evs = [inject(evaluator_mod.LinkPredictionEvaluator(
+                    m, n, r, test, all_edges=edges, batch_size=b, filtered=filtered,
+                    neg_config=neg, node_chunk=128, device=dev))
+                    for m, dev in zip(models, ("cpu", "cuda"))]
+                (rc, sc), (rg, sg) = (ev.compute_all_ranks(s) for ev, s in zip(evs, (cpu, gpu)))
+                res = [ev.evaluate(s) for ev, s in zip(evs, (cpu, gpu))]
+            finally:
+                evaluator_mod.TAIL_CAP_LIMIT = limit
+            what = f"{decoder}, {'filtered' if filtered else 'sampled'}, tail limit {tail_limit}"
+            if rc.shape != (2, len(test)) or not (np.array_equal(rc, rg)
+                                                  and np.array_equal(sc, sg)):
+                raise AssertionError(f"ranks or scores on the card differ from the CPU ({what})")
+            if not (rc > 1).any():
+                raise AssertionError(f"no rank above 1: the comparison is vacuous ({what})")
+            for k in res[0]:
+                if k != "eval_time_s" and not math.isclose(res[0][k], res[1][k], rel_tol=1e-6):
+                    raise AssertionError(f"evaluate()[{k!r}] on the card {res[1][k]} != on the "
+                                         f"CPU {res[0][k]} ({what})")
+            checked += rc.size
+    print(f"small LP evaluation, card against CPU (DistMult and ComplEx; filtered with both "
+          f"correction paths, sampled with the ALL filter; 3 node chunks, partial last batch): "
+          f"{checked} ranks equal exactly, evaluate() within rtol 1e-6", flush=True)
+
+
+# -- config-driven LP through the manager ---------------------------------------
+
+def write_fb15k_shaped(directory: str) -> None:
+    """Uniform edges from seed 0 in FB15K-237's shape and split sizes, in the
+    dataset layout (storage/dataset.py) that marius_tpu.tools.preprocess writes."""
+    from marius_tpu_torch.storage.dataset import DatasetStats, save_split, save_stats
+
+    edges = synthetic_edges(0, NUM_NODES, NUM_RELS, NUM_EDGES + FB_VALID + FB_TEST)
+    splits = {"train": edges[:NUM_EDGES], "valid": edges[NUM_EDGES:NUM_EDGES + FB_VALID],
+              "test": edges[NUM_EDGES + FB_VALID:]}
+    for name, part in splits.items():
+        save_split(directory, name, part)
+    save_stats(directory, DatasetStats(
+        num_nodes=NUM_NODES, num_edges=len(edges), num_relations=NUM_RELS, num_edge_cols=3,
+        num_train=NUM_EDGES, num_valid=FB_VALID, num_test=FB_TEST))
+
+
+def lp_manager(card: str) -> dict:
+    """fb15k_237.yaml through marius_train and marius_eval on the card.
+    Returns {part: gather launches} and the Adagrad launches."""
+    from marius_tpu_torch.config import load_config
+    from marius_tpu_torch.manager import marius_eval, marius_train
+    from marius_tpu_torch.ops.cuda import adagrad, gather
+    from marius_tpu_torch.train import evaluator as evaluator_mod
+
+    config = Path(__file__).resolve().parent / "examples" / "configuration" / "fb15k_237.yaml"
+    with open(config) as f:
+        raw = yaml.safe_load(f)
+    metric_keys = ("mrr", "mean_rank", "hits@1", "hits@10", "num_evaluated")
+    # each evaluation's gather launches, counted around evaluate()
+    evals = []
+    evaluate = evaluator_mod.LinkPredictionEvaluator.evaluate
+
+    def counted(self, state, encoded=None):
+        before = gather.launches
+        res = evaluate(self, state, encoded)
+        evals.append((self.num_batches, gather.launches - before))
+        return res
+
+    with tempfile.TemporaryDirectory() as tmp:
+        write_fb15k_shaped(f"{tmp}/dataset")
+        raw["storage"]["dataset"]["dataset_dir"] = f"{tmp}/dataset"
+        epochs_in_yaml = raw["training"]["num_epochs"]
+        raw["training"]["num_epochs"] = LP_MANAGER_EPOCHS
+        cfg = load_config(raw, model_dir=f"{tmp}/model")
+        print(f"lp_manager: {config.relative_to(config.parents[2])} with dataset_dir and "
+              f"model_dir redirected; one cut: num_epochs {epochs_in_yaml} -> "
+              f"{LP_MANAGER_EPOCHS}", flush=True)
+        evaluator_mod.LinkPredictionEvaluator.evaluate = counted
+        try:
+            gather.launches = adagrad.launches = 0
+            out = marius_train(cfg)   # device=None: the GPU
+            train_total, adagrad_launches = gather.launches, adagrad.launches
+            train_evals = list(evals)
+            gather.launches = 0
+            again = marius_eval(cfg)
+            reload_total = gather.launches
+        finally:
+            evaluator_mod.LinkPredictionEvaluator.evaluate = evaluate
+        meta_written = Path(f"{tmp}/model/meta.yaml").exists()
+
+    rt = out["runtime"]
+    trainer, test_ev = rt.trainer, rt.test_evaluator
+    if trainer.device.type != "cuda" or test_ev.device.type != "cuda":
+        raise AssertionError("marius_train must run on the GPU")
+    losses = [e["loss"] for e in out["epochs"]]
+    for i, e in enumerate(out["epochs"]):
+        print(f"lp_manager epoch {i}: loss {e['loss']:.6f}  {e['epoch_time_s']:.4f} s  "
+              f"{e['edges_per_sec']:.1f} edges/s  [{card}]", flush=True)
+    if len(losses) != LP_MANAGER_EPOCHS or not all(math.isfinite(x) for x in losses) or not all(
+            b < a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"lp_manager losses are not finite and falling: {losses}")
+    valid = out["evals"]
+    if [v["epoch"] for v in valid] != list(range(1, LP_MANAGER_EPOCHS + 1)) or "test" not in out:
+        raise AssertionError("a valid evaluation must run after each epoch and a test "
+                             "evaluation at the end")
+    for res in valid + [out["test"]]:
+        print(f"lp_manager {res['split']} (epoch {res.get('epoch', LP_MANAGER_EPOCHS)}): "
+              f"filtered MRR {res['mrr']:.6f}  Hits@1 {res['hits@1']:.6f}  "
+              f"Hits@10 {res['hits@10']:.6f}  mean rank {res['mean_rank']:.2f}  over "
+              f"{int(res['num_evaluated'])} ranks  {res['eval_time_s']:.4f} s  [{card}]",
+              flush=True)
+        if not 0.0 < res["mrr"] <= 1.0:
+            raise AssertionError(f"MRR out of (0, 1]: {res}")
+    if not meta_written:
+        raise AssertionError("marius_train did not write meta.yaml")
+    test, reloaded = out["test"], again["test"]
+    if any(test[k] != reloaded[k] for k in metric_keys):
+        raise AssertionError(f"marius_eval's test metrics {reloaded} differ from "
+                             f"marius_train's {test}")
+    s = test["eval_time_s"]
+    print(f"lp_manager test evaluation: {s:.4f} s (marius_eval: {reloaded['eval_time_s']:.4f} s)"
+          f" for {FB_TEST} edges in {test_ev.num_batches} batches of {test_ev.batch_size}, "
+          f"both directions: {FB_TEST / s:.1f} edges/s, {test['num_evaluated'] / s:.1f} ranks/s; "
+          f"node_chunk {test_ev.node_chunk}, tail_cap dst {test_ev.dst_tail_cap} "
+          f"src {test_ev.src_tail_cap}  [{card}]", flush=True)
+    print("lp_manager: marius_eval reloaded the checkpoint and reproduced the test metrics "
+          "exactly", flush=True)
+
+    train_batches = LP_MANAGER_EPOCHS * trainer.num_batches
+    eval_launches = sum(n for _, n in train_evals)
+    counts = {"lp_manager train": train_total - eval_launches,
+              "lp_manager eval": eval_launches, "lp_manager marius_eval": reload_total}
+    if counts["lp_manager train"] != train_batches or adagrad_launches != train_batches:
+        raise AssertionError(f"lp_manager training launched the gather "
+                             f"{counts['lp_manager train']} and Adagrad {adagrad_launches} "
+                             f"times, expected {train_batches} (one per batch)")
+    for batches, n in evals:
+        if n != 2 * batches:
+            raise AssertionError(f"an evaluation of {batches} batches launched the gather "
+                                 f"{n} times, expected {2 * batches}")
+    print("lp_manager gather launches: " + ", ".join(f"{k} {v}" for k, v in counts.items())
+          + f" ({len(train_evals)} evaluations in marius_train, 2 per batch)", flush=True)
+    return {"gather_rows": counts, "sparse_adagrad_update_": adagrad_launches}
+
+
+# -- pinned accuracy bands (tests/test_accuracy_regression.py:40-147) ------------
+
+def make_realizable_kg(n=500, d=8, r=10, per=4, seed=0):
+    """Edges = top-``per`` DistMult scores per (node, relation) under a
+    random ground-truth factorization."""
+    rng = np.random.default_rng(seed)
+    E = rng.normal(0, 1, (n, d))
+    R = rng.normal(0, 1, (r, d))
+    edges = []
+    for rel in range(r):
+        scores = (E * R[rel]) @ E.T
+        np.fill_diagonal(scores, -np.inf)
+        top = np.argsort(-scores, axis=1)[:, :per]
+        for u in range(n):
+            for v in top[u]:
+                edges.append((u, rel, v))
+    edges = np.array(edges, np.int32)
+    rng.shuffle(edges)
+    return edges
+
+
+def make_complex_kg(n=500, d2=8, r=10, per=4, seed=0):
+    """Edges = top-``per`` ComplEx scores per (node, relation) under a random
+    complex ground-truth factorization."""
+    rng = np.random.default_rng(seed)
+    e_re, e_im = rng.normal(0, 1, (n, d2)), rng.normal(0, 1, (n, d2))
+    r_re, r_im = rng.normal(0, 1, (r, d2)), rng.normal(0, 1, (r, d2))
+    edges = []
+    for rel in range(r):
+        s_re = e_re * r_re[rel] - e_im * r_im[rel]
+        s_im = e_re * r_im[rel] + e_im * r_re[rel]
+        scores = s_re @ e_re.T + s_im @ e_im.T
+        np.fill_diagonal(scores, -np.inf)
+        top = np.argsort(-scores, 1)[:, :per]
+        for u in range(n):
+            for v in top[u]:
+                edges.append((u, rel, v))
+    edges = np.array(edges, np.int32)
+    rng.shuffle(edges)
+    return edges
+
+
+def make_transe_kg(n=500, d=16, r=10, per=4, seed=1):
+    """Edges = the ``per`` nearest neighbours of e_u + t_rel under L2."""
+    rng = np.random.default_rng(seed)
+    e = rng.normal(0, 1, (n, d))
+    t = rng.normal(0, 0.3, (r, d))
+    edges = []
+    for rel in range(r):
+        dist = np.linalg.norm((e[:, None, :] + t[rel]) - e[None, :, :], axis=2)
+        np.fill_diagonal(dist, np.inf)
+        top = np.argsort(dist, 1)[:, :per]
+        for u in range(n):
+            for v in top[u]:
+                edges.append((u, rel, v))
+    edges = np.array(edges, np.int32)
+    rng.shuffle(edges)
+    return edges
+
+
+def run_lp_band(edges, decoder_type, dim, epochs=60, n=500, r=10, seed=0, device=None):
+    """_run_lp of tests/test_accuracy_regression.py:129-147, on the card
+    (``device=None``)."""
+    from marius_tpu_torch.data.samplers.negative import NegativeSamplingConfig
+    from marius_tpu_torch.nn.decoders.edge import EdgeDecoder
+    from marius_tpu_torch.nn.encoder import EncoderConfig
+    from marius_tpu_torch.nn.layers import LayerConfig
+    from marius_tpu_torch.nn.model import LINK_PREDICTION, Model
+    from marius_tpu_torch.nn.optimizers import OptimizerConfig
+    from marius_tpu_torch.train.evaluator import LinkPredictionEvaluator
+    from marius_tpu_torch.train.trainer import LinkPredictionTrainer
+
+    tr, va = int(0.9 * len(edges)), int(0.95 * len(edges))
+    train, test = edges[:tr], edges[va:]
+    model = Model(LINK_PREDICTION,
+                  EncoderConfig(((LayerConfig(layer_type="EMBEDDING", output_dim=dim),),)),
+                  EdgeDecoder(decoder_type, num_relations=r, embedding_dim=dim),
+                  loss_type="SOFTMAX_CE", loss_reduction="SUM",
+                  dense_optimizer=OptimizerConfig("ADAGRAD", learning_rate=0.1), sparse_lr=0.1)
+    neg = NegativeSamplingConfig(num_chunks=4, negatives_per_positive=128)
+    trainer = LinkPredictionTrainer(model, n, r, train, neg, batch_size=500, seed=seed,
+                                    device=device)
+    for _ in range(epochs):
+        trainer.train_epoch()
+    ev = LinkPredictionEvaluator(model, n, r, test, all_edges=edges, batch_size=500,
+                                 filtered=True, device=device)
+    return ev.evaluate(trainer.state)
+
+
+# (decoder, generator, dim, MRR band, Hits@10 floor): test_accuracy_regression.py:70-166
+ACCURACY_BANDS = (("DISTMULT", make_realizable_kg, 32, (0.34, 0.45), 0.60),
+                  ("COMPLEX", make_complex_kg, 32, (0.23, 0.35), 0.45),
+                  ("TRANSE", make_transe_kg, 16, (0.15, 0.27), 0.28))
+
+
+def lp_accuracy(card: str) -> None:
+    for decoder, make, dim, (lo, hi), hits_floor in ACCURACY_BANDS:
+        t0 = time.perf_counter()
+        res = run_lp_band(make(), decoder, dim)
+        print(f"lp_accuracy {decoder}: filtered MRR {res['mrr']:.6f} (band [{lo}, {hi}])  "
+              f"Hits@10 {res['hits@10']:.6f} (floor {hits_floor})  60 epochs + evaluation "
+              f"{time.perf_counter() - t0:.2f} s  [{card}]", flush=True)
+        if not (lo <= res["mrr"] <= hi and res["hits@10"] >= hits_floor):
+            raise AssertionError(f"{decoder} misses its pinned band: {res}")
 
 
 # -- full-graph node classification -------------------------------------------
@@ -719,17 +1040,24 @@ def main() -> int:
               flush=True)
     print_gather_shapes(kernels[0], card)
 
-    launches = train_flagship(card)
+    flagship = train_flagship(card)
     compare_lp_with_cpu()
+    compare_eval_with_cpu()
     nc_counts = train_nc(card, adj, nc)
     compare_nc_with_cpu()
+    manager = lp_manager(card)
+    lp_accuracy(card)
 
-    # the gather-sum row: its launches on the NC path, each part's beside them
-    launches["gather_sum"] = sum(nc_counts.values())
+    # each row's launches: the sum over the paths it runs on, each part's beside it
+    by_part = {
+        "gather_rows": {"lp flagship": flagship["gather_rows"], **manager["gather_rows"]},
+        "sparse_adagrad_update_": {"lp flagship": flagship["sparse_adagrad_update_"],
+                                   "lp_manager train": manager["sparse_adagrad_update_"]},
+        "gather_sum": nc_counts,
+    }
     for k in kernels:
-        k["launches"] = launches[k["name"]]
-        if k["name"] == "gather_sum":
-            k["launches_by_part"] = nc_counts
+        k["launches"] = sum(by_part[k["name"]].values())
+        k["launches_by_part"] = by_part[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -6,8 +6,8 @@ CorruptNodeNegativeSampler, data/samplers/negative.cpp:313-366): per chunk,
 uniformly from [0, num_nodes) plus ``num_batch`` ids taken from the batch's
 own edge endpoints, degree-sampled ids first. Draws come from an explicit
 ``torch.Generator`` on the batch's device, where the JAX version takes a PRNG
-key. ``LocalFilterMode ALL`` needs the edge-key sets of the evaluation slice
-and raises ``NotImplementedError`` until then.
+key. ``LocalFilterMode ALL`` sorts the batch's own edges into an edge-key set
+(``ops/edge_keys.py``) and masks every negative that forms one of them.
 """
 
 from __future__ import annotations
@@ -15,7 +15,10 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
+
+from marius_tpu_torch.ops.edge_keys import EdgeKeySet, filter_mask_sampled, lexsort
 
 Tensor = torch.Tensor
 
@@ -45,9 +48,12 @@ def sample_negatives(
     edges: Tensor,        # (B, 2|3) batch edges (padded rows allowed)
     num_nodes: int,
     inverse: bool,        # True -> corrupt src (sample from src column), else dst
+    valid_rows: Optional[int] = None,   # only sample in-batch rows < valid_rows
 ) -> NegativeSample:
     """Draw one direction's negatives for a batch, on ``edges.device`` (the
-    generator must live there).
+    generator must live there). ``valid_rows`` keeps the degree-based draws
+    off a zero-padded final batch's padding (negative.cpp batch_sample :7-19
+    sees a ragged batch instead).
 
     The degree-based portion takes endpoint ids from uniformly-sampled batch
     edges (negative.cpp batch_sample :7-19) — sampling frequency proportional
@@ -63,7 +69,8 @@ def sample_negatives(
     if num_batch == 0:
         return NegativeSample(uni, None)
 
-    rows = torch.randint(0, edges.shape[0], (c, num_batch), generator=generator, device=dev)
+    b = edges.shape[0] if valid_rows is None else valid_rows
+    rows = torch.randint(0, b, (c, num_batch), generator=generator, device=dev)
     col = 0 if inverse else edges.shape[1] - 1
     deg = edges[:, col][rows].to(uni.dtype)
     # deg-sampled negatives come first, matching torch::cat({deg_sample, uniform})
@@ -91,11 +98,31 @@ def deg_local_filter_mask(deg_rows: Tensor, batch_size: int, num_negatives: int)
     return mask[:batch_size]
 
 
+def local_all_filter_mask(edges: Tensor, edge_mask: Tensor, negs: Tensor,
+                          inverse: bool) -> Tensor:
+    """(B, num_negatives) bool filter for LocalFilterMode::ALL
+    (negative.cpp:50-197 with global=false): mask any negative that forms a
+    TRUE edge of the current batch with the positive's kept endpoint. The
+    batch's own edges become a sorted key set, padded rows sorting last under
+    int32-max sentinels; membership is the global filter's binary search."""
+    has_rel = edges.shape[1] == 3
+    big = torch.tensor(int(np.iinfo(np.int32).max), dtype=torch.int32, device=edges.device)
+    src = torch.where(edge_mask, edges[:, 0].to(torch.int32), big)
+    dst = torch.where(edge_mask, edges[:, -1].to(torch.int32), big)
+    rel = (torch.where(edge_mask, edges[:, 1].to(torch.int32), big) if has_rel
+           else torch.zeros_like(src))
+    anchor, other = (dst, src) if inverse else (src, dst)
+    order = lexsort((other, rel, anchor))
+    keys = EdgeKeySet(anchor=anchor[order], rel=rel[order], other=other[order])
+    return filter_mask_sampled(keys, anchor, rel if has_rel else None, negs)
+
+
 def local_filter_masks(cfg: NegativeSamplingConfig, edges: Tensor, edge_mask: Tensor,
                        dst_ns: NegativeSample, src_ns: Optional[NegativeSample]):
-    """(dst_filter, src_filter) for unfiltered training per
+    """(dst_filter, src_filter) for unfiltered training and evaluation per
     cfg.local_filter_mode (getNegatives, negative.cpp:328-366): DEG masks
-    deg-sampled self-collisions; either may be None when nothing applies."""
+    deg-sampled self-collisions; ALL masks any in-batch true edge; either
+    may be None when nothing applies."""
     dst_f = local_filter_mask_dir(cfg, edges, edge_mask, dst_ns, False)
     src_f = (local_filter_mask_dir(cfg, edges, edge_mask, src_ns, True)
              if src_ns is not None else None)
@@ -121,7 +148,5 @@ def local_filter_mask_dir(cfg: NegativeSamplingConfig, edges: Tensor, edge_mask:
         return deg_local_filter_mask(ns.deg_sample_indices, edges.shape[0],
                                      cfg.negatives_per_positive)
     if mode == "ALL":
-        raise NotImplementedError(
-            "LocalFilterMode ALL needs ops/edge_keys.py, which comes with the "
-            "evaluation slice")
+        return local_all_filter_mask(edges, edge_mask, ns.ids, inverse)
     return None

@@ -122,6 +122,9 @@ _DECODER_SPECS = {
     "TRANSE": ("L2", "TRANSLATION", "zeros"),           # transe.cpp
 }
 
+#: the decoder types an ``EdgeDecoder`` can be built for
+EDGE_DECODER_TYPES = tuple(_DECODER_SPECS)
+
 
 def normalize_decoder_method(name: str) -> str:
     """EdgeDecoderMethod parse with the reference's aliases
@@ -140,7 +143,7 @@ class EdgeDecoder(nn.Module):
                  dtype=torch.float32, device=None):
         super().__init__()
         dt = decoder_type.upper()
-        if dt not in _DECODER_SPECS:
+        if dt not in EDGE_DECODER_TYPES:
             raise ValueError(f"Unknown edge decoder: {decoder_type}")
         self.decoder_type = decoder_type
         self.num_relations = num_relations

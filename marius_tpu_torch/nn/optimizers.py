@@ -9,7 +9,8 @@ for Adam, ``{"sum": tree}`` for Adagrad, ``{"momentum": tree}`` or ``{}`` for
 SGD. Where the JAX version returns new arrays, ``apply_optimizer`` updates
 the parameters and slots in place (same formulas, same operation order) and
 returns them. Step scalars are Python floats; JAX rounds them to float32.
-``GroupedOptimizerConfig`` (per-layer optimizers) waits for a later slice.
+``GroupedOptimizerConfig`` (per-layer optimizers) is here as the config
+loader's type; applying it waits for a later slice, and the manager refuses it.
 """
 
 from __future__ import annotations
@@ -36,6 +37,16 @@ class OptimizerConfig:
     amsgrad: bool = False
     # SGD
     momentum: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupedOptimizerConfig:
+    """Per-layer/per-decoder optimizers (setup_optimizers, nn/model.cpp:
+    161-218), keyed by path prefixes: ``("encoder", stage, layer)`` for a
+    layer's params, ``("decoder",)`` for the decoder's."""
+
+    default: OptimizerConfig
+    overrides: Tuple[Tuple[Tuple, OptimizerConfig], ...] = ()
 
 
 class OptState(NamedTuple):

@@ -21,9 +21,11 @@ large ones dedup the batch's ids first. The epoch's permutation
 seeded from (12345, epoch // epochs_per_shuffle). The loss accumulates on the
 device and is read back once per epoch.
 
-HOST_MEMORY/FLAT_FILE edge streaming, CORRUPT_REL, meshes, GNN or FEATURE
-encoders and train filter keys raise ``NotImplementedError`` naming the slice
-that brings them.
+With ``train_filter_keys`` (the (dst, src) edge-key sets of the train edges,
+``training.negative_sampling.filtered``), every sampled negative that forms a
+train edge is masked (JAX :378-391); without them the local filters apply.
+HOST_MEMORY/FLAT_FILE edge streaming, CORRUPT_REL, meshes and GNN or FEATURE
+encoders raise ``NotImplementedError`` naming the slice that brings them.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from marius_tpu_torch.data.samplers.negative import (
     sample_negatives,
 )
 from marius_tpu_torch.nn.decoders.edge import normalize_decoder_method
+from marius_tpu_torch.ops.edge_keys import filter_mask_sampled
 from marius_tpu_torch.nn.encoder import encoder_forward
 from marius_tpu_torch.nn.model import (
     LINK_PREDICTION,
@@ -146,10 +149,10 @@ class LinkPredictionTrainer:
                 or model.encoder.num_gnn_stages or model.encoder.has_features
                 or not model.has_embeddings):
             raise _later_slice("a GNN or FEATURE encoder", "the GNN slice")
-        if train_filter_keys is not None:
-            raise _later_slice("train filter keys", "the evaluation slice")
 
         self.device = resolve_device(device)
+        self.train_filter_keys = (None if train_filter_keys is None else
+                                  tuple(k.to(self.device) for k in train_filter_keys))
         self.model = model
         self.num_nodes = num_nodes
         self.num_relations = num_relations
@@ -221,8 +224,14 @@ class LinkPredictionTrainer:
         src = torch.where(mask_b, edges_b[:, 0], num_nodes)
         dst = torch.where(mask_b, edges_b[:, -1], num_nodes)
         rel = edges_b[:, 1] if self.has_rels else None
-        # local (in-batch) false-negative filters (negative.cpp:328-366)
-        dst_filter, src_filter = local_filter_masks(cfg, edges_b, mask_b, dst_ns, src_ns)
+        if self.train_filter_keys is not None:
+            dst_keys, src_keys = self.train_filter_keys
+            dst_filter = filter_mask_sampled(dst_keys, src, rel, dst_ns.ids)
+            src_filter = (filter_mask_sampled(src_keys, dst, rel, src_ns.ids)
+                          if inv_rel_on else None)
+        else:
+            # local (in-batch) false-negative filters (negative.cpp:328-366)
+            dst_filter, src_filter = local_filter_masks(cfg, edges_b, mask_b, dst_ns, src_ns)
 
         parts = [src, dst, dst_ns.ids.reshape(-1)]
         if inv_rel_on:

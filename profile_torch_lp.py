@@ -12,10 +12,10 @@ the device's busy share (device time over host time without the profiler; one
 stream, so kernels do not overlap), device operations per batch, the
 kernels that take the most device time and the port's own kernels'
 time and share. Then it times the row-gather kernel, its plain version and
-``index_select`` against the bound at the flagship batch, the out-of-core
-batch and K = 1 (``chip_smoke.gather_shapes``), after printing the kernel's
-registers and spills. The last line is one JSON object with the same
-numbers; device numbers the profiler did not report are null.
+``index_select`` against the bound at the flagship batch, the evaluation
+batch, the out-of-core batch and K = 1 (``chip_smoke.gather_shapes``), after
+printing the kernel's registers and spills. The last line is one JSON object
+with the same numbers; device numbers the profiler did not report are null.
 ``profile_batches`` is shared with profile_torch_nc.py.
 """
 

@@ -143,15 +143,37 @@ def test_train_state_from_jax_round_trip():
     assert ts.opt_state.step == 0 and ts.epoch == 0
 
 
-def test_trainer_rejects_later_slices():
+def test_trainer_rejects_later_slices(monkeypatch):
     model = TModel("LINK_PREDICTION",
                    TEncoderConfig(((TLayerConfig("EMBEDDING", output_dim=D),),)),
                    TEdgeDecoder("DISTMULT", R, D))
     edges, cfg = _edges(True), TNegConfig(C, NEG)
     for kwargs in [dict(edges_backend="HOST_MEMORY"), dict(mesh=object()),
-                   dict(nbr_configs=(object(),)), dict(train_filter_keys=(None, None))]:
+                   dict(nbr_configs=(object(),))]:
         with pytest.raises(NotImplementedError):
             TTrainer(model, N, R, edges, cfg, batch_size=B, device="cpu", **kwargs)
+    # train filter keys are ported: one epoch with them gives the JAX trainer's loss
+    from marius_tpu.ops.edge_keys import build_edge_key_set as j_keys
+    from marius_tpu_torch.ops.edge_keys import build_edge_key_set as t_keys
+
+    monkeypatch.setattr(jtrainer_mod, "sample_negatives", fake_negatives_jax)
+    jmodel = JModel("LINK_PREDICTION",
+                    JEncoderConfig(((JLayerConfig("EMBEDDING", output_dim=D),),)),
+                    JEdgeDecoder("DISTMULT", R, D))
+    jtr = jtrainer_mod.LinkPredictionTrainer(
+        jmodel, N, R, edges, JNegConfig(C, NEG, DEG_FRACTION, filtered=True), batch_size=B,
+        train_filter_keys=(j_keys(edges, True), j_keys(edges, False)))
+    ttr = TTrainer(model, N, R, edges, TNegConfig(C, NEG, DEG_FRACTION, filtered=True),
+                   batch_size=B, device="cpu",
+                   train_filter_keys=(t_keys(edges, True), t_keys(edges, False)))
+    tcfg = ttr.neg_config
+    monkeypatch.setattr(ttr, "_sample_negatives",
+                        lambda edges_b, inverse: fake_negatives_torch(tcfg, edges_b, N, inverse))
+    size = jtr.num_batches * B
+    monkeypatch.setattr(ttr, "_epoch_permutation", lambda e: torch.from_numpy(np.array(
+        jax.random.permutation(jax.random.fold_in(jax.random.key(12345), e), size))).long())
+    copy_train_state_(ttr.state, train_state_from_jax(_np_state(jtr.state)))
+    np.testing.assert_allclose(ttr.train_epoch()["loss"], jtr.train_epoch()["loss"], rtol=RTOL)
     rel_model = dataclasses.replace(
         model, decoder=TEdgeDecoder("DISTMULT", R, D, decoder_method="CORRUPT_REL"))
     with pytest.raises(NotImplementedError):

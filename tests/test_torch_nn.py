@@ -257,10 +257,18 @@ def test_sample_negatives_layout():
         assert int(ns.ids.min()) >= 0 and int(ns.ids.max()) < 500
     assert tneg.local_filters_active(cfg) == jneg.local_filters_active(
         jneg.NegativeSamplingConfig(4, 20, 0.25))
-    with pytest.raises(NotImplementedError):
-        tneg.local_filter_mask_dir(
-            tneg.NegativeSamplingConfig(local_filter_mode="ALL"), edges,
-            torch.ones(16, dtype=torch.bool), ns, False)
+    # LocalFilterMode ALL: the in-batch true-edge mask equals the JAX package's
+    mask = torch.arange(16) < 13
+    for inverse in (False, True):
+        t = tneg.local_filter_mask_dir(
+            tneg.NegativeSamplingConfig(4, 20, 0.25, local_filter_mode="ALL"), edges,
+            mask, ns, inverse)
+        j = jneg.local_filter_mask_dir(
+            jneg.NegativeSamplingConfig(4, 20, 0.25, local_filter_mode="ALL"),
+            jnp.asarray(edges.numpy()), jnp.asarray(mask.numpy()),
+            jneg.NegativeSample(jnp.asarray(ns.ids.numpy()),
+                                jnp.asarray(ns.deg_sample_indices.numpy())), inverse)
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j))
 
 
 # -- encoder and model ------------------------------------------------------
