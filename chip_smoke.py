@@ -4,11 +4,13 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``marius_tpu_torch/csrc`` with nvcc (one
-process per source, in parallel), holds each against its plain PyTorch
+process per source, in parallel) and, beside them, the host library of
+``native/marius_native.cpp`` with g++, holds each kernel against its plain PyTorch
 version on the card (main-path shapes and odd shapes, bit for bit), times each
 (kernel, plain version, one-call PyTorch equivalent, bound; the row gather
 also at the out-of-core batch, 30,000 distinct ids into a 17.2 GB partition
-buffer, and at K = 1, the launch floor), then drives the
+buffer, and at K = 1, the launch floor; the Adagrad kernel also on that
+buffer's pair of 17.2 GB tensors), then drives the
 port's main paths through their public entry points, each with the launch
 counters set to 0 just before it and read just after:
 
@@ -40,6 +42,25 @@ realizable knowledge graphs of tests/test_accuracy_regression.py (copied
 here), whose filtered test MRR and Hits@10 must land in the JAX package's
 pinned bands.
 
+Then out-of-core link prediction:
+
+4. ``compare_oocore_with_cpu``: small partition-buffer runs on the card and
+   on the CPU with the same injected in-buffer draws, both table-update
+   branches, BETA and COMET, 2 epochs, through a staging ring cut to 4 kB
+   chunks so every copy crosses many of them; ``host_eval``: ranks from
+   ``evaluate()`` and ``evaluate_from_host_table()`` on a quantized table;
+5. ``lp_oocore_reload``: ``examples/configuration/freebase86m_comet.yaml``
+   with a named cut to 1,000,000 nodes, ``marius_train`` with the model saved,
+   then ``marius_eval``, which must reproduce the test metrics exactly;
+6. ``lp_oocore``: the same YAML at Freebase86m's published shape (86,054,151
+   nodes, 14,824 relations, d = 100, 16 partitions, buffer capacity 8, COMET)
+   on a synthetic dataset written with the port's ``storage/dataset.py``, with
+   the cuts it prints (train edges, epochs, no saved model; nodes only if the
+   host's memory cannot hold the table and its Adagrad state), through
+   ``marius_train``: per epoch edges/s, loss, states, per-state prep, swap
+   and compute seconds, bytes copied each way, the padded-batch share, peak
+   device memory, kernel launches and the valid MRR.
+
 Small runs on the card are compared with the same runs on the CPU (plain
 versions, which tests/test_torch_*.py hold against the JAX package).
 
@@ -51,6 +72,7 @@ result. It imports nothing of JAX or marius_tpu.
 
 from __future__ import annotations
 
+import concurrent.futures
 import itertools
 import json
 import math
@@ -79,6 +101,12 @@ OOC_ROWS = FB86M_BUFFER * -(-FB86M_NODES // FB86M_PARTITIONS)   # 43,027,080 row
 OOC_IDS = 2 * 10_000 + 2 * 10 * 500
 # batches cycled while timing it: 16 x 24 MB between two uses of one, far above L2's 50 MB
 OOC_BATCHES = 16
+# lp_oocore's cuts of Freebase86m (338,586,276 published train edges, 10 epochs), its
+# valid and test splits, and the host memory kept free beside the table and its state
+OOC_TRAIN_EDGES, OOC_EVAL_EDGES, OOC_EPOCHS, FB86M_RELS = 32_000_000, 100_000, 2, 14_824
+OOC_HOST_SPARE = 16 << 30
+# lp_oocore_reload's cut
+RELOAD_NODES, RELOAD_TRAIN_EDGES, RELOAD_EVAL_EDGES = 1_000_000, 2_000_000, 20_000
 # FB15K-237's published split sizes, and the one cut of fb15k_237.yaml (10 epochs)
 FB_VALID, FB_TEST, LP_MANAGER_EPOCHS = 17_535, 20_466, 3
 # ogbn-arxiv shape (bench_nc_full.py:29-37) and its model (examples/configuration/ogbn_arxiv.yaml)
@@ -294,7 +322,7 @@ def check_adagrad(adagrad, dev, rates):
 
     library()
     torch.testing.assert_close(v3, v1, rtol=1e-6, atol=1e-6)
-    return {
+    out = {
         "name": "sparse_adagrad_update_", "route": "cuda",
         "source": "marius_tpu_torch/csrc/adagrad.cu",
         "replaces": "marius_tpu/ops/pallas/adagrad.py:89", "max_abs_err": err,
@@ -304,6 +332,82 @@ def check_adagrad(adagrad, dev, rates):
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": time_ms(library),
     }
+    del vals, state, v1, s1, v2, s2, v3, s3, grads, sparse_grads
+    out["out_of_core"] = adagrad_out_of_core(adagrad, dev, rates)
+    out["max_abs_err"] = max(out["max_abs_err"], out["out_of_core"]["max_abs_err"])
+    return out
+
+
+def adagrad_out_of_core(adagrad, dev, rates) -> dict:
+    """The Adagrad kernel on Freebase86m's buffer pair (two 43,027,080 x 100
+    f32 tensors, 8.6e9 elements together, offsets past 2^31) with one
+    batch's 30,000 sorted unique ids plus padding ids equal to buffer_rows.
+    The touched rows must equal the plain version's bit for bit (applied to
+    copies of those rows: a plain copy of the pair would not fit beside it)
+    and a sample of untouched rows must not move. Then timed, cycling through
+    16 id batches so rows come from HBM, against the bytes bound and
+    torch.optim.adagrad's sparse call."""
+    from torch.optim.adagrad import adagrad as torch_adagrad
+
+    from marius_tpu_torch.ops.unique import unique_padded
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    values = torch.empty((OOC_ROWS, FB86M_DIM), device=dev).normal_(generator=g)
+    state = torch.empty((OOC_ROWS, FB86M_DIM), device=dev).uniform_(generator=g)
+    batches = []
+    for _ in range(OOC_BATCHES):
+        # 30,000 sorted distinct ids, then 1,000 padding ids == buffer_rows at the tail,
+        # as unique_padded leaves them
+        draw = torch.randint(0, OOC_ROWS, (OOC_IDS + 1000,), device=dev, generator=g)
+        ids = unique_padded(draw, OOC_IDS + 1000, OOC_ROWS).ids
+        if int((ids < OOC_ROWS).sum()) < OOC_IDS:
+            raise AssertionError("fewer than 30,000 distinct ids drawn")
+        ids[OOC_IDS:] = OOC_ROWS
+        batches.append(ids)
+    ids = batches[0]
+    valid = ids[ids < OOC_ROWS]
+    if int(valid.max()) * FB86M_DIM < 2 ** 31:
+        raise AssertionError("the check must touch rows past 2^31 elements")
+    grads = torch.randn(ids.numel(), FB86M_DIM, device=dev, generator=g)
+    untouched = torch.randint(0, OOC_ROWS, (100_000,), device=dev, generator=g)
+    untouched = untouched[~torch.isin(untouched, valid)]
+    before = (values[untouched].clone(), state[untouched].clone())
+    keep = ids < OOC_ROWS
+    v_ref, s_ref = values[valid].clone(), state[valid].clone()
+    adagrad.sparse_adagrad_update_plain_(v_ref, s_ref, torch.arange(valid.numel(), device=dev),
+                                         grads[keep], 0.1)
+    adagrad.sparse_adagrad_update_(values, state, ids, grads, 0.1)
+    torch.cuda.synchronize()
+    err = max(float((values[valid] - v_ref).abs().max()), float((state[valid] - s_ref).abs().max()))
+    if err != 0.0:
+        raise AssertionError(f"the Adagrad kernel differs from plain on the buffer pair by {err}")
+    if not (torch.equal(values[untouched], before[0]) and torch.equal(state[untouched], before[1])):
+        raise AssertionError("the Adagrad kernel wrote an untouched row of the buffer pair")
+    k = int(keep.sum())
+    nbytes = 5 * k * FB86M_DIM * 4 + ids.numel() * ids.element_size()
+    b_ms, b_by = bound_ms(nbytes, 7 * k * FB86M_DIM, rates)
+    it = itertools.cycle(batches)
+    sparse = [torch.sparse_coo_tensor(b[b < OOC_ROWS][None], grads[b < OOC_ROWS],
+                                      (OOC_ROWS, FB86M_DIM), is_coalesced=True,
+                                      check_invariants=False) for b in batches]
+    it_sparse = itertools.cycle(sparse)
+    step = torch.zeros((), device=dev)
+
+    def library():
+        torch_adagrad([values], [next(it_sparse)], [state], [step], has_sparse_grad=True,
+                      lr=0.1, weight_decay=0.0, lr_decay=0.0, eps=1e-10, maximize=False)
+
+    out = {
+        "ms": time_ms(lambda: adagrad.sparse_adagrad_update_(values, state, next(it), grads, 0.1)),
+        "plain_ms": time_ms(lambda: adagrad.sparse_adagrad_update_plain_(
+            values, state, next(it), grads, 0.1), reps=10, samples=5),
+        "library_ms": time_ms(library, reps=10, samples=5),
+        "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err, "k": k, "rows": OOC_ROWS,
+        "d": FB86M_DIM, "bound_bytes": nbytes,
+    }
+    del values, state, batches, sparse, grads
+    torch.cuda.empty_cache()
+    return out
 
 
 def lp_model(num_rels: int, dim: int, decoder: str = "DISTMULT"):
@@ -591,6 +695,352 @@ def lp_manager(card: str) -> dict:
     print("lp_manager gather launches: " + ", ".join(f"{k} {v}" for k, v in counts.items())
           + f" ({len(train_evals)} evaluations in marius_train, 2 per batch)", flush=True)
     return {"gather_rows": counts, "sparse_adagrad_update_": adagrad_launches}
+
+
+# -- out-of-core link prediction ------------------------------------------------
+
+def host_memory() -> dict:
+    """MemTotal and MemAvailable in bytes, from /proc/meminfo."""
+    out = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, value = line.split(":", 1)
+            if key in ("MemTotal", "MemAvailable"):
+                out[key] = int(value.split()[0]) * 1024
+    return out
+
+
+def injected_draws(trainer, step, inverse, seed=3):
+    """In-buffer draws as a function of (epoch, step, direction), the same on
+    any device, for the buffer trainer's ``_in_buffer_draws`` seam."""
+    cfg = trainer.neg_config
+    c, n = cfg.num_chunks, cfg.negatives_per_positive
+    num_deg = int(n * cfg.degree_fraction)
+    rng = np.random.default_rng((seed, trainer.epoch, step, int(inverse)))
+    t = lambda a: torch.from_numpy(a).to(trainer.device)  # noqa: E731
+    return (t(rng.integers(0, trainer.capacity, (c, n))),
+            t(rng.integers(0, trainer.buffer.psize, (c, n))),
+            t(rng.integers(0, trainer.batch_size, (c, num_deg))) if num_deg else None)
+
+
+def compare_oocore_with_cpu():
+    """Small partition-buffer runs on the card and on the CPU (plain kernels,
+    plain copies) with the same draws: BETA and COMET, both table-update
+    branches, ComplEx with degree-sampled negatives, 2 epochs. The card's
+    copies go through a staging ring cut to 4 kB chunks, so every admit and
+    eviction crosses many of them."""
+    from marius_tpu_torch.data.samplers.negative import NegativeSamplingConfig
+    from marius_tpu_torch.nn.optimizers import tree_leaves
+    from marius_tpu_torch.storage import transfer
+    from marius_tpu_torch.train.buffer_trainer import PartitionBufferLPTrainer
+
+    n, r, d, e = 600, 5, 32, 6000
+    edges = synthetic_edges(7, n, r, e)
+    cfg = NegativeSamplingConfig(num_chunks=4, negatives_per_positive=40, degree_fraction=0.5)
+    chunk, transfer.CHUNK_BYTES = transfer.CHUNK_BYTES, 4096
+    transfer._staging.clear()
+    worst = 0.0
+    try:
+        for ordering in ("BETA", "COMET"):
+            for dense in (True, False):
+                cpu, gpu = trainers = [PartitionBufferLPTrainer(
+                    lp_model(r, d, "COMPLEX"), n, r, edges, cfg, batch_size=200,
+                    num_partitions=8, buffer_capacity=4, ordering=ordering, seed=1, device=dev)
+                    for dev in ("cpu", "cuda")]
+                for t in trainers:
+                    t.dense_accum = dense
+                    t._in_buffer_draws = (lambda step, inverse, _t=t:
+                                          injected_draws(_t, step, inverse))
+                if not np.array_equal(cpu.buffer.host_values, gpu.buffer.host_values):
+                    raise AssertionError("the two buffers start from different tables")
+                for _ in range(2):
+                    lc, lg = cpu.train_epoch()["loss"], gpu.train_epoch()["loss"]
+                    if not math.isclose(lc, lg, rel_tol=1e-4):
+                        raise AssertionError(f"buffer loss on the card {lg} != on the CPU {lc} "
+                                             f"({ordering}, dense_accum={dense})")
+                pairs = [(cpu.buffer.host_values, gpu.buffer.host_values),
+                         (cpu.buffer.host_state, gpu.buffer.host_state)]
+                pairs += [(a.detach().numpy(), b.detach().cpu().numpy()) for a, b in
+                          zip(tree_leaves(cpu.params), tree_leaves(gpu.params))]
+                for a, b in pairs:
+                    worst = max(worst, float(np.abs(a - b).max()))
+                    np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-5)
+    finally:
+        transfer.CHUNK_BYTES = chunk
+        transfer._staging.clear()
+    print(f"small partition-buffer runs, card against CPU (BETA and COMET, both update "
+          f"branches, 4 kB staging chunks, 2 epochs): max abs difference {worst:.3g} "
+          f"(tolerance rtol 1e-4, atol 1e-5)", flush=True)
+
+
+def host_eval_on_card():
+    """Filtered ranks from evaluate() and evaluate_from_host_table() on the
+    card, on quantized tables (multiples of 1/4: every score exact): the
+    metrics must agree (evaluate's sums are float32: rtol 1e-6), and the
+    host-tiled ones must equal the CPU's exactly. 300 nodes in tiles of 128,
+    250 edges in slices of 64; DistMult and ComplEx."""
+    from marius_tpu_torch.convert import copy_train_state_
+    from marius_tpu_torch.data.samplers.negative import NegativeSamplingConfig
+    from marius_tpu_torch.train.evaluator import LinkPredictionEvaluator
+    from marius_tpu_torch.train.trainer import LinkPredictionTrainer
+
+    n, r, d, b = 300, 5, 32, 64
+    rng = np.random.default_rng(10)
+    edges = synthetic_edges(10, n, r, 1200)
+    test = edges[rng.permutation(len(edges))[:250]]
+    keys = ("mrr", "mean_rank", "hits@1", "hits@10", "num_evaluated")
+    for decoder in ("DISTMULT", "COMPLEX"):
+        models = [lp_model(r, d, decoder) for _ in range(2)]
+        cpu, gpu = (LinkPredictionTrainer(m, n, r, edges, NegativeSamplingConfig(4, 8),
+                                          batch_size=b, seed=1, device=dev).state
+                    for m, dev in zip(models, ("cpu", "cuda")))
+        with torch.no_grad():
+            for t in [cpu.table.values] + list(cpu.params["decoder"].values()):
+                t.copy_(torch.from_numpy(rng.integers(-8, 9, t.shape).astype(np.float32) / 4))
+        copy_train_state_(gpu, cpu)
+        evs = [LinkPredictionEvaluator(m, n, r, test, all_edges=edges, batch_size=b,
+                                       node_chunk=128, device=dev)
+               for m, dev in zip(models, ("cpu", "cuda"))]
+        host = cpu.table.values.numpy()
+        on_card = evs[1].evaluate(gpu)
+        tiled = [ev.evaluate_from_host_table(host, s.params, edge_slice=64, node_tile=128)
+                 for ev, s in zip(evs, (cpu, gpu))]
+        for k in keys:
+            if tiled[1][k] != tiled[0][k] or not math.isclose(tiled[1][k], on_card[k],
+                                                              rel_tol=1e-6):
+                raise AssertionError(f"host-tiled {k} on the card {tiled[1][k]} != CPU "
+                                     f"{tiled[0][k]} or evaluate() {on_card[k]} ({decoder})")
+    print("host-tiled evaluation on the card (DistMult and ComplEx, 3 node tiles, 4 edge "
+          "slices): metrics equal the CPU's exactly and evaluate()'s within rtol 1e-6",
+          flush=True)
+
+
+def write_freebase_shaped(directory: str, num_nodes: int, train: int, held_out: int) -> None:
+    """Uniform edges from seed 0 over ``num_nodes`` nodes and Freebase86m's
+    14,824 relations, in the dataset layout of storage/dataset.py."""
+    from marius_tpu_torch.storage.dataset import DatasetStats, save_split, save_stats
+
+    edges = synthetic_edges(0, num_nodes, FB86M_RELS, train + 2 * held_out)
+    for name, part in (("train", edges[:train]), ("valid", edges[train:train + held_out]),
+                       ("test", edges[train + held_out:])):
+        save_split(directory, name, part)
+    save_stats(directory, DatasetStats(
+        num_nodes=num_nodes, num_edges=len(edges), num_relations=FB86M_RELS, num_edge_cols=3,
+        num_train=train, num_valid=held_out, num_test=held_out))
+
+
+def freebase_config(tmp: str, num_nodes: int, save_model: bool):
+    """freebase86m_comet.yaml with only dataset_dir and model_dir redirected,
+    num_epochs cut to 2 and save_model set."""
+    from marius_tpu_torch.config import load_config
+
+    path = Path(__file__).resolve().parent / "examples" / "configuration" / "freebase86m_comet.yaml"
+    with open(path) as f:
+        raw = yaml.safe_load(f)
+    raw["storage"]["dataset"]["dataset_dir"] = f"{tmp}/dataset"
+    raw["storage"]["save_model"] = save_model
+    raw["training"]["num_epochs"] = OOC_EPOCHS
+    cfg = load_config(raw, model_dir=f"{tmp}/model")
+    s = cfg.storage
+    if (s.embeddings_backend, s.num_partitions, s.buffer_capacity, s.edge_bucket_ordering,
+            cfg.model.encoder.embedding_dim) != ("PARTITION_BUFFER", 16, 8, "COMET", 100):
+        raise AssertionError("freebase86m_comet.yaml no longer holds the shape this phase runs")
+    return cfg
+
+
+class EpochProbe:
+    """Wraps PartitionBufferLPTrainer.train_epoch and
+    LinkPredictionEvaluator.evaluate while a manager call runs: turns on the
+    per-state timings and records, per epoch, the launch counts, the copies
+    each way and the peak device memory, and per evaluation its gather
+    launches. Counters are set to 0 at the start of each call and read at its end."""
+
+    def __init__(self):
+        from marius_tpu_torch.train import buffer_trainer, evaluator
+
+        self.trainer_cls = buffer_trainer.PartitionBufferLPTrainer
+        self.evaluator_cls = evaluator.LinkPredictionEvaluator
+        self.epochs, self.evals, self.first_epoch_at = [], [], None
+
+    def __enter__(self):
+        from marius_tpu_torch.ops.cuda import adagrad, gather
+        from marius_tpu_torch.storage import transfer
+
+        train_epoch, evaluate = self.trainer_cls.train_epoch, self.evaluator_cls.evaluate
+        self._saved = (train_epoch, evaluate)
+        probe = self
+
+        def profiled(trainer, *a, **kw):
+            if probe.first_epoch_at is None:
+                probe.first_epoch_at = time.perf_counter()
+            trainer.profile_states = True
+            torch.cuda.reset_peak_memory_stats()
+            gather.launches = adagrad.launches = 0
+            transfer.bytes_h2d = transfer.bytes_d2h = 0
+            transfer.seconds_h2d = transfer.seconds_d2h = 0.0
+            evictions = trainer.buffer.sparse_evictions
+            res = train_epoch(trainer, *a, **kw)
+            res.update(gather=gather.launches, adagrad=adagrad.launches,
+                       sparse_evictions=trainer.buffer.sparse_evictions - evictions,
+                       h2d=transfer.bytes_h2d, d2h=transfer.bytes_d2h,
+                       h2d_s=transfer.seconds_h2d, d2h_s=transfer.seconds_d2h,
+                       peak=torch.cuda.max_memory_allocated(),
+                       timings=list(trainer.last_state_timings))
+            probe.epochs.append(res)
+            return res
+
+        def counted(ev, state, encoded=None):
+            torch.cuda.reset_peak_memory_stats()
+            gather.launches = 0
+            res = evaluate(ev, state, encoded)
+            probe.evals.append((ev.num_batches, gather.launches,
+                                torch.cuda.max_memory_allocated()))
+            return res
+
+        self.trainer_cls.train_epoch = profiled
+        self.evaluator_cls.evaluate = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.trainer_cls.train_epoch, self.evaluator_cls.evaluate = self._saved
+
+
+def report_oocore_epochs(tag: str, out: dict, probe: EpochProbe, card: str) -> dict:
+    """Print each epoch's numbers, check them, and return the launches by part."""
+    rt = out["runtime"]
+    trainer = rt.trainer
+    if type(trainer).__name__ != "PartitionBufferLPTrainer" or trainer.device.type != "cuda" \
+            or trainer.dense_accum:
+        raise AssertionError(f"{tag} must train the buffer's unique-id branch on the GPU")
+    losses = [e["loss"] for e in out["epochs"]]
+    for i, e in enumerate(probe.epochs):
+        prep, swap, comp = (sum(t[k] for t in e["timings"]) for k in range(3))
+        padded = e["masked_batches"] / (e["batches_run"] + e["masked_batches"])
+        print(f"{tag} epoch {i}: loss {e['loss']:.6f}  {e['epoch_time_s']:.4f} s  "
+              f"{e['edges_per_sec']:.1f} edges/s  {e['states_run']} of "
+              f"{e['num_buffer_states']} states, {e['batches_run']} batches + "
+              f"{e['masked_batches']} masked (padded share {padded:.4f}, max_batches "
+              f"{e['max_batches']})  [{card}]", flush=True)
+        print(f"{tag} epoch {i} per state (prep, swap, compute) s: " + ", ".join(
+            f"({a:.3f}, {b:.3f}, {c:.3f})" for a, b, c in e["timings"])
+            + f"; sums {prep:.3f}, {swap:.3f}, {comp:.3f}", flush=True)
+        print(f"{tag} epoch {i} copies: host->device {e['h2d'] / 1e9:.3f} GB in "
+              f"{e['h2d_s']:.3f} s ({e['h2d'] / 1e9 / max(e['h2d_s'], 1e-9):.3f} GB/s), "
+              f"device->host {e['d2h'] / 1e9:.3f} GB in {e['d2h_s']:.3f} s "
+              f"({e['d2h'] / 1e9 / max(e['d2h_s'], 1e-9):.3f} GB/s); peak device memory "
+              f"{e['peak'] / 2**30:.3f} GiB; launches: gather_rows {e['gather']} ("
+              f"{e['batches_run']} batches + 2 x {e['sparse_evictions']} sparse evictions), "
+              f"sparse_adagrad_update_ {e['adagrad']}  [{card}]", flush=True)
+        if e["adagrad"] != e["batches_run"] or \
+                e["gather"] != e["batches_run"] + 2 * e["sparse_evictions"] or not e["adagrad"]:
+            raise AssertionError(f"{tag} epoch {i}: launches do not match the batches: {e}")
+    if len(losses) != OOC_EPOCHS or not all(math.isfinite(x) for x in losses) \
+            or not losses[1] < losses[0]:
+        raise AssertionError(f"{tag} losses are not finite and falling: {losses}")
+    for res in out["evals"] + [out["test"]]:
+        print(f"{tag} {res['split']} (epoch {res.get('epoch', OOC_EPOCHS)}): MRR "
+              f"{res['mrr']:.6f}  Hits@1 {res['hits@1']:.6f}  Hits@10 {res['hits@10']:.6f}  "
+              f"over {int(res['num_evaluated'])} ranks  {res['eval_time_s']:.4f} s  [{card}]",
+              flush=True)
+        if not 0.0 < res["mrr"] <= 1.0:
+            raise AssertionError(f"{tag}: MRR out of (0, 1]: {res}")
+    evals = [(nb, g, peak) for nb, g, peak in probe.evals]
+    print(f"{tag} evaluations (batches, gather launches, peak device GiB): "
+          + ", ".join(f"({nb}, {g}, {peak / 2**30:.3f})" for nb, g, peak in evals), flush=True)
+    return {"gather_rows": {f"{tag} train": sum(e["gather"] for e in probe.epochs),
+                            f"{tag} eval": sum(g for _, g, _ in evals)},
+            "sparse_adagrad_update_": {f"{tag} train": sum(e["adagrad"] for e in probe.epochs)}}
+
+
+def lp_oocore_reload(card: str) -> dict:
+    """freebase86m_comet.yaml at a named cut (1,000,000 nodes) through
+    marius_train with the model saved, then marius_eval, which must
+    reproduce the test metrics exactly."""
+    from marius_tpu_torch.manager import marius_eval, marius_train
+
+    with tempfile.TemporaryDirectory() as tmp:
+        write_freebase_shaped(f"{tmp}/dataset", RELOAD_NODES, RELOAD_TRAIN_EDGES,
+                              RELOAD_EVAL_EDGES)
+        cfg = freebase_config(tmp, RELOAD_NODES, save_model=True)
+        print(f"lp_oocore_reload: freebase86m_comet.yaml with dataset_dir and model_dir "
+              f"redirected; cuts: {RELOAD_NODES} nodes (published 86,054,151), "
+              f"{RELOAD_TRAIN_EDGES} train and {RELOAD_EVAL_EDGES} valid and test edges, "
+              f"num_epochs 10 -> {OOC_EPOCHS}", flush=True)
+        with EpochProbe() as probe:
+            out = marius_train(cfg)   # device=None: the GPU
+            counts = report_oocore_epochs("lp_oocore_reload", out, probe, card)
+            again = marius_eval(cfg)
+        if not Path(f"{tmp}/model/meta.yaml").exists():
+            raise AssertionError("marius_train did not save the model")
+    keys = ("mrr", "mean_rank", "hits@1", "hits@10", "num_evaluated")
+    if any(out["test"][k] != again["test"][k] for k in keys):
+        raise AssertionError(f"marius_eval's test metrics {again['test']} differ from "
+                             f"marius_train's {out['test']}")
+    print("lp_oocore_reload: marius_eval reloaded the checkpoint and reproduced the test "
+          "metrics exactly", flush=True)
+    counts["gather_rows"]["lp_oocore_reload marius_eval"] = probe.evals[-1][1]
+    return counts
+
+
+def lp_oocore(card: str) -> dict:
+    """freebase86m_comet.yaml at Freebase86m's shape through marius_train."""
+    import shutil
+
+    from marius_tpu_torch.manager import marius_train
+
+    num_nodes = FB86M_NODES
+    with tempfile.TemporaryDirectory() as tmp:
+        mem = host_memory()
+        disk = shutil.disk_usage(tmp)
+        print(f"lp_oocore host: MemTotal {mem['MemTotal'] / 2**30:.2f} GiB, MemAvailable "
+              f"{mem['MemAvailable'] / 2**30:.2f} GiB; free disk {disk.free / 2**30:.2f} GiB "
+              f"under {tmp}", flush=True)
+        # int32 rows of 3 columns, held about 4 times over (the loaded split, its bucket
+        # grouping, the states in flight)
+        edge_bytes = 4 * (OOC_TRAIN_EDGES + 2 * OOC_EVAL_EDGES) * 3 * 4
+
+        def table_bytes(n):
+            """The host table and its Adagrad state: 2 x padded rows x d x 4 bytes."""
+            return 2 * FB86M_PARTITIONS * -(-n // FB86M_PARTITIONS) * FB86M_DIM * 4
+        cut = ""
+        if table_bytes(num_nodes) + edge_bytes + OOC_HOST_SPARE > mem["MemAvailable"]:
+            room = mem["MemAvailable"] - edge_bytes - OOC_HOST_SPARE
+            num_nodes = (room // (2 * FB86M_DIM * 4)) // 1_000_000 * 1_000_000
+            cut = (f", nodes {FB86M_NODES} -> {num_nodes} (MemAvailable cannot hold the "
+                   f"{table_bytes(FB86M_NODES) / 1e9:.1f} GB table and state with "
+                   f"{OOC_HOST_SPARE / 2**30:.0f} GiB to spare)")
+        t0 = time.perf_counter()
+        write_freebase_shaped(f"{tmp}/dataset", num_nodes, OOC_TRAIN_EDGES, OOC_EVAL_EDGES)
+        print(f"lp_oocore dataset: {num_nodes} nodes, {FB86M_RELS} relations, "
+              f"{OOC_TRAIN_EDGES} train and {OOC_EVAL_EDGES} valid and test uniform edges "
+              f"(seed 0), written in {time.perf_counter() - t0:.2f} s", flush=True)
+        cfg = freebase_config(tmp, num_nodes, save_model=False)
+        print(f"lp_oocore: freebase86m_comet.yaml with dataset_dir and model_dir redirected; "
+              f"cuts: train edges 338,586,276 -> {OOC_TRAIN_EDGES}, valid and test "
+              f"{OOC_EVAL_EDGES} each, num_epochs 10 -> {OOC_EPOCHS}, save_model off{cut}; "
+              f"table {table_bytes(num_nodes) / 2e9:.2f} GB and Adagrad state as much in "
+              f"host RAM", flush=True)
+        torch.cuda.empty_cache()
+        with EpochProbe() as probe:
+            t0 = time.perf_counter()
+            out = marius_train(cfg)   # device=None: the GPU
+            total = time.perf_counter() - t0
+        setup = probe.first_epoch_at - t0
+        trainer = out["runtime"].trainer
+        buf = trainer.buffer
+        print(f"lp_oocore: marius_train {total:.2f} s, of which set-up before the first epoch "
+              f"{setup:.2f} s (dataset load, host table init, partitioning); buffer "
+              f"{buf.buffer_rows} x {buf.dim} rows ({2 * buf.buffer_rows * buf.dim * 4 / 1e9:.2f}"
+              f" GB with its state), psize {buf.psize}; host RSS peak "
+              f"{resource_peak_gib():.2f} GiB  [{card}]", flush=True)
+        counts = report_oocore_epochs("lp_oocore", out, probe, card)
+        del out, trainer, buf
+    return counts
+
+
+def resource_peak_gib() -> float:
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
 
 
 # -- pinned accuracy bands (tests/test_accuracy_regression.py:40-147) ------------
@@ -997,6 +1447,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     import marius_tpu_torch
+    from marius_tpu_torch import native
     from marius_tpu_torch.data.full_graph import build_full_graph_adjacency
     from marius_tpu_torch.ops.cuda import adagrad, build, gather
 
@@ -1014,9 +1465,14 @@ def main() -> int:
     rates = card_rates(kind)
 
     t0 = time.perf_counter()
-    logs = build.build_all()
-    print(f"kernel build (nvcc, {len(logs)} sources in parallel): "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+        host_lib = pool.submit(native.load)   # g++, beside the nvcc builds
+        logs = build.build_all()
+        print(f"kernel build (nvcc, {len(logs)} sources in parallel): "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        print(f"native host library (g++ -O3, native/marius_native.cpp): "
+              f"{Path(host_lib.result()._name).relative_to(here)}, "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -1039,6 +1495,13 @@ def main() -> int:
               f"library {lib}  bound {k['bound_ms'] * 1e3:.2f} us ({k['bound_by']})  [{card}]",
               flush=True)
     print_gather_shapes(kernels[0], card)
+    a = kernels[1]["out_of_core"]
+    print(f"sparse_adagrad_update_, out_of_core ({a['rows']} x {a['d']} f32 values and state, "
+          f"{a['k']} ids + 1000 padding, {a['bound_bytes'] / 1e6:.4f} MB): "
+          f"max_abs_err {a['max_abs_err']} on the touched rows  kernel {a['ms'] * 1e3:.2f} us  "
+          f"plain {a['plain_ms'] * 1e3:.2f} us  torch.optim.adagrad (sparse) "
+          f"{a['library_ms'] * 1e3:.2f} us  bound {a['bound_ms'] * 1e3:.2f} us ({a['bound_by']})"
+          f"  [{card}]", flush=True)
 
     flagship = train_flagship(card)
     compare_lp_with_cpu()
@@ -1047,12 +1510,19 @@ def main() -> int:
     compare_nc_with_cpu()
     manager = lp_manager(card)
     lp_accuracy(card)
+    compare_oocore_with_cpu()
+    host_eval_on_card()
+    reload = lp_oocore_reload(card)
+    oocore = lp_oocore(card)
 
     # each row's launches: the sum over the paths it runs on, each part's beside it
     by_part = {
-        "gather_rows": {"lp flagship": flagship["gather_rows"], **manager["gather_rows"]},
+        "gather_rows": {"lp flagship": flagship["gather_rows"], **manager["gather_rows"],
+                        **reload["gather_rows"], **oocore["gather_rows"]},
         "sparse_adagrad_update_": {"lp flagship": flagship["sparse_adagrad_update_"],
-                                   "lp_manager train": manager["sparse_adagrad_update_"]},
+                                   "lp_manager train": manager["sparse_adagrad_update_"],
+                                   **reload["sparse_adagrad_update_"],
+                                   **oocore["sparse_adagrad_update_"]},
         "gather_sum": nc_counts,
     }
     for k in kernels:

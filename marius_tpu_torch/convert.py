@@ -8,7 +8,9 @@ the mapped dataclass; this module never imports JAX. The PRNG key has no
 counterpart (the port samples with ``torch.Generator``s) and is dropped.
 Link-prediction and node-classification states alike: an NC state has
 ``table=None``, the staged encoder params (``{"encoder": [[{...}], ...]}``)
-and their Adam slots.
+and their Adam slots. ``copy_buffer_trainer_from_jax_`` carries a JAX
+``PartitionBufferLPTrainer``'s padded host table and Adagrad state, dense
+parameters and optimizer state into the port's buffer trainer.
 """
 
 from __future__ import annotations
@@ -65,3 +67,22 @@ def copy_train_state_(dst: TrainState, src: TrainState) -> None:
         tree_map(lambda d, s: d.copy_(s), d_tree, s_tree)
     dst.opt_state = OptState(step=src.opt_state.step, slots=dst.opt_state.slots)
     dst.epoch = src.epoch
+
+
+def copy_buffer_trainer_from_jax_(trainer, host_values: np.ndarray, host_state: np.ndarray,
+                                  params, opt_state, epoch: int = 0) -> None:
+    """Load a JAX ``PartitionBufferLPTrainer``'s ``buffer.host_values`` and
+    ``buffer.host_state`` (the padded (num_partitions x psize, d) arrays),
+    ``params``, ``opt_state`` and ``epoch``, all as numpy, into the port's
+    ``PartitionBufferLPTrainer`` ``trainer``, in place. Its buffer is flushed
+    and freed first (the ``state`` setter); the next epoch admits from the new
+    host arrays."""
+    buf, n = trainer.buffer, trainer.num_nodes
+    if host_values.shape != buf.host_values.shape or host_state.shape != buf.host_state.shape:
+        raise ValueError(f"host arrays {host_values.shape}, {host_state.shape} do not match "
+                         f"the buffer's {buf.host_values.shape}")
+    trainer.state = train_state_from_jax({
+        "table": {"values": host_values[:n], "state": host_state[:n]},
+        "params": params, "opt_state": opt_state, "epoch": epoch})
+    buf.host_values[n:] = host_values[n:]    # the last partition's padding rows
+    buf.host_state[n:] = host_state[n:]

@@ -2,8 +2,12 @@
 
 Port of the link-prediction path of ``marius_tpu/manager.py`` (reference
 src/cpp/src/marius.cpp): ``marius_init`` (:114-259, :429-476) builds the
-trainer and the valid/test evaluators from one config, with DEVICE_MEMORY
-embeddings and edges, and restores a checkpoint for resume or evaluation;
+trainer and the valid/test evaluators from one config and restores a
+checkpoint for resume or evaluation. Embeddings in DEVICE_MEMORY train with
+``LinkPredictionTrainer`` (edges in DEVICE_MEMORY, or streamed from host RAM
+or a memory-mapped FLAT_FILE), PARTITION_BUFFER embeddings with
+``PartitionBufferLPTrainer``; ``evaluation.host_streaming`` evaluates from the
+host table in node tiles (``_HostStreamLPEval``);
 ``marius_train`` (:479-554) runs the epoch loop with the eval cadence,
 save_best, interval checkpoints and the final test evaluation and save;
 ``marius_eval`` (:557-567) evaluates a trained model; ``encode_and_export``
@@ -12,9 +16,8 @@ save_best, interval checkpoints and the final test evaluation and save;
 Every entry point takes ``device``: None means the GPU (and raises without
 one), ``"cpu"`` runs the plain versions of the kernels. What is not ported
 yet raises ``NotImplementedError`` naming the slice that brings it: node
-classification, PARTITION_BUFFER embeddings, HOST_MEMORY and
-FLAT_FILE edges, meshes, neighbour sampling and FEATURE encoders,
-host-streamed evaluation, per-layer optimizers and bf16 tables.
+classification, meshes, neighbour sampling and GNN or FEATURE encoders,
+CORRUPT_REL, per-layer optimizers and bf16 tables.
 """
 
 from __future__ import annotations
@@ -36,8 +39,9 @@ from marius_tpu_torch.ops.edge_keys import build_edge_key_set
 from marius_tpu_torch.reporting.logger import get_logger
 from marius_tpu_torch.storage import checkpoint as ckpt
 from marius_tpu_torch.storage.dataset import load_split, load_stats
+from marius_tpu_torch.train.buffer_trainer import PartitionBufferLPTrainer
 from marius_tpu_torch.train.evaluator import LinkPredictionEvaluator
-from marius_tpu_torch.train.graph_encoder import encode_all_nodes
+from marius_tpu_torch.train.graph_encoder import encode_all_nodes, encode_all_nodes_host
 from marius_tpu_torch.train.trainer import LinkPredictionTrainer, _later_slice, resolve_device
 
 
@@ -66,7 +70,9 @@ def _load_lp_data(cfg: MariusConfig):
     stats = None
     if ds.dataset_dir and os.path.exists(os.path.join(ds.dataset_dir, "dataset.yaml")):
         stats = load_stats(ds.dataset_dir)
-    train = load_split(ds.dataset_dir, "train", stats)
+    # FLAT_FILE edges: a memmap over the binary file, paged in as read
+    train = load_split(ds.dataset_dir, "train", stats,
+                       mmap=cfg.storage.edges_backend == "FLAT_FILE")
     valid = test = None
     try:
         valid = load_split(ds.dataset_dir, "valid", stats)
@@ -88,12 +94,6 @@ def _refuse_unported(cfg: MariusConfig) -> None:
         raise ValueError(f"Unknown learning task: {cfg.learning_task}")
     if t.mesh_data not in (0, 1) or t.mesh_node not in (0, 1):
         raise _later_slice("mesh training", "the multi-GPU slice")
-    if s.embeddings_backend == "PARTITION_BUFFER":
-        raise _later_slice("PARTITION_BUFFER embeddings", "the out-of-core LP slice (A9)")
-    if s.edges_backend != "DEVICE_MEMORY":
-        raise _later_slice(f"{s.edges_backend} edges", "the out-of-core LP slice (A9)")
-    if cfg.evaluation.host_streaming:
-        raise _later_slice("evaluation.host_streaming", "the out-of-core LP slice (A9)")
     if (cfg.train_neighbor_sampling or model.encoder.num_gnn_stages
             or model.encoder.has_features):
         raise _later_slice("neighbour sampling and GNN or FEATURE encoders",
@@ -103,6 +103,22 @@ def _refuse_unported(cfg: MariusConfig) -> None:
                            "a later slice")
     if resolve_dtype(s.embeddings_dtype) != torch.float32:
         raise _later_slice(f"{s.embeddings_dtype} embeddings", "the bf16 slice")
+
+
+class _HostStreamLPEval:
+    """evaluation.host_streaming: the table never enters device memory
+    whole; it is encoded and scored in node tiles
+    (``LinkPredictionEvaluator.evaluate_from_host_table``)."""
+
+    def __init__(self, ev: LinkPredictionEvaluator):
+        self.ev = ev
+
+    def __getattr__(self, name):
+        return getattr(self.ev, name)
+
+    def evaluate(self, state):
+        return self.ev.evaluate_from_host_table(state.table.values.detach().cpu().numpy(),
+                                                state.params)
 
 
 def marius_init(cfg: MariusConfig, train: bool = True, device=None) -> MariusRuntime:
@@ -138,15 +154,34 @@ def marius_init(cfg: MariusConfig, train: bool = True, device=None) -> MariusRun
             model = dataclasses.replace(model, loss_scale=float(k))
         log.info("Async pipeline: staleness_bound=%d -> step of %d edges", k, batch_size)
 
-    trainer = LinkPredictionTrainer(
-        model, num_nodes, num_rels, train_edges, neg,
-        batch_size=batch_size,
-        seed=cfg.training.seed,
-        train_filter_keys=train_filter,
-        edges_backend=cfg.storage.edges_backend,
-        epochs_per_shuffle=cfg.training.epochs_per_shuffle,
-        device=dev,
-    )
+    s = cfg.storage
+    if s.embeddings_backend == "PARTITION_BUFFER":
+        trainer = PartitionBufferLPTrainer(
+            model, num_nodes, num_rels, train_edges, neg,
+            batch_size=batch_size,
+            num_partitions=s.num_partitions,
+            buffer_capacity=s.buffer_capacity,
+            seed=cfg.training.seed,
+            ordering=s.edge_bucket_ordering,
+            fine_to_coarse_ratio=s.fine_to_coarse_ratio,
+            num_cache_partitions=s.num_cache_partitions,
+            randomly_assign_edge_buckets=s.randomly_assign_edge_buckets,
+            prefetching=s.prefetching,
+            epochs_per_shuffle=cfg.training.epochs_per_shuffle,
+            train_filter_keys=train_filter,
+            sparse_writeback=s.sparse_writeback,
+            device=dev,
+        )
+    else:
+        trainer = LinkPredictionTrainer(
+            model, num_nodes, num_rels, train_edges, neg,
+            batch_size=batch_size,
+            seed=cfg.training.seed,
+            train_filter_keys=train_filter,
+            edges_backend=s.edges_backend,
+            epochs_per_shuffle=cfg.training.epochs_per_shuffle,
+            device=dev,
+        )
 
     all_edges = np.concatenate(
         [train_edges] + [e for e in (valid_edges, test_edges) if e is not None], axis=0)
@@ -154,7 +189,7 @@ def marius_init(cfg: MariusConfig, train: bool = True, device=None) -> MariusRun
     def make_eval(edges):
         if edges is None or len(edges) == 0:
             return None
-        return LinkPredictionEvaluator(
+        ev = LinkPredictionEvaluator(
             model, num_nodes, num_rels, edges,
             all_edges=all_edges,
             batch_size=cfg.evaluation.batch_size,
@@ -162,6 +197,7 @@ def marius_init(cfg: MariusConfig, train: bool = True, device=None) -> MariusRun
             neg_config=cfg.evaluation.negative_sampling,
             device=dev,
         )
+        return _HostStreamLPEval(ev) if cfg.evaluation.host_streaming else ev
 
     rt = MariusRuntime(cfg, trainer, make_eval(valid_edges), make_eval(test_edges))
 
@@ -209,9 +245,13 @@ def marius_init(cfg: MariusConfig, train: bool = True, device=None) -> MariusRun
 
 def _restore(rt: MariusRuntime, path: str) -> Dict[str, Any]:
     """Load the checkpoint at ``path`` into the trainer's own tensors (the
-    decoder's relation tables are its module's parameters)."""
+    decoder's relation tables are its module's parameters); a partition-buffer
+    trainer takes it through its ``state`` setter, into its host table."""
     state, meta = ckpt.load_state(path, rt.trainer.state)
-    copy_train_state_(rt.trainer.state, state)
+    if isinstance(rt.trainer, PartitionBufferLPTrainer):
+        rt.trainer.state = state
+    else:
+        copy_train_state_(rt.trainer.state, state)
     return meta
 
 
@@ -308,9 +348,14 @@ def encode_and_export(rt: MariusRuntime, path: Optional[str] = None) -> np.ndarr
     """Encoder outputs for every node to <model_dir>/encoded_nodes.bin
     (encode_and_export, marius.cpp:13-36)."""
     state = rt.trainer.state
-    table_values = state.table.values if state.table is not None else None
-    encoded = encode_all_nodes(rt.config.model, state.params, table_values)
-    encoded = encoded.detach().cpu().numpy()
+    if isinstance(rt.trainer, PartitionBufferLPTrainer):
+        # the host table goes through the device in tiles
+        encoded = encode_all_nodes_host(rt.config.model, state.params,
+                                        state.table.values.numpy(), rt.trainer.device)
+    else:
+        table_values = state.table.values if state.table is not None else None
+        encoded = encode_all_nodes(rt.config.model, state.params, table_values)
+        encoded = encoded.detach().cpu().numpy()
     out = path or (os.path.join(rt.config.storage.model_dir, "encoded_nodes.bin")
                    if rt.config.storage.model_dir else None)
     if out:

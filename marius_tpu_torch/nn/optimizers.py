@@ -145,3 +145,27 @@ def apply_optimizer(config: OptimizerConfig, params, state: OptState,
         return params, OptState(state.step + 1, slots)
 
     raise ValueError(f"Unknown optimizer type: {config.optimizer_type}")
+
+
+def is_noop_at_zero_grad(config: OptimizerConfig) -> bool:
+    """True when a step with an all-zero gradient changes no parameter and
+    no slot, only the step count: SGD without momentum and Adagrad, neither
+    with weight decay. Adam's moments decay on zero gradients."""
+    if config.weight_decay:
+        return False
+    ot = config.optimizer_type.upper()
+    return ot == "ADAGRAD" or (ot == "SGD" and not config.momentum)
+
+
+def apply_zero_grad_steps(config: OptimizerConfig, params, state: OptState,
+                          count: int) -> OptState:
+    """``count`` optimizer steps with all-zero gradients (the JAX trainers'
+    fully masked padding batches), in place; the no-op ones only count."""
+    if count <= 0:
+        return state
+    if is_noop_at_zero_grad(config):
+        return OptState(state.step + count, state.slots)
+    zeros = tree_map(torch.zeros_like, params)
+    for _ in range(count):
+        _, state = apply_optimizer(config, params, state, zeros)
+    return state

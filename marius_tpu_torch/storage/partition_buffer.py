@@ -1,0 +1,294 @@
+"""Partition buffer: a GPU-resident working set over a host-RAM embedding table.
+
+Port of ``PartitionBuffer`` from ``marius_tpu/storage/partition_buffer.py``
+(:62-387; reference storage/buffer.cpp:324-713). The full table and its
+Adagrad state live in host RAM as numpy arrays; ``capacity`` partitions of
+them live on the device as two tensors that the trainer gathers from and
+updates in place. The ordering schedule (``data/ordering.py``) drives swaps:
+evicted partitions are copied device->host, admitted ones host->device into
+the freed slots, on the copy stream of ``storage/transfer.py``.
+
+Evictions are deferred as in the JAX package: the rows are snapshotted on the
+device at swap time and land in the host arrays at the next swap or flush
+(``pending_writebacks``, the reference's AsyncWriteBlock, buffer.cpp:222-322),
+so the next state's work is queued before the host waits for the copy. With
+dirty-row tracking (``enable_dirty_tracking``) an eviction moves only the
+rows the trainer updated since the slot was admitted, unless 95% or more are
+dirty; rows never updated are already authoritative on the host. The dirty
+mask has one extra row, ``buffer_rows``, that takes the padding id (JAX drops
+it with ``mode="drop"``; a torch index would be out of range).
+
+Id mapping: nodes are range-partitioned (partition p owns rows
+[p*psize, (p+1)*psize)); with ``slot[p]`` the buffer slot of partition p, the
+buffer-local id of global node g is ``slot[g // psize] * psize + g % psize``.
+``ReadOnlyPartitionCache`` (the out-of-core NC feature tier) is not ported
+yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from marius_tpu_torch.nn.initialization import InitConfig, initialize_tensor
+from marius_tpu_torch.ops.cuda import adagrad as adagrad_kernel
+from marius_tpu_torch.ops.cuda import gather as gather_kernel
+from marius_tpu_torch.storage import transfer
+
+# host initialization goes chunk by chunk above this many elements
+HOST_INIT_ELEMENTS = 4_000_000
+# evictions move every row of a slot once this share of its rows is dirty
+FULL_WRITEBACK_SHARE = 0.95
+
+
+def init_host_table(seed: int, num_nodes: int, padded: int, dim: int,
+                    init_config: Optional[InitConfig] = None) -> np.ndarray:
+    """(padded, dim) float32 initial values, rows >= num_nodes zero, with
+    fans of the full (num_nodes, dim) shape (io.cpp:167-188). Small tables
+    are drawn by the port's initializer from a CPU generator; large ones on
+    the host in 64 MB chunks from ``np.random.default_rng(seed)``, in place,
+    so a 34 GB table never needs a second copy."""
+    cfg = init_config or InitConfig("GLOROT_UNIFORM")
+    if padded * dim <= HOST_INIT_ELEMENTS:
+        gen = torch.Generator().manual_seed(seed)
+        values = initialize_tensor(gen, cfg, (padded, dim), torch.float32,
+                                   fans=(num_nodes, dim)).numpy()
+    else:
+        dist = cfg.distribution.upper()
+        rng = np.random.default_rng(seed)
+        values = np.empty((padded, dim), np.float32)
+        step = max(1, (64 << 20) // (dim * 4))
+        for lo in range(0, padded, step):
+            blk = values[lo:lo + step]
+            if dist == "GLOROT_UNIFORM":
+                bound = np.float32(np.sqrt(6.0 / (num_nodes + dim)))
+                rng.random(out=blk, dtype=np.float32)
+                blk *= 2 * bound
+                blk -= bound
+            elif dist == "GLOROT_NORMAL":
+                rng.standard_normal(out=blk, dtype=np.float32)
+                blk *= np.float32(np.sqrt(2.0 / (num_nodes + dim)))
+            elif dist == "NORMAL":
+                rng.standard_normal(out=blk, dtype=np.float32)
+                blk *= np.float32(cfg.std)
+                blk += np.float32(cfg.mean)
+            elif dist == "UNIFORM":
+                rng.random(out=blk, dtype=np.float32)
+                blk *= np.float32(2 * cfg.scale_factor)
+                blk -= np.float32(cfg.scale_factor)
+            elif dist == "ZEROS":
+                blk[:] = 0
+            elif dist == "ONES":
+                blk[:] = 1
+            else:
+                blk[:] = cfg.constant
+    values[num_nodes:] = 0.0
+    return values
+
+
+@dataclasses.dataclass
+class PartitionBuffer:
+    num_nodes: int
+    num_partitions: int
+    capacity: int
+    dim: int
+    host_values: np.ndarray                     # (num_partitions * psize, dim)
+    host_state: np.ndarray                      # Adagrad accumulator, same shape
+    device: torch.device = torch.device("cpu")
+    device_values: Optional[torch.Tensor] = None   # (capacity * psize, dim)
+    device_state: Optional[torch.Tensor] = None
+    resident: Optional[np.ndarray] = None       # (capacity,) partition ids, -1 empty
+    part_to_slot: Optional[np.ndarray] = None   # (num_partitions,) slot or -1
+    # deferred evictions, landed at the next drain:
+    #   ("full", p, values_handle, state_handle)        whole slot
+    #   ("sparse", p, row_ids, values_handle, state_handle)  dirty rows only
+    pending_writebacks: List = dataclasses.field(default_factory=list)
+    # (buffer_rows + 1,) bool on the device: rows updated since their slot was
+    # admitted; the last entry takes the padding id and is never read
+    dirty: Optional[torch.Tensor] = None
+    # evictions that gathered their dirty rows (two row-gather launches each)
+    sparse_evictions: int = 0
+
+    @property
+    def psize(self) -> int:
+        return self.host_values.shape[0] // self.num_partitions
+
+    @property
+    def buffer_rows(self) -> int:
+        return self.capacity * self.psize
+
+    @staticmethod
+    def create(seed: int, num_nodes: int, dim: int, num_partitions: int, capacity: int,
+               device="cpu", init_config: Optional[InitConfig] = None) -> "PartitionBuffer":
+        psize = -(-num_nodes // num_partitions)
+        padded = num_partitions * psize
+        return PartitionBuffer(
+            num_nodes=num_nodes, num_partitions=num_partitions, capacity=capacity, dim=dim,
+            host_values=init_host_table(seed, num_nodes, padded, dim, init_config),
+            # np.zeros maps zero pages lazily: 34 GB cost nothing until written
+            host_state=np.zeros((padded, dim), np.float32),
+            device=torch.device(device))
+
+    def part_rows(self, p: int) -> slice:
+        return slice(p * self.psize, (p + 1) * self.psize)
+
+    def part_valid_count(self, p: int) -> int:
+        return max(0, min(self.num_nodes - p * self.psize, self.psize))
+
+    # ------------------------------------------------------------------------
+    def load(self, partitions: Sequence[int]) -> None:
+        """Admit an initial resident set (PartitionBuffer::load)."""
+        self._drain_writebacks()
+        # drop the previous tensors before allocating: holding both would
+        # double the device footprint
+        self.device_values = self.device_state = None
+        parts = [int(p) for p in partitions]
+        if len(parts) > self.capacity:
+            raise ValueError(f"{len(parts)} partitions exceed the capacity {self.capacity}")
+        parts += [-1] * (self.capacity - len(parts))
+        dv = transfer.alloc_rows(self.buffer_rows, self.dim, self.host_values.dtype, self.device)
+        for slot, p in enumerate(parts):
+            if p >= 0:
+                transfer.write_rows(dv, self.host_values[self.part_rows(p)], slot * self.psize)
+        ds = transfer.alloc_rows(self.buffer_rows, self.dim, self.host_state.dtype, self.device)
+        for slot, p in enumerate(parts):
+            block = self.host_state[self.part_rows(p)] if p >= 0 else None
+            # state is all zero until a partition has trained; the allocation
+            # already is: a host scan is far cheaper than the copy
+            if block is not None and block.any():
+                transfer.write_rows(ds, block, slot * self.psize)
+        self.device_values, self.device_state = dv, ds
+        if self.dirty is not None:
+            self.dirty = torch.zeros(self.buffer_rows + 1, dtype=torch.bool, device=self.device)
+        self.resident = np.asarray(parts, np.int32)
+        self.part_to_slot = np.full(self.num_partitions, -1, np.int32)
+        for slot, p in enumerate(parts):
+            if p >= 0:
+                self.part_to_slot[p] = slot
+
+    def enable_dirty_tracking(self) -> None:
+        """Opt in to dirty-row (sparse) writeback: the trainer marks updated
+        rows with :func:`mark_dirty`; evictions and flushes then move only
+        those rows device->host."""
+        self.dirty = torch.zeros(self.buffer_rows + 1, dtype=torch.bool, device=self.device)
+
+    def release(self) -> None:
+        """Free the device tensors after a flush; the next ``load`` re-admits."""
+        self._drain_writebacks()
+        self.device_values = self.device_state = None
+        self.resident = self.part_to_slot = None
+        if self.dirty is not None:
+            self.dirty = torch.zeros(self.buffer_rows + 1, dtype=torch.bool, device=self.device)
+
+    def _drain_writebacks(self) -> None:
+        """Land every deferred eviction in the host arrays."""
+        while self.pending_writebacks:
+            entry = self.pending_writebacks.pop(0)
+            if entry[0] == "sparse":
+                _, p, ids, hv, hs = entry
+                rows = p * self.psize + ids
+                self.host_values[rows] = transfer.drain_read(hv)
+                self.host_state[rows] = transfer.drain_read(hs)
+            else:
+                _, p, hv, hs = entry
+                transfer.drain_read(hv, self.host_values[self.part_rows(p)])
+                transfer.drain_read(hs, self.host_state[self.part_rows(p)])
+
+    def swap_to_state(self, new_partitions: Sequence[int]) -> None:
+        """Evict the partitions not in the new state and admit the new ones
+        into the freed slots (performNextSwap, buffer.cpp:495-541)."""
+        if self.resident is None:
+            raise RuntimeError("call load() first")
+        self._drain_writebacks()   # the previous state's evictions land now
+        new_set = {int(p) for p in new_partitions}
+        old_set = {int(p) for p in self.resident if p >= 0}
+        evict = sorted(old_set - new_set)
+        admit = sorted(new_set - old_set)
+        for p in evict:
+            self._evict_one(p)
+        for p in evict:
+            self.resident[self.part_to_slot[p]] = -1
+            self.part_to_slot[p] = -1
+        free_slots = [int(s) for s in np.where(self.resident < 0)[0]]
+        for p, slot in zip(admit, free_slots):
+            start = slot * self.psize
+            transfer.write_rows(self.device_values, self.host_values[self.part_rows(p)], start)
+            block = self.host_state[self.part_rows(p)]
+            if block.any():
+                transfer.write_rows(self.device_state, block, start)
+            else:
+                transfer.zero_rows(self.device_state, start, self.psize)
+            self.resident[slot] = p
+            self.part_to_slot[p] = slot
+
+    def _evict_one(self, p: int) -> None:
+        """Queue the device->host writeback of partition ``p``'s slot."""
+        start = int(self.part_to_slot[p]) * self.psize
+        if self.dirty is None:
+            self.pending_writebacks.append((
+                "full", p, transfer.read_rows_async(self.device_values, start, self.psize),
+                transfer.read_rows_async(self.device_state, start, self.psize)))
+            return
+        mask = transfer.read_rows(self.dirty, start, self.psize)
+        ids = np.nonzero(mask)[0]
+        k = len(ids)
+        if k and k / self.psize < FULL_WRITEBACK_SHARE:
+            rows = torch.from_numpy(start + ids).to(self.device)
+            vals = gather_kernel.gather_rows(self.device_values, rows)
+            stats = gather_kernel.gather_rows(self.device_state, rows)
+            self.sparse_evictions += 1
+            # the gathered rows are already a snapshot: read them as they are
+            self.pending_writebacks.append(
+                ("sparse", p, ids, transfer.ReadHandle(vals), transfer.ReadHandle(stats)))
+        elif k:   # nearly every row is dirty: the whole slot costs less
+            self.pending_writebacks.append((
+                "full", p, transfer.read_rows_async(self.device_values, start, self.psize),
+                transfer.read_rows_async(self.device_state, start, self.psize)))
+        self.dirty[start:start + self.psize] = False
+
+    def flush(self) -> None:
+        """Write every resident partition back to host RAM."""
+        self._drain_writebacks()
+        if self.resident is None:
+            return
+        for p in [int(p) for p in self.resident if p >= 0]:
+            self._evict_one(p)
+        self._drain_writebacks()
+
+    # ------------------------------------------------------------------------
+    def global_to_local(self, ids: np.ndarray) -> np.ndarray:
+        """Map global node ids to buffer-local ids (host-side, vectorized)."""
+        slot = self.part_to_slot[ids // self.psize]
+        if not (slot >= 0).all():
+            raise ValueError("an id lies in a partition that is not resident")
+        return (slot * self.psize + ids % self.psize).astype(np.int32)
+
+    def slot_valid_counts(self) -> np.ndarray:
+        """Valid (non-padding) rows of each slot, so that in-buffer negative
+        sampling stays off padding rows."""
+        out = np.zeros(self.capacity, np.int32)
+        for slot, p in enumerate(self.resident):
+            out[slot] = self.part_valid_count(int(p)) if p >= 0 else 0
+        return out
+
+
+def mark_dirty(dirty: torch.Tensor, ids: torch.Tensor) -> None:
+    """Set ``dirty[ids] = True`` in place; ids outside [0, len(dirty) - 1)
+    go to the last entry, the padding row's (JAX drops them)."""
+    n = dirty.shape[0] - 1
+    dirty[torch.where((ids >= 0) & (ids < n), ids, n)] = True
+
+
+def sparse_adagrad_update_buffer(values: torch.Tensor, state: torch.Tensor,
+                                 unique_local_ids: torch.Tensor, grads: torch.Tensor,
+                                 lr: float) -> None:
+    """Row-sparse Adagrad on the device buffer, in place (batch.cpp:62-79):
+    the JAX package's plain version computes this rule over unique ids and
+    drops the padding id ``buffer_rows``; here the Adagrad kernel does, which
+    skips ids outside [0, rows) (the plain version of the kernel on CPU
+    tensors)."""
+    adagrad_kernel.sparse_adagrad_update_(values, state, unique_local_ids,
+                                          grads.contiguous(), lr)

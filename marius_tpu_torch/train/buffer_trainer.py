@@ -1,0 +1,490 @@
+"""Out-of-core link-prediction training over a partition buffer.
+
+Port of ``PartitionBufferLPTrainer`` from ``marius_tpu/train/buffer_trainer.py``
+(:76-719, shallow EMBEDDING encoders; reference graph_storage.cpp:335-735,
+dataloader.cpp:120-183 and the buffer.cpp swaps). The embedding table lives
+in host RAM, partitioned over the node dimension; a COMET (or BETA) schedule
+of buffer states brings ``capacity`` partitions at a time onto the GPU; each
+state trains on the edge buckets whose source AND destination partitions are
+resident, with ids remapped to buffer-local rows on the host by the native
+library. A prefetch thread gathers and shuffles the next state's edges while
+the current one trains (``prefetching=False`` runs that work inline).
+
+Each batch, on the device:
+
+1. in-buffer negatives: ``degree_fraction`` of each chunk's negatives are
+   endpoints of uniformly drawn batch edges (degree slots first), the rest
+   uniform over the resident slots' valid rows (``_in_buffer_draws`` is the
+   seam for the three random draws);
+2. train-filter masks on GLOBAL ids (local ids mapped back through the
+   resident slot -> partition table), else the DEG local filter;
+3. the rows through the row-gather kernel: all ids per occurrence when the
+   buffer is small (``dense_accum``: buffer_rows x d <= 8M), else the batch's
+   unique ids;
+4. the decoder, the loss and the gradients of the rows and dense parameters;
+5. the table update: per-occurrence gradients summed into a buffer-sized
+   accumulator and Adagrad over every row (``dense_accum``), else the
+   row-sparse Adagrad kernel over the unique ids; updated rows are marked
+   dirty for the sparse writeback; the dense optimizer.
+
+The JAX state function runs every state for the epoch's padded batch count
+(``max_batches``). The fully masked batches at a state's end change no table
+row (their gradients are zero), so the port does not run them; it still
+applies the dense optimizer once for each, with zero gradients, unless that
+step is provably a no-op (SGD without momentum, Adagrad; no weight decay),
+where only the step count advances. So the state after every epoch equals the
+JAX trainer's.
+
+GNN and FEATURE encoders, meshes and CORRUPT_REL raise
+``NotImplementedError`` naming the slice that brings them.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures as cf
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from marius_tpu_torch import native
+from marius_tpu_torch.data.ordering import (
+    assign_edge_buckets,
+    beta_ordering,
+    comet_ordering,
+    greedy_assign_edge_buckets,
+)
+from marius_tpu_torch.data.samplers.negative import (
+    NegativeSamplingConfig,
+    deg_local_filter_mask,
+)
+from marius_tpu_torch.nn.decoders.edge import normalize_decoder_method
+from marius_tpu_torch.nn.encoder import encoder_forward
+from marius_tpu_torch.nn.model import (
+    LINK_PREDICTION,
+    Model,
+    init_model_params,
+    lp_batch_loss,
+    lp_batch_loss_direct,
+)
+from marius_tpu_torch.nn.optimizers import (
+    OptState,
+    apply_optimizer,
+    apply_zero_grad_steps,
+    init_optimizer,
+    tree_leaves,
+    tree_map,
+)
+from marius_tpu_torch.ops.edge_keys import filter_mask_sampled
+from marius_tpu_torch.ops.unique import unique_padded
+from marius_tpu_torch.parallel.embedding_table import (
+    EmbeddingTable,
+    gather_rows,
+    sparse_adagrad_update_dense_accum,
+)
+from marius_tpu_torch.storage.partition_buffer import (
+    PartitionBuffer,
+    mark_dirty,
+    sparse_adagrad_update_buffer,
+)
+from marius_tpu_torch.tools.preprocess.partitioner import partition_edges
+from marius_tpu_torch.train.trainer import TrainState, _later_slice, resolve_device
+
+Tensor = torch.Tensor
+
+# buffer_rows x d at or below which the table update runs over every buffer row
+DENSE_ACCUM_ELEMENTS = 8_000_000
+
+
+class _Immediate:
+    """A future that runs its work at .result(): the prefetching=false
+    stand-in for ThreadPoolExecutor.submit."""
+
+    def __init__(self, fn, *args):
+        self._fn, self._args = fn, args
+
+    def result(self):
+        return self._fn(*self._args)
+
+
+def padded_batch_count(state_sizes: List[int], batch_size: int) -> int:
+    """The JAX state function's batch count for an epoch: the largest
+    state's, rounded up to a power of two up to 256, then to ~1/16 steps
+    (buffer_trainer.py:557-562)."""
+    max_batches = max(1, max(-(-s // batch_size) for s in state_sizes))
+    if max_batches <= 256:
+        return 1 << (max_batches - 1).bit_length()
+    step = 1 << max(max_batches.bit_length() - 4, 8)
+    return -(-max_batches // step) * step
+
+
+class PartitionBufferLPTrainer:
+    """Shallow-encoder LP training with the embedding table in host RAM."""
+
+    def __init__(
+        self,
+        model: Model,
+        num_nodes: int,
+        num_relations: int,
+        train_edges: np.ndarray,
+        neg_config: NegativeSamplingConfig,
+        batch_size: int = 1000,
+        num_partitions: int = 16,
+        buffer_capacity: int = 8,
+        seed: int = 0,
+        ordering: str = "COMET",          # COMET | BETA (EdgeBucketOrdering)
+        fine_to_coarse_ratio: int = 2,
+        num_cache_partitions: int = 0,
+        randomly_assign_edge_buckets: bool = True,
+        nbr_configs=(),
+        features: Optional[np.ndarray] = None,
+        mesh=None,
+        prefetching: bool = True,         # next-state host prep on a thread
+        epochs_per_shuffle: int = 1,
+        train_filter_keys=None,           # (dst, src) EdgeKeySets in GLOBAL ids
+        sparse_writeback: bool = True,    # evictions move only updated rows
+        profile_states: bool = False,     # per-state (prep, swap, compute) seconds
+        device=None,
+    ):
+        if model.learning_task != LINK_PREDICTION:
+            raise ValueError(f"PartitionBufferLPTrainer needs a {LINK_PREDICTION} model")
+        if model.decoder is None:
+            raise ValueError("link prediction needs an edge decoder")
+        if batch_size % neg_config.num_chunks:
+            raise ValueError("batch_size must be divisible by num_chunks (static chunking)")
+        self.decoder_method = normalize_decoder_method(model.decoder.decoder_method)
+        if self.decoder_method == "CORRUPT_REL":
+            raise _later_slice("CORRUPT_REL training", "a later LP slice")
+        if self.decoder_method != "CORRUPT_NODE":
+            raise ValueError(f"training supports CORRUPT_NODE/CORRUPT_REL, "
+                             f"got {self.decoder_method}")
+        if nbr_configs or model.encoder.num_gnn_stages:
+            raise _later_slice("GNN encoders over the partition buffer", "the sampled-GNN slice")
+        if features is not None or model.encoder.has_features:
+            raise _later_slice("FEATURE encoders over the partition buffer",
+                               "the out-of-core NC slice")
+        if mesh is not None:
+            raise _later_slice("mesh training", "the multi-GPU slice")
+        if not model.has_embeddings:
+            raise ValueError("partition-buffer LP needs an embedding table")
+
+        self.device = resolve_device(device)
+        self.model = model
+        self.num_nodes = num_nodes
+        self.num_relations = num_relations
+        self.neg_config = neg_config
+        self.batch_size = batch_size
+        self.num_partitions = num_partitions
+        self.capacity = min(buffer_capacity, num_partitions)
+        self.seed = seed
+        self.epochs_per_shuffle = max(1, int(epochs_per_shuffle))
+        self.ordering = ordering.upper()
+        self.fine_to_coarse_ratio = fine_to_coarse_ratio
+        self.num_cache_partitions = num_cache_partitions
+        self.randomly_assign = randomly_assign_edge_buckets
+        self.prefetching = prefetching
+        self.train_filter_keys = (None if train_filter_keys is None else
+                                  tuple(k.to(self.device) for k in train_filter_keys))
+        self.profile_states = profile_states
+        self.last_state_timings: List[Tuple[float, float, float]] = []
+
+        table_seed = int(np.random.SeedSequence((seed, 0)).generate_state(1)[0])
+        self.buffer = PartitionBuffer.create(table_seed, num_nodes,
+                                             model.encoder.embedding_dim, num_partitions,
+                                             self.capacity, device=self.device)
+        self.sparse_writeback = bool(sparse_writeback)
+        if self.sparse_writeback:
+            self.buffer.enable_dirty_tracking()
+
+        # initial parameters are drawn on the CPU, so they do not depend on the device
+        model.decoder.to(self.device)
+        params = init_model_params(torch.Generator().manual_seed(seed), model)
+        self.params = tree_map(self._to_device_leaf, params)
+        self.opt_state = init_optimizer(model.dense_optimizer, self.params)
+        self.epoch = 0
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+
+        # bucket-grouped edges: one stable counting sort, then per-bucket slices
+        edges = np.asarray(train_edges, np.int32)
+        self.has_rels = edges.shape[1] == 3
+        reordered, sizes = partition_edges(edges, num_nodes, num_partitions)
+        self.edges_by_bucket = reordered
+        self.bucket_offsets = np.concatenate([[0], np.cumsum(sizes)])
+        self.num_edges = len(edges)
+
+        c, n = neg_config.num_chunks, neg_config.negatives_per_positive
+        self.unique_cap = 2 * batch_size + 2 * c * n
+        self.dense_accum = (self.buffer.buffer_rows * model.encoder.embedding_dim
+                            <= DENSE_ACCUM_ELEMENTS)
+
+    def _to_device_leaf(self, t: Tensor) -> Tensor:
+        if t.device == self.device:
+            return t
+        return t.detach().to(self.device).requires_grad_(t.requires_grad)
+
+    # -- seams a test may replace --------------------------------------------
+
+    def _in_buffer_draws(self, step: int, inverse: bool):
+        """One direction's random draws for epoch step ``step`` (a step of
+        the JAX state function's scan, padded steps included): (slots (C, N)
+        in [0, capacity), offsets (C, N) in [0, psize), batch rows (C, D) in
+        [0, batch) or None), D = N x degree_fraction."""
+        cfg, gen, dev = self.neg_config, self.generator, self.device
+        c, nneg = cfg.num_chunks, cfg.negatives_per_positive
+        num_deg = int(nneg * cfg.degree_fraction)
+        slots = torch.randint(0, self.capacity, (c, nneg), generator=gen, device=dev)
+        offs = torch.randint(0, self.buffer.psize, (c, nneg), generator=gen, device=dev)
+        rows = (torch.randint(0, self.batch_size, (c, num_deg), generator=gen, device=dev)
+                if num_deg else None)
+        return slots, offs, rows
+
+    # ------------------------------------------------------------------------
+
+    def _plan_epoch(self):
+        seed = self.seed + self.epoch
+        n, c = self.num_partitions, self.capacity
+        r = self.fine_to_coarse_ratio
+        coarse_c = c // r - self.num_cache_partitions
+        coarse_n = n // r - self.num_cache_partitions
+        if self.ordering == "COMET" and n % r == 0 and c % r == 0 \
+                and coarse_n >= 1 and (coarse_c >= 2 or coarse_c >= coarse_n):
+            states = comet_ordering(n, c, r, self.num_cache_partitions, seed=seed)
+        else:
+            states = beta_ordering(n, c, seed=seed)
+        if self.randomly_assign:
+            assignment = assign_edge_buckets(states, n, seed=seed)
+        else:
+            assignment = greedy_assign_edge_buckets(states, n)
+        return states, assignment
+
+    def _in_buffer_negatives(self, edges_b: Tensor, mask_b: Tensor, step: int,
+                             inverse: bool, slot_valid: Tensor):
+        """The mixture of JAX's in_buffer_negs (:280-299): uniform rows of
+        the resident slots (an offset modulo the slot's valid rows), the
+        first D columns replaced by endpoints of drawn batch rows, a masked
+        row keeping its uniform draw. Returns (local ids (C, N), rows or None)."""
+        psize = self.buffer.psize
+        slots, offs, rows = self._in_buffer_draws(step, inverse)
+        valid = slot_valid[slots]
+        uni = slots * psize + offs % valid.clamp(min=1)
+        if rows is None:
+            return uni, None
+        d = rows.shape[1]
+        col = 0 if inverse else edges_b.shape[1] - 1
+        deg = torch.where(mask_b[rows], edges_b[:, col][rows], uni[:, :d])
+        return torch.cat([deg, uni[:, d:]], dim=1), rows
+
+    def _batch_step(self, edges_b: Tensor, mask_b: Tensor, step: int,
+                    slot_valid: Tensor, slot_parts: Tensor) -> Tensor:
+        """One CORRUPT_NODE batch against the buffer (JAX batch_step
+        :264-477); returns the detached loss."""
+        model, cfg, buf = self.model, self.neg_config, self.buffer
+        b = self.batch_size
+        c, nneg = cfg.num_chunks, cfg.negatives_per_positive
+        psize, buffer_rows = buf.psize, buf.buffer_rows
+        num_deg = int(nneg * cfg.degree_fraction)
+
+        dst_negs, dst_deg_rows = self._in_buffer_negatives(edges_b, mask_b, step, False,
+                                                           slot_valid)
+        src_negs, src_deg_rows = self._in_buffer_negatives(edges_b, mask_b, step, True,
+                                                           slot_valid)
+        src = torch.where(mask_b, edges_b[:, 0], buffer_rows)
+        dst = torch.where(mask_b, edges_b[:, -1], buffer_rows)
+        rel = edges_b[:, 1] if self.has_rels else None
+        inv_rel_on = model.decoder.use_inverse_relations and self.has_rels
+
+        dst_filter = src_filter = None
+        if self.train_filter_keys is not None:
+            # the keys are GLOBAL: map buffer-local ids back through the slots
+            def to_global(lids):
+                slots = (lids // psize).clamp(max=self.capacity - 1)
+                return slot_parts[slots] * psize + lids % psize
+
+            dst_keys, src_keys = self.train_filter_keys
+            dst_filter = filter_mask_sampled(dst_keys, to_global(src), rel, to_global(dst_negs))
+            src_filter = filter_mask_sampled(src_keys, to_global(dst), rel, to_global(src_negs))
+        elif num_deg and (cfg.local_filter_mode or "DEG").upper() == "DEG":
+            # DEG local filter (negative.cpp:21-48)
+            dst_filter = deg_local_filter_mask(dst_deg_rows, b, nneg)
+            src_filter = deg_local_filter_mask(src_deg_rows, b, nneg)
+        if not inv_rel_on:
+            src_filter = None
+
+        all_ids = torch.cat([src, dst, dst_negs.reshape(-1), src_negs.reshape(-1)])
+        if self.dense_accum:
+            update_ids, pos = all_ids, None
+        else:
+            uniq = unique_padded(all_ids, size=self.unique_cap, fill_value=buffer_rows)
+            update_ids, pos = uniq.ids, uniq.inverse
+        x0 = gather_rows(buf.device_values, update_ids)
+        x0.requires_grad_(True)
+        enc = encoder_forward(model.encoder, self.params["encoder"], x0, None)
+        cn = c * nneg
+        if self.dense_accum:
+            d = enc.shape[-1]
+            loss, _ = lp_batch_loss_direct(
+                model, enc[:b], enc[b:2 * b], rel, enc[2 * b:2 * b + cn].reshape(c, nneg, d),
+                enc[2 * b + cn:].reshape(c, nneg, d) if inv_rel_on else None,
+                mask_b, dst_filter, src_filter)
+        else:
+            loss, _ = lp_batch_loss(
+                model, enc, pos[:b], pos[b:2 * b], rel, pos[2 * b:2 * b + cn].reshape(c, nneg),
+                pos[2 * b + cn:].reshape(c, nneg) if inv_rel_on else None,
+                mask_b, dst_filter, src_filter)
+
+        leaves = tree_leaves(self.params)
+        gx, *gdense = torch.autograd.grad(loss, [x0] + leaves, allow_unused=True)
+        if self.dense_accum:
+            sparse_adagrad_update_dense_accum(
+                EmbeddingTable(values=buf.device_values, state=buf.device_state),
+                all_ids, gx, model.sparse_lr)
+        else:
+            sparse_adagrad_update_buffer(buf.device_values, buf.device_state, update_ids, gx,
+                                         model.sparse_lr)
+        if buf.dirty is not None:
+            mark_dirty(buf.dirty, update_ids)
+        it = iter(gdense)
+        _, self.opt_state = apply_optimizer(model.dense_optimizer, self.params,
+                                            self.opt_state,
+                                            tree_map(lambda _: next(it), self.params))
+        return loss.detach()
+
+    def _train_state(self, local: np.ndarray, first_step: int, max_batches: int) -> Tensor:
+        """Train one buffer state's (shuffled, remapped) edges; returns the
+        state's loss sum on the device."""
+        b = self.batch_size
+        n = len(local)
+        nb = -(-n // b)
+        padded = np.zeros((nb * b, local.shape[1]), np.int64)
+        padded[:n] = local
+        edges = torch.from_numpy(padded).to(self.device)
+        masks = torch.arange(nb * b, device=self.device) < n
+        slot_valid = torch.from_numpy(self.buffer.slot_valid_counts().astype(np.int64)).to(
+            self.device)
+        slot_parts = torch.from_numpy(self.buffer.resident.astype(np.int64)).to(self.device)
+        total = torch.zeros((), dtype=torch.float32, device=self.device)
+        for i in range(nb):
+            total += self._batch_step(edges[i * b:(i + 1) * b], masks[i * b:(i + 1) * b],
+                                      first_step + i, slot_valid, slot_parts)
+        self.opt_state = apply_zero_grad_steps(self.model.dense_optimizer, self.params,
+                                               self.opt_state, max_batches - nb)
+        return total
+
+    def train_epoch(self, max_states: Optional[int] = None,
+                    time_budget_s: Optional[float] = None,
+                    final_flush: bool = True) -> Dict[str, float]:
+        """Train one epoch over the buffer schedule. ``max_states`` /
+        ``time_budget_s`` cut the schedule short after that many states or
+        seconds (the states that ran are exact: evictions and the flush land
+        every update). ``final_flush=False`` skips the end-of-epoch writeback
+        of the resident set, whose updates the next ``load`` then drops.
+        After a flush the buffer's device tensors are freed."""
+        t0 = time.perf_counter()
+        states, assignment = self._plan_epoch()
+        P = self.num_partitions
+        state_sizes = [sum(int(self.bucket_offsets[i * P + j + 1]
+                               - self.bucket_offsets[i * P + j]) for i, j in buckets)
+                       for buckets in assignment]
+        max_batches = padded_batch_count(state_sizes, self.batch_size)
+        self.buffer.load(states[0])
+        cols = 3 if self.has_rels else 2
+        shuffle_epoch = self.epoch // self.epochs_per_shuffle
+
+        def prep(s_idx):
+            """The state's edges in GLOBAL ids (the remap needs the state's
+            slots, known only once it is swapped in), shuffled."""
+            bucket_ids = np.asarray([i * P + j for i, j in assignment[s_idx]], np.int32)
+            e = native.gather_remap_buckets(self.edges_by_bucket, self.bucket_offsets,
+                                            bucket_ids, np.arange(P, dtype=np.int32),
+                                            self.buffer.psize)
+            return native.shuffle_rows(e, seed=(self.seed * 977 + shuffle_epoch) * 1009 + s_idx)
+
+        losses = []
+        edges_trained = states_run = batches_run = 0
+        self.last_state_timings = []
+        sync = (lambda: torch.cuda.synchronize(self.device)) if self.device.type == "cuda" \
+            else (lambda: None)
+        with cf.ThreadPoolExecutor(max_workers=1) as pool:
+            submit = pool.submit if self.prefetching else (lambda f, *a: _Immediate(f, *a))
+            fut = submit(prep, 0)
+            for s_idx, st in enumerate(states):
+                t_s0 = time.perf_counter()
+                local = fut.result()
+                if s_idx + 1 < len(states):
+                    fut = submit(prep, s_idx + 1)
+                t_s1 = time.perf_counter()
+                self.buffer.swap_to_state(st)
+                if self.profile_states:
+                    sync()   # the admits' copies land in the swap bucket
+                t_s2 = time.perf_counter()
+                for col in (0, cols - 1):
+                    local[:, col] = native.global_to_local(
+                        local[:, col], self.buffer.part_to_slot, self.buffer.psize,
+                        self.buffer.buffer_rows)[0]
+                losses.append(self._train_state(local, states_run * max_batches, max_batches))
+                edges_trained += len(local)
+                batches_run += -(-len(local) // self.batch_size)
+                states_run += 1
+                if self.profile_states:
+                    sync()
+                    self.last_state_timings.append(
+                        (t_s1 - t_s0, t_s2 - t_s1, time.perf_counter() - t_s2))
+                if (max_states is not None and states_run >= max_states) or \
+                        (time_budget_s is not None and time.perf_counter() - t0 > time_budget_s):
+                    break
+
+        total_loss = float(torch.stack(losses).sum())   # the epoch's one read-back
+        if final_flush:
+            self.buffer.flush()
+            self.buffer.release()
+        else:
+            self.buffer._drain_writebacks()
+        self.epoch += 1
+        dt = time.perf_counter() - t0
+        return {
+            "loss": total_loss,
+            "epoch_time_s": dt,
+            "edges_per_sec": edges_trained / dt,
+            "num_edges": self.num_edges,
+            "edges_trained": edges_trained,
+            "num_buffer_states": len(states),
+            "states_run": states_run,
+            "max_batches": max_batches,
+            "batches_run": batches_run,
+            "masked_batches": states_run * max_batches - batches_run,
+        }
+
+    def train(self, num_epochs: int):
+        return [self.train_epoch() for _ in range(num_epochs)]
+
+    # -- the TrainState view for evaluators and checkpoints -------------------
+
+    @property
+    def state(self) -> TrainState:
+        """Full-table view after a flush: the table's leaves are CPU tensors
+        over the host arrays (no copy), so a checkpoint never routes the
+        table through the device; an evaluator moves it to its device."""
+        self.buffer.flush()
+        n = self.num_nodes
+        return TrainState(
+            table=EmbeddingTable(values=torch.from_numpy(self.buffer.host_values[:n]),
+                                 state=torch.from_numpy(self.buffer.host_state[:n])),
+            params=self.params, opt_state=self.opt_state, epoch=self.epoch)
+
+    @state.setter
+    def state(self, s: TrainState) -> None:
+        """Copy ``s`` in: the table into the host arrays (the next epoch
+        re-admits from them), the parameters into this trainer's own tensors."""
+        n = self.num_nodes
+        self.buffer.flush()
+        self.buffer.release()
+        with torch.no_grad():
+            self.buffer.host_values[:n] = s.table.values.detach().cpu().numpy()
+            self.buffer.host_state[:n] = s.table.state.detach().cpu().numpy()
+            if len(tree_leaves(self.params)) != len(tree_leaves(s.params)):
+                raise ValueError("the two states' parameter structures differ")
+            tree_map(lambda d, v: d.copy_(v), self.params, s.params)
+            tree_map(lambda d, v: d.copy_(v), self.opt_state.slots, s.opt_state.slots)
+        self.opt_state = OptState(s.opt_state.step, self.opt_state.slots)
+        self.epoch = int(s.epoch)

@@ -19,11 +19,13 @@ each direction:
   kernel too), with the configured local filter.
 
 The rank sums stay on the device as float32 scalars, added in the JAX scan's
-order, and are read back once per evaluation. CORRUPT_REL ranking,
-``compute_pos_scores`` (only_pos_forward), host-tiled evaluation
-(``evaluate_from_host_table``) and GNN or FEATURE encoders (in
-``encode_all_nodes``) raise ``NotImplementedError`` naming the slice that
-brings them.
+order, and are read back once per evaluation. A table that is not on the
+evaluator's device (a partition-buffer trainer's host table) is moved there
+whole for ``evaluate``; ``evaluate_from_host_table`` instead keeps it in host
+RAM and streams it through the device in node tiles (JAX :413-576).
+CORRUPT_REL ranking, ``compute_pos_scores`` (only_pos_forward) and GNN or
+FEATURE encoders (in ``encode_all_nodes``) raise ``NotImplementedError``
+naming the slice that brings them.
 """
 
 from __future__ import annotations
@@ -51,7 +53,8 @@ from marius_tpu_torch.ops.edge_keys import (
 from marius_tpu_torch.parallel.embedding_table import gather_rows
 from marius_tpu_torch.reporting.metrics import compute_ranks, rank_statistics
 from marius_tpu_torch.reporting.reporters import LinkPredictionReporter
-from marius_tpu_torch.train.graph_encoder import encode_all_nodes
+from marius_tpu_torch.storage import transfer
+from marius_tpu_torch.train.graph_encoder import encode_all_nodes, encode_all_nodes_host
 from marius_tpu_torch.train.trainer import TrainState, _later_slice, pad_edges, resolve_device
 
 Tensor = torch.Tensor
@@ -61,6 +64,11 @@ HITS_KS = (1, 3, 5, 10, 50, 100)
 # max per-edge true-candidate pad width for the rank correction; hub-heavy
 # filter sets beyond it fall back to the per-chunk membership test
 TAIL_CAP_LIMIT = 32_768
+
+# host-tiled evaluation stages one (edge_slice, tail_cap) true-candidate
+# block per edge slice on the device, reused by every node tile; beyond this
+# many bytes (E x tail_cap x 5 in all) the per-chunk membership test runs
+HOST_EVAL_CAND_BUDGET_BYTES = 2 << 30
 
 _STAT_NAMES = ["count", "rr_sum", "rank_sum"] + [f"hits{k}_sum" for k in HITS_KS]
 
@@ -255,8 +263,11 @@ class LinkPredictionEvaluator:
             yield idx, self.edges[idx * b:(idx + 1) * b]
 
     def _encode(self, state: TrainState) -> Tensor:
-        """All-node encoder outputs, shared by evaluate() and compute_all_ranks()."""
-        table_values = state.table.values if state.table is not None else None
+        """All-node encoder outputs, shared by evaluate() and compute_all_ranks().
+        A table elsewhere (a partition-buffer trainer's host table) is moved
+        to the evaluator's device first."""
+        table_values = (state.table.values.to(self.device) if state.table is not None
+                        else None)
         return encode_all_nodes(self.model, state.params, table_values).contiguous()
 
     @torch.no_grad()
@@ -282,9 +293,138 @@ class LinkPredictionEvaluator:
     def compute_pos_scores(self, state: TrainState, encoded: Optional[Tensor] = None):
         raise _later_slice("positive-only scoring (only_pos_forward)", "a later LP slice")
 
-    def evaluate_from_host_table(self, host_values, params, edge_slice: int = 4096,
-                                 node_tile: int = 262_144, features_host=None):
-        raise _later_slice("host-tiled evaluation", "the out-of-core LP slice (A9)")
+    def _tile_counts(self, adj: Tensor, pos: Tensor, tile: Tensor, tile_start: int,
+                     cand: Optional[Tensor], tvalid: Optional[Tensor], anchors: Tensor,
+                     rels: Optional[Tensor], keys) -> Tensor:
+        """Filtered >=-counts of one edge slice over one node tile (JAX
+        tile_counts :366-403), in sub-chunks of 8,192 nodes so the score
+        block stays (edge_slice, 8192); tile rows at or past num_nodes are
+        masked. True candidates in each sub-chunk are read from the same
+        score block (exact cancellation)."""
+        decoder, num_nodes = self.model.decoder, self.num_nodes
+        rows = tile.shape[0]
+        sub = min(8192, rows)
+        counts = torch.zeros(adj.shape[0], dtype=torch.int32, device=adj.device)
+        for start_c in range(0, rows, sub):
+            blk = tile[start_c:start_c + sub]
+            scores = decoder.neg_scores(adj, blk[None], num_chunks=1)
+            first = tile_start + start_c
+            ids = first + torch.arange(sub, dtype=torch.int32, device=adj.device)
+            ge = (scores >= pos[:, None]) & (ids < num_nodes)[None, :]
+            if cand is not None:
+                rel_col = cand - first
+                in_chunk = tvalid & (rel_col >= 0) & (rel_col < sub)
+                g = torch.gather(scores, 1, rel_col.clamp(0, sub - 1).long())
+                true_ge = in_chunk & (g >= pos[:, None])
+            else:
+                true_ge = ge & isin_triples(keys, anchors[:, None],
+                                            None if rels is None else rels[:, None],
+                                            ids[None, :])
+            counts += ge.sum(dim=1, dtype=torch.int32) - true_ge.sum(dim=1, dtype=torch.int32)
+        return counts
+
+    @torch.no_grad()
+    def evaluate_from_host_table(self, host_values: np.ndarray, params,
+                                 edge_slice: int = 4096,
+                                 node_tile: int = 262_144) -> Dict[str, float]:
+        """Filtered evaluation for a table that stays in host RAM (JAX
+        :413-576): the table is encoded tile by tile through the device
+        (``encode_all_nodes_host``), then streamed back through it in node
+        tiles, scored against the eval edges in slices of ``edge_slice``.
+        Device memory is O(edge_slice x d + node_tile x d) whatever
+        num_nodes. Node tiles stream outermost, so the encoded table crosses
+        the link once for both directions, and the next tile's copy is issued
+        (on the copy stream, into the other of two tile buffers) before this
+        tile's scoring waits on anything."""
+        if not self.filtered:
+            raise ValueError("host-tiled evaluation is for filtered evaluation")
+        t0 = time.perf_counter()
+        decoder, num_nodes, dev = self.model.decoder, self.num_nodes, self.device
+        host = encode_all_nodes_host(self.model, params, host_values, dev, self.batch_size)
+        edges = self.edges[:self.num_edges]
+        e = edges.shape[0]
+        rels = edges[:, 1] if self.has_rels else None
+        node_tile = min(node_tile, _pow2_ceil(num_nodes))
+        edge_slice = min(edge_slice, _pow2_ceil(e))
+        n_slices = -(-e // edge_slice)
+        edges_np = edges.cpu().numpy()
+        src_e = torch.from_numpy(host[edges_np[:, 0]]).to(dev)
+        dst_e = torch.from_numpy(host[edges_np[:, -1]]).to(dev)
+
+        directions = []
+        for inverse in ((False, True) if decoder.use_inverse_relations and rels is not None
+                        else (False,)):
+            anchor_e, other_e = (dst_e, src_e) if inverse else (src_e, dst_e)
+            adj = decoder.apply_relation(anchor_e, self._relations(params, rels, inverse))
+            pos = decoder.pos_scores(adj, other_e)
+            anchors = edges[:, -1] if inverse else edges[:, 0]
+            keys, tail_cap = ((self.src_keys, self.src_tail_cap) if inverse
+                              else (self.dst_keys, self.dst_tail_cap))
+            directions.append((adj, pos, anchors, keys, tail_cap))
+
+        dir_state = []
+        for adj, pos, anchors, keys, tail_cap in directions:
+            use_tail = (tail_cap <= TAIL_CAP_LIMIT and n_slices * edge_slice * tail_cap * 5
+                        * len(directions) <= HOST_EVAL_CAND_BUDGET_BYTES)
+            slices = []
+            for s in range(n_slices):
+                lo, hi = s * edge_slice, min((s + 1) * edge_slice, e)
+                pad = edge_slice - (hi - lo)
+                a = torch.nn.functional.pad(adj[lo:hi], (0, 0, 0, pad))
+                p = torch.nn.functional.pad(pos[lo:hi], (0, pad), value=float("inf"))
+                an = torch.nn.functional.pad(anchors[lo:hi], (0, pad))
+                r = None if rels is None else torch.nn.functional.pad(rels[lo:hi], (0, pad))
+                cand = tvalid = None
+                if use_tail:
+                    # each edge's true candidates: a contiguous run of the key set
+                    k_lo, k_hi = anchor_ranges(keys, an, r)
+                    rows = k_lo[:, None] + torch.arange(tail_cap, dtype=k_lo.dtype,
+                                                        device=dev)[None, :]
+                    tvalid = rows < k_hi[:, None]
+                    n_keys = keys.other.shape[0]
+                    cand = torch.where(tvalid, keys.other[rows.clamp(max=n_keys - 1).long()], -1)
+                slices.append((lo, hi, a, p, an, r, cand, tvalid))
+            dir_state.append((slices, keys, torch.zeros(e, dtype=torch.int64, device=dev)))
+
+        d_out = host.shape[1]
+        tiles = [torch.empty((node_tile, d_out), dtype=torch.float32, device=dev)
+                 for _ in range(2)]
+        freed = [None, None]   # per tile buffer: the compute stream's last use
+
+        def fetch(i, start):
+            return transfer.write_rows(tiles[i % 2], host[start:start + node_tile], 0,
+                                       after=freed[i % 2], block_compute=False)
+
+        starts = list(range(0, num_nodes, node_tile))
+        ready = fetch(0, starts[0])
+        for i, start in enumerate(starts):
+            if ready is not None:
+                torch.cuda.current_stream(dev).wait_event(ready)
+            tile = tiles[i % 2]
+            for slices, keys, counts in dir_state:
+                for lo, hi, a, p, an, r, cand, tvalid in slices:
+                    c = self._tile_counts(a, p, tile, start, cand, tvalid, an, r, keys)
+                    counts[lo:hi] += c[:hi - lo]
+            if dev.type == "cuda":
+                freed[i % 2] = torch.cuda.Event()
+                freed[i % 2].record(torch.cuda.current_stream(dev))
+            if i + 1 < len(starts):
+                ready = fetch(i + 1, starts[i + 1])
+
+        stats = {k: 0.0 for k in _STAT_NAMES}
+        for _, _, counts in dir_state:
+            r = (counts + 1).cpu().numpy().astype(np.float64)
+            stats["count"] += len(r)
+            stats["rr_sum"] += float(np.sum(1.0 / r))
+            stats["rank_sum"] += float(np.sum(r))
+            for k in HITS_KS:
+                stats[f"hits{k}_sum"] += float(np.sum(r <= k))
+        reporter = LinkPredictionReporter(HITS_KS)
+        reporter.add_statistics(stats)
+        results = reporter.results()
+        results["eval_time_s"] = time.perf_counter() - t0
+        reporter.report()
+        return results
 
     @torch.no_grad()
     def _rank_sums(self, encoded: Tensor, params) -> Dict[str, float]:

@@ -24,8 +24,17 @@ device and is read back once per epoch.
 With ``train_filter_keys`` (the (dst, src) edge-key sets of the train edges,
 ``training.negative_sampling.filtered``), every sampled negative that forms a
 train edge is masked (JAX :378-391); without them the local filters apply.
-HOST_MEMORY/FLAT_FILE edge streaming, CORRUPT_REL, meshes and GNN or FEATURE
-encoders raise ``NotImplementedError`` naming the slice that brings them.
+
+``edges_backend`` HOST_MEMORY or FLAT_FILE keeps the edges in host RAM (a
+numpy array, or an ``np.memmap`` over the binary edge file) and streams them
+to the device in chunks of ~2M edges (JAX :141-177, :627-698) with the JAX
+package's numpy shuffles: a full permutation of a RAM array, or a random
+chunk order and a permutation inside each chunk of a memmap. The JAX chunk
+function pads the last chunk with fully masked batches; the port runs only
+real batches and gives the dense optimizer the masked ones' zero-gradient
+steps (``apply_zero_grad_steps``), so both reach the same state.
+CORRUPT_REL, meshes and GNN or FEATURE encoders raise
+``NotImplementedError`` naming the slice that brings them.
 """
 
 from __future__ import annotations
@@ -56,6 +65,7 @@ from marius_tpu_torch.nn.model import (
 from marius_tpu_torch.nn.optimizers import (
     OptState,
     apply_optimizer,
+    apply_zero_grad_steps,
     init_optimizer,
     tree_leaves,
     tree_map,
@@ -141,8 +151,9 @@ class LinkPredictionTrainer:
         if self.decoder_method != "CORRUPT_NODE":
             raise ValueError(f"training supports CORRUPT_NODE/CORRUPT_REL, "
                              f"got {self.decoder_method}")
-        if edges_backend.upper() != "DEVICE_MEMORY":
-            raise _later_slice(f"{edges_backend} edge streaming", "the out-of-core slice")
+        self.edges_backend = edges_backend.upper()
+        if self.edges_backend not in ("DEVICE_MEMORY", "HOST_MEMORY", "FLAT_FILE"):
+            raise ValueError(f"unknown edges backend {edges_backend}")
         if mesh is not None:
             raise _later_slice("mesh training", "the multi-GPU slice")
         if (graph is not None or nbr_configs or features is not None
@@ -162,8 +173,18 @@ class LinkPredictionTrainer:
         self.epochs_per_shuffle = max(1, int(epochs_per_shuffle))
         self.has_rels = train_edges.shape[1] == 3
 
-        padded, self.num_edges, self.num_batches = pad_edges(train_edges, batch_size)
-        self.edges = torch.as_tensor(padded, device=self.device)
+        if self.edges_backend == "DEVICE_MEMORY":
+            padded, self.num_edges, self.num_batches = pad_edges(train_edges, batch_size)
+            self.edges = torch.as_tensor(padded, device=self.device)
+            self.edges_host = None
+        else:
+            self.edges_host = train_edges   # np.ndarray or np.memmap: no copy
+            self.edges = None
+            self.num_edges = train_edges.shape[0]
+            self.num_batches = -(-self.num_edges // batch_size)
+            # ~2M edges per streamed chunk
+            self.chunk_batches = min(self.num_batches, max(1, (1 << 21) // batch_size))
+        self._host_epoch = 0   # host-streamed epochs run (JAX :178), for the shuffle
 
         # initial values are drawn on the CPU, so they do not depend on the device
         init_gen = torch.Generator().manual_seed(seed)
@@ -273,15 +294,57 @@ class LinkPredictionTrainer:
                                              state.opt_state, grads)
         return loss.detach()
 
+    def _host_chunks(self):
+        """The epoch's chunks of host edges, shuffled as the JAX package
+        shuffles them (storage.h:23 chunked shuffle semantics); int32 rows."""
+        shuffle_epoch = self._host_epoch // self.epochs_per_shuffle
+        rng = np.random.default_rng((self.seed * 9176 + shuffle_epoch) & 0x7FFFFFFF)
+        ce = self.chunk_batches * self.batch_size
+        nchunks = -(-self.num_edges // ce)
+        if not isinstance(self.edges_host, np.memmap) and self.num_edges <= 400_000_000:
+            shuffled = np.asarray(self.edges_host, np.int32)[rng.permutation(self.num_edges)]
+            for ci in range(nchunks):
+                yield shuffled[ci * ce:(ci + 1) * ce]
+        else:
+            for ci in rng.permutation(nchunks):
+                rows = np.asarray(self.edges_host[ci * ce:(ci + 1) * ce], np.int32)
+                yield rows[rng.permutation(len(rows))]
+
+    def _train_edges(self, rows: np.ndarray) -> Tensor:
+        """Train the batches of a chunk of host edges; returns their loss sum."""
+        b = self.batch_size
+        n = len(rows)
+        nb = -(-n // b)
+        padded = np.zeros((nb * b, rows.shape[1]), np.int64)
+        padded[:n] = rows
+        edges = torch.from_numpy(padded).to(self.device)
+        masks = torch.arange(nb * b, device=self.device) < n
+        total = torch.zeros((), dtype=torch.float32, device=self.device)
+        for i in range(nb):
+            total += self._batch_step(edges[i * b:(i + 1) * b], masks[i * b:(i + 1) * b])
+        return total
+
     def train_epoch(self) -> Dict[str, float]:
         t0 = time.perf_counter()
         nb, b = self.num_batches, self.batch_size
-        perm = self._epoch_permutation(self.state.epoch // self.epochs_per_shuffle)
-        shuffled = self.edges[perm]
-        masks = perm < self.num_edges
-        total = torch.zeros((), dtype=torch.float32, device=self.device)
-        for i in range(nb):
-            total += self._batch_step(shuffled[i * b:(i + 1) * b], masks[i * b:(i + 1) * b])
+        if self.edges_backend == "DEVICE_MEMORY":
+            perm = self._epoch_permutation(self.state.epoch // self.epochs_per_shuffle)
+            shuffled = self.edges[perm]
+            masks = perm < self.num_edges
+            total = torch.zeros((), dtype=torch.float32, device=self.device)
+            for i in range(nb):
+                total += self._batch_step(shuffled[i * b:(i + 1) * b],
+                                          masks[i * b:(i + 1) * b])
+        else:
+            chunk_losses = []
+            for rows in self._host_chunks():
+                chunk_losses.append(self._train_edges(rows))
+                # the JAX chunk function's fully masked batches in a short chunk
+                self.state.opt_state = apply_zero_grad_steps(
+                    self.model.dense_optimizer, self.state.params, self.state.opt_state,
+                    self.chunk_batches - -(-len(rows) // b))
+            total = torch.stack(chunk_losses).sum()
+            self._host_epoch += 1
         self.state.epoch += 1
         total_loss = float(total)  # the epoch's one device-to-host sync
         dt = time.perf_counter() - t0

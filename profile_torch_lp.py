@@ -11,7 +11,9 @@ set. It prints the card, the host time per batch, the device time per batch,
 the device's busy share (device time over host time without the profiler; one
 stream, so kernels do not overlap), device operations per batch, the
 kernels that take the most device time and the port's own kernels'
-time and share. Then it times the row-gather kernel, its plain version and
+time and share. It does the same for the out-of-core step: one buffer
+state's batches of ``freebase86m_comet.yaml`` at a node count cut to
+4,000,000 (``profile_oocore_state``). Then it times the row-gather kernel, its plain version and
 ``index_select`` against the bound at the flagship batch, the evaluation
 batch, the out-of-core batch and K = 1 (``chip_smoke.gather_shapes``), after
 printing the kernel's registers and spills. The last line is one JSON object
@@ -23,17 +25,21 @@ from __future__ import annotations
 
 import json
 import sys
+import tempfile
 import time
 from collections import defaultdict
 
+import numpy as np
 import torch
 
 from chip_smoke import (BATCH, CHUNKS, DIM, NEGATIVES, NUM_EDGES, NUM_NODES, NUM_RELS,
-                        card_name, card_rates, gather_shapes, lp_model, print_gather_shapes,
-                        synthetic_edges)
+                        card_name, card_rates, freebase_config, gather_shapes, lp_model,
+                        print_gather_shapes, synthetic_edges, write_freebase_shaped)
 
 # the hand-written kernels (marius_tpu_torch/csrc) as the profiler names them
 PORT_KERNELS = ("::gather_rows_kernel<", "::adagrad_kernel<", "::gather_sum_kernel<")
+# the out-of-core profile's cut of Freebase86m: nodes and uniform train edges
+OOC_PROFILE_NODES, OOC_PROFILE_EDGES = 4_000_000, 8_000_000
 
 
 def run_batches(trainer, shuffled, masks) -> float:
@@ -99,6 +105,39 @@ def profile_batches(run, nb: int, card: str, tag: str = "") -> dict:
     return result
 
 
+def profile_oocore_state(card: str) -> dict:
+    """The out-of-core step: freebase86m_comet.yaml (ComplEx d=100, batch
+    10,000, 10 x 500 negatives, degree_fraction 0.5, Adagrad) through
+    ``marius_init``, its node count cut to OOC_PROFILE_NODES so that set-up
+    is quick while the buffer stays on the unique-id branch (2,000,000 x 100
+    resident rows, far above 8M elements). The first COMET state is loaded
+    and its batches (``_train_state``, as ``train_epoch`` runs them, without
+    swaps) are profiled as the flagship's are."""
+    from marius_tpu_torch import native
+    from marius_tpu_torch.manager import marius_init
+
+    with tempfile.TemporaryDirectory() as tmp:
+        write_freebase_shaped(f"{tmp}/dataset", OOC_PROFILE_NODES, OOC_PROFILE_EDGES, 1000)
+        trainer = marius_init(freebase_config(tmp, OOC_PROFILE_NODES, save_model=False)).trainer
+    states, assignment = trainer._plan_epoch()
+    trainer.buffer.load(states[0])
+    p = trainer.num_partitions
+    local = native.gather_remap_buckets(
+        trainer.edges_by_bucket, trainer.bucket_offsets,
+        np.asarray([i * p + j for i, j in assignment[0]], np.int32),
+        trainer.buffer.part_to_slot, trainer.buffer.psize)
+    nb = -(-len(local) // trainer.batch_size)
+
+    def run() -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(trainer._train_state(local, 0, nb))
+        return time.perf_counter() - t0
+
+    run()   # warm-up
+    return profile_batches(run, nb, card, tag="out-of-core ")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_lp: no CUDA device", file=sys.stderr)
@@ -123,9 +162,10 @@ def main() -> int:
     result = profile_batches(lambda: run_batches(trainer, shuffled, masks),
                              trainer.num_batches, card)
     del trainer, shuffled, masks
+    oocore = profile_oocore_state(card)
     shapes = gather_shapes(gather, torch.device("cuda"), card_rates(torch.cuda.get_device_name(0)))
     print_gather_shapes(shapes, card)
-    print(json.dumps({"lp": result, "gather_shapes": shapes}), flush=True)
+    print(json.dumps({"lp": result, "oocore": oocore, "gather_shapes": shapes}), flush=True)
     return 0
 
 

@@ -30,6 +30,24 @@ def test_port_imports_no_jax_and_no_marius_tpu():
     assert out[1:] == ["[]"], out
 
 
+_NATIVE = """
+import numpy as np
+from marius_tpu_torch import native
+out, sizes = native.partition_rows(np.array([[3, 0, 1], [0, 0, 2]], np.int32), 4, 2)
+maps = open("/proc/self/maps").read()
+print(native.load()._name)
+print(int(sizes.sum()), "marius_tpu/native" in maps, "_marius_native.so" in maps)
+"""
+
+
+def test_native_loader_builds_and_loads_its_own_library():
+    out = subprocess.run([sys.executable, "-c", _NATIVE], cwd=REPO, capture_output=True,
+                         text=True, timeout=300, check=True).stdout.split()
+    lib = Path(out[0]).resolve()
+    assert lib.parent == REPO / "marius_tpu_torch" / "native" / "_build", lib
+    assert out[1:] == ["2", "False", "False"], out
+
+
 def test_trainer_without_device_needs_cuda(monkeypatch):
     from marius_tpu_torch.data.samplers.negative import NegativeSamplingConfig
     from marius_tpu_torch.nn.decoders.edge import EdgeDecoder

@@ -449,8 +449,11 @@ def test_evaluator_rejects_later_slices():
         tev.evaluate(TTrainState(None, {"encoder": [[{}]]}, None, 0))
     tev = tevaluator.LinkPredictionEvaluator(tmodel, EN, ER, test, all_edges=edges,
                                              device="cpu")
-    with pytest.raises(NotImplementedError, match="out-of-core"):
-        tev.evaluate_from_host_table(None, None)
+    # host-tiled evaluation is ported; it ranks against all nodes only
+    unfiltered = tevaluator.LinkPredictionEvaluator(tmodel, EN, ER, test, filtered=False,
+                                                    batch_size=50, device="cpu")
+    with pytest.raises(ValueError, match="filtered"):
+        unfiltered.evaluate_from_host_table(None, None)
     with pytest.raises(NotImplementedError):
         tev.compute_pos_scores(None)
 

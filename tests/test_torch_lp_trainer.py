@@ -148,10 +148,14 @@ def test_trainer_rejects_later_slices(monkeypatch):
                    TEncoderConfig(((TLayerConfig("EMBEDDING", output_dim=D),),)),
                    TEdgeDecoder("DISTMULT", R, D))
     edges, cfg = _edges(True), TNegConfig(C, NEG)
-    for kwargs in [dict(edges_backend="HOST_MEMORY"), dict(mesh=object()),
-                   dict(nbr_configs=(object(),))]:
+    for kwargs in [dict(mesh=object()), dict(nbr_configs=(object(),))]:
         with pytest.raises(NotImplementedError):
             TTrainer(model, N, R, edges, cfg, batch_size=B, device="cpu", **kwargs)
+    # host-streamed edges are ported (tests/test_torch_edges_backend.py)
+    assert TTrainer(model, N, R, edges, cfg, batch_size=B, device="cpu",
+                    edges_backend="HOST_MEMORY").edges is None
+    with pytest.raises(ValueError, match="unknown edges backend"):
+        TTrainer(model, N, R, edges, cfg, batch_size=B, device="cpu", edges_backend="TAPE")
     # train filter keys are ported: one epoch with them gives the JAX trainer's loss
     from marius_tpu.ops.edge_keys import build_edge_key_set as j_keys
     from marius_tpu_torch.ops.edge_keys import build_edge_key_set as t_keys

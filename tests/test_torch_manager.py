@@ -299,23 +299,128 @@ def test_evaluation_cadence_shuffle_and_train_filter(tmp_path):
     assert all(np.isfinite(e["loss"]) for e in res["epochs"])
 
 
+PB = {"type": "PARTITION_BUFFER", "options": {"num_partitions": 4, "buffer_capacity": 2}}
+# paths this test refused before they were ported: each now runs (see also
+# test_freebase_shaped_configs_match_jax)
+PORTED = {
+    "partition_buffer": {"storage.embeddings": PB},
+    "host_streaming": {"evaluation.host_streaming": True},
+    "flat_file": {"storage.edges": {"type": "FLAT_FILE"}},
+}
+
+
 @pytest.mark.parametrize("what", ["partition_buffer", "host_streaming", "flat_file", "mesh",
-                                  "nc", "bf16", "layer_optimizer"])
+                                  "nc", "bf16", "layer_optimizer", "buffer_gnn",
+                                  "buffer_feature", "buffer_corrupt_rel", "buffer_mesh"])
 def test_unported_paths_raise(tmp_path, what):
-    pb = {"type": "PARTITION_BUFFER", "options": {"num_partitions": 4, "buffer_capacity": 2}}
+    if what in PORTED:
+        raw = _lp_config(tmp_path, what, **PORTED[what])
+        result = _train(raw)
+        rt = result["runtime"]
+        assert len(result["epochs"]) == 2 and 0.0 < result["test"]["mrr"] <= 1.0
+        assert (type(rt.trainer).__name__ == "PartitionBufferLPTrainer") == (
+            what == "partition_buffer")
+        assert (type(rt.test_evaluator).__name__ == "_HostStreamLPEval") == (
+            what == "host_streaming")
+        if what == "flat_file":
+            assert isinstance(rt.trainer.edges_host, np.memmap)
+        return
     overrides = {
-        "partition_buffer": {"storage.embeddings": pb},
-        "host_streaming": {"evaluation.host_streaming": True},
-        "flat_file": {"storage.edges": {"type": "FLAT_FILE"}},
         "mesh": {"training.mesh": {"data": 2, "node": 1}},
         "nc": {"model.learning_task": "NODE_CLASSIFICATION", "model.decoder": None},
         "bf16": {"storage.embeddings": {"type": "DEVICE_MEMORY",
                                         "options": {"dtype": "bfloat16"}}},
         "layer_optimizer": {"model.decoder.optimizer": {"type": "ADAGRAD"}},
+        "buffer_gnn": {"storage.embeddings": PB, "model.encoder": copy.deepcopy(GS_ENCODER)},
+        "buffer_feature": {"storage.embeddings": PB, "model.encoder": {"layers": [[
+            {"type": "EMBEDDING", "output_dim": 8}, {"type": "FEATURE", "output_dim": 8}]]}},
+        "buffer_corrupt_rel": {"storage.embeddings": PB,
+                               "model.decoder.options.edge_decoder_method": "CORRUPT_REL"},
+        "buffer_mesh": {"storage.embeddings": PB, "training.mesh": {"data": 1, "node": 2}},
     }[what]
     raw = _lp_config(tmp_path, what, **overrides)
-    with pytest.raises(NotImplementedError, match="comes with"):
+    if what == "buffer_feature":
+        # a feature file so that the config is valid; the trainer refuses it
+        from marius_tpu.storage.dataset import load_stats, save_node_array, save_stats
+        ds = raw["storage"]["dataset"]["dataset_dir"]
+        save_node_array(ds, "features", np.ones((50, 8), np.float32))
+        stats = load_stats(ds)
+        stats.feature_dim = 8
+        save_stats(ds, stats)
+    match = {"buffer_gnn": "GNN", "buffer_feature": "FEATURE", "buffer_corrupt_rel": "CORRUPT_REL",
+             "buffer_mesh": "mesh"}.get(what, "comes with")
+    with pytest.raises(NotImplementedError, match=match):
         marius_init(load_config(raw), device="cpu")
+
+
+# -- freebase86m_comet.yaml's shape through both managers ----------------------
+
+FREEBASE_YAML = os.path.join(os.path.dirname(__file__), "..", "examples", "configuration",
+                             "freebase86m_comet.yaml")
+METRICS = ("mrr", "mean_rank", "hits@1", "hits@10", "num_evaluated")
+
+
+def _freebase_shaped(tmp_path, variant):
+    """freebase86m_comet.yaml (ComplEx d=100, PARTITION_BUFFER 16 x 8, COMET,
+    degree_fraction 0.5, Adagrad) on a 300-node dataset, cut to batch 100 of
+    2 x 16 negatives, 2 epochs, filtered evaluation (sampled negatives could
+    not match across the two packages' generators)."""
+    with open(FREEBASE_YAML) as f:
+        raw = yaml.safe_load(f)
+    ds_dir = str(tmp_path / "ds")
+    if not os.path.exists(ds_dir):
+        generate_random_dataset_lp(ds_dir, num_nodes=300, num_edges=3000, num_relations=7)
+    raw["storage"]["dataset"]["dataset_dir"] = ds_dir
+    raw["storage"]["save_model"] = True
+    raw["training"].update(batch_size=100, num_epochs=2)
+    raw["training"]["negative_sampling"].update(num_chunks=2, negatives_per_positive=16)
+    raw["evaluation"] = {"batch_size": 100, "negative_sampling": {"filtered": True}}
+    if variant == "flat_file":      # edges memory-mapped, table on the device
+        raw["storage"]["embeddings"] = {"type": "DEVICE_MEMORY"}
+        raw["storage"]["edges"] = {"type": "FLAT_FILE"}
+    if variant == "host_streaming":
+        raw["evaluation"]["host_streaming"] = True
+    return raw
+
+
+@pytest.mark.parametrize("variant", ["partition_buffer", "flat_file", "host_streaming"])
+def test_freebase_shaped_configs_match_jax(tmp_path, variant):
+    """The JAX manager trains and saves; the port's marius_eval loads that
+    model into the same route and gives the JAX marius_eval's test metrics
+    (trained weights: near-ties may flip, so MRR to rtol 1e-4 and >= 99.9%
+    equal ranks). Then the port's own marius_train runs the config, and its
+    marius_eval reloads the model and reproduces the test metrics exactly."""
+    raw = _freebase_shaped(tmp_path, variant)
+    raw_j = copy.deepcopy(raw)
+    raw_j["storage"]["model_dir"] = str(tmp_path / "model_jax")
+    j_marius_train(j_load_config(raw_j))
+    jres = j_marius_eval(j_load_config(raw_j))
+    tres = marius_eval(load_config(raw_j), device="cpu")
+    jrt, trt = jres["runtime"], tres["runtime"]
+    expected = {"partition_buffer": "PartitionBufferLPTrainer",
+                "flat_file": "LinkPredictionTrainer",
+                "host_streaming": "PartitionBufferLPTrainer"}[variant]
+    assert type(trt.trainer).__name__ == type(jrt.trainer).__name__ == expected
+    np.testing.assert_array_equal(trt.trainer.state.table.values.numpy(),
+                                  np.asarray(jrt.trainer.state.table.values))
+    assert trt.epochs_processed == jrt.epochs_processed == 2
+    np.testing.assert_allclose(tres["test"]["mrr"], jres["test"]["mrr"], rtol=1e-4)
+    assert tres["test"]["num_evaluated"] == jres["test"]["num_evaluated"]
+    if variant != "host_streaming":
+        jranks = jrt.test_evaluator.compute_all_ranks(jrt.trainer.state)[0]
+        tranks = trt.test_evaluator.compute_all_ranks(trt.trainer.state)[0]
+        assert tranks.shape == jranks.shape and np.mean(tranks == jranks) >= 0.999
+
+    raw_t = copy.deepcopy(raw)
+    raw_t["storage"]["model_dir"] = str(tmp_path / "model_port")
+    out = _train(raw_t)
+    assert len(out["epochs"]) == 2 and len(out["evals"]) == 2
+    assert all(np.isfinite(e["loss"]) for e in out["epochs"])
+    assert out["epochs"][1]["loss"] < out["epochs"][0]["loss"]
+    again = _eval(raw_t)
+    assert all(again["test"][k] == out["test"][k] for k in METRICS)
+    if variant != "flat_file":
+        assert out["epochs"][0]["num_buffer_states"] == 10     # COMET 16 x 8 at seed 0
 
 
 # -- the JAX package's trained model through both marius_eval ----------------
