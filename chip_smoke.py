@@ -35,7 +35,24 @@ counters set to 0 just before it and read just after:
    end, the model saved), then ``marius_eval`` on the same config, which must
    reload the checkpoint and reproduce the test metrics exactly. The row
    gather is counted apart for training (one per batch) and evaluation (two
-   per batch: source and destination rows).
+   per batch: source and destination rows);
+4. sampled node classification through the manager (``nc_sampled``): the
+   arxiv-shaped graph, features and labels with ogbn-arxiv's published split
+   sizes (90,941 / 29,799 / 48,603 nodes) written with the port's
+   ``storage/dataset.py``, ``examples/configuration/ogbn_arxiv.yaml``
+   (FEATURE + 3 x GraphSAGE MEAN d=128, UNIFORM 32 in and out per hop, hop
+   caps [1000, 16384, 65536, 169344]) loaded by ``load_config`` with only
+   dataset_dir and model_dir redirected and num_epochs cut from 10 to 3,
+   ``marius_train`` (per epoch loss, s, nodes/s, truncated frontier ids and
+   the valid accuracy; the test accuracy and peak device memory), then
+   ``marius_eval``, which must reproduce the test metrics exactly. Training
+   and each evaluation are counted apart: the row gather once per batch, the
+   gather-sum three times per batch, Adagrad never. ``sampled_shapes`` then
+   times both kernels at one real training batch's shapes (the outer hop's
+   169,344-row feature gather, the first layer's 65,536 x 64-slot neighbour
+   sum and its index_add_ backward) and ``compare_sampled_nc_with_cpu`` holds
+   small sampled runs, with and without an EMBEDDING stage (the Adagrad
+   kernel), against the CPU.
 
 Then ``lp_accuracy``: DistMult, ComplEx and TransE trained on the card on the
 realizable knowledge graphs of tests/test_accuracy_regression.py (copied
@@ -44,15 +61,15 @@ pinned bands.
 
 Then out-of-core link prediction:
 
-4. ``compare_oocore_with_cpu``: small partition-buffer runs on the card and
+5. ``compare_oocore_with_cpu``: small partition-buffer runs on the card and
    on the CPU with the same injected in-buffer draws, both table-update
    branches, BETA and COMET, 2 epochs, through a staging ring cut to 4 kB
    chunks so every copy crosses many of them; ``host_eval``: ranks from
    ``evaluate()`` and ``evaluate_from_host_table()`` on a quantized table;
-5. ``lp_oocore_reload``: ``examples/configuration/freebase86m_comet.yaml``
+6. ``lp_oocore_reload``: ``examples/configuration/freebase86m_comet.yaml``
    with a named cut to 1,000,000 nodes, ``marius_train`` with the model saved,
    then ``marius_eval``, which must reproduce the test metrics exactly;
-6. ``lp_oocore``: the same YAML at Freebase86m's published shape (86,054,151
+7. ``lp_oocore``: the same YAML at Freebase86m's published shape (86,054,151
    nodes, 14,824 relations, d = 100, 16 partitions, buffer capacity 8, COMET)
    on a synthetic dataset written with the port's ``storage/dataset.py``, with
    the cuts it prints (train edges, epochs, no saved model; nodes only if the
@@ -113,6 +130,9 @@ FB_VALID, FB_TEST, LP_MANAGER_EPOCHS = 17_535, 20_466, 3
 ARXIV_NODES, ARXIV_EDGES, ARXIV_FEATS, ARXIV_CLASSES = 169_343, 1_166_243, 128, 40
 ARXIV_TRAIN, ARXIV_HUB = 90_941, 13_161
 NC_DIM, NC_GNN_STAGES, NC_LR = 128, 3, 0.01
+# ogbn-arxiv's published valid and test split sizes, and the one cut of ogbn_arxiv.yaml
+# (10 epochs)
+ARXIV_VALID, NC_SAMPLED_EPOCHS = 29_799, 3
 # the neighbour sum's widths: d=1 (GCN counts), the model's 128, the collapse's 129/259/519
 SUM_DIMS = (1, 33, 128, 129, 259, 519)
 # the edges of the gather-sum kernel's 128-byte column slabs (32 f32 or 64 bf16 columns)
@@ -1441,6 +1461,284 @@ def compare_nc_with_cpu():
           f"max abs difference {worst:.3g} (tolerance rtol 1e-4, atol 1e-5)", flush=True)
 
 
+# -- sampled node classification through the manager ----------------------------
+
+def write_arxiv_shaped(directory: str, data) -> None:
+    """The arxiv-shaped graph, features and labels with ogbn-arxiv's published
+    split sizes (90,941 / 29,799 / 48,603 nodes), in the dataset layout of
+    storage/dataset.py."""
+    from marius_tpu_torch.storage.dataset import (
+        DatasetStats,
+        save_node_array,
+        save_split,
+        save_stats,
+    )
+
+    edges, features, labels, train_nodes = data
+    rest = np.random.default_rng(1).permutation(np.setdiff1d(np.arange(ARXIV_NODES),
+                                                             train_nodes)).astype(np.int32)
+    save_split(directory, "train", edges)
+    save_node_array(directory, "features", features)
+    save_node_array(directory, "labels", labels)
+    for name, part in (("train_nodes", train_nodes), ("valid_nodes", rest[:ARXIV_VALID]),
+                       ("test_nodes", rest[ARXIV_VALID:])):
+        save_node_array(directory, name, part)
+    save_stats(directory, DatasetStats(
+        num_nodes=ARXIV_NODES, num_edges=ARXIV_EDGES, num_relations=1, num_edge_cols=2,
+        num_train=ARXIV_TRAIN, num_valid=ARXIV_VALID, num_test=len(rest) - ARXIV_VALID,
+        num_classes=ARXIV_CLASSES, feature_dim=ARXIV_FEATS))
+
+
+def nc_sampled(card: str, data) -> dict:
+    """ogbn_arxiv.yaml (sampled GraphSAGE, UNIFORM 32 in and out per hop, hop
+    caps [1000, 16384, 65536, 169344]) through marius_train and marius_eval on
+    the card. Training and each evaluation are counted apart: the row gather
+    once per batch (the outer hop's feature rows), the gather-sum three times
+    per batch (one per GNN layer), Adagrad never (no EMBEDDING stage).
+    Returns the launches per part and the trainer."""
+    from marius_tpu_torch.config import load_config
+    from marius_tpu_torch.manager import marius_eval, marius_train
+    from marius_tpu_torch.ops.cuda import adagrad, gather
+    from marius_tpu_torch.ops.cuda import nbr_sum as ns
+    from marius_tpu_torch.train import nc as nc_mod
+
+    config = Path(__file__).resolve().parent / "examples" / "configuration" / "ogbn_arxiv.yaml"
+    with open(config) as f:
+        raw = yaml.safe_load(f)
+    evals = []    # (batches, gather_rows launches, gather_sum launches) per evaluation
+    evaluate = nc_mod.NodeClassificationEvaluator.evaluate
+
+    def counted(self, state):
+        before = (gather.launches, ns.launches)
+        res = evaluate(self, state)
+        evals.append((self.num_batches, gather.launches - before[0], ns.launches - before[1]))
+        return res
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_arxiv_shaped(f"{tmp}/dataset", data)
+        raw["storage"]["dataset"]["dataset_dir"] = f"{tmp}/dataset"
+        epochs_in_yaml = raw["training"]["num_epochs"]
+        raw["training"]["num_epochs"] = NC_SAMPLED_EPOCHS
+        cfg = load_config(raw, model_dir=f"{tmp}/model")
+        print(f"nc_sampled: {config.relative_to(config.parents[2])} with dataset_dir and "
+              f"model_dir redirected; one cut: num_epochs {epochs_in_yaml} -> "
+              f"{NC_SAMPLED_EPOCHS}; dataset written in {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        nc_mod.NodeClassificationEvaluator.evaluate = counted
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            gather.launches = ns.launches = adagrad.launches = 0
+            out = marius_train(cfg)   # device=None: the GPU
+            totals = (gather.launches, ns.launches, adagrad.launches)
+            peak = torch.cuda.max_memory_allocated()
+            train_evals = list(evals)
+            gather.launches = ns.launches = adagrad.launches = 0
+            again = marius_eval(cfg)
+            reload_totals = (gather.launches, ns.launches, adagrad.launches)
+        finally:
+            nc_mod.NodeClassificationEvaluator.evaluate = evaluate
+
+    rt = out["runtime"]
+    trainer = rt.trainer
+    if trainer.device.type != "cuda" or trainer.full_graph is not None:
+        raise AssertionError("ogbn_arxiv.yaml must train on the GPU through the sampled trainer")
+    if trainer.hop_caps != tuple(raw["model"]["encoder"]["hop_caps"]):
+        raise AssertionError(f"hop caps {trainer.hop_caps} are not the YAML's")
+    losses = [e["loss"] for e in out["epochs"]]
+    for i, (e, v) in enumerate(zip(out["epochs"], out["evals"])):
+        print(f"nc_sampled epoch {i}: loss {e['loss']:.6f}  {e['epoch_time_s']:.4f} s  "
+              f"{e['nodes_per_sec']:.1f} nodes/s  truncated frontier ids "
+              f"{e['truncated_frontier_ids']}  valid accuracy {v['accuracy']:.6f}  [{card}]",
+              flush=True)
+        if not v["accuracy"] > 1.0 / ARXIV_CLASSES:
+            raise AssertionError(f"valid accuracy is not above chance: {v}")
+    if len(losses) != NC_SAMPLED_EPOCHS or not all(math.isfinite(x) for x in losses) or not all(
+            b < a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"nc_sampled losses are not finite and falling: {losses}")
+    timed = out["epochs"][1:]
+    nps = sum(e["num_nodes"] for e in timed) / sum(e["epoch_time_s"] for e in timed)
+    test, reloaded = out["test"], again["test"]
+    print(f"nc_sampled timed epochs: {nps:.1f} train nodes/s over {len(timed)} epochs; test "
+          f"accuracy {test['accuracy']:.6f} over {int(test['num_evaluated'])} nodes (chance "
+          f"{1 / ARXIV_CLASSES}); peak device memory {peak / 2**30:.3f} GiB  [{card}]",
+          flush=True)
+    if not test["accuracy"] > 1.0 / ARXIV_CLASSES or test["num_evaluated"] != ARXIV_NODES - \
+            ARXIV_TRAIN - ARXIV_VALID:
+        raise AssertionError(f"test evaluation is wrong or not above chance: {test}")
+    if any(test[k] != reloaded[k] for k in ("accuracy", "num_evaluated")):
+        raise AssertionError(f"marius_eval's test metrics {reloaded} differ from "
+                             f"marius_train's {test}")
+    print("nc_sampled: marius_eval reloaded the checkpoint and reproduced the test metrics "
+          "exactly", flush=True)
+
+    train_batches = NC_SAMPLED_EPOCHS * trainer.num_batches
+    eval_batches = sum(b for b, _, _ in train_evals)
+    train_rows, train_sums = totals[0] - sum(g for _, g, _ in train_evals), \
+        totals[1] - sum(s for _, _, s in train_evals)
+    if (train_rows, train_sums, totals[2]) != (train_batches, 3 * train_batches, 0):
+        raise AssertionError(f"nc_sampled training launched gather_rows {train_rows}, "
+                             f"gather_sum {train_sums} and Adagrad {totals[2]} times for "
+                             f"{train_batches} batches (expected 1, 3 and 0 per batch)")
+    for batches, g, s in evals:
+        if (g, s) != (batches, 3 * batches):
+            raise AssertionError(f"an evaluation of {batches} batches launched gather_rows {g} "
+                                 f"and gather_sum {s} times (expected 1 and 3 per batch)")
+    if reload_totals[2] != 0 or len(evals) != len(train_evals) + 1:
+        raise AssertionError("marius_eval must evaluate once, without Adagrad")
+    rows = {"nc_sampled train": train_rows, "nc_sampled eval": eval_batches,
+            "nc_sampled marius_eval": reload_totals[0]}
+    sums = {"nc_sampled train": train_sums, "nc_sampled eval": 3 * eval_batches,
+            "nc_sampled marius_eval": reload_totals[1]}
+    print(f"nc_sampled launches: gather_rows {rows}, gather_sum {sums}, Adagrad 0 "
+          f"({trainer.num_batches} train batches per epoch, {len(train_evals)} valid "
+          f"evaluations of {train_evals[0][0]} batches, test {evals[-1][0]} batches)", flush=True)
+    return {"gather_rows": rows, "gather_sum": sums, "trainer": trainer}
+
+
+def sampled_shapes(trainer, rates, card) -> dict:
+    """The row gather and the gather-sum at the sampled path's shapes, on one
+    real training batch of the nc_sampled trainer: the outer hop's feature
+    gather (K = 169,344 ids into the (N + 1) x 128 table, the saturated hop:
+    every row) and the first GNN layer's neighbour sum (65,536 targets x 64
+    slots over that hop's 169,344 rows), each bit for bit against its plain
+    version and timed beside its bound and its one-call PyTorch equivalent
+    (index_select; embedding_bag with the padding row excluded), and the
+    neighbour sum's backward (index_add_) for the record."""
+    from marius_tpu_torch.data.samplers.neighbor import sample_neighbor_batch
+    from marius_tpu_torch.ops.cuda import gather
+    from marius_tpu_torch.ops.cuda import nbr_sum as ns
+    from marius_tpu_torch.ops.segment import sampled_nbr_sum
+
+    dev = trainer.device
+    b = trainer.batch_size
+    nb = sample_neighbor_batch(trainer._batch_draws(), trainer.graph, trainer.train_nodes[:b],
+                               torch.ones(b, dtype=torch.bool, device=dev), trainer.nbr_configs,
+                               trainer.hop_caps)
+    outer = nb.node_ids[0]
+    err = gather_max_err(gather, trainer.features, outer)
+    rows = time_gather(gather, trainer.features, [outer], rates)
+    rows["max_abs_err"] = err
+    print(f"gather_rows, sampled_nc_outer (K={rows['k']}, d={rows['d']}, "
+          f"{rows['distinct_rows']:.1f} distinct rows, {rows['bound_bytes'] / 1e6:.4f} MB): "
+          f"max_abs_err {err}  kernel {rows['ms'] * 1e3:.2f} us  plain "
+          f"{rows['plain_ms'] * 1e3:.2f} us  index_select {rows['library_ms'] * 1e3:.2f} us  "
+          f"bound {rows['bound_ms'] * 1e3:.2f} us ({rows['bound_by']})  [{card}]", flush=True)
+
+    adj = nb.layers[0]
+    n_x, n, d = outer.shape[0], adj.self_idx.shape[0], NC_DIM
+    ids = torch.cat([torch.where(adj.in_mask, adj.in_nbr_idx, n_x),
+                     torch.where(adj.out_mask, adj.out_nbr_idx, n_x)], 1).int().contiguous()
+    x = torch.randn(n_x, d, device=dev, generator=torch.Generator(device=dev).manual_seed(9))
+    out = ns.gather_sum(x, ids)
+    torch.cuda.synchronize()
+    if not torch.equal(out, ns.gather_sum_plain(x, ids)):
+        raise AssertionError("gather_sum differs from plain at the sampled layer-0 shape")
+    x_pad = torch.cat([x, x.new_zeros(1, d)])
+    ids64 = ids.long()
+
+    def library():
+        return torch.nn.functional.embedding_bag(ids64, x_pad, mode="sum", padding_idx=n_x)
+
+    # embedding_bag sums in another order: sums of up to 64 unit normals
+    torch.testing.assert_close(library(), out, rtol=1e-5, atol=1e-4)
+    valid = ids[ids < n_x]
+    rows_read = int(torch.unique(valid).numel())
+    nbytes = rows_read * d * 4 + ids.numel() * 4 + n * d * 4
+    b_ms, b_by = bound_ms(nbytes, valid.numel() * d, rates)
+    xg = x.clone().requires_grad_(True)
+    y = sampled_nbr_sum(xg, adj.in_nbr_idx, adj.in_mask, adj.out_nbr_idx, adj.out_mask)
+    gy = torch.randn_like(y)
+    sums = {"targets": n, "slots": ids.numel(), "valid_slots": int(valid.numel()),
+            "distinct_rows": rows_read, "max_abs_err": 0.0,
+            "ms": time_ms(lambda: ns.gather_sum(x, ids)),
+            "plain_ms": time_ms(lambda: ns.gather_sum_plain(x, ids), reps=2, samples=3),
+            "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": nbytes,
+            "library_ms": time_ms(library, reps=10, samples=5),
+            "backward_index_add_ms": time_ms(
+                lambda: torch.autograd.grad(y, xg, gy, retain_graph=True), reps=5, samples=5)}
+    print(f"gather_sum, sampled layer 0 ({n} targets x {ids.shape[1]} slots, "
+          f"{sums['valid_slots']} real, {rows_read} distinct rows of {n_x}, d={d}, "
+          f"{nbytes / 1e6:.4f} MB): max_abs_err 0.0  kernel {sums['ms'] * 1e3:.2f} us  plain "
+          f"{sums['plain_ms'] * 1e3:.2f} us  embedding_bag {sums['library_ms'] * 1e3:.2f} us  "
+          f"bound {b_ms * 1e3:.2f} us ({b_by})  backward (index_add_) "
+          f"{sums['backward_index_add_ms'] * 1e3:.2f} us  [{card}]", flush=True)
+    return {"gather_rows": rows, "gather_sum": sums}
+
+
+def compare_sampled_nc_with_cpu():
+    """Small sampled NC runs on the card against the same runs on the CPU
+    (plain versions), with the same sampler numbers (both from a CPU
+    generator) and permutation, without and with an EMBEDDING stage (the
+    Adagrad kernel), 2 epochs, hop caps tight enough to truncate."""
+    from marius_tpu_torch.data.graph import build_device_graph
+    from marius_tpu_torch.data.samplers.neighbor import NeighborSamplingConfig, generator_draws
+    from marius_tpu_torch.nn.encoder import EncoderConfig
+    from marius_tpu_torch.nn.layers import LayerConfig
+    from marius_tpu_torch.nn.model import NODE_CLASSIFICATION, Model
+    from marius_tpu_torch.nn.optimizers import OptimizerConfig, tree_leaves
+    from marius_tpu_torch.ops.cuda import adagrad
+    from marius_tpu_torch.train.nc import NodeClassificationTrainer
+
+    n, e, f = 300, 3000, 16
+    rng = np.random.default_rng(5)
+    w = (np.arange(n) + 1.0) ** -1.0
+    edges = np.stack([rng.integers(0, n, e), rng.choice(n, e, p=w / w.sum())], 1)
+    _, features, labels, train_nodes = nc_data(6, edges, n, f, 5, 200)
+    graph = build_device_graph(edges, n)
+    nbr = [NeighborSamplingConfig("UNIFORM", 8), NeighborSamplingConfig("DROPOUT", 6, rate=0.2)]
+
+    def on(device, draw):
+        def moved(*a):
+            r, u = draw(*a)
+            return r.to(device), None if u is None else u.to(device)
+        return moved
+
+    worst, truncated = 0.0, 0
+    for emb in (False, True):
+        first = [LayerConfig("FEATURE", output_dim=f, bias=True)]
+        if emb:
+            first.append(LayerConfig("EMBEDDING", output_dim=8))
+        width = f + (8 if emb else 0)
+        model = Model(NODE_CLASSIFICATION, EncoderConfig((
+            tuple(first),
+            (LayerConfig("GNN", input_dim=width, output_dim=16, gnn_type="GRAPH_SAGE",
+                         aggregator="MEAN", bias=True, activation="RELU"),),
+            (LayerConfig("GNN", input_dim=16, output_dim=5, gnn_type="GCN", bias=True),))),
+            None, loss_type="CROSS_ENTROPY", loss_reduction="SUM",
+            dense_optimizer=OptimizerConfig("ADAM", learning_rate=NC_LR), sparse_lr=0.1)
+        cpu, gpu = [NodeClassificationTrainer(model, graph, features, labels, train_nodes, nbr,
+                                              batch_size=50, hop_caps=[50, 160, 260], seed=1,
+                                              device=dev) for dev in ("cpu", "cuda")]
+        gpu_draws = on(gpu.device, generator_draws(torch.Generator().manual_seed(1)))
+        gpu._batch_draws = lambda: gpu_draws
+        gpu._epoch_permutation = lambda p, _c=cpu, _g=gpu: _c._epoch_permutation(p).to(_g.device)
+        adagrad.launches = 0
+        for _ in range(2):
+            rc, rg = cpu.train_epoch(), gpu.train_epoch()
+            if not math.isclose(rc["loss"], rg["loss"], rel_tol=1e-4) or \
+                    rc["truncated_frontier_ids"] != rg["truncated_frontier_ids"]:
+                raise AssertionError(f"sampled NC on the card {rg} != on the CPU {rc}")
+            truncated += rg["truncated_frontier_ids"]
+        if emb and adagrad.launches != 2 * gpu.num_batches:
+            raise AssertionError(f"the EMBEDDING table's Adagrad ran {adagrad.launches} times")
+        leaves = [cpu.state.params, cpu.state.opt_state.slots], \
+            [gpu.state.params, gpu.state.opt_state.slots]
+        if emb:
+            leaves[0].append([cpu.state.table.values, cpu.state.table.state])
+            leaves[1].append([gpu.state.table.values, gpu.state.table.state])
+        for a, b in zip(tree_leaves(leaves[0]), tree_leaves(leaves[1])):
+            b = b.detach().cpu()
+            worst = max(worst, float((a.detach() - b).abs().max()))
+            torch.testing.assert_close(b, a.detach(), rtol=1e-4, atol=1e-5)
+    if not truncated:
+        raise AssertionError("the tight hop caps must truncate frontier ids")
+    print(f"small sampled NC runs, card against CPU (without and with an EMBEDDING stage, "
+          f"UNIFORM and DROPOUT hops, tight caps: {truncated} frontier ids truncated, 2 "
+          f"epochs): max abs difference {worst:.3g} (tolerance rtol 1e-4, atol 1e-5)",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a GPU",
@@ -1508,6 +1806,12 @@ def main() -> int:
     compare_eval_with_cpu()
     nc_counts = train_nc(card, adj, nc)
     compare_nc_with_cpu()
+    sampled = nc_sampled(card, nc)
+    shapes = sampled_shapes(sampled.pop("trainer"), rates, card)
+    kernels[0]["sampled_nc_outer"] = shapes["gather_rows"]
+    kernels[2]["sampled_layer0"] = shapes["gather_sum"]
+    torch.cuda.empty_cache()
+    compare_sampled_nc_with_cpu()
     manager = lp_manager(card)
     lp_accuracy(card)
     compare_oocore_with_cpu()
@@ -1518,12 +1822,13 @@ def main() -> int:
     # each row's launches: the sum over the paths it runs on, each part's beside it
     by_part = {
         "gather_rows": {"lp flagship": flagship["gather_rows"], **manager["gather_rows"],
-                        **reload["gather_rows"], **oocore["gather_rows"]},
+                        **sampled["gather_rows"], **reload["gather_rows"],
+                        **oocore["gather_rows"]},
         "sparse_adagrad_update_": {"lp flagship": flagship["sparse_adagrad_update_"],
                                    "lp_manager train": manager["sparse_adagrad_update_"],
-                                   **reload["sparse_adagrad_update_"],
+                                   "nc_sampled": 0, **reload["sparse_adagrad_update_"],
                                    **oocore["sparse_adagrad_update_"]},
-        "gather_sum": nc_counts,
+        "gather_sum": {**nc_counts, **sampled["gather_sum"]},
     }
     for k in kernels:
         k["launches"] = sum(by_part[k["name"]].values())

@@ -31,8 +31,8 @@ import yaml
 from marius_tpu_torch.data.samplers.negative import NegativeSamplingConfig
 from marius_tpu_torch.data.samplers.neighbor import NeighborSamplingConfig
 from marius_tpu_torch.nn.decoders.edge import (
-    EDGE_DECODER_TYPES,
     EdgeDecoder,
+    decoder_spec,
     normalize_decoder_method,
 )
 from marius_tpu_torch.nn.encoder import EncoderConfig
@@ -341,7 +341,7 @@ def load_config(path_or_dict, model_dir: Optional[str] = None,
     decoder = None
     unknown_decoder = None
     if (learning_task == "LINK_PREDICTION" and validate
-            and dec_type not in EDGE_DECODER_TYPES):
+            and decoder_spec(dec_type) is None):
         unknown_decoder = dec_type
     elif learning_task == "LINK_PREDICTION":
         decoder = EdgeDecoder(

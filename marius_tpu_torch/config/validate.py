@@ -2,8 +2,8 @@
 
 Port of ``marius_tpu/config/validate.py`` (:19-469): the same allowed-key
 tree, compat notes, value checks and messages. Custom names registered in
-``marius_tpu.nn.registry`` have no counterpart until the registry is ported,
-so ``_registered`` is False. An unknown decoder type, which the port's loader
+``marius_tpu_torch/nn/registry.py`` are valid. An unknown decoder type, which
+the port's loader
 cannot build a decoder for, comes in as ``unknown_decoder`` and is reported
 where the JAX check reports it.
 
@@ -304,10 +304,13 @@ _ENUMS = {
 
 
 def _registered(kind: str, value: str) -> bool:
-    """Custom names registered in a component registry are valid wherever
-    the built-in names are; the port has no registry yet (it comes with
-    nn/registry.py), so no custom name is registered."""
-    return False
+    """Custom names registered in ``nn/registry.py`` are valid wherever the
+    built-in names are."""
+    from marius_tpu_torch.nn import registry
+    lookup = {"gnn_type": registry.gnn_layer, "layer_type": registry.stage_layer,
+              "decoder_type": registry.edge_decoder, "loss_type": registry.loss}
+    fn = lookup.get(kind)
+    return fn is not None and fn(value) is not None
 
 
 def _enum(errors: List[str], kind: str, value: str, path: str) -> None:

@@ -3,9 +3,8 @@
 Port of ``marius_tpu/data/graph.py`` (DeviceGraph :25-44,
 build_device_graph :54-83; reference data/graph.cpp:16-44): edge lists
 sorted by src and by dst with searchsorted offsets, built once with numpy
-and held as int32 tensors on ``device``. The full-graph NC trainer reads
-only ``num_nodes`` from it; the sampled paths that walk the CSR come with a
-later slice.
+and held as int32 tensors on ``device``. The neighbour sampler walks the
+CSR; the full-graph NC trainer reads only ``num_nodes`` from it.
 """
 
 from __future__ import annotations
@@ -40,6 +39,12 @@ class DeviceGraph:
     @property
     def num_edges(self) -> int:
         return int(self.out_cols.shape[0])
+
+    def to(self, device) -> "DeviceGraph":
+        """The same graph with every tensor on ``device``."""
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device) for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), Tensor)})
 
 
 def _csr_from_sorted(anchor_sorted: np.ndarray, num_nodes: int) -> np.ndarray:

@@ -1,23 +1,30 @@
 """Manager: config -> dataset -> trainer/evaluators -> epoch loop -> checkpoints.
 
-Port of the link-prediction path of ``marius_tpu/manager.py`` (reference
-src/cpp/src/marius.cpp): ``marius_init`` (:114-259, :429-476) builds the
-trainer and the valid/test evaluators from one config and restores a
-checkpoint for resume or evaluation. Embeddings in DEVICE_MEMORY train with
-``LinkPredictionTrainer`` (edges in DEVICE_MEMORY, or streamed from host RAM
-or a memory-mapped FLAT_FILE), PARTITION_BUFFER embeddings with
-``PartitionBufferLPTrainer``; ``evaluation.host_streaming`` evaluates from the
-host table in node tiles (``_HostStreamLPEval``);
+Port of ``marius_tpu/manager.py`` (reference src/cpp/src/marius.cpp):
+``marius_init`` (:114-476) builds the trainer and the valid/test evaluators
+from one config and restores a checkpoint for resume or evaluation.
+
+- Link prediction: embeddings in DEVICE_MEMORY train with
+  ``LinkPredictionTrainer`` (edges in DEVICE_MEMORY, or streamed from host
+  RAM or a memory-mapped FLAT_FILE), PARTITION_BUFFER embeddings with
+  ``PartitionBufferLPTrainer``; ``evaluation.host_streaming`` evaluates from
+  the host table in node tiles (``_HostStreamLPEval``).
+- Node classification (:261-425), features and embeddings in DEVICE_MEMORY:
+  configs whose every hop samples ALL go to the full-graph trainer where a
+  batch's frontier would cover a sizable share of the graph, the others to
+  the sampled trainer, with ``hop_caps``, ``hop_caps: auto``
+  (``estimate_hop_caps_empirical``) or worst-case caps.
+
 ``marius_train`` (:479-554) runs the epoch loop with the eval cadence,
-save_best, interval checkpoints and the final test evaluation and save;
-``marius_eval`` (:557-567) evaluates a trained model; ``encode_and_export``
-(:570-598) writes a shallow encoder's outputs.
+save_best (MRR for LP, accuracy for NC), interval checkpoints and the final
+test evaluation and save; ``marius_eval`` (:557-567) evaluates a trained
+model; ``encode_and_export`` (:570-598) writes every node's encoder output.
 
 Every entry point takes ``device``: None means the GPU (and raises without
 one), ``"cpu"`` runs the plain versions of the kernels. What is not ported
-yet raises ``NotImplementedError`` naming the slice that brings it: node
-classification, meshes, neighbour sampling and GNN or FEATURE encoders,
-CORRUPT_REL, per-layer optimizers and bf16 tables.
+yet raises ``NotImplementedError`` naming the slice that brings it:
+out-of-core NC, meshes, GNN or FEATURE encoders for link prediction,
+CORRUPT_REL, GAT and RGCN, per-layer optimizers and bf16 tables.
 """
 
 from __future__ import annotations
@@ -33,15 +40,31 @@ import yaml
 
 from marius_tpu_torch.config.schema import MariusConfig, load_config, resolve_dtype
 from marius_tpu_torch.convert import copy_train_state_
+from marius_tpu_torch.data.full_graph import build_full_graph_adjacency
+from marius_tpu_torch.data.graph import build_device_graph
+from marius_tpu_torch.data.samplers.neighbor import (
+    estimate_hop_caps_empirical,
+    resolve_all_caps,
+)
+from marius_tpu_torch.nn.encoder import check_sampled_ported
+from marius_tpu_torch.nn.full_graph_encoder import supports_full_graph
 from marius_tpu_torch.nn.model import LINK_PREDICTION, NODE_CLASSIFICATION
 from marius_tpu_torch.nn.optimizers import GroupedOptimizerConfig
 from marius_tpu_torch.ops.edge_keys import build_edge_key_set
+from marius_tpu_torch.ops.unique import PREFIX_BITMAP_LIMIT
 from marius_tpu_torch.reporting.logger import get_logger
 from marius_tpu_torch.storage import checkpoint as ckpt
-from marius_tpu_torch.storage.dataset import load_split, load_stats
+from marius_tpu_torch.storage.dataset import (
+    load_features,
+    load_labels,
+    load_node_split,
+    load_split,
+    load_stats,
+)
 from marius_tpu_torch.train.buffer_trainer import PartitionBufferLPTrainer
 from marius_tpu_torch.train.evaluator import LinkPredictionEvaluator
 from marius_tpu_torch.train.graph_encoder import encode_all_nodes, encode_all_nodes_host
+from marius_tpu_torch.train.nc import NodeClassificationEvaluator, NodeClassificationTrainer
 from marius_tpu_torch.train.trainer import LinkPredictionTrainer, _later_slice, resolve_device
 
 
@@ -88,13 +111,17 @@ def _load_lp_data(cfg: MariusConfig):
 def _refuse_unported(cfg: MariusConfig) -> None:
     """Raise for every part of ``cfg`` the port does not run yet."""
     s, t, model = cfg.storage, cfg.training, cfg.model
-    if cfg.learning_task == NODE_CLASSIFICATION:
-        raise _later_slice("the node-classification manager path", "the sampled NC slice (A10)")
-    if cfg.learning_task != LINK_PREDICTION:
+    if cfg.learning_task not in (LINK_PREDICTION, NODE_CLASSIFICATION):
         raise ValueError(f"Unknown learning task: {cfg.learning_task}")
     if t.mesh_data not in (0, 1) or t.mesh_node not in (0, 1):
         raise _later_slice("mesh training", "the multi-GPU slice")
-    if (cfg.train_neighbor_sampling or model.encoder.num_gnn_stages
+    if cfg.learning_task == NODE_CLASSIFICATION:
+        if s.features_backend == "PARTITION_BUFFER" or (
+                model.has_embeddings and s.embeddings_backend == "PARTITION_BUFFER"):
+            raise _later_slice("out-of-core node classification (PARTITION_BUFFER features "
+                               "or embeddings)", "the out-of-core NC slice")
+        check_sampled_ported(model.encoder)
+    elif (cfg.train_neighbor_sampling or model.encoder.num_gnn_stages
             or model.encoder.has_features):
         raise _later_slice("neighbour sampling and GNN or FEATURE encoders",
                            "the sampled-GNN LP slice")
@@ -121,10 +148,94 @@ class _HostStreamLPEval:
                                                 state.params)
 
 
+def _init_nc(cfg: MariusConfig, dev, log):
+    """(trainer, valid evaluator, test evaluator) of a node-classification
+    config (JAX :261-425, DEVICE_MEMORY)."""
+    ds, model = cfg.storage.dataset, cfg.model
+    stats = load_stats(ds.dataset_dir)
+    edges = load_split(ds.dataset_dir, "train", stats)
+    features = load_features(ds.dataset_dir) if model.encoder.has_features else None
+    labels = load_labels(ds.dataset_dir)
+    train_nodes = load_node_split(ds.dataset_dir, "train")
+    num_nodes = ds.num_nodes
+    graph = build_device_graph(edges, num_nodes, max(ds.num_relations, 1), device=dev)
+    train_nbr = cfg.train_neighbor_sampling
+    # exact-ALL: when every hop samples ALL and a typical batch's k-hop
+    # frontier covers a sizable share of the graph, every layer runs over the
+    # full adjacency instead of per-batch frontiers (data/full_graph.py)
+    full_graph = None
+    fg_mode = cfg.full_graph.upper()
+    if (fg_mode != "OFF" and train_nbr
+            and all(c.sampling_type.upper() == "ALL" for c in train_nbr)
+            and supports_full_graph(model.encoder)):
+        avg_deg = 2.0 * len(edges) / max(num_nodes, 1)
+        frontier = cfg.training.batch_size * max(avg_deg, 1.0) ** len(train_nbr)
+        if fg_mode == "ON" or frontier >= num_nodes / 4:
+            full_graph = build_full_graph_adjacency(edges, num_nodes)
+            log.info("Full-graph ALL mode: %d padded slots over %d degree buckets, exact ALL",
+                     full_graph.total_slots, len(full_graph.nbrs))
+    if full_graph is None:
+        train_nbr = resolve_all_caps(train_nbr, graph.in_offsets, graph.out_offsets,
+                                     cap_limit=cfg.all_cap_limit)
+    log.info("Loaded NC dataset: %d nodes, %d edges, %d train nodes",
+             num_nodes, len(edges), len(train_nodes))
+
+    # Async pipeline mapping (PipelineTrainer, trainer.cpp:35-74): K
+    # staleness-bound seed batches read ONE parameter snapshot; with SUM CE
+    # that is a K-times-larger batch, with MEAN the loss is scaled by K
+    batch_size = cfg.training.batch_size
+    if not cfg.training.sync and cfg.training.staleness_bound > 1:
+        k = cfg.training.staleness_bound
+        batch_size *= k
+        if model.loss_reduction.upper() == "MEAN":
+            model = dataclasses.replace(model, loss_scale=float(k))
+        log.info("Async pipeline: staleness_bound=%d -> step of %d seeds", k, batch_size)
+
+    auto_caps = None
+    if (cfg.hop_caps_auto and not cfg.hop_caps and train_nbr
+            and not any(c.sampling_type.upper() == "ALL" for c in train_nbr)
+            and num_nodes <= PREFIX_BITMAP_LIMIT):
+        # `hop_caps: auto`: caps from the graph's observed frontier growth;
+        # safe only where the prefix sampler turns overflow into counted
+        # neighbour truncation
+        auto_caps = estimate_hop_caps_empirical(edges, num_nodes, train_nbr, batch_size,
+                                                seed=cfg.training.seed, seed_pool=train_nodes)
+        log.info("empirical hop caps: %s", auto_caps)
+    elif cfg.hop_caps_auto and num_nodes > PREFIX_BITMAP_LIMIT:
+        log.warning("hop_caps: auto ignored at %d nodes (> prefix-bitmap limit %d): tight "
+                    "caps would alias on the sorted dedup path; using worst-case caps",
+                    num_nodes, PREFIX_BITMAP_LIMIT)
+    trainer = NodeClassificationTrainer(
+        model, graph, features, labels, train_nodes, train_nbr,
+        batch_size=batch_size, hop_caps=cfg.hop_caps or auto_caps, seed=cfg.training.seed,
+        full_graph=full_graph, epochs_per_shuffle=cfg.training.epochs_per_shuffle,
+        device=dev)
+
+    def make_eval(split):
+        try:
+            nodes = load_node_split(ds.dataset_dir, split)
+        except FileNotFoundError:
+            return None
+        if len(nodes) == 0:
+            return None
+        return NodeClassificationEvaluator(trainer, nodes, batch_size=cfg.evaluation.batch_size)
+
+    return trainer, make_eval("valid"), make_eval("test")
+
+
 def marius_init(cfg: MariusConfig, train: bool = True, device=None) -> MariusRuntime:
     _refuse_unported(cfg)
     dev = resolve_device(device)
     log = get_logger(cfg.storage.model_dir or None, console_level=cfg.storage.log_level)
+    if cfg.learning_task == NODE_CLASSIFICATION:
+        rt = MariusRuntime(cfg, *_init_nc(cfg, dev, log))
+    else:
+        rt = _init_lp(cfg, dev, log)
+    _load_trained(rt, train, log)
+    return rt
+
+
+def _init_lp(cfg: MariusConfig, dev, log) -> MariusRuntime:
     ds = cfg.storage.dataset
     model = cfg.model
 
@@ -199,8 +310,12 @@ def marius_init(cfg: MariusConfig, train: bool = True, device=None) -> MariusRun
         )
         return _HostStreamLPEval(ev) if cfg.evaluation.host_streaming else ev
 
-    rt = MariusRuntime(cfg, trainer, make_eval(valid_edges), make_eval(test_edges))
+    return MariusRuntime(cfg, trainer, make_eval(valid_edges), make_eval(test_edges))
 
+
+def _load_trained(rt: MariusRuntime, train: bool, log) -> None:
+    """Resume from a checkpoint, or load the model to evaluate."""
+    cfg = rt.config
     # resume (marius.cpp:59-76)
     t = cfg.training
     if train and (t.resume_training or t.resume_from_checkpoint):
@@ -240,7 +355,6 @@ def marius_init(cfg: MariusConfig, train: bool = True, device=None) -> MariusRun
             meta = _restore(rt, model_dir)
             rt.epochs_processed = int(meta.get("epochs_processed", 0))
             log.info("Loaded trained model from %s", model_dir)
-    return rt
 
 
 def _restore(rt: MariusRuntime, path: str) -> Dict[str, Any]:
@@ -281,16 +395,18 @@ def marius_train(config, model_dir: Optional[str] = None, device=None) -> Dict[s
         stats = rt.trainer.train_epoch()
         rt.epochs_processed = epoch + 1
         epoch_stats.append(stats)
-        log.info("Epoch %d: loss=%.4f time=%.3fs edges_per_sec=%.0f", epoch + 1,
-                 stats["loss"], stats["epoch_time_s"], stats["edges_per_sec"])
+        rate_key = "edges_per_sec" if "edges_per_sec" in stats else "nodes_per_sec"
+        log.info("Epoch %d: loss=%.4f time=%.3fs %s=%.0f", epoch + 1,
+                 stats["loss"], stats["epoch_time_s"], rate_key, stats[rate_key])
 
         if rt.valid_evaluator is not None and (epoch + 1) % max(t.epochs_per_eval, 1) == 0:
             res = rt.valid_evaluator.evaluate(rt.trainer.state)
             res["split"] = "valid"
             res["epoch"] = epoch + 1
             eval_stats.append(res)
-            # save_best: keep the best-valid-MRR model in model_dir
-            metric = res.get("mrr")
+            # save_best: keep the best-valid model in model_dir (MRR for LP,
+            # accuracy for NC; higher is better for both)
+            metric = res.get("mrr", res.get("accuracy"))
             if (t.save_best and cfg.storage.model_dir and metric is not None
                     and (best_metric is None or metric > best_metric)):
                 best_metric = float(metric)
@@ -347,13 +463,22 @@ def marius_eval(config, model_dir: Optional[str] = None, device=None) -> Dict[st
 def encode_and_export(rt: MariusRuntime, path: Optional[str] = None) -> np.ndarray:
     """Encoder outputs for every node to <model_dir>/encoded_nodes.bin
     (encode_and_export, marius.cpp:13-36)."""
-    state = rt.trainer.state
-    if isinstance(rt.trainer, PartitionBufferLPTrainer):
+    tr = rt.trainer
+    state = tr.state
+    table_values = state.table.values if state.table is not None else None
+    if isinstance(tr, PartitionBufferLPTrainer):
         # the host table goes through the device in tiles
         encoded = encode_all_nodes_host(rt.config.model, state.params,
-                                        state.table.values.numpy(), rt.trainer.device)
+                                        state.table.values.numpy(), tr.device)
+    elif isinstance(tr, NodeClassificationTrainer):
+        # a full-graph trainer keeps its ALL configs unresolved: export rides
+        # the same exact-ALL pass, not the sampler
+        encoded = encode_all_nodes(
+            rt.config.model, state.params, table_values, graph=tr.graph,
+            nbr_configs=tr.nbr_configs, features=tr.features,
+            batch_size=rt.config.evaluation.batch_size, full_graph=tr.full_graph,
+            fg_ops=tr._fg_ops).cpu().numpy()
     else:
-        table_values = state.table.values if state.table is not None else None
         encoded = encode_all_nodes(rt.config.model, state.params, table_values)
         encoded = encoded.detach().cpu().numpy()
     out = path or (os.path.join(rt.config.storage.model_dir, "encoded_nodes.bin")

@@ -9,9 +9,10 @@ decoder is an ``nn.Module`` whose relation tables are ``nn.Parameter``s
 Chunked negative scoring is a batched matmul (``torch.bmm``) kept in full
 float32: the port leaves ``torch.backends.cuda.matmul.allow_tf32`` False and
 the float32 matmul precision at "highest", since TF32 would shift ranks.
-``rel_corrupt_forward``, ``rel_all_scores``, ``only_pos_forward`` and the
-custom-component registry wait for later slices; unknown names raise
-``ValueError`` as in the JAX code.
+Decoders, comparators and relation operators registered in
+``nn/registry.py`` work as the built-in ones do (JAX :141-158, :183-193).
+``rel_corrupt_forward``, ``rel_all_scores`` and ``only_pos_forward`` wait for
+later slices; unknown names raise ``ValueError`` as in the JAX code.
 """
 
 from __future__ import annotations
@@ -122,8 +123,34 @@ _DECODER_SPECS = {
     "TRANSE": ("L2", "TRANSLATION", "zeros"),           # transe.cpp
 }
 
-#: the decoder types an ``EdgeDecoder`` can be built for
-EDGE_DECODER_TYPES = tuple(_DECODER_SPECS)
+def _lookup_comparator(name: str):
+    if name in _COMPARATORS:
+        return _COMPARATORS[name]
+    from marius_tpu_torch.nn import registry
+    custom = registry.comparator(name)
+    if custom is None:
+        raise ValueError(f"Unknown comparator: {name}")
+    return custom
+
+
+def _lookup_relation_op(name: str):
+    if name in _RELATION_OPS:
+        return _RELATION_OPS[name]
+    from marius_tpu_torch.nn import registry
+    custom = registry.relation_op(name)
+    if custom is None:
+        raise ValueError(f"Unknown relation operator: {name}")
+    return custom
+
+
+def decoder_spec(decoder_type: str):
+    """(comparator, relation op, relation init) of a built-in or registered
+    decoder type, or None."""
+    dt = decoder_type.upper()
+    if dt in _DECODER_SPECS:
+        return _DECODER_SPECS[dt]
+    from marius_tpu_torch.nn import registry
+    return registry.edge_decoder(dt)
 
 
 def normalize_decoder_method(name: str) -> str:
@@ -142,17 +169,17 @@ class EdgeDecoder(nn.Module):
                  decoder_method: str = "CORRUPT_NODE",
                  dtype=torch.float32, device=None):
         super().__init__()
-        dt = decoder_type.upper()
-        if dt not in EDGE_DECODER_TYPES:
+        spec = decoder_spec(decoder_type)
+        if spec is None:
             raise ValueError(f"Unknown edge decoder: {decoder_type}")
         self.decoder_type = decoder_type
         self.num_relations = num_relations
         self.embedding_dim = embedding_dim
         self.use_inverse_relations = use_inverse_relations
         self.decoder_method = decoder_method
-        comparator, rel_op, self._init_style = _DECODER_SPECS[dt]
-        self._pos_fn, self._neg_fn = _COMPARATORS[comparator]
-        self._rel_op = _RELATION_OPS[rel_op]
+        comparator, rel_op, self._init_style = spec
+        self._pos_fn, self._neg_fn = _lookup_comparator(comparator)
+        self._rel_op = _lookup_relation_op(rel_op)
         shape = (num_relations, embedding_dim)
         self.relations = nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
         if use_inverse_relations:
@@ -164,7 +191,9 @@ class EdgeDecoder(nn.Module):
     def init_params(self) -> None:
         """Reset the relation tables (distmult/complex/transe.cpp reset)."""
         for p in self.parameters():
-            if self._init_style == "ones":
+            if callable(self._init_style):   # a registered decoder's own init
+                p.copy_(torch.as_tensor(self._init_style(tuple(p.shape), p.dtype)))
+            elif self._init_style == "ones":
                 p.fill_(1.0)
             elif self._init_style == "zeros":
                 p.zero_()

@@ -158,16 +158,20 @@ _SCORE_LOSSES = {
 
 def get_loss_function(loss_type: str, *, reduction: str = "MEAN", margin: float = 0.1):
     """Factory mirroring getLossFunction (loss.cpp:177-198). Returns
-    f(pos_scores, neg_scores, mask=None, neg_mask=None) -> scalar. Losses
-    registered by name (the JAX package's registry) wait for a later slice."""
+    f(pos_scores, neg_scores, mask=None, neg_mask=None) -> scalar; names
+    registered in ``nn/registry.py`` work as the built-in ones do."""
     lt = loss_type.upper()
+    custom = None
     if lt not in _SCORE_LOSSES:
-        raise ValueError(f"Unsupported loss function type: {loss_type}")
-    fn = _SCORE_LOSSES[lt]
+        from marius_tpu_torch.nn import registry
+        custom = registry.loss(lt)
+        if custom is None:
+            raise ValueError(f"Unsupported loss function type: {loss_type}")
+    fn = custom or _SCORE_LOSSES[lt]
 
     def apply(pos_scores, neg_scores, mask=None, neg_mask=None):
         kwargs = dict(reduction=reduction, mask=mask)
-        if lt in ("SOFTMAX_CE", "RANKING", "CROSS_ENTROPY"):
+        if custom is not None or lt in ("SOFTMAX_CE", "RANKING", "CROSS_ENTROPY"):
             kwargs["neg_mask"] = neg_mask
         if lt == "RANKING":
             kwargs["margin"] = margin

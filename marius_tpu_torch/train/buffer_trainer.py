@@ -160,10 +160,10 @@ class PartitionBufferLPTrainer:
             raise ValueError(f"training supports CORRUPT_NODE/CORRUPT_REL, "
                              f"got {self.decoder_method}")
         if nbr_configs or model.encoder.num_gnn_stages:
-            raise _later_slice("GNN encoders over the partition buffer", "the sampled-GNN slice")
+            raise _later_slice("GNN encoders over the partition buffer", "the GNN LP slice")
         if features is not None or model.encoder.has_features:
             raise _later_slice("FEATURE encoders over the partition buffer",
-                               "the out-of-core NC slice")
+                               "the GNN LP slice")
         if mesh is not None:
             raise _later_slice("mesh training", "the multi-GPU slice")
         if not model.has_embeddings:

@@ -24,8 +24,8 @@ evaluator's device (a partition-buffer trainer's host table) is moved there
 whole for ``evaluate``; ``evaluate_from_host_table`` instead keeps it in host
 RAM and streams it through the device in node tiles (JAX :413-576).
 CORRUPT_REL ranking, ``compute_pos_scores`` (only_pos_forward) and GNN or
-FEATURE encoders (in ``encode_all_nodes``) raise ``NotImplementedError``
-naming the slice that brings them.
+FEATURE encoders raise ``NotImplementedError`` naming the slice that brings
+them.
 """
 
 from __future__ import annotations
@@ -266,6 +266,9 @@ class LinkPredictionEvaluator:
         """All-node encoder outputs, shared by evaluate() and compute_all_ranks().
         A table elsewhere (a partition-buffer trainer's host table) is moved
         to the evaluator's device first."""
+        if self.model.encoder.num_gnn_stages or self.model.encoder.has_features:
+            raise _later_slice("all-node encoding through a GNN or FEATURE encoder",
+                               "the GNN LP slice")
         table_values = (state.table.values.to(self.device) if state.table is not None
                         else None)
         return encode_all_nodes(self.model, state.params, table_values).contiguous()

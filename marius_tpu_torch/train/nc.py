@@ -1,41 +1,47 @@
-"""Node-classification training and evaluation, full-graph mode, one device.
+"""Node-classification training and evaluation on one device: sampled GNNs
+and full-graph mode.
 
-Port of ``marius_tpu/train/nc.py`` (NodeClassificationTrainer :48-329,
-:388-464, :559-725; NodeClassificationEvaluator's full-graph path
-:731-837) for GraphSAGE and GCN encoders over one FEATURE stage. Every batch
+Port of ``marius_tpu/train/nc.py`` (NodeClassificationTrainer :48-725 and
+NodeClassificationEvaluator :731-863 without the mesh branches; reference
+marius.cpp NODE_CLASSIFICATION task, dataloader.cpp nodeSample :473-496,
+model.cpp forward_nc :246-250).
+
+**Sampled** (``full_graph=None``, the path of ``ogbn_arxiv.yaml``): each
+batch of train nodes expands hop by hop through the neighbour sampler
+(``data/samplers/neighbor.py``, static hop caps, frontier-prefix layout),
+gathers the outermost hop's feature rows (and EMBEDDING rows) with the
+row-gather kernel, runs the GNN stages (one gather-sum kernel call per
+layer), takes the CE loss over the valid seeds and updates the dense
+parameters, and an EMBEDDING table with the row-sparse Adagrad kernel. The
+feature block and the labels carry a sentinel row N (zeros, label 0) for
+padded ids. The sampler's numbers come from the trainer's generator through
+``_batch_draws`` (the test seam: one call per batch); the evaluator's from a
+generator seeded from (seed, batch). The overflow count of tight hop caps
+stays on the device until the epoch's one read-back.
+
+**Full graph** (``full_graph`` given: every hop samples ALL): every batch
 computes the GNN over ALL nodes (``nn/full_graph_encoder.py``) and takes the
-CE loss at the batch's seed rows, which equals unbounded ALL sampling. Two
-forms, chosen as the JAX package chooses them:
-
-- **Linear collapse** (default for activation-free encoders, such as the
-  reference's ogbn-arxiv config): setup runs one neighbour sum per GNN
-  stage into the constant ``phi`` (``nn/linear_collapse.py``); a batch is a
-  row gather of ``phi`` and small matmuls.
-- **General** (``fg_linear_collapse=False``, or any encoder with an
-  activation): the first GNN stage's aggregation of the constant features
-  is computed once at setup; each batch runs the remaining stages' neighbour
-  sums (one kernel call per pass, forward and backward), and the final
-  stage only for the seed rows over their flat neighbour lists
-  (``fg_seed_restrict``, on by default where the final stage allows it).
+loss at the seed rows, which equals unbounded ALL sampling. Two forms, as
+the JAX package chooses them: the linear collapse (default for
+activation-free encoders; ``nn/linear_collapse.py``), and the general form
+(``fg_linear_collapse=False`` or an encoder with an activation), whose final
+stage runs for the seed rows only over their flat neighbour lists
+(``fg_seed_restrict``). Each batch's list length is computed on the host from
+the epoch's permutation, so the JAX package's slot budget and retrace
+machinery has no counterpart.
 
 Where the JAX version compiles the epoch into one ``lax.scan``, this one
-runs an eager Python loop over batches. The seed lists are built per batch
-at their exact length: the epoch's permutation is read back once and each
-batch's slot count computed on the host, so the JAX package's slot budget
-and retrace machinery (``_fg_perm_host``, ``_fg_epoch_need``,
-``_fg_ensure_budget``), which exists for XLA's static shapes, has no
-counterpart. The epoch's permutation (``_epoch_permutation``, the test seam)
-comes from a generator seeded from (54321, epoch): a new shuffle every epoch.
-
-Sampled NC (``full_graph=None``), meshes and the sharded ring, bf16 and
-GAT/RGCN stages raise ``NotImplementedError`` naming the slice that brings
-them.
+runs an eager Python loop over batches. The epoch's permutation
+(``_epoch_permutation``, a test seam) comes from a generator seeded from
+(54321, epoch // epochs_per_shuffle). Meshes, bf16 and GAT/RGCN stages raise
+``NotImplementedError`` naming the slice that brings them.
 """
 
 from __future__ import annotations
 
+import logging
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -47,6 +53,15 @@ from marius_tpu_torch.data.full_graph import (
     host_csr_from_adjacency,
 )
 from marius_tpu_torch.data.graph import DeviceGraph
+from marius_tpu_torch.data.samplers.neighbor import (
+    Draws,
+    NeighborSamplingConfig,
+    estimate_hop_caps,
+    generator_draws,
+    sample_neighbor_batch,
+    seeded_draws,
+)
+from marius_tpu_torch.nn.encoder import check_sampled_ported, encoder_forward
 from marius_tpu_torch.nn.full_graph_encoder import (
     check_ported,
     full_graph_encoder_forward,
@@ -56,7 +71,14 @@ from marius_tpu_torch.nn.full_graph_encoder import (
 from marius_tpu_torch.nn.linear_collapse import build_linear_collapse, linear_collapse_eligible
 from marius_tpu_torch.nn.model import NODE_CLASSIFICATION, Model, init_model_params, nc_batch_loss
 from marius_tpu_torch.nn.optimizers import apply_optimizer, init_optimizer, tree_leaves, tree_map
+from marius_tpu_torch.parallel.embedding_table import (
+    EmbeddingTable,
+    gather_rows,
+    init_embedding_table,
+    sparse_adagrad_update,
+)
 from marius_tpu_torch.reporting.metrics import categorical_accuracy_statistics
+from marius_tpu_torch.reporting.reporters import NodeClassificationReporter
 from marius_tpu_torch.train.trainer import TrainState, _later_slice, resolve_device
 
 Tensor = torch.Tensor
@@ -72,58 +94,96 @@ def _pad_ids(ids: np.ndarray, batch_size: int):
 
 
 class NodeClassificationTrainer:
-    """Full-graph GNN node classification on one device."""
+    """GNN node classification on one device, sampled or full-graph."""
 
     def __init__(
         self,
         model: Model,
         graph: DeviceGraph,
-        features: Optional[np.ndarray],     # (N, F) float32
+        features: Optional[np.ndarray],     # (N, F) float32 or None
         labels: np.ndarray,                 # (N,) int
         train_nodes: np.ndarray,
+        nbr_configs: Sequence[NeighborSamplingConfig] = (),
         batch_size: int = 1000,
+        hop_caps: Optional[Sequence[int]] = None,
         seed: int = 0,
         dtype=torch.float32,
         mesh=None,
-        full_graph: Optional[FullGraphAdjacency] = None,
+        full_graph: Optional[FullGraphAdjacency] = None,  # exact-ALL mode; nbr_configs unused
         fg_seed_restrict: Optional[bool] = None,   # None = auto (on where the final stage allows it)
         fg_linear_collapse: Optional[bool] = None,  # None = auto (linear encoders; an explicit
                                                     # fg_seed_restrict keeps the general path)
+        epochs_per_shuffle: int = 1,   # re-permute seeds every N epochs
         device=None,
     ):
         if model.learning_task != NODE_CLASSIFICATION:
             raise ValueError(f"NodeClassificationTrainer needs a {NODE_CLASSIFICATION} model")
-        if full_graph is None:
-            raise _later_slice("sampled node classification (full_graph=None)",
-                               "the sampled-GNN slice")
         if mesh is not None:
             raise _later_slice("mesh training (data-parallel or the sharded ring)",
                                "the multi-GPU slice")
         if dtype != torch.float32:
-            raise _later_slice(f"{dtype} training", "a later full-graph slice")
-        check_ported(model.encoder)
-        if features is None:
-            raise ValueError("full-graph training needs node features")
+            raise _later_slice(f"{dtype} training", "the bf16 slice")
+        if full_graph is not None:
+            check_ported(model.encoder)
+            if features is None:
+                raise ValueError("full-graph training needs node features")
+        else:
+            check_sampled_ported(model.encoder)
+            if not nbr_configs and model.encoder.num_gnn_stages:
+                raise ValueError("sampled GNN training needs one neighbour config per GNN stage")
 
         self.device = resolve_device(device)
         self.model = model
-        self.graph = graph
-        self.num_nodes = graph.num_nodes
+        self.graph = graph.to(self.device)
+        self.num_nodes = n = graph.num_nodes
         self.batch_size = batch_size
-        self.features = torch.as_tensor(np.asarray(features, np.float32), device=self.device)
-        self.labels = torch.as_tensor(np.asarray(labels, np.int64), device=self.device)
-        self.full_graph = full_graph.to(self.device)
+        self.nbr_configs = tuple(nbr_configs)
+        self.epochs_per_shuffle = max(1, int(epochs_per_shuffle))
+        # sentinel row N, so clamped padded ids read zero features and label 0
+        self.features = None
+        if features is not None:
+            f = np.zeros((n + 1, features.shape[1]), np.float32)
+            f[:n] = features
+            self.features = torch.as_tensor(f, device=self.device)
+        lab = np.zeros(n + 1, np.int64)
+        lab[:n] = np.asarray(labels, np.int64)
+        self.labels = torch.as_tensor(lab, device=self.device)
 
+        self.full_graph = None
         self._fg_collapse = self._fg_ops = None
+        self._fg_seed_restrict = False
+        self.hop_caps = None
+        if full_graph is not None:
+            self._init_full_graph(full_graph.to(self.device), fg_seed_restrict,
+                                  fg_linear_collapse)
+        else:
+            self.hop_caps = tuple(hop_caps or estimate_hop_caps(batch_size, self.nbr_configs, n))
+
+        padded, self.num_train, self.num_batches = _pad_ids(train_nodes, batch_size)
+        self.train_nodes = torch.as_tensor(padded, device=self.device)
+
+        # initial values are drawn on the CPU, so they do not depend on the device
+        init_gen = torch.Generator().manual_seed(seed)
+        params = init_model_params(init_gen, model)
+        params = tree_map(lambda t: t.detach().to(self.device).requires_grad_(True), params)
+        table = None
+        if model.has_embeddings:
+            t = init_embedding_table(init_gen, n, model.encoder.embedding_dim)
+            table = EmbeddingTable(values=t.values.to(self.device), state=t.state.to(self.device))
+        self.state = TrainState(table=table, params=params,
+                                opt_state=init_optimizer(model.dense_optimizer, params), epoch=0)
+        self._draws = generator_draws(torch.Generator(device=self.device).manual_seed(seed))
+
+    def _init_full_graph(self, adj: FullGraphAdjacency, fg_seed_restrict, fg_linear_collapse):
+        model, feats = self.model, self.features[:-1]
         want_collapse = ((fg_linear_collapse if fg_linear_collapse is not None
                           else fg_seed_restrict is None)
                          and linear_collapse_eligible(model.encoder, True))
+        self.full_graph = adj
         if want_collapse:
-            self._fg_collapse = build_linear_collapse(self.full_graph, model.encoder,
-                                                      self.features)
+            self._fg_collapse = build_linear_collapse(adj, model.encoder, feats)
         else:
-            self.full_graph, self._fg_ops = prepare_full_graph(
-                self.full_graph, model.encoder, self.features)
+            self.full_graph, self._fg_ops = prepare_full_graph(adj, model.encoder, feats)
         self._fg_seed_restrict = (
             False if self._fg_collapse is not None
             else (supports_seed_restrict(model.encoder) if fg_seed_restrict is None
@@ -134,30 +194,68 @@ class NodeClassificationTrainer:
             self._fg_csr = host_csr_from_adjacency(self.full_graph)
             self._fg_csr_dev = device_csr(self._fg_csr, self.device)
 
-        padded, self.num_train, self.num_batches = _pad_ids(train_nodes, batch_size)
-        self.train_nodes = torch.as_tensor(padded, device=self.device)
+    # -- the seams a test may replace ------------------------------------------
 
-        # initial values are drawn on the CPU, so they do not depend on the device
-        params = init_model_params(torch.Generator().manual_seed(seed), model)
-        params = tree_map(lambda t: t.detach().to(self.device).requires_grad_(True), params)
-        self.state = TrainState(table=None, params=params,
-                                opt_state=init_optimizer(model.dense_optimizer, params),
-                                epoch=0)
-
-    # -- the seam a test may replace ------------------------------------------
-
-    def _epoch_permutation(self, epoch: int) -> Tensor:
-        seed = int(np.random.SeedSequence((54321, epoch)).generate_state(1)[0])
+    def _epoch_permutation(self, period: int) -> Tensor:
+        seed = int(np.random.SeedSequence((54321, period)).generate_state(1)[0])
         gen = torch.Generator(device=self.device).manual_seed(seed)
         return torch.randperm(self.num_batches * self.batch_size, generator=gen,
                               device=self.device)
 
-    # ------------------------------------------------------------------------
+    def _batch_draws(self) -> Draws:
+        """The sampler's numbers for the next training batch."""
+        return self._draws
+
+    # -- sampled --------------------------------------------------------------
+
+    def _encode_batch(self, table_values: Optional[Tensor], draws: Draws, seeds: Tensor,
+                      seed_mask: Tensor, hop_caps):
+        """(neighbour batch, outer feature rows, outer embedding rows): the
+        sample, then the outermost hop's rows through the row-gather kernel
+        (the hop sets are unique and padded with N: the features' sentinel
+        row, a clamped read of the table)."""
+        nb = sample_neighbor_batch(draws, self.graph, seeds, seed_mask, self.nbr_configs,
+                                   hop_caps)
+        outer = nb.node_ids[0]
+        feats = None if self.features is None else gather_rows(self.features, outer)
+        emb = None if table_values is None else gather_rows(table_values, outer)
+        return nb, feats, emb
+
+    def _sampled_logits(self, params, nb, feats, emb, train: bool) -> Tensor:
+        return encoder_forward(self.model.encoder, params["encoder"], emb, feats, nb,
+                               degrees=self.graph.degrees, train=train)
+
+    def _sampled_batch_step(self, seeds: Tensor, mask_b: Tensor):
+        """One sampled batch (JAX _batch_step_local :466-544 without the mesh
+        branch); returns (detached loss, overflow), both on the device."""
+        model, state = self.model, self.state
+        table = state.table
+        nb, feats, emb = self._encode_batch(None if table is None else table.values,
+                                            self._batch_draws(), seeds, mask_b, self.hop_caps)
+        labels_b = self.labels[seeds.clamp(max=self.num_nodes)]
+        loss_mask = mask_b & nb.seed_mask
+        if emb is not None:
+            emb.requires_grad_(True)
+        logits = self._sampled_logits(state.params, nb, feats, emb, True)
+        loss = nc_batch_loss(model, logits, labels_b, loss_mask)
+        leaves = tree_leaves(state.params)
+        grads = torch.autograd.grad(loss, leaves + ([emb] if emb is not None else []),
+                                    allow_unused=True)
+        if emb is not None:
+            g_emb = grads[-1] if grads[-1] is not None else torch.zeros_like(emb)
+            sparse_adagrad_update(table, nb.node_ids[0], g_emb, model.sparse_lr)
+        dense = iter(grads[:len(leaves)])
+        _, state.opt_state = apply_optimizer(model.dense_optimizer, state.params,
+                                             state.opt_state,
+                                             tree_map(lambda _: next(dense), state.params))
+        return loss.detach(), nb.overflow
+
+    # -- full graph -------------------------------------------------------------
 
     def _batch_step(self, seeds: Tensor, mask_b: Tensor, num_slots: Optional[int]) -> Tensor:
-        """One batch (JAX _batch_step_full_graph :388-464); returns the
-        detached loss. ``num_slots``: the batch's flat neighbour-list length
-        (seed-restricted mode)."""
+        """One full-graph batch (JAX _batch_step_full_graph :388-464); returns
+        the detached loss. ``num_slots``: the batch's flat neighbour-list
+        length (seed-restricted mode)."""
         model, state = self.model, self.state
         seeds_c = seeds.clamp(max=self.num_nodes - 1)
         labels_b = self.labels[seeds_c]
@@ -169,7 +267,7 @@ class NodeClassificationTrainer:
             if self._fg_seed_restrict:
                 sr = (seeds_c,) + device_seed_flat_lists(self._fg_csr_dev, seeds, mask_b,
                                                          num_slots, self.num_nodes)
-            out = full_graph_encoder_forward(model.encoder, enc, None, self.features,
+            out = full_graph_encoder_forward(model.encoder, enc, None, self.features[:-1],
                                              self.full_graph, ops=self._fg_ops,
                                              seed_restrict=sr)
             logits = out if sr is not None else out[seeds_c]
@@ -186,60 +284,111 @@ class NodeClassificationTrainer:
         s = np.minimum(shuffled.cpu().numpy(), self.num_nodes - 1)
         return ((offsets[s + 1] - offsets[s]) * masks.cpu().numpy()).sum(axis=1).tolist()
 
+    # ---------------------------------------------------------------------------
+
     def train_epoch(self) -> Dict[str, float]:
         t0 = time.perf_counter()
         nb, b = self.num_batches, self.batch_size
-        perm = self._epoch_permutation(self.state.epoch).to(self.device)
+        perm = self._epoch_permutation(self.state.epoch // self.epochs_per_shuffle)
+        perm = perm.to(self.device)
         shuffled = self.train_nodes[perm].reshape(nb, b)
         masks = (perm < self.num_train).reshape(nb, b)
-        slots = (self._batch_slot_counts(shuffled, masks) if self._fg_seed_restrict
-                 else [None] * nb)
         total = torch.zeros((), dtype=torch.float32, device=self.device)
-        for i in range(nb):
-            total += self._batch_step(shuffled[i], masks[i], slots[i])
+        overflow = torch.zeros((), dtype=torch.int64, device=self.device)
+        if self.full_graph is None:
+            for i in range(nb):
+                loss, ov = self._sampled_batch_step(shuffled[i], masks[i])
+                total += loss
+                overflow += ov
+        else:
+            slots = (self._batch_slot_counts(shuffled, masks) if self._fg_seed_restrict
+                     else [None] * nb)
+            for i in range(nb):
+                total += self._batch_step(shuffled[i], masks[i], slots[i])
         self.state.epoch += 1
-        total_loss = float(total)  # the epoch's last device-to-host sync
+        # the epoch's one device-to-host read, both numbers at once
+        total_loss, truncated = torch.stack([total.double(), overflow.double()]).tolist()
+        truncated = int(truncated)
+        if truncated:
+            logging.getLogger("marius_tpu_torch").warning(
+                "hop caps truncated %d frontier ids this epoch (drops the highest-id NEW "
+                "neighbors — id-correlated, not uniform, under sequential id remaps; raise "
+                "hop_caps or the empirical margin for exact frontiers)", truncated)
         dt = time.perf_counter() - t0
         return {"loss": total_loss, "epoch_time_s": dt,
                 "nodes_per_sec": self.num_train / dt, "num_nodes": self.num_train,
-                "truncated_frontier_ids": 0}
+                "truncated_frontier_ids": truncated}
 
     def train(self, num_epochs: int):
         return [self.train_epoch() for _ in range(num_epochs)]
 
 
 class NodeClassificationEvaluator:
-    """Accuracy over a node split with one full-graph pass (evaluator.cpp NC
-    path). The JAX evaluator's padded batches only shape its compiled scan;
-    here every evaluation node is scored at once."""
+    """Accuracy over a node split (evaluator.cpp NC path). Sampled trainers
+    evaluate in batches of ``batch_size`` under worst-case hop caps for that
+    batch size, the batch's sampler numbers seeded from (seed, batch);
+    full-graph trainers score every node in one full-graph pass."""
 
-    def __init__(self, trainer: NodeClassificationTrainer, eval_nodes: np.ndarray):
+    def __init__(self, trainer: NodeClassificationTrainer, eval_nodes: np.ndarray,
+                 batch_size: Optional[int] = None, seed: int = 11):
         self.trainer = trainer
-        self.eval_nodes = torch.as_tensor(np.asarray(eval_nodes, np.int64),
-                                          device=trainer.device)
-        self.num_eval = int(self.eval_nodes.shape[0])
+        self.batch_size = batch_size or trainer.batch_size
+        self.seed = seed
+        padded, self.num_eval, self.num_batches = _pad_ids(eval_nodes, self.batch_size)
+        self.eval_nodes = torch.as_tensor(padded, device=trainer.device)
+        # caps must cover THIS batch size, not the trainer's: an undersized
+        # cap would truncate hop sets
+        self.hop_caps = (None if trainer.full_graph is not None else tuple(estimate_hop_caps(
+            self.batch_size, trainer.nbr_configs, trainer.num_nodes)))
+
+    def _batch_draws(self, index: int) -> Draws:
+        """The sampler's numbers for evaluation batch ``index`` (the seam a
+        test may replace)."""
+        return seeded_draws(self.seed, index, self.trainer.device)
 
     @torch.no_grad()
-    def _full_graph_logits(self, params, nodes: Tensor) -> Tensor:
-        """One full-graph pass; logits for the requested node ids."""
+    def _logits(self, state: TrainState):
+        """Yields (logits, seeds, mask) per batch; one batch of all nodes for
+        a full-graph trainer."""
         tr = self.trainer
-        rows = nodes.clamp(max=tr.num_nodes - 1)
-        if tr._fg_collapse is not None:
-            return tr._fg_collapse.logits(params["encoder"], rows)
-        out = full_graph_encoder_forward(tr.model.encoder, params["encoder"], None,
-                                         tr.features, tr.full_graph, ops=tr._fg_ops)
-        return out[rows]
+        nodes = self.eval_nodes[:self.num_eval]
+        if tr.full_graph is not None:
+            rows = nodes.clamp(max=tr.num_nodes - 1)
+            if tr._fg_collapse is not None:
+                logits = tr._fg_collapse.logits(state.params["encoder"], rows)
+            else:
+                logits = full_graph_encoder_forward(
+                    tr.model.encoder, state.params["encoder"], None, tr.features[:-1],
+                    tr.full_graph, ops=tr._fg_ops)[rows]
+            yield logits, nodes, None
+            return
+        table_values = state.table.values if state.table is not None else None
+        b = self.batch_size
+        valid = torch.arange(self.num_batches * b, device=tr.device) < self.num_eval
+        for i in range(self.num_batches):
+            seeds, mask = self.eval_nodes[i * b:(i + 1) * b], valid[i * b:(i + 1) * b]
+            nb, feats, emb = tr._encode_batch(table_values, self._batch_draws(i), seeds, mask,
+                                              self.hop_caps)
+            yield tr._sampled_logits(state.params, nb, feats, emb, False), seeds, \
+                mask & nb.seed_mask
 
     def evaluate(self, state: TrainState) -> Dict[str, float]:
         """{"num_evaluated", "accuracy"}, the JAX evaluator's keys."""
         tr = self.trainer
-        logits = self._full_graph_logits(state.params, self.eval_nodes)
-        stats = categorical_accuracy_statistics(
-            logits, tr.labels[self.eval_nodes.clamp(max=tr.num_nodes - 1)])
-        count = float(stats["count"])
-        return {"num_evaluated": count, "accuracy": float(stats["correct"]) / max(count, 1.0)}
+        correct = torch.zeros((), dtype=torch.float32, device=tr.device)
+        count = torch.zeros((), dtype=torch.float32, device=tr.device)
+        for logits, seeds, mask in self._logits(state):
+            stats = categorical_accuracy_statistics(
+                logits, tr.labels[seeds.clamp(max=tr.num_nodes)], mask)
+            correct += stats["correct"]
+            count += stats["count"]
+        c, n = torch.stack([correct, count]).tolist()
+        reporter = NodeClassificationReporter()
+        reporter.add_statistics({"correct": c, "count": n})
+        reporter.report()
+        return reporter.results()
 
     def predict_labels(self, state: TrainState) -> np.ndarray:
         """Predicted class per eval node (marius_predict's NC labels export)."""
-        logits = self._full_graph_logits(state.params, self.eval_nodes)
-        return torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+        preds = [torch.argmax(logits, dim=-1) for logits, _, _ in self._logits(state)]
+        return torch.cat(preds)[:self.num_eval].to(torch.int32).cpu().numpy()

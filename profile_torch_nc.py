@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""Where the time of the port's full-graph NC training step goes on one GPU.
+"""Where the time of the port's NC training step goes on one GPU.
 
     python3 profile_torch_nc.py
 
 Builds the arxiv-shaped workload as chip_smoke.py does (169,343 nodes,
 1,166,243 power-law edges, 128 features, FEATURE + 3 x GraphSAGE MEAN d=128,
-batch 1000) and, for the default linear-collapse trainer and the general
-seed-restricted trainer (``fg_linear_collapse=False``) in turn, trains one
-warm-up epoch, then times one ``train_epoch`` on the host clock and the next
-under ``torch.profiler`` (profile_torch_lp.profile_batches): host and device
-time per batch, the device's busy share, device operations per batch, the
-kernels that take the most device time and the gather-sum kernel's share.
+batch 1000) and, for the default linear-collapse trainer, the general
+seed-restricted trainer (``fg_linear_collapse=False``) and the sampled
+trainer of ``examples/configuration/ogbn_arxiv.yaml`` (UNIFORM 32 in and out
+per hop, the YAML's hop caps) in turn, trains one warm-up epoch, then times
+one ``train_epoch`` on the host clock and the next under ``torch.profiler``
+(profile_torch_lp.profile_batches): host and device time per batch, the
+device's busy share, device operations per batch, the kernels that take the
+most device time and the port's kernels' shares.
 It then times one whole neighbour sum at arxiv shape (d=128 f32, all 40
 buckets) and its parts: the hub rows' buckets (rows wider than 256 slots)
 alone, the other buckets alone, the other buckets with their ids folded
@@ -25,8 +27,10 @@ from __future__ import annotations
 import dataclasses
 import json
 import sys
+from pathlib import Path
 
 import torch
+import yaml
 
 from chip_smoke import (ARXIV_CLASSES, ARXIV_FEATS, ARXIV_NODES, ARXIV_TRAIN, BATCH, NC_DIM,
                         arxiv_edges, card_name, nc_data, nc_model, time_ms)
@@ -73,6 +77,7 @@ def main() -> int:
         return 1
     from marius_tpu_torch.data.full_graph import build_full_graph_adjacency
     from marius_tpu_torch.data.graph import build_device_graph
+    from marius_tpu_torch.data.samplers.neighbor import NeighborSamplingConfig
     from marius_tpu_torch.train.nc import NodeClassificationTrainer
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -84,10 +89,18 @@ def main() -> int:
     adj = build_full_graph_adjacency(edges, ARXIV_NODES)
     graph = build_device_graph(edges, ARXIV_NODES)
     model = nc_model(ARXIV_FEATS, (NC_DIM, NC_DIM, ARXIV_CLASSES))
+    with open(Path(__file__).resolve().parent / "examples" / "configuration"
+              / "ogbn_arxiv.yaml") as f:
+        enc = yaml.safe_load(f)["model"]["encoder"]
+    sampled = {"nbr_configs": [NeighborSamplingConfig(c["type"], **c["options"])
+                               for c in enc["train_neighbor_sampling"]],
+               "hop_caps": enc["hop_caps"]}
     results = []
-    for tag, kwargs in [("collapse", {}), ("general", {"fg_linear_collapse": False})]:
+    for tag, kwargs in [("collapse", {"full_graph": adj}),
+                        ("general", {"full_graph": adj, "fg_linear_collapse": False}),
+                        ("sampled", sampled)]:
         trainer = NodeClassificationTrainer(model, graph, features, labels, train_nodes,
-                                            batch_size=BATCH, seed=0, full_graph=adj, **kwargs)
+                                            batch_size=BATCH, seed=0, **kwargs)
         trainer.train_epoch()   # warm-up: kernel build, allocator, library handles
         # each run is one whole train_epoch, which ends in its one sync
         results.append(profile_batches(lambda: trainer.train_epoch()["epoch_time_s"],

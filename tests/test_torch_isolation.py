@@ -26,7 +26,7 @@ print(len(names), bad)
 def test_port_imports_no_jax_and_no_marius_tpu():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, capture_output=True,
                          text=True, timeout=120, check=True).stdout.split()
-    assert int(out[0]) >= 47, out   # every module of the slices so far was imported
+    assert int(out[0]) >= 59, out   # every module of the slices so far was imported
     assert out[1:] == ["[]"], out
 
 
@@ -97,6 +97,35 @@ def test_nc_trainer_without_device_needs_cuda(monkeypatch):
     assert res["num_evaluated"] == 2.0 and 0.0 <= res["accuracy"] <= 1.0
     # the CPU path runs the plain version
     assert nbr_sum.launches == before
+
+
+def test_sampled_nc_trainer_without_device_needs_cuda(monkeypatch):
+    from marius_tpu_torch.data.graph import build_device_graph
+    from marius_tpu_torch.data.samplers.neighbor import NeighborSamplingConfig
+    from marius_tpu_torch.nn.encoder import EncoderConfig
+    from marius_tpu_torch.nn.layers import LayerConfig
+    from marius_tpu_torch.nn.model import NODE_CLASSIFICATION, Model
+    from marius_tpu_torch.ops.cuda import gather, nbr_sum
+    from marius_tpu_torch.train.nc import NodeClassificationEvaluator, NodeClassificationTrainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = Model(NODE_CLASSIFICATION, EncoderConfig((
+        (LayerConfig("FEATURE", output_dim=4, bias=True),),
+        (LayerConfig("GNN", input_dim=4, output_dim=2),))), loss_type="CROSS_ENTROPY")
+    edges = np.array([[0, 1], [1, 2], [2, 3], [3, 0], [0, 2]], np.int32)
+    rng = np.random.default_rng(0)
+    args = (model, build_device_graph(edges, 5), rng.standard_normal((5, 4)).astype(np.float32),
+            np.array([0, 1, 0, 1, 1]), np.array([0, 1, 2]), [NeighborSamplingConfig("UNIFORM", 2)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        NodeClassificationTrainer(*args, batch_size=2)
+    before = (gather.launches, nbr_sum.launches)
+    trainer = NodeClassificationTrainer(*args, batch_size=2, device="cpu")
+    assert trainer.device.type == "cpu" and trainer.full_graph is None
+    assert np.isfinite(trainer.train_epoch()["loss"])
+    res = NodeClassificationEvaluator(trainer, np.array([3, 4])).evaluate(trainer.state)
+    assert res["num_evaluated"] == 2.0 and 0.0 <= res["accuracy"] <= 1.0
+    # the CPU path runs the plain versions
+    assert (gather.launches, nbr_sum.launches) == before
 
 
 def test_manager_without_device_needs_cuda(monkeypatch, tmp_path):

@@ -1,4 +1,4 @@
-"""The port's checkpoints and config-driven LP manager, on the CPU.
+"""The port's checkpoints and config-driven LP and NC manager, on the CPU.
 
 Checkpoints round-trip bit for bit, drop optimizer leaves on request, refuse
 a missing model leaf, and read a checkpoint the JAX package wrote. The LP
@@ -9,6 +9,17 @@ path assert its NotImplementedError. Last, a model trained by the JAX
 ``marius_train`` is evaluated by both packages' ``marius_eval``: the
 weights are trained, not quantized, so XLA's and torch's summation orders can
 flip near-ties; ranks must agree on >= 99.9% of edges and MRR to rtol 1e-4.
+
+Node classification runs ``ogbn_arxiv.yaml``'s model (FEATURE + 3 x
+GraphSAGE MEAN, UNIFORM 32 in and out per hop) on a 240-node dataset whose
+in- and out-degrees are all at most 3, so the sampler takes every neighbour
+once and draws nothing that matters: a model the JAX ``marius_train`` trains
+and saves gives, through the port's ``marius_eval``, JAX's test accuracy
+exactly. The port's own ``marius_train`` then reproduces its metrics through
+``marius_eval``, keeps the best valid accuracy with ``save_best`` and
+exports every node's encoding; ALL configs go to the full-graph trainer,
+``hop_caps: auto``, the async mapping and an EMBEDDING stage are set up as
+JAX sets them up.
 """
 
 import copy
@@ -325,9 +336,16 @@ def test_unported_paths_raise(tmp_path, what):
         if what == "flat_file":
             assert isinstance(rt.trainer.edges_host, np.memmap)
         return
+    if what == "nc":
+        # node classification is ported; out-of-core NC is not
+        raw = _nc_raw(tmp_path, "nc_buffer")
+        raw["storage"]["features"] = {"type": "PARTITION_BUFFER"}
+        raw["storage"]["embeddings"] = {"options": copy.deepcopy(PB["options"])}
+        with pytest.raises(NotImplementedError, match="out-of-core node classification"):
+            marius_init(load_config(raw), device="cpu")
+        return
     overrides = {
         "mesh": {"training.mesh": {"data": 2, "node": 1}},
-        "nc": {"model.learning_task": "NODE_CLASSIFICATION", "model.decoder": None},
         "bf16": {"storage.embeddings": {"type": "DEVICE_MEMORY",
                                         "options": {"dtype": "bfloat16"}}},
         "layer_optimizer": {"model.decoder.optimizer": {"type": "ADAGRAD"}},
@@ -445,3 +463,148 @@ def test_port_marius_eval_reproduces_jax(tmp_path):
     assert trt.epochs_processed == jrt.epochs_processed == 2
     np.testing.assert_array_equal(trt.trainer.state.table.values.numpy(),
                                   np.asarray(jax.device_get(jrt.trainer.state.table.values)))
+
+
+# -- node classification: ogbn_arxiv.yaml's model on a small dataset -----------
+
+ARXIV_YAML = os.path.join(os.path.dirname(__file__), "..", "examples", "configuration",
+                          "ogbn_arxiv.yaml")
+NC_N, NC_F, NC_CLASSES = 240, 16, 5
+
+
+def _nc_dataset(ds_dir):
+    """Out-degree and in-degree 3 at every node (i -> i+1, i+7, i+31): with
+    a fanout of 32 every neighbour is taken once, whatever the draws."""
+    from marius_tpu_torch.storage.dataset import (
+        DatasetStats,
+        save_node_array,
+        save_split,
+        save_stats,
+    )
+
+    rng = np.random.default_rng(0)
+    i = np.arange(NC_N)
+    edges = np.concatenate([np.stack([i, (i + k) % NC_N], 1) for k in (1, 7, 31)])
+    feats = rng.standard_normal((NC_N, NC_F)).astype(np.float32)
+    labels = np.argmax(feats @ rng.standard_normal((NC_F, NC_CLASSES)), 1).astype(np.int32)
+    perm = rng.permutation(NC_N).astype(np.int32)
+    save_split(ds_dir, "train", edges)
+    save_node_array(ds_dir, "features", feats)
+    save_node_array(ds_dir, "labels", labels)
+    for name, part in (("train_nodes", perm[:150]), ("valid_nodes", perm[150:190]),
+                       ("test_nodes", perm[190:])):
+        save_node_array(ds_dir, name, part)
+    save_stats(ds_dir, DatasetStats(num_nodes=NC_N, num_edges=len(edges), num_relations=1,
+                                    num_edge_cols=2, num_train=150, num_valid=40, num_test=50,
+                                    num_classes=NC_CLASSES, feature_dim=NC_F))
+
+
+def _nc_raw(tmp_path, name, **overrides):
+    """ogbn_arxiv.yaml with the widths of the small dataset, its hop caps
+    left to the worst case and a batch of 64."""
+    with open(ARXIV_YAML) as f:
+        raw = yaml.safe_load(f)
+    ds_dir = str(tmp_path / f"ds_{name}")
+    if not os.path.exists(os.path.join(ds_dir, "dataset.yaml")):
+        _nc_dataset(ds_dir)
+    enc = raw["model"]["encoder"]
+    del enc["hop_caps"]
+    enc["layers"][0][0]["output_dim"] = NC_F
+    for stage in enc["layers"][1:]:
+        stage[0]["input_dim"], stage[0]["output_dim"] = NC_F, NC_F
+    enc["layers"][-1][0]["output_dim"] = NC_CLASSES
+    raw["storage"] = {"dataset": {"dataset_dir": ds_dir}, "save_model": False}
+    raw["training"].update(batch_size=64, num_epochs=3)
+    raw["evaluation"]["batch_size"] = 50
+    for path, val in overrides.items():
+        node = raw
+        keys = path.split(".")
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = val
+    return raw
+
+
+def test_arxiv_shaped_jax_model_through_port_eval(tmp_path):
+    raw = _nc_raw(tmp_path, "jax", **{"storage.save_model": True,
+                                      "storage.model_dir": str(tmp_path / "model_j")})
+    jres = j_marius_train(j_load_config(raw))
+    tres = marius_eval(load_config(raw), device="cpu")
+    assert tres["runtime"].epochs_processed == 3
+    assert tres["test"]["num_evaluated"] == jres["test"]["num_evaluated"] == 50
+    assert tres["test"]["accuracy"] == jres["test"]["accuracy"]
+    assert tres["test"]["accuracy"] > 1.0 / NC_CLASSES
+
+
+def test_arxiv_shaped_port_train_eval_save_best_and_export(tmp_path):
+    raw = _nc_raw(tmp_path, "port", **{"storage.save_model": True,
+                                       "storage.model_dir": str(tmp_path / "model_p"),
+                                       "storage.export_encoded_nodes": True,
+                                       "training.checkpoint": {"save_best": True}})
+    res = _train(raw)
+    rt = res["runtime"]
+    assert type(rt.trainer).__name__ == "NodeClassificationTrainer"
+    assert rt.trainer.full_graph is None and rt.trainer.hop_caps == (64, NC_N + 1, NC_N + 1,
+                                                                      NC_N + 1)
+    assert [e["truncated_frontier_ids"] for e in res["epochs"]] == [0, 0, 0]
+    assert res["epochs"][-1]["loss"] < res["epochs"][0]["loss"]
+    assert all("nodes_per_sec" in e for e in res["epochs"]) and len(res["evals"]) == 3
+    with open(tmp_path / "model_p" / "meta.yaml") as f:
+        meta = yaml.safe_load(f)
+    assert meta["best_valid_metric"] == pytest.approx(max(e["accuracy"] for e in res["evals"]))
+    again = _eval(raw)
+    assert again["test"] == {k: res["test"][k] for k in ("accuracy", "num_evaluated")}
+    encoded = np.fromfile(tmp_path / "model_p" / "encoded_nodes.bin", np.float32)
+    np.testing.assert_array_equal(encoded.reshape(NC_N, NC_CLASSES),
+                                  encode_and_export(again["runtime"], path=str(
+                                      tmp_path / "again.bin")))
+
+
+NC_VARIANTS = {
+    "all_full_graph": {"model.encoder.train_neighbor_sampling": [{"type": "ALL"}] * 3},
+    "all_sampled": {"model.encoder.train_neighbor_sampling": [{"type": "ALL"}] * 3,
+                    "model.encoder.full_graph": "OFF"},
+    "hop_caps_auto": {"model.encoder.hop_caps": "auto"},
+    "async": {"training.pipeline": {"sync": False, "staleness_bound": 2}},
+    "embeddings": {"model.encoder.layers": [
+        [{"type": "FEATURE", "output_dim": NC_F}, {"type": "EMBEDDING", "output_dim": 8}],
+        [{"type": "REDUCTION", "options": {"type": "CONCAT"}}],
+        [{"type": "GNN", "input_dim": NC_F + 8, "output_dim": NC_CLASSES,
+          "options": {"type": "GRAPH_SAGE", "aggregator": "MEAN"}}]],
+        "model.encoder.train_neighbor_sampling": [{"type": "UNIFORM",
+                                                   "options": {"max_neighbors": 4}}],
+        "model.sparse_optimizer": {"type": "ADAGRAD", "options": {"learning_rate": 0.1}}},
+}
+
+
+@pytest.mark.parametrize("variant", list(NC_VARIANTS))
+def test_nc_config_variants_set_up_as_jax(tmp_path, variant):
+    from marius_tpu.manager import marius_init as j_marius_init
+
+    raw = _nc_raw(tmp_path, variant, **NC_VARIANTS[variant])
+    jtr = j_marius_init(j_load_config(copy.deepcopy(raw))).trainer
+    res = _train(raw)
+    ttr = res["runtime"].trainer
+    assert (ttr.full_graph is None) == (jtr.full_graph is None) == (variant != "all_full_graph")
+    assert ttr.batch_size == jtr.batch_size == (128 if variant == "async" else 64)
+    if ttr.full_graph is None:
+        assert ttr.hop_caps == tuple(jtr.hop_caps)
+        assert [c.max_neighbors for c in ttr.nbr_configs] == \
+            [c.max_neighbors for c in jtr.nbr_configs]
+    assert (ttr.state.table is None) == (variant != "embeddings")
+    assert len(res["epochs"]) == 3 and np.isfinite(res["epochs"][-1]["loss"])
+    assert 0.0 <= res["test"]["accuracy"] <= 1.0 and res["test"]["num_evaluated"] == 50
+
+
+def test_nc_refuses_unported(tmp_path):
+    gat = _nc_raw(tmp_path, "gat")
+    gat["model"]["encoder"]["layers"][1][0]["options"] = {"type": "GAT"}
+    cases = {
+        "GAT": gat,
+        "mesh": _nc_raw(tmp_path, "gat", **{"training.mesh": {"data": 2, "node": 1}}),
+        "bf16": _nc_raw(tmp_path, "gat", **{"storage.embeddings": {
+            "type": "DEVICE_MEMORY", "options": {"dtype": "bfloat16"}}}),
+    }
+    for match, raw in cases.items():
+        with pytest.raises(NotImplementedError, match=match):
+            marius_init(load_config(raw), device="cpu")

@@ -302,11 +302,12 @@ def test_encoder_forward_matches_jax():
     tinit_p = tenc.init_encoder_params(g, tcfg)
     assert set(tinit_p[0][0]) == {"bias"} and tinit_p[0][1] == {}
     # GraphSAGE/GCN stages have parameters now (test_gnn_layer_params_match_jax);
-    # GAT and the sampled GNN forward wait for later slices
+    # GAT waits for a later slice; the sampled GNN forward runs over a
+    # NeighborBatch (tests/test_torch_sampled_nc.py) and refuses to run without one
     with pytest.raises(NotImplementedError):
         tenc.init_encoder_params(g, tenc.EncoderConfig(((TLayerConfig("GNN", 4, 4,
                                                                       gnn_type="GAT"),),)))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="NeighborBatch"):
         tenc.encoder_forward(tenc.EncoderConfig(((TLayerConfig("GNN", 4, 4),),)),
                              [[{}]], None, torch.zeros(3, 4))
 
