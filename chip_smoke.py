@@ -54,6 +54,25 @@ counters set to 0 just before it and read just after:
    small sampled runs, with and without an EMBEDDING stage (the Adagrad
    kernel), against the CPU.
 
+Then GNN- and FEATURE-encoded link prediction:
+
+5. ``lp_gnn``: the FB15K-237-shaped dataset of ``lp_manager`` and
+   ``fb15k_237.yaml`` with its encoder replaced, at the YAML's width, by the
+   reference's gs_1_layer fragment (EMBEDDING 50, one GraphSAGE MEAN layer
+   50 -> 50, UNIFORM 10 sampling, which the evaluation inherits) and
+   num_epochs cut from 10 to 3, both printed; ``marius_train`` (per epoch
+   loss, s, edges/s, truncated frontier ids, valid MRR; peak device memory)
+   and ``marius_eval``, which must reproduce the test metrics exactly.
+   Launches per training batch: row gather 1, gather-sum 1, Adagrad 1; per
+   evaluation: gather-sum 1 and row gather 1 per node tile, and 2 row
+   gathers per edge batch. ``lp_gnn_shapes`` then times the three kernels
+   at one real batch's shapes (the outer hop's gather, the layer's
+   gather-sum and its index_add_ backward, Adagrad over the outer hop) and
+   ``compare_gnn_lp_with_cpu`` holds small GNN and FEATURE runs (in memory
+   and over the partition buffer) and GNN evaluation on quantized inputs (on
+   the device and host-tiled) against the CPU, exact-ALL evaluation with an
+   EMBEDDING input against sampled ALL, and tests/test_lp_gnn.py's MRR band.
+
 Then ``lp_accuracy``: DistMult, ComplEx and TransE trained on the card on the
 realizable knowledge graphs of tests/test_accuracy_regression.py (copied
 here), whose filtered test MRR and Hits@10 must land in the JAX package's
@@ -61,15 +80,19 @@ pinned bands.
 
 Then out-of-core link prediction:
 
-5. ``compare_oocore_with_cpu``: small partition-buffer runs on the card and
+6. ``compare_oocore_with_cpu``: small partition-buffer runs on the card and
    on the CPU with the same injected in-buffer draws, both table-update
    branches, BETA and COMET, 2 epochs, through a staging ring cut to 4 kB
    chunks so every copy crosses many of them; ``host_eval``: ranks from
    ``evaluate()`` and ``evaluate_from_host_table()`` on a quantized table;
-6. ``lp_oocore_reload``: ``examples/configuration/freebase86m_comet.yaml``
+7. ``lp_oocore_reload``: ``examples/configuration/freebase86m_comet.yaml``
    with a named cut to 1,000,000 nodes, ``marius_train`` with the model saved,
    then ``marius_eval``, which must reproduce the test metrics exactly;
-7. ``lp_oocore``: the same YAML at Freebase86m's published shape (86,054,151
+   ``lp_gnn_oocore`` the same with gs_1_layer's encoder at d = 100 (the
+   buffer's GNN branch: sampling over each state's resident subgraph, whose
+   CSR the prefetch thread builds), with per-state prep, state-graph, swap
+   and compute seconds and the three kernels' launches;
+8. ``lp_oocore``: the same YAML at Freebase86m's published shape (86,054,151
    nodes, 14,824 relations, d = 100, 16 partitions, buffer capacity 8, COMET)
    on a synthetic dataset written with the port's ``storage/dataset.py``, with
    the cuts it prints (train edges, epochs, no saved model; nodes only if the
@@ -126,6 +149,8 @@ OOC_HOST_SPARE = 16 << 30
 RELOAD_NODES, RELOAD_TRAIN_EDGES, RELOAD_EVAL_EDGES = 1_000_000, 2_000_000, 20_000
 # FB15K-237's published split sizes, and the one cut of fb15k_237.yaml (10 epochs)
 FB_VALID, FB_TEST, LP_MANAGER_EPOCHS = 17_535, 20_466, 3
+# lp_gnn's and lp_gnn_oocore's cuts of the two YAMLs' 10 epochs
+GNN_LP_EPOCHS, GNN_OOCORE_EPOCHS = 3, 2
 # ogbn-arxiv shape (bench_nc_full.py:29-37) and its model (examples/configuration/ogbn_arxiv.yaml)
 ARXIV_NODES, ARXIV_EDGES, ARXIV_FEATS, ARXIV_CLASSES = 169_343, 1_166_243, 128, 40
 ARXIV_TRAIN, ARXIV_HUB = 90_941, 13_161
@@ -849,9 +874,11 @@ def write_freebase_shaped(directory: str, num_nodes: int, train: int, held_out: 
         num_train=train, num_valid=held_out, num_test=held_out))
 
 
-def freebase_config(tmp: str, num_nodes: int, save_model: bool):
+def freebase_config(tmp: str, num_nodes: int, save_model: bool, encoder=None,
+                    epochs: int = OOC_EPOCHS):
     """freebase86m_comet.yaml with only dataset_dir and model_dir redirected,
-    num_epochs cut to 2 and save_model set."""
+    num_epochs cut to ``epochs`` and save_model set; ``encoder``, a raw
+    encoder section, replaces the YAML's."""
     from marius_tpu_torch.config import load_config
 
     path = Path(__file__).resolve().parent / "examples" / "configuration" / "freebase86m_comet.yaml"
@@ -859,7 +886,9 @@ def freebase_config(tmp: str, num_nodes: int, save_model: bool):
         raw = yaml.safe_load(f)
     raw["storage"]["dataset"]["dataset_dir"] = f"{tmp}/dataset"
     raw["storage"]["save_model"] = save_model
-    raw["training"]["num_epochs"] = OOC_EPOCHS
+    raw["training"]["num_epochs"] = epochs
+    if encoder is not None:
+        raw["model"]["encoder"] = encoder
     cfg = load_config(raw, model_dir=f"{tmp}/model")
     s = cfg.storage
     if (s.embeddings_backend, s.num_partitions, s.buffer_capacity, s.edge_bucket_ordering,
@@ -884,6 +913,7 @@ class EpochProbe:
 
     def __enter__(self):
         from marius_tpu_torch.ops.cuda import adagrad, gather
+        from marius_tpu_torch.ops.cuda import nbr_sum as ns
         from marius_tpu_torch.storage import transfer
 
         train_epoch, evaluate = self.trainer_cls.train_epoch, self.evaluator_cls.evaluate
@@ -895,26 +925,27 @@ class EpochProbe:
                 probe.first_epoch_at = time.perf_counter()
             trainer.profile_states = True
             torch.cuda.reset_peak_memory_stats()
-            gather.launches = adagrad.launches = 0
+            gather.launches = adagrad.launches = ns.launches = 0
             transfer.bytes_h2d = transfer.bytes_d2h = 0
             transfer.seconds_h2d = transfer.seconds_d2h = 0.0
             evictions = trainer.buffer.sparse_evictions
             res = train_epoch(trainer, *a, **kw)
-            res.update(gather=gather.launches, adagrad=adagrad.launches,
+            res.update(gather=gather.launches, adagrad=adagrad.launches, gather_sum=ns.launches,
                        sparse_evictions=trainer.buffer.sparse_evictions - evictions,
                        h2d=transfer.bytes_h2d, d2h=transfer.bytes_d2h,
                        h2d_s=transfer.seconds_h2d, d2h_s=transfer.seconds_d2h,
                        peak=torch.cuda.max_memory_allocated(),
-                       timings=list(trainer.last_state_timings))
+                       timings=list(trainer.last_state_timings),
+                       graph_s=list(trainer.last_graph_seconds))
             probe.epochs.append(res)
             return res
 
         def counted(ev, state, encoded=None):
             torch.cuda.reset_peak_memory_stats()
-            gather.launches = 0
+            gather.launches = ns.launches = 0
             res = evaluate(ev, state, encoded)
             probe.evals.append((ev.num_batches, gather.launches,
-                                torch.cuda.max_memory_allocated()))
+                                torch.cuda.max_memory_allocated(), ns.launches))
             return res
 
         self.trainer_cls.train_epoch = profiled
@@ -932,6 +963,7 @@ def report_oocore_epochs(tag: str, out: dict, probe: EpochProbe, card: str) -> d
     if type(trainer).__name__ != "PartitionBufferLPTrainer" or trainer.device.type != "cuda" \
             or trainer.dense_accum:
         raise AssertionError(f"{tag} must train the buffer's unique-id branch on the GPU")
+    layers = trainer.model.encoder.num_gnn_stages
     losses = [e["loss"] for e in out["epochs"]]
     for i, e in enumerate(probe.epochs):
         prep, swap, comp = (sum(t[k] for t in e["timings"]) for k in range(3))
@@ -944,15 +976,21 @@ def report_oocore_epochs(tag: str, out: dict, probe: EpochProbe, card: str) -> d
         print(f"{tag} epoch {i} per state (prep, swap, compute) s: " + ", ".join(
             f"({a:.3f}, {b:.3f}, {c:.3f})" for a, b, c in e["timings"])
             + f"; sums {prep:.3f}, {swap:.3f}, {comp:.3f}", flush=True)
+        if e["graph_s"]:
+            print(f"{tag} epoch {i} state graphs built and uploaded on the prefetch thread (s): " + ", ".join(
+                f"{g:.3f}" for g in e["graph_s"]) + f"; sum {sum(e['graph_s']):.3f}, "
+                f"edge arrays padded to {e['max_graph_edges']}", flush=True)
         print(f"{tag} epoch {i} copies: host->device {e['h2d'] / 1e9:.3f} GB in "
               f"{e['h2d_s']:.3f} s ({e['h2d'] / 1e9 / max(e['h2d_s'], 1e-9):.3f} GB/s), "
               f"device->host {e['d2h'] / 1e9:.3f} GB in {e['d2h_s']:.3f} s "
               f"({e['d2h'] / 1e9 / max(e['d2h_s'], 1e-9):.3f} GB/s); peak device memory "
               f"{e['peak'] / 2**30:.3f} GiB; launches: gather_rows {e['gather']} ("
               f"{e['batches_run']} batches + 2 x {e['sparse_evictions']} sparse evictions), "
-              f"sparse_adagrad_update_ {e['adagrad']}  [{card}]", flush=True)
-        if e["adagrad"] != e["batches_run"] or \
-                e["gather"] != e["batches_run"] + 2 * e["sparse_evictions"] or not e["adagrad"]:
+              f"sparse_adagrad_update_ {e['adagrad']}, gather_sum {e['gather_sum']}  [{card}]",
+              flush=True)
+        if e["adagrad"] != e["batches_run"] or not e["adagrad"] or \
+                e["gather"] != e["batches_run"] + 2 * e["sparse_evictions"] or \
+                e["gather_sum"] != layers * e["batches_run"]:
             raise AssertionError(f"{tag} epoch {i}: launches do not match the batches: {e}")
     if len(losses) != OOC_EPOCHS or not all(math.isfinite(x) for x in losses) \
             or not losses[1] < losses[0]:
@@ -964,12 +1002,18 @@ def report_oocore_epochs(tag: str, out: dict, probe: EpochProbe, card: str) -> d
               flush=True)
         if not 0.0 < res["mrr"] <= 1.0:
             raise AssertionError(f"{tag}: MRR out of (0, 1]: {res}")
-    evals = [(nb, g, peak) for nb, g, peak in probe.evals]
-    print(f"{tag} evaluations (batches, gather launches, peak device GiB): "
-          + ", ".join(f"({nb}, {g}, {peak / 2**30:.3f})" for nb, g, peak in evals), flush=True)
-    return {"gather_rows": {f"{tag} train": sum(e["gather"] for e in probe.epochs),
-                            f"{tag} eval": sum(g for _, g, _ in evals)},
-            "sparse_adagrad_update_": {f"{tag} train": sum(e["adagrad"] for e in probe.epochs)}}
+    evals = probe.evals
+    print(f"{tag} evaluations (batches, gather launches, peak device GiB, gather_sum launches): "
+          + ", ".join(f"({nb}, {g}, {peak / 2**30:.3f}, {gs})" for nb, g, peak, gs in evals),
+          flush=True)
+    out = {"gather_rows": {f"{tag} train": sum(e["gather"] for e in probe.epochs),
+                           f"{tag} eval": sum(ev[1] for ev in evals)},
+           "sparse_adagrad_update_": {f"{tag} train": sum(e["adagrad"] for e in probe.epochs)},
+           "gather_sum": {}}
+    if layers:
+        out["gather_sum"] = {f"{tag} train": sum(e["gather_sum"] for e in probe.epochs),
+                             f"{tag} eval": sum(ev[3] for ev in evals)}
+    return out
 
 
 def lp_oocore_reload(card: str) -> dict:
@@ -1607,8 +1651,6 @@ def sampled_shapes(trainer, rates, card) -> dict:
     neighbour sum's backward (index_add_) for the record."""
     from marius_tpu_torch.data.samplers.neighbor import sample_neighbor_batch
     from marius_tpu_torch.ops.cuda import gather
-    from marius_tpu_torch.ops.cuda import nbr_sum as ns
-    from marius_tpu_torch.ops.segment import sampled_nbr_sum
 
     dev = trainer.device
     b = trainer.batch_size
@@ -1625,15 +1667,39 @@ def sampled_shapes(trainer, rates, card) -> dict:
           f"{rows['plain_ms'] * 1e3:.2f} us  index_select {rows['library_ms'] * 1e3:.2f} us  "
           f"bound {rows['bound_ms'] * 1e3:.2f} us ({rows['bound_by']})  [{card}]", flush=True)
 
-    adj = nb.layers[0]
-    n_x, n, d = outer.shape[0], adj.self_idx.shape[0], NC_DIM
+    sums = time_layer_sum(nb.layers[0], outer.shape[0], NC_DIM, rates, dev)
+    print(f"gather_sum, sampled layer 0 ({sums['targets']} targets x {sums['width']} slots, "
+          f"{sums['valid_slots']} real, {sums['distinct_rows']} distinct rows of "
+          f"{outer.shape[0]}, d={NC_DIM}, {sums['bound_bytes'] / 1e6:.4f} MB): max_abs_err 0.0  "
+          f"kernel {sums['ms'] * 1e3:.2f} us (with the layout built: "
+          f"{sums['with_layout_ms'] * 1e3:.2f} us)  plain {sums['plain_ms'] * 1e3:.2f} us  "
+          f"embedding_bag {sums['library_ms'] * 1e3:.2f} us  bound {sums['bound_ms'] * 1e3:.2f} "
+          f"us ({sums['bound_by']})  backward (index_add_) "
+          f"{sums['backward_index_add_ms'] * 1e3:.2f} us  [{card}]", flush=True)
+    return {"gather_rows": rows, "gather_sum": sums}
+
+
+def time_layer_sum(adj, n_x: int, d: int, rates, dev) -> dict:
+    """One sampled layer's neighbour sum (its in and out slots side by side
+    over ``n_x`` rows of width ``d``) through the gather-sum kernel, bit for
+    bit against the plain version, timed beside its bound, embedding_bag
+    (the padding row excluded) and the index_add_ backward. ``ms`` is the
+    kernel on the call's layout; ``with_layout_ms`` the whole ``gather_sum``
+    call as a sampled layer makes it, the layout built from the slot ids
+    first (small device ops whose launches the host issues one by one)."""
+    from marius_tpu_torch.ops.cuda import nbr_sum as ns
+    from marius_tpu_torch.ops.segment import sampled_nbr_sum
+
+    n = adj.self_idx.shape[0]
     ids = torch.cat([torch.where(adj.in_mask, adj.in_nbr_idx, n_x),
                      torch.where(adj.out_mask, adj.out_nbr_idx, n_x)], 1).int().contiguous()
     x = torch.randn(n_x, d, device=dev, generator=torch.Generator(device=dev).manual_seed(9))
-    out = ns.gather_sum(x, ids)
+    layout = ns._single_bucket(ids)
+    out = ns.nbr_sum(x, layout)
     torch.cuda.synchronize()
-    if not torch.equal(out, ns.gather_sum_plain(x, ids)):
-        raise AssertionError("gather_sum differs from plain at the sampled layer-0 shape")
+    if not (torch.equal(out, ns.gather_sum_plain(x, ids))
+            and torch.equal(ns.gather_sum(x, ids), out)):
+        raise AssertionError(f"gather_sum differs from plain at {n} x {ids.shape[1]} slots, d={d}")
     x_pad = torch.cat([x, x.new_zeros(1, d)])
     ids64 = ids.long()
 
@@ -1649,21 +1715,15 @@ def sampled_shapes(trainer, rates, card) -> dict:
     xg = x.clone().requires_grad_(True)
     y = sampled_nbr_sum(xg, adj.in_nbr_idx, adj.in_mask, adj.out_nbr_idx, adj.out_mask)
     gy = torch.randn_like(y)
-    sums = {"targets": n, "slots": ids.numel(), "valid_slots": int(valid.numel()),
-            "distinct_rows": rows_read, "max_abs_err": 0.0,
-            "ms": time_ms(lambda: ns.gather_sum(x, ids)),
+    return {"targets": n, "width": ids.shape[1], "slots": ids.numel(),
+            "valid_slots": int(valid.numel()), "distinct_rows": rows_read, "max_abs_err": 0.0,
+            "ms": time_ms(lambda: ns.nbr_sum(x, layout)),
+            "with_layout_ms": time_ms(lambda: ns.gather_sum(x, ids)),
             "plain_ms": time_ms(lambda: ns.gather_sum_plain(x, ids), reps=2, samples=3),
             "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": nbytes,
             "library_ms": time_ms(library, reps=10, samples=5),
             "backward_index_add_ms": time_ms(
                 lambda: torch.autograd.grad(y, xg, gy, retain_graph=True), reps=5, samples=5)}
-    print(f"gather_sum, sampled layer 0 ({n} targets x {ids.shape[1]} slots, "
-          f"{sums['valid_slots']} real, {rows_read} distinct rows of {n_x}, d={d}, "
-          f"{nbytes / 1e6:.4f} MB): max_abs_err 0.0  kernel {sums['ms'] * 1e3:.2f} us  plain "
-          f"{sums['plain_ms'] * 1e3:.2f} us  embedding_bag {sums['library_ms'] * 1e3:.2f} us  "
-          f"bound {b_ms * 1e3:.2f} us ({b_by})  backward (index_add_) "
-          f"{sums['backward_index_add_ms'] * 1e3:.2f} us  [{card}]", flush=True)
-    return {"gather_rows": rows, "gather_sum": sums}
 
 
 def compare_sampled_nc_with_cpu():
@@ -1688,12 +1748,6 @@ def compare_sampled_nc_with_cpu():
     graph = build_device_graph(edges, n)
     nbr = [NeighborSamplingConfig("UNIFORM", 8), NeighborSamplingConfig("DROPOUT", 6, rate=0.2)]
 
-    def on(device, draw):
-        def moved(*a):
-            r, u = draw(*a)
-            return r.to(device), None if u is None else u.to(device)
-        return moved
-
     worst, truncated = 0.0, 0
     for emb in (False, True):
         first = [LayerConfig("FEATURE", output_dim=f, bias=True)]
@@ -1710,7 +1764,7 @@ def compare_sampled_nc_with_cpu():
         cpu, gpu = [NodeClassificationTrainer(model, graph, features, labels, train_nodes, nbr,
                                               batch_size=50, hop_caps=[50, 160, 260], seed=1,
                                               device=dev) for dev in ("cpu", "cuda")]
-        gpu_draws = on(gpu.device, generator_draws(torch.Generator().manual_seed(1)))
+        gpu_draws = _moved(generator_draws(torch.Generator().manual_seed(1)), gpu.device)
         gpu._batch_draws = lambda: gpu_draws
         gpu._epoch_permutation = lambda p, _c=cpu, _g=gpu: _c._epoch_permutation(p).to(_g.device)
         adagrad.launches = 0
@@ -1737,6 +1791,571 @@ def compare_sampled_nc_with_cpu():
           f"UNIFORM and DROPOUT hops, tight caps: {truncated} frontier ids truncated, 2 "
           f"epochs): max abs difference {worst:.3g} (tolerance rtol 1e-4, atol 1e-5)",
           flush=True)
+
+
+# -- GNN- and FEATURE-encoded link prediction ---------------------------------
+
+def gnn_encoder(dim: int) -> dict:
+    """The reference's gs_1_layer LP fragment at width ``dim``: an EMBEDDING
+    stage, then one GraphSAGE MEAN layer over UNIFORM 10 sampling, which the
+    evaluation inherits (marius_tpu/config/schema.py:457-458)."""
+    return {"layers": [[{"type": "EMBEDDING", "output_dim": dim}],
+                       [{"type": "GNN", "input_dim": dim, "output_dim": dim,
+                         "options": {"type": "GRAPH_SAGE", "aggregator": "MEAN"}}]],
+            "train_neighbor_sampling": [{"type": "UNIFORM", "options": {"max_neighbors": 10}}]}
+
+
+def lp_gnn(card: str) -> dict:
+    """fb15k_237.yaml with its encoder replaced by gs_1_layer's at the YAML's
+    width through marius_train and marius_eval on the card. Training and each
+    evaluation are counted apart: per training batch one row gather (the
+    outer hop's table rows), one gather-sum and one Adagrad; per evaluation
+    one gather-sum and one gather per node tile, and two gathers per edge
+    batch. Returns the launches per part and the trainer."""
+    from marius_tpu_torch.config import load_config
+    from marius_tpu_torch.manager import marius_eval, marius_train
+    from marius_tpu_torch.ops.cuda import adagrad, gather
+    from marius_tpu_torch.ops.cuda import nbr_sum as ns
+    from marius_tpu_torch.train import evaluator as evaluator_mod
+
+    config = Path(__file__).resolve().parent / "examples" / "configuration" / "fb15k_237.yaml"
+    with open(config) as f:
+        raw = yaml.safe_load(f)
+    metric_keys = ("mrr", "mean_rank", "hits@1", "hits@10", "num_evaluated")
+    evals = []    # (edge batches, node tiles, gather, gather_sum, adagrad) per evaluation
+    evaluate = evaluator_mod.LinkPredictionEvaluator.evaluate
+
+    def counted(self, state, encoded=None):
+        before = (gather.launches, ns.launches, adagrad.launches)
+        res = evaluate(self, state, encoded)
+        evals.append((self.num_batches, -(-self.num_nodes // self.batch_size),
+                      gather.launches - before[0], ns.launches - before[1],
+                      adagrad.launches - before[2]))
+        return res
+
+    with tempfile.TemporaryDirectory() as tmp:
+        write_fb15k_shaped(f"{tmp}/dataset")
+        raw["storage"]["dataset"]["dataset_dir"] = f"{tmp}/dataset"
+        epochs_in_yaml = raw["training"]["num_epochs"]
+        raw["training"]["num_epochs"] = GNN_LP_EPOCHS
+        raw["model"]["encoder"] = gnn_encoder(DIM)
+        cfg = load_config(raw, model_dir=f"{tmp}/model")
+        print(f"lp_gnn: {config.relative_to(config.parents[2])} with dataset_dir and model_dir "
+              f"redirected; overrides: encoder [[EMBEDDING {DIM}]], [[GNN GRAPH_SAGE MEAN "
+              f"{DIM}->{DIM}]], train_neighbor_sampling [UNIFORM max_neighbors 10] (eval "
+              f"inherits it; the reference's gs_1_layer fragment); cut: num_epochs "
+              f"{epochs_in_yaml} -> {GNN_LP_EPOCHS}", flush=True)
+        evaluator_mod.LinkPredictionEvaluator.evaluate = counted
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            gather.launches = ns.launches = adagrad.launches = 0
+            out = marius_train(cfg)   # device=None: the GPU
+            totals = (gather.launches, ns.launches, adagrad.launches)
+            peak = torch.cuda.max_memory_allocated()
+            train_evals = list(evals)
+            gather.launches = ns.launches = adagrad.launches = 0
+            again = marius_eval(cfg)
+            reload_totals = (gather.launches, ns.launches, adagrad.launches)
+        finally:
+            evaluator_mod.LinkPredictionEvaluator.evaluate = evaluate
+        meta_written = Path(f"{tmp}/model/meta.yaml").exists()
+
+    rt = out["runtime"]
+    trainer, test_ev = rt.trainer, rt.test_evaluator
+    if trainer.device.type != "cuda" or not trainer.nbr_configs or trainer.dense_accum:
+        raise AssertionError("lp_gnn must train the sampled GNN branch on the GPU")
+    if test_ev.nbr_configs != trainer.nbr_configs or test_ev.full_graph is not None:
+        raise AssertionError("the evaluation must inherit the UNIFORM 10 sampling")
+    losses = [e["loss"] for e in out["epochs"]]
+    for i, (e, v) in enumerate(zip(out["epochs"], out["evals"])):
+        print(f"lp_gnn epoch {i}: loss {e['loss']:.6f}  {e['epoch_time_s']:.4f} s  "
+              f"{e['edges_per_sec']:.1f} edges/s  truncated frontier ids "
+              f"{e['truncated_frontier_ids']}  valid filtered MRR {v['mrr']:.6f} "
+              f"({v['eval_time_s']:.4f} s)  [{card}]", flush=True)
+    if len(losses) != GNN_LP_EPOCHS or not all(math.isfinite(x) for x in losses) or not all(
+            b < a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"lp_gnn losses are not finite and falling: {losses}")
+    if [v["epoch"] for v in out["evals"]] != list(range(1, GNN_LP_EPOCHS + 1)):
+        raise AssertionError("a valid evaluation must run after each epoch")
+    test, reloaded = out["test"], again["test"]
+    for res in out["evals"] + [test]:
+        if not 0.0 < res["mrr"] <= 1.0:
+            raise AssertionError(f"MRR out of (0, 1]: {res}")
+    timed = out["epochs"][1:]
+    eps = sum(e["num_edges"] for e in timed) / sum(e["epoch_time_s"] for e in timed)
+    print(f"lp_gnn: hop caps {trainer.hop_caps} (the outer hop every node: saturated), "
+          f"{trainer.num_batches} batches per epoch; timed epochs {eps:.1f} edges/s; test "
+          f"filtered MRR {test['mrr']:.6f}  Hits@10 {test['hits@10']:.6f}  over "
+          f"{int(test['num_evaluated'])} ranks in {test['eval_time_s']:.4f} s; peak device "
+          f"memory {peak / 2**30:.3f} GiB  [{card}]", flush=True)
+    if not meta_written:
+        raise AssertionError("marius_train did not write meta.yaml")
+    if any(test[k] != reloaded[k] for k in metric_keys):
+        raise AssertionError(f"marius_eval's test metrics {reloaded} differ from "
+                             f"marius_train's {test}")
+    print("lp_gnn: marius_eval reloaded the checkpoint and reproduced the test metrics exactly",
+          flush=True)
+
+    batches = GNN_LP_EPOCHS * trainer.num_batches
+    train = tuple(t - sum(e[2 + k] for e in train_evals) for k, t in enumerate(totals))
+    if train != (batches, batches, batches):
+        raise AssertionError(f"lp_gnn training launched gather_rows, gather_sum and Adagrad "
+                             f"{train} times for {batches} batches (1 each per batch)")
+    for edge_batches, tiles, g, s_, a in evals:
+        if (g, s_, a) != (tiles + 2 * edge_batches, tiles, 0):
+            raise AssertionError(f"an evaluation of {tiles} node tiles and {edge_batches} edge "
+                                 f"batches launched gather_rows {g}, gather_sum {s_}, Adagrad "
+                                 f"{a} times")
+    if reload_totals[2] != 0 or len(evals) != len(train_evals) + 1:
+        raise AssertionError("marius_eval must evaluate once, without Adagrad")
+    counts = {
+        "gather_rows": {"lp_gnn train": train[0], "lp_gnn eval": sum(e[2] for e in train_evals),
+                        "lp_gnn marius_eval": reload_totals[0]},
+        "gather_sum": {"lp_gnn train": train[1], "lp_gnn eval": sum(e[3] for e in train_evals),
+                       "lp_gnn marius_eval": reload_totals[1]},
+        "sparse_adagrad_update_": {"lp_gnn train": train[2]},
+    }
+    print(f"lp_gnn launches: {counts} ({trainer.num_batches} train batches per epoch; "
+          f"{len(train_evals)} evaluations in marius_train, the valid ones of "
+          f"{train_evals[0][1]} node tiles and {train_evals[0][0]} edge batches, the test of "
+          f"{evals[-1][1]} and {evals[-1][0]})", flush=True)
+    counts["trainer"] = trainer
+    return counts
+
+
+def lp_gnn_batch(trainer):
+    """One real training batch of a GNN LP trainer: (the batch's sorted unique
+    ids, its neighbour batch), with the trainer's own negatives and draws."""
+    from marius_tpu_torch.data.samplers.neighbor import sample_neighbor_batch
+    from marius_tpu_torch.ops.unique import unique_padded
+
+    b, n = trainer.batch_size, trainer.num_nodes
+    edges_b = trainer.edges[:b]
+    negs = [trainer._sample_negatives(edges_b, inverse).ids.reshape(-1)
+            for inverse in (False, True)]
+    ids = unique_padded(torch.cat([edges_b[:, 0], edges_b[:, -1]] + negs),
+                        size=trainer.unique_cap, fill_value=n).ids
+    nb = sample_neighbor_batch(trainer._batch_draws(), trainer.graph, ids, ids < n,
+                               trainer.nbr_configs, trainer.hop_caps)
+    return ids, nb
+
+
+def lp_gnn_shapes(trainer, rates, card) -> dict:
+    """The three kernels at one real lp_gnn batch's shapes: the outer hop's
+    row gather (every one of the 14,541 rows and the padding id), the GNN
+    layer's gather-sum (12,000 seeds x 20 slots over the outer hop) and its
+    index_add_ backward, and the Adagrad update over the outer hop's ids
+    (the padding id skipped). Each bit for bit against its plain version,
+    timed beside its bound (bytes at the card's rate) and its one-call
+    PyTorch equivalent: index_select, embedding_bag, torch's sparse Adagrad."""
+    from torch.optim.adagrad import adagrad as torch_adagrad
+
+    from marius_tpu_torch.ops.cuda import adagrad, gather
+
+    dev = trainer.device
+    _, nb = lp_gnn_batch(trainer)
+    outer = nb.node_ids[0]
+    table = trainer.state.table.values
+    n, d = table.shape
+    rows = time_gather(gather, table, [outer], rates)
+    rows["max_abs_err"] = gather_max_err(gather, table, outer)
+    print(f"gather_rows, lp_gnn_outer (K={rows['k']}, d={d}, {rows['distinct_rows']:.1f} "
+          f"distinct rows, {rows['bound_bytes'] / 1e6:.4f} MB): max_abs_err "
+          f"{rows['max_abs_err']}  kernel {rows['ms'] * 1e3:.2f} us  plain "
+          f"{rows['plain_ms'] * 1e3:.2f} us  index_select {rows['library_ms'] * 1e3:.2f} us  "
+          f"bound {rows['bound_ms'] * 1e3:.2f} us ({rows['bound_by']})  [{card}]", flush=True)
+
+    sums = time_layer_sum(nb.layers[0], outer.shape[0], d, rates, dev)
+    print(f"gather_sum, lp_gnn layer ({sums['targets']} seeds x {sums['width']} slots, "
+          f"{sums['valid_slots']} real, {sums['distinct_rows']} distinct rows of "
+          f"{outer.shape[0]}, d={d}, {sums['bound_bytes'] / 1e6:.4f} MB): max_abs_err 0.0  "
+          f"kernel {sums['ms'] * 1e3:.2f} us (with the layout built: "
+          f"{sums['with_layout_ms'] * 1e3:.2f} us)  plain {sums['plain_ms'] * 1e3:.2f} us  "
+          f"embedding_bag {sums['library_ms'] * 1e3:.2f} us  bound {sums['bound_ms'] * 1e3:.2f} "
+          f"us ({sums['bound_by']})  backward (index_add_) "
+          f"{sums['backward_index_add_ms'] * 1e3:.2f} us  [{card}]", flush=True)
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    grads = torch.randn(outer.shape[0], d, device=dev, generator=g)
+    state = torch.rand(n, d, device=dev, generator=g)
+    v1, s1, v2, s2 = table.clone(), state.clone(), table.clone(), state.clone()
+    adagrad.sparse_adagrad_update_(v1, s1, outer, grads, 0.1)
+    adagrad.sparse_adagrad_update_plain_(v2, s2, outer, grads, 0.1)
+    torch.cuda.synchronize()
+    err = max(float((v1 - v2).abs().max()), float((s1 - s2).abs().max()))
+    if err != 0.0:
+        raise AssertionError(f"sparse_adagrad_update_ differs from plain at lp_gnn_outer: {err}")
+    keep = outer < n
+    k = int(keep.sum())
+    nbytes = 5 * k * d * 4 + outer.numel() * outer.element_size()
+    b_ms, b_by = bound_ms(nbytes, 7 * k * d, rates)
+    sparse = torch.sparse_coo_tensor(outer[keep].long()[None], grads[keep], (n, d),
+                                     is_coalesced=True, check_invariants=False)
+    v3, s3, step = table.clone(), state.clone(), torch.zeros((), device=dev)
+
+    def library():
+        torch_adagrad([v3], [sparse], [s3], [step], has_sparse_grad=True, lr=0.1,
+                      weight_decay=0.0, lr_decay=0.0, eps=1e-10, maximize=False)
+
+    ada = {"k": k, "padding_ids": outer.numel() - k, "d": d, "max_abs_err": err,
+           "ms": time_ms(lambda: adagrad.sparse_adagrad_update_(v1, s1, outer, grads, 0.1)),
+           "plain_ms": time_ms(lambda: adagrad.sparse_adagrad_update_plain_(
+               v2, s2, outer, grads, 0.1)),
+           "library_ms": time_ms(library), "bound_ms": b_ms, "bound_by": b_by,
+           "bound_bytes": nbytes}
+    print(f"sparse_adagrad_update_, lp_gnn_outer ({k} ids + {ada['padding_ids']} padding, "
+          f"d={d}, {nbytes / 1e6:.4f} MB): max_abs_err {err}  kernel {ada['ms'] * 1e3:.2f} us  "
+          f"plain {ada['plain_ms'] * 1e3:.2f} us  torch.optim.adagrad (sparse) "
+          f"{ada['library_ms'] * 1e3:.2f} us  bound {b_ms * 1e3:.2f} us ({b_by})  [{card}]",
+          flush=True)
+    return {"gather_rows": rows, "gather_sum": sums, "sparse_adagrad_update_": ada}
+
+
+# compare_gnn_lp_with_cpu: fb15k_237.yaml's and freebase86m_comet.yaml's
+# learning rate, of the dense optimizer and of the table's Adagrad alike
+YAML_LR = 0.1
+
+
+def _close_leaves(a_tree, b_tree, worst: float) -> float:
+    """Each pair of matching leaves held to rtol 1e-4, atol 1e-5; returns the
+    largest |a - b| / (atol + rtol |a|) so far (1 is the tolerance)."""
+    from marius_tpu_torch.nn.optimizers import tree_leaves
+
+    for a, b in zip(tree_leaves(a_tree), tree_leaves(b_tree)):
+        a, b = torch.as_tensor(a).detach(), torch.as_tensor(b).detach().cpu()
+        worst = max(worst, float(((a - b).abs() / (1e-5 + 1e-4 * a.abs())).max()))
+        torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-5)
+    return worst
+
+
+def _gnn_lp_stages(variant: str, d: int = 8, f: int = 6):
+    from marius_tpu_torch.nn.layers import LayerConfig as L
+
+    emb = (L("EMBEDDING", output_dim=d),)
+    sage = dict(gnn_type="GRAPH_SAGE", aggregator="MEAN", bias=True)
+    return {
+        "sage-mean": (emb, (L("GNN", input_dim=d, output_dim=d, **sage),)),
+        "gcn": (emb, (L("GNN", input_dim=d, output_dim=d, gnn_type="GCN", bias=True),)),
+        "sage-2-layers": (emb, (L("GNN", input_dim=d, output_dim=d, **sage),),
+                          (L("GNN", input_dim=d, output_dim=d, **sage),)),
+        "gnn-feature": ((L("EMBEDDING", output_dim=d - f), L("FEATURE", output_dim=f)),
+                        (L("REDUCTION", reduction="CONCAT", output_dim=d),),
+                        (L("GNN", input_dim=d, output_dim=d, **sage),)),
+        "embedding-feature": ((L("EMBEDDING", output_dim=d - f),
+                               L("FEATURE", output_dim=f, bias=True)),),
+        "pure-feature": ((L("FEATURE", output_dim=f, bias=True),),),
+    }[variant]
+
+
+def _gnn_lp_model(variant: str, r: int, d: int = 8, opt: str = "ADAGRAD", lr: float = 0.1,
+                  sparse_lr: float = 0.02):
+    from marius_tpu_torch.nn.decoders.edge import EdgeDecoder
+    from marius_tpu_torch.nn.encoder import EncoderConfig
+    from marius_tpu_torch.nn.model import LINK_PREDICTION, Model
+    from marius_tpu_torch.nn.optimizers import OptimizerConfig
+
+    enc = EncoderConfig(_gnn_lp_stages(variant, d))
+    width = sum(layer.output_dim for layer in enc.stages[-1])   # parallel outputs concatenate
+    return Model(LINK_PREDICTION, enc, EdgeDecoder("DISTMULT", r, width),
+                 loss_type="SOFTMAX_CE", loss_reduction="SUM",
+                 dense_optimizer=OptimizerConfig(opt, learning_rate=lr), sparse_lr=sparse_lr)
+
+
+def _step_draws(trainer, step: int, seed: int = 5):
+    """A buffer trainer's sampler numbers for (epoch, step), drawn on the CPU
+    and moved to its device: the same on any device."""
+    from marius_tpu_torch.data.samplers.neighbor import generator_draws
+
+    s = int(np.random.SeedSequence((seed, trainer.epoch, step)).generate_state(1)[0])
+    return _moved(generator_draws(torch.Generator().manual_seed(s)), trainer.device)
+
+
+def _moved(draw, device):
+    """A Draws callable whose numbers come from ``draw`` (on the CPU) moved to ``device``."""
+    def moved(*a):
+        r, u = draw(*a)
+        return r.to(device), None if u is None else u.to(device)
+    return moved
+
+
+def _exact_eval_data(n=200, r=4):
+    """Every node with in- and out-degree >= 2 (i -> i+1, i -> i+7) plus
+    random edges: under a fanout of 2 each neighbour sum has exactly 4 slots,
+    so quantized inputs give exact encodings and scores in any order."""
+    rng = np.random.default_rng(4)
+    i = np.arange(n)
+    ring = np.concatenate([np.stack([i, rng.integers(0, r, n), (i + k) % n], 1)
+                           for k in (1, 7)])
+    extra = np.stack([rng.integers(0, n, 600), rng.integers(0, r, 600),
+                      rng.integers(0, n, 600)], 1)
+    edges = np.unique(np.concatenate([ring, extra]), axis=0).astype(np.int32)
+    return edges, edges[rng.permutation(len(edges))[:120]]
+
+
+def _quantized_eval_on(model, st, edges_q, test_q, en, er, eb, nbr_q) -> dict:
+    """{device: (ranks, evaluate(), evaluate_from_host_table())} of the
+    quantized state ``st`` on the CPU and the card."""
+    from marius_tpu_torch.data.graph import build_device_graph
+    from marius_tpu_torch.train.evaluator import LinkPredictionEvaluator
+
+    results = {}
+    for dev in ("cpu", "cuda"):
+        g = build_device_graph(edges_q, en, er, device=dev)
+        ev = LinkPredictionEvaluator(model, en, er, test_q, all_edges=edges_q, batch_size=eb,
+                                     node_chunk=64, graph=g, nbr_configs=nbr_q, device=dev)
+        state = type(st)(table=type(st.table)(values=st.table.values.to(dev),
+                                              state=st.table.state.to(dev)),
+                         params={k: [[{n_: t.detach().to(dev) for n_, t in p.items()}
+                                      for p in stage] for stage in v] if k == "encoder"
+                                 else {n_: t.detach().to(dev) for n_, t in v.items()}
+                                 for k, v in st.params.items()},
+                         opt_state=st.opt_state, epoch=0)
+        ranks = ev.compute_all_ranks(state)[0]
+        on_dev = ev.evaluate(state)
+        tiled = ev.evaluate_from_host_table(st.table.values.numpy(), state.params,
+                                            edge_slice=32, node_tile=64)
+        results[dev] = (ranks, on_dev, tiled)
+    return results
+
+
+def compare_gnn_lp_with_cpu():
+    """Small GNN and FEATURE LP runs on the card against the same runs on the
+    CPU (plain versions), with the same negatives, permutation and sampler
+    numbers, at the optimizers and learning rates of fb15k_237.yaml (in
+    memory: SAGE, GCN, 2 layers, EMBEDDING + FEATURE, pure FEATURE) and
+    freebase86m_comet.yaml (over the partition buffer: GNN, GNN + FEATURE
+    under COMET and BETA). Every leaf of the state is held to the tolerance
+    of tests/test_torch_lp_gnn.py (rtol 1e-4, atol 1e-5) after the first 2
+    batches or 2 buffer states; over 2 whole epochs, the loss of each epoch
+    (rtol 1e-4). The card's atomics add in another order than the CPU, and
+    at these rates float32 noise grows past the leaves' tolerance within a
+    few more batches, as it does against JAX (ROADMAP C5). Then
+    filtered ranks through a GNN on quantized inputs (evaluate() and the
+    host-tiled evaluation, card and CPU exactly equal), exact-ALL evaluation
+    with an EMBEDDING input against sampled ALL, and the MRR of
+    tests/test_lp_gnn.py's graph above twice a random ranking's."""
+    from marius_tpu_torch.data.full_graph import build_full_graph_adjacency
+    from marius_tpu_torch.data.graph import build_device_graph
+    from marius_tpu_torch.data.samplers.negative import NegativeSamplingConfig
+    from marius_tpu_torch.data.samplers.neighbor import NeighborSamplingConfig, generator_draws
+    from marius_tpu_torch.train import graph_encoder
+    from marius_tpu_torch.train.buffer_trainer import PartitionBufferLPTrainer
+    from marius_tpu_torch.train.evaluator import LinkPredictionEvaluator
+    from marius_tpu_torch.train.trainer import LinkPredictionTrainer
+
+    n, r, e = 1000, 4, 3000
+    rng = np.random.default_rng(0)
+    w = (np.arange(n) + 1.0) ** -0.8
+    edges = np.stack([rng.integers(0, n, e), rng.integers(0, r, e),
+                      rng.choice(n, e, p=w / w.sum())], 1).astype(np.int32)
+    feats = np.random.default_rng(1).standard_normal((n, 6)).astype(np.float32)
+    graph = build_device_graph(edges, n, r)
+    cfg = NegativeSamplingConfig(num_chunks=2, negatives_per_positive=8)
+    nbr = {"sage-mean": [NeighborSamplingConfig("UNIFORM", 3)],
+           "gcn": [NeighborSamplingConfig("DROPOUT", 3, rate=0.3)],
+           "sage-2-layers": [NeighborSamplingConfig("UNIFORM", 2),
+                             NeighborSamplingConfig("UNIFORM", 3)]}
+    variants = ("sage-mean", "gcn", "sage-2-layers", "embedding-feature", "pure-feature")
+    buffer_runs = (("gnn", "sage-mean", 2000, "COMET"), ("gnn", "sage-mean", 80, "BETA"),
+                   ("gnn-feature", "gnn-feature", 80, "COMET"),
+                   ("gnn-feature", "gnn-feature", 2000, "BETA"))
+
+    def in_memory_pair(variant, train_edges):
+        """fb15k_237.yaml's optimizers: dense Adam and table Adagrad at YAML_LR."""
+        nbr_v = nbr.get(variant, [])
+        cpu, gpu = trainers = [LinkPredictionTrainer(
+            _gnn_lp_model(variant, r, opt="ADAM", lr=YAML_LR, sparse_lr=YAML_LR), n, r,
+            train_edges, cfg, batch_size=32, seed=1, graph=graph if nbr_v else None,
+            nbr_configs=nbr_v, features=feats if "feature" in variant else None, device=dev)
+            for dev in ("cpu", "cuda")]
+        draws = generator_draws(torch.Generator().manual_seed(2))
+        for t in trainers:
+            t._sample_negatives = (lambda edges_b, inverse, _c=t.neg_config:
+                                   _batch_negatives(_c, edges_b, n, inverse))
+        cpu._batch_draws = lambda: draws
+        gpu_draws = _moved(generator_draws(torch.Generator().manual_seed(2)), gpu.device)
+        gpu._batch_draws = lambda: gpu_draws
+        gpu._epoch_permutation = lambda s: cpu._epoch_permutation(s).to(gpu.device)
+        return cpu, gpu
+
+    def buffer_pair(name, stages, nb_n, ordering):
+        """freebase86m_comet.yaml's optimizers: dense and table Adagrad at
+        YAML_LR; the same in-buffer and sampler draws on both devices."""
+        be = synthetic_edges(7, nb_n, r, 1500)
+        bf = np.random.default_rng(6).standard_normal((nb_n, 6)).astype(np.float32)
+        cpu, gpu = trainers = [PartitionBufferLPTrainer(
+            _gnn_lp_model(stages, r, d=12, lr=YAML_LR, sparse_lr=YAML_LR), nb_n, r, be, cfg,
+            batch_size=50 if nb_n > 80 else 100,
+            num_partitions=4, buffer_capacity=2, ordering=ordering, seed=1,
+            nbr_configs=[NeighborSamplingConfig("UNIFORM", 2)],
+            features=bf if "feature" in name else None, device=dev) for dev in ("cpu", "cuda")]
+        for t in trainers:
+            t._in_buffer_draws = (lambda step, inverse, _t=t: injected_draws(_t, step, inverse))
+            t._gnn_draws = lambda step, _t=t: _step_draws(_t, step)
+        return cpu, gpu
+
+    loss_gaps = []
+
+    def same_loss(tag, lc, lg):
+        loss_gaps.append(abs(lc - lg) / (1e-4 * abs(lc)))
+        if not math.isclose(lc, lg, rel_tol=1e-4):
+            raise AssertionError(f"{tag}: loss on the card {lg} != on the CPU {lc}")
+
+    # the first 2 batches in memory and the first 2 buffer states (a swap and a
+    # prefetched state graph between them): every leaf at the tolerance
+    worst = 0.0
+    for variant in variants:
+        cpu, gpu = in_memory_pair(variant, edges[:64])
+        same_loss(variant, cpu.train_epoch()["loss"], gpu.train_epoch()["loss"])
+        a, b = [cpu.state.params, cpu.state.opt_state.slots], \
+            [gpu.state.params, gpu.state.opt_state.slots]
+        if cpu.state.table is not None:
+            a.append([cpu.state.table.values, cpu.state.table.state])
+            b.append([gpu.state.table.values, gpu.state.table.state])
+        worst = _close_leaves(a, b, worst)
+    for run in buffer_runs:
+        cpu, gpu = buffer_pair(*run)
+        same_loss(f"buffer {run}", cpu.train_epoch(max_states=2)["loss"],
+                  gpu.train_epoch(max_states=2)["loss"])
+        worst = _close_leaves([cpu.buffer.host_values, cpu.buffer.host_state, cpu.params],
+                              [gpu.buffer.host_values, gpu.buffer.host_state, gpu.params], worst)
+    print(f"small GNN and FEATURE LP runs at the YAMLs' lr {YAML_LR}, card against CPU, the "
+          f"state after 2 batches ({', '.join(variants)}) and 2 buffer states ("
+          + ", ".join(f"{nm} {o} {k} nodes" for nm, _, k, o in buffer_runs)
+          + f"): largest difference {worst:.3g} of the tolerance (rtol 1e-4, atol 1e-5)",
+          flush=True)
+
+    # the whole schedules, 2 epochs each: the loss of every epoch
+    loss_gaps.clear()
+    for variant in variants:
+        cpu, gpu = in_memory_pair(variant, edges)
+        for _ in range(2):
+            same_loss(variant, cpu.train_epoch()["loss"], gpu.train_epoch()["loss"])
+    for run in buffer_runs:
+        cpu, gpu = buffer_pair(*run)
+        for _ in range(2):
+            same_loss(f"buffer {run}", cpu.train_epoch()["loss"], gpu.train_epoch()["loss"])
+    print(f"the same runs over 2 whole epochs: every epoch's loss within "
+          f"{max(loss_gaps):.3g} of rtol 1e-4", flush=True)
+
+    # filtered ranks through a GNN, quantized inputs: exact on both devices
+    en, er, eb = 200, 4, 50
+    edges_q, test_q = _exact_eval_data(en, er)
+    qrng = np.random.default_rng(5)
+    q = lambda shape, k, lim: torch.from_numpy(  # noqa: E731
+        qrng.integers(-lim, lim + 1, shape).astype(np.float32) / k)
+    model = _gnn_lp_model("sage-mean", er)
+    nbr_q = [NeighborSamplingConfig("UNIFORM", 2)]
+    base = LinkPredictionTrainer(model, en, er, edges_q, cfg, batch_size=eb, device="cpu",
+                                 graph=build_device_graph(edges_q, en, er), nbr_configs=nbr_q)
+    st = base.state
+    with torch.no_grad():
+        st.table.values.copy_(q(st.table.values.shape, 4, 1))
+        for stage in st.params["encoder"]:
+            for p in stage:
+                for t in p.values():
+                    t.copy_(q(t.shape, 4, 2))
+        for t in st.params["decoder"].values():
+            t.copy_(q(t.shape, 1, 1))
+    keys = ("mrr", "mean_rank", "hits@1", "hits@10", "num_evaluated")
+    # the all-node encoding's per-tile sampler numbers, drawn on the CPU for both
+    # devices (a CUDA generator gives other numbers from the same seed)
+    seeded = graph_encoder.seeded_draws
+    graph_encoder.seeded_draws = lambda seed, i, dev: _moved(seeded(seed, i, "cpu"), dev)
+    try:
+        results = _quantized_eval_on(model, st, edges_q, test_q, en, er, eb, nbr_q)
+    finally:
+        graph_encoder.seeded_draws = seeded
+    (rc, ec, tc), (rg, eg, tg) = results["cpu"], results["cuda"]
+    # evaluate()'s rank sums are float32 (the JAX scan's), the host-tiled ones float64
+    if not np.array_equal(rc, rg) or any(
+            tc[k] != tg[k] or not math.isclose(tg[k], eg[k], rel_tol=1e-6)
+            or not math.isclose(ec[k], eg[k], rel_tol=1e-6) for k in keys):
+        raise AssertionError(f"GNN ranks on the card differ from the CPU's: {eg} {tg} vs "
+                             f"{ec} {tc}")
+    print(f"GNN LP evaluation on quantized inputs (SAGE MEAN, fanout 2, 4 node tiles): "
+          f"{rc.size} ranks and the host-tiled metrics equal the CPU's exactly, evaluate()'s "
+          f"within rtol 1e-6 (MRR {tg['mrr']:.6f})", flush=True)
+
+    # exact ALL with an EMBEDDING input against sampled ALL, and the MRR band, on the
+    # random graph of tests/test_lp_gnn.py (100 nodes, 10 relations)
+    rng = np.random.default_rng(0)
+    lp_edges = np.unique(np.stack([rng.integers(0, 100, 1000), rng.integers(0, 10, 1000),
+                                   rng.integers(0, 100, 1000)], 1).astype(np.int32), axis=0)
+    perm = rng.permutation(len(lp_edges))
+    train_e, test_e = lp_edges[perm[:int(0.9 * len(perm))]], lp_edges[perm[int(0.9 * len(perm)):]]
+    g = build_device_graph(train_e, 100, 10, device="cuda")
+    model = _gnn_lp_model("sage-mean", 10, d=16, opt="ADAM", lr=0.05, sparse_lr=0.1)
+    tr = LinkPredictionTrainer(model, 100, 10, train_e, NegativeSamplingConfig(5, 20),
+                               batch_size=100, seed=0, graph=g,
+                               nbr_configs=[NeighborSamplingConfig("UNIFORM", 5)])
+    stats = [tr.train_epoch() for _ in range(4)]
+    if not stats[-1]["loss"] < stats[0]["loss"]:
+        raise AssertionError(f"the small GNN LP loss does not fall: {stats}")
+    kw = dict(all_edges=lp_edges, batch_size=100, graph=g)
+    mrr = LinkPredictionEvaluator(model, 100, 10, train_e[:100],
+                                  nbr_configs=[NeighborSamplingConfig("UNIFORM", 5)],
+                                  **kw).evaluate(tr.state)["mrr"]
+    random_mrr = sum(1.0 / k for k in range(1, 101)) / 100
+    if not mrr > 2 * random_mrr:
+        raise AssertionError(f"GNN LP MRR {mrr} is not above twice a random ranking's")
+    max_deg = int(g.degrees.max())
+    nbr_all = [NeighborSamplingConfig("ALL", max_neighbors=max_deg)]
+    sampled = LinkPredictionEvaluator(model, 100, 10, test_e, nbr_configs=nbr_all, **kw)
+    exact = LinkPredictionEvaluator(model, 100, 10, test_e, nbr_configs=nbr_all,
+                                    full_graph=build_full_graph_adjacency(train_e, 100), **kw)
+    a, b = sampled.evaluate(tr.state), exact.evaluate(tr.state)
+    enc_a, enc_b = sampled._encode(tr.state), exact._encode(tr.state)
+    torch.testing.assert_close(enc_b, enc_a, rtol=1e-5, atol=1e-6)
+    if abs(a["mrr"] - b["mrr"]) > 1e-4:
+        raise AssertionError(f"exact-ALL MRR {b['mrr']} != sampled ALL {a['mrr']}")
+    print(f"GNN LP on tests/test_lp_gnn.py's graph on the card: MRR {mrr:.4f} (random "
+          f"{random_mrr:.4f}); exact-ALL evaluation with an EMBEDDING input: MRR "
+          f"{b['mrr']:.6f}, sampled ALL {a['mrr']:.6f}, encodings within rtol 1e-5, "
+          f"atol 1e-6", flush=True)
+
+
+def lp_gnn_oocore(card: str) -> dict:
+    """freebase86m_comet.yaml's model (ComplEx d = 100, 16 partitions, buffer
+    capacity 8, COMET, batch 10,000) with gs_1_layer's encoder at d = 100 and
+    UNIFORM 10, at lp_oocore_reload's cut, through marius_train with the
+    model saved, then marius_eval, which must reproduce the test metrics."""
+    from marius_tpu_torch.manager import marius_eval, marius_train
+
+    with tempfile.TemporaryDirectory() as tmp:
+        write_freebase_shaped(f"{tmp}/dataset", RELOAD_NODES, RELOAD_TRAIN_EDGES,
+                              RELOAD_EVAL_EDGES)
+        cfg = freebase_config(tmp, RELOAD_NODES, save_model=True,
+                              encoder=gnn_encoder(FB86M_DIM), epochs=GNN_OOCORE_EPOCHS)
+        print(f"lp_gnn_oocore: freebase86m_comet.yaml with dataset_dir and model_dir "
+              f"redirected; override: encoder [[EMBEDDING {FB86M_DIM}]], [[GNN GRAPH_SAGE MEAN "
+              f"{FB86M_DIM}->{FB86M_DIM}]], train_neighbor_sampling [UNIFORM max_neighbors 10] "
+              f"(eval inherits it); cuts: {RELOAD_NODES} nodes (published 86,054,151), "
+              f"{RELOAD_TRAIN_EDGES} train and {RELOAD_EVAL_EDGES} valid and test edges, "
+              f"num_epochs 10 -> {GNN_OOCORE_EPOCHS}", flush=True)
+        with EpochProbe() as probe:
+            t0 = time.perf_counter()
+            out = marius_train(cfg)   # device=None: the GPU
+            total = time.perf_counter() - t0
+            trainer = out["runtime"].trainer
+            print(f"lp_gnn_oocore: marius_train {total:.2f} s; hop caps {trainer.hop_caps} over "
+                  f"{trainer.buffer.buffer_rows} buffer rows; batch {trainer.batch_size}",
+                  flush=True)
+            counts = report_oocore_epochs("lp_gnn_oocore", out, probe, card)
+            again = marius_eval(cfg)
+        if not Path(f"{tmp}/model/meta.yaml").exists():
+            raise AssertionError("marius_train did not save the model")
+    if not trainer.nbr_configs:
+        raise AssertionError("lp_gnn_oocore must train the buffer's GNN branch")
+    keys = ("mrr", "mean_rank", "hits@1", "hits@10", "num_evaluated")
+    if any(out["test"][k] != again["test"][k] for k in keys):
+        raise AssertionError(f"marius_eval's test metrics {again['test']} differ from "
+                             f"marius_train's {out['test']}")
+    print("lp_gnn_oocore: marius_eval reloaded the checkpoint and reproduced the test "
+          "metrics exactly", flush=True)
+    counts["gather_rows"]["lp_gnn_oocore marius_eval"] = probe.evals[-1][1]
+    counts["gather_sum"]["lp_gnn_oocore marius_eval"] = probe.evals[-1][3]
+    return counts
 
 
 def main() -> int:
@@ -1813,22 +2432,32 @@ def main() -> int:
     torch.cuda.empty_cache()
     compare_sampled_nc_with_cpu()
     manager = lp_manager(card)
+    gnn = lp_gnn(card)
+    shapes = lp_gnn_shapes(gnn.pop("trainer"), rates, card)
+    for k in kernels:
+        k["lp_gnn"] = shapes[k["name"]]
+    torch.cuda.empty_cache()
+    compare_gnn_lp_with_cpu()
     lp_accuracy(card)
     compare_oocore_with_cpu()
     host_eval_on_card()
     reload = lp_oocore_reload(card)
+    gnn_oocore = lp_gnn_oocore(card)
     oocore = lp_oocore(card)
 
     # each row's launches: the sum over the paths it runs on, each part's beside it
     by_part = {
         "gather_rows": {"lp flagship": flagship["gather_rows"], **manager["gather_rows"],
-                        **sampled["gather_rows"], **reload["gather_rows"],
-                        **oocore["gather_rows"]},
+                        **sampled["gather_rows"], **gnn["gather_rows"], **reload["gather_rows"],
+                        **gnn_oocore["gather_rows"], **oocore["gather_rows"]},
         "sparse_adagrad_update_": {"lp flagship": flagship["sparse_adagrad_update_"],
                                    "lp_manager train": manager["sparse_adagrad_update_"],
-                                   "nc_sampled": 0, **reload["sparse_adagrad_update_"],
+                                   "nc_sampled": 0, **gnn["sparse_adagrad_update_"],
+                                   **reload["sparse_adagrad_update_"],
+                                   **gnn_oocore["sparse_adagrad_update_"],
                                    **oocore["sparse_adagrad_update_"]},
-        "gather_sum": {**nc_counts, **sampled["gather_sum"]},
+        "gather_sum": {**nc_counts, **sampled["gather_sum"], **gnn["gather_sum"],
+                       **gnn_oocore["gather_sum"]},
     }
     for k in kernels:
         k["launches"] = sum(by_part[k["name"]].values())

@@ -6,11 +6,13 @@ the port's :class:`~marius_tpu_torch.train.trainer.TrainState`. Fields are
 read by name from attributes or dict keys, so a nested dict works as well as
 the mapped dataclass; this module never imports JAX. The PRNG key has no
 counterpart (the port samples with ``torch.Generator``s) and is dropped.
-Link-prediction and node-classification states alike: an NC state has
-``table=None``, the staged encoder params (``{"encoder": [[{...}], ...]}``)
-and their Adam slots. ``copy_buffer_trainer_from_jax_`` carries a JAX
+Link-prediction and node-classification states alike: an NC state (or a
+pure-FEATURE LP one) has ``table=None``, and GNN stages' parameters are
+staged encoder params (``{"encoder": [[{...}], ...]}``) with their optimizer
+slots, matched leaf by leaf. ``copy_buffer_trainer_from_jax_`` carries a JAX
 ``PartitionBufferLPTrainer``'s padded host table and Adagrad state, dense
-parameters and optimizer state into the port's buffer trainer.
+parameters (a GNN's too) and optimizer state into the port's buffer
+trainer; a feature cache is data, rebuilt from the features, not state.
 """
 
 from __future__ import annotations

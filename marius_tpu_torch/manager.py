@@ -4,11 +4,15 @@ Port of ``marius_tpu/manager.py`` (reference src/cpp/src/marius.cpp):
 ``marius_init`` (:114-476) builds the trainer and the valid/test evaluators
 from one config and restores a checkpoint for resume or evaluation.
 
-- Link prediction: embeddings in DEVICE_MEMORY train with
+- Link prediction (:129-258): embeddings in DEVICE_MEMORY train with
   ``LinkPredictionTrainer`` (edges in DEVICE_MEMORY, or streamed from host
   RAM or a memory-mapped FLAT_FILE), PARTITION_BUFFER embeddings with
   ``PartitionBufferLPTrainer``; ``evaluation.host_streaming`` evaluates from
-  the host table in node tiles (``_HostStreamLPEval``).
+  the host table in node tiles (``_HostStreamLPEval``). Encoders may have
+  GNN stages (neighbour sampling over the train graph, ALL fanouts sized to
+  its degrees) and FEATURE stages (the dataset's features); evaluation
+  encodes every node through the sampler, or in one exact full-graph pass
+  when every eval hop samples ALL.
 - Node classification (:261-425), features and embeddings in DEVICE_MEMORY:
   configs whose every hop samples ALL go to the full-graph trainer where a
   batch's frontier would cover a sizable share of the graph, the others to
@@ -23,8 +27,8 @@ model; ``encode_and_export`` (:570-598) writes every node's encoder output.
 Every entry point takes ``device``: None means the GPU (and raises without
 one), ``"cpu"`` runs the plain versions of the kernels. What is not ported
 yet raises ``NotImplementedError`` naming the slice that brings it:
-out-of-core NC, meshes, GNN or FEATURE encoders for link prediction,
-CORRUPT_REL, GAT and RGCN, per-layer optimizers and bf16 tables.
+out-of-core NC, meshes, CORRUPT_REL, GAT and RGCN, per-layer optimizers and
+bf16 tables.
 """
 
 from __future__ import annotations
@@ -47,7 +51,7 @@ from marius_tpu_torch.data.samplers.neighbor import (
     resolve_all_caps,
 )
 from marius_tpu_torch.nn.encoder import check_sampled_ported
-from marius_tpu_torch.nn.full_graph_encoder import supports_full_graph
+from marius_tpu_torch.nn.full_graph_encoder import prepare_full_graph, supports_full_graph
 from marius_tpu_torch.nn.model import LINK_PREDICTION, NODE_CLASSIFICATION
 from marius_tpu_torch.nn.optimizers import GroupedOptimizerConfig
 from marius_tpu_torch.ops.edge_keys import build_edge_key_set
@@ -115,16 +119,12 @@ def _refuse_unported(cfg: MariusConfig) -> None:
         raise ValueError(f"Unknown learning task: {cfg.learning_task}")
     if t.mesh_data not in (0, 1) or t.mesh_node not in (0, 1):
         raise _later_slice("mesh training", "the multi-GPU slice")
-    if cfg.learning_task == NODE_CLASSIFICATION:
-        if s.features_backend == "PARTITION_BUFFER" or (
-                model.has_embeddings and s.embeddings_backend == "PARTITION_BUFFER"):
-            raise _later_slice("out-of-core node classification (PARTITION_BUFFER features "
-                               "or embeddings)", "the out-of-core NC slice")
-        check_sampled_ported(model.encoder)
-    elif (cfg.train_neighbor_sampling or model.encoder.num_gnn_stages
-            or model.encoder.has_features):
-        raise _later_slice("neighbour sampling and GNN or FEATURE encoders",
-                           "the sampled-GNN LP slice")
+    if cfg.learning_task == NODE_CLASSIFICATION and (
+            s.features_backend == "PARTITION_BUFFER"
+            or (model.has_embeddings and s.embeddings_backend == "PARTITION_BUFFER")):
+        raise _later_slice("out-of-core node classification (PARTITION_BUFFER features "
+                           "or embeddings)", "the out-of-core NC slice")
+    check_sampled_ported(model.encoder)
     if isinstance(model.dense_optimizer, GroupedOptimizerConfig):
         raise _later_slice("per-layer and per-decoder optimizers (GroupedOptimizerConfig)",
                            "a later slice")
@@ -133,19 +133,21 @@ def _refuse_unported(cfg: MariusConfig) -> None:
 
 
 class _HostStreamLPEval:
-    """evaluation.host_streaming: the table never enters device memory
-    whole; it is encoded and scored in node tiles
+    """evaluation.host_streaming: the table (and the features) never enter
+    device memory whole; they are encoded and scored in node tiles
     (``LinkPredictionEvaluator.evaluate_from_host_table``)."""
 
-    def __init__(self, ev: LinkPredictionEvaluator):
+    def __init__(self, ev: LinkPredictionEvaluator, features_host: Optional[np.ndarray]):
         self.ev = ev
+        self.features_host = features_host
 
     def __getattr__(self, name):
         return getattr(self.ev, name)
 
     def evaluate(self, state):
-        return self.ev.evaluate_from_host_table(state.table.values.detach().cpu().numpy(),
-                                                state.params)
+        host = None if state.table is None else state.table.values.detach().cpu().numpy()
+        return self.ev.evaluate_from_host_table(host, state.params,
+                                                features_host=self.features_host)
 
 
 def _init_nc(cfg: MariusConfig, dev, log):
@@ -244,6 +246,17 @@ def _init_lp(cfg: MariusConfig, dev, log) -> MariusRuntime:
     log.info("Loaded dataset: %d nodes, %d relations, %d train edges",
              num_nodes, num_rels, len(train_edges))
 
+    # GNN stages sample the train graph; ALL fanouts are sized to its degrees
+    graph = None
+    train_nbr, eval_nbr = cfg.train_neighbor_sampling, cfg.eval_neighbor_sampling
+    if train_nbr:
+        graph = build_device_graph(train_edges, num_nodes, num_rels, device=dev)
+        train_nbr = resolve_all_caps(train_nbr, graph.in_offsets, graph.out_offsets,
+                                     cap_limit=cfg.all_cap_limit)
+        eval_nbr = resolve_all_caps(eval_nbr, graph.in_offsets, graph.out_offsets,
+                                    cap_limit=cfg.all_cap_limit)
+    features = load_features(ds.dataset_dir) if model.encoder.has_features else None
+
     train_filter = None
     if cfg.training.negative_sampling.filtered:
         train_filter = (build_edge_key_set(train_edges, True, dev),
@@ -281,6 +294,8 @@ def _init_lp(cfg: MariusConfig, dev, log) -> MariusRuntime:
             epochs_per_shuffle=cfg.training.epochs_per_shuffle,
             train_filter_keys=train_filter,
             sparse_writeback=s.sparse_writeback,
+            nbr_configs=train_nbr,
+            features=features,
             device=dev,
         )
     else:
@@ -289,6 +304,10 @@ def _init_lp(cfg: MariusConfig, dev, log) -> MariusRuntime:
             batch_size=batch_size,
             seed=cfg.training.seed,
             train_filter_keys=train_filter,
+            graph=graph,
+            nbr_configs=train_nbr,
+            features=features,
+            hop_caps=cfg.hop_caps or None,
             edges_backend=s.edges_backend,
             epochs_per_shuffle=cfg.training.epochs_per_shuffle,
             device=dev,
@@ -296,6 +315,23 @@ def _init_lp(cfg: MariusConfig, dev, log) -> MariusRuntime:
 
     all_edges = np.concatenate(
         [train_edges] + [e for e in (valid_edges, test_edges) if e is not None], axis=0)
+    host_streaming = cfg.evaluation.host_streaming
+    # host streaming keeps the features on the host too
+    eval_features = None if host_streaming else trainer.features
+
+    # exact ALL: when every eval hop samples ALL, all-node encoding is one
+    # full-graph pass (no frontiers, no all_cap_limit truncation: the
+    # reference's unbounded ALL, neighbor.cpp:9), prepared once for both
+    # evaluators
+    eval_full_graph = eval_fg_ops = None
+    if (eval_nbr and graph is not None and not host_streaming
+            and cfg.full_graph.upper() != "OFF"
+            and all(n.sampling_type.upper() == "ALL" for n in eval_nbr)
+            and supports_full_graph(model.encoder)):
+        adj = build_full_graph_adjacency(train_edges, num_nodes).to(dev)
+        feats = None if eval_features is None else eval_features[:-1]
+        eval_full_graph, eval_fg_ops = prepare_full_graph(adj, model.encoder, feats)
+        log.info("Evaluation uses exact-ALL full-graph encoding")
 
     def make_eval(edges):
         if edges is None or len(edges) == 0:
@@ -306,9 +342,14 @@ def _init_lp(cfg: MariusConfig, dev, log) -> MariusRuntime:
             batch_size=cfg.evaluation.batch_size,
             filtered=cfg.evaluation.negative_sampling.filtered,
             neg_config=cfg.evaluation.negative_sampling,
+            graph=graph,
+            nbr_configs=eval_nbr,
+            features=eval_features,
+            full_graph=eval_full_graph,
+            fg_ops=eval_fg_ops,
             device=dev,
         )
-        return _HostStreamLPEval(ev) if cfg.evaluation.host_streaming else ev
+        return _HostStreamLPEval(ev, features) if host_streaming else ev
 
     return MariusRuntime(cfg, trainer, make_eval(valid_edges), make_eval(test_edges))
 
@@ -466,21 +507,22 @@ def encode_and_export(rt: MariusRuntime, path: Optional[str] = None) -> np.ndarr
     tr = rt.trainer
     state = tr.state
     table_values = state.table.values if state.table is not None else None
+    batch_size = rt.config.evaluation.batch_size
     if isinstance(tr, PartitionBufferLPTrainer):
-        # the host table goes through the device in tiles
+        # the host table goes through the device in tiles; the buffer trainer
+        # holds no global graph, so a GNN encoder raises as in the JAX package
         encoded = encode_all_nodes_host(rt.config.model, state.params,
-                                        state.table.values.numpy(), tr.device)
-    elif isinstance(tr, NodeClassificationTrainer):
-        # a full-graph trainer keeps its ALL configs unresolved: export rides
-        # the same exact-ALL pass, not the sampler
+                                        state.table.values.numpy(), tr.device,
+                                        nbr_configs=tr.nbr_configs,
+                                        features_host=tr._features_host, batch_size=batch_size)
+    else:
+        # a full-graph NC trainer keeps its ALL configs unresolved: export
+        # rides the same exact-ALL pass, not the sampler
         encoded = encode_all_nodes(
             rt.config.model, state.params, table_values, graph=tr.graph,
-            nbr_configs=tr.nbr_configs, features=tr.features,
-            batch_size=rt.config.evaluation.batch_size, full_graph=tr.full_graph,
-            fg_ops=tr._fg_ops).cpu().numpy()
-    else:
-        encoded = encode_all_nodes(rt.config.model, state.params, table_values)
-        encoded = encoded.detach().cpu().numpy()
+            nbr_configs=tr.nbr_configs, features=tr.features, batch_size=batch_size,
+            full_graph=getattr(tr, "full_graph", None),
+            fg_ops=getattr(tr, "_fg_ops", None)).detach().cpu().numpy()
     out = path or (os.path.join(rt.config.storage.model_dir, "encoded_nodes.bin")
                    if rt.config.storage.model_dir else None)
     if out:

@@ -12,9 +12,10 @@ under unbounded ALL sampling.
 
 The JAX package's ``sorted_space`` mode (a TPU trade that drops a
 permutation gather per pass) has no counterpart: the kernel writes each
-degree-sorted row straight to its original-order row. GAT and RGCN stages,
-REDUCTION layers and a learnable EMBEDDING input on this path come with
-later slices and raise ``NotImplementedError``.
+degree-sorted row straight to its original-order row. A learnable EMBEDDING
+input (the whole (N, d) table: GNN link prediction's exact-ALL evaluation)
+and REDUCTION layers run as in the sampled encoder. GAT and RGCN stages come
+with a later slice and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -26,7 +27,13 @@ import torch
 
 from marius_tpu_torch.data.full_graph import FullGraphAdjacency, make_nbr_sums
 from marius_tpu_torch.nn.encoder import EncoderConfig
-from marius_tpu_torch.nn.layers import LayerConfig, feature_layer, post_hook
+from marius_tpu_torch.nn.layers import (
+    LayerConfig,
+    embedding_layer,
+    feature_layer,
+    post_hook,
+    reduction_layer,
+)
 from marius_tpu_torch.ops.segment import segment_sum
 
 Tensor = torch.Tensor
@@ -71,10 +78,6 @@ def check_ported(config: EncoderConfig) -> None:
                 raise NotImplementedError(
                     f"full-graph {l.gnn_type} stages are not ported; this slice runs "
                     "GRAPH_SAGE and GCN, and GAT and RGCN come with a later GNN slice")
-            if lt in ("EMBEDDING", "REDUCTION"):
-                raise NotImplementedError(
-                    f"{lt} layers on the full-graph path are not ported yet; they come "
-                    "with a later GNN slice")
 
 
 def prepare_full_graph(adj: FullGraphAdjacency, config: EncoderConfig,
@@ -193,7 +196,7 @@ def _seed_gcn(layer: LayerConfig, p, x, seeds, flat_nbr, flat_seg, num_nbrs, b: 
 def full_graph_encoder_forward(
     config: EncoderConfig,
     params,
-    embeddings: Optional[Tensor],   # (N, emb_dim): not ported on this path, must be None
+    embeddings: Optional[Tensor],   # (N, emb_dim) all-node block
     features: Optional[Tensor],     # (N, feat_dim) all-node block
     adj: FullGraphAdjacency,
     ops=None,                       # from prepare_full_graph
@@ -202,17 +205,16 @@ def full_graph_encoder_forward(
     """Representations for ALL nodes: (N, d_out). With ``seed_restrict``
     (requires supports_seed_restrict(config)), the FINAL stage is computed
     only for the given seed rows and (b, d_out) comes back."""
-    if embeddings is not None:
-        raise NotImplementedError("a learnable EMBEDDING input on the full-graph path is "
-                                  "not ported yet; it comes with a later GNN slice")
     if ops is None:
         adj, ops = prepare_full_graph(adj, config)
     nbr_sum = ops["nbr_sum"]
-    num_nbrs = (adj.in_deg + adj.out_deg).to(features.dtype)
+    num_nbrs = (adj.in_deg + adj.out_deg).to(
+        (embeddings if embeddings is not None else features).dtype)
     if seed_restrict is not None:
         seeds, flat_nbr, flat_seg = seed_restrict[:3]
         nseeds = seeds.shape[0]
 
+    outputs = []
     current: Optional[Tensor] = None
     for i, stage in enumerate(config.stages):
         seed_stage = seed_restrict is not None and i == len(config.stages) - 1
@@ -220,8 +222,14 @@ def full_graph_encoder_forward(
         for j, layer in enumerate(stage):
             lt = layer.layer_type.upper()
             p = params[i][j]
+            if lt == "EMBEDDING":
+                stage_outputs.append(embedding_layer(layer, p, embeddings))
+                continue
             if lt == "FEATURE":
                 stage_outputs.append(feature_layer(layer, p, features))
+                continue
+            if lt == "REDUCTION":
+                stage_outputs.append(reduction_layer(layer, p, outputs))
                 continue
             g = layer.gnn_type.upper()
             if lt != "GNN" or g not in SUPPORTED_GNN:   # check_ported names what is missing
@@ -243,6 +251,7 @@ def full_graph_encoder_forward(
                     x_scaled_sum = _resolve_const(const, bias0)
                 stage_outputs.append(_full_graph_gcn(layer, p, x_scaled_sum, current,
                                                      num_nbrs))
+        outputs = stage_outputs
         current = (stage_outputs[0] if len(stage_outputs) == 1
                    else torch.cat(stage_outputs, dim=1))
     return current

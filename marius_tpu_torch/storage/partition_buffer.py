@@ -21,8 +21,14 @@ it with ``mode="drop"``; a torch index would be out of range).
 Id mapping: nodes are range-partitioned (partition p owns rows
 [p*psize, (p+1)*psize)); with ``slot[p]`` the buffer slot of partition p, the
 buffer-local id of global node g is ``slot[g // psize] * psize + g % psize``.
-``ReadOnlyPartitionCache`` (the out-of-core NC feature tier) is not ported
-yet.
+Which slot a partition takes is :func:`swap_layout`'s pure function of the
+resident set and the next state, so a trainer can know a state's layout
+before the swap (and build that state's local graph ahead of it).
+
+``ReadOnlyPartitionCache`` (JAX :433-510) is the read-only tier beside it:
+partitions of a host array (node features) in device slots, loaded through
+the same copy stream and never written back. ``mirror_layout`` gives it the
+embedding buffer's slot assignment, so one buffer-local id indexes both.
 """
 
 from __future__ import annotations
@@ -89,6 +95,38 @@ def init_host_table(seed: int, num_nodes: int, padded: int, dim: int,
     return values
 
 
+def swap_layout(resident: np.ndarray, new_partitions: Sequence[int]) -> np.ndarray:
+    """The (capacity,) slot -> partition table (-1: empty) after a swap from
+    ``resident`` to ``new_partitions`` (performNextSwap, buffer.cpp:495-541):
+    a partition that stays keeps its slot, those that leave free theirs, and
+    the admitted partitions, in ascending order, fill the free slots in
+    ascending order."""
+    new_set = {int(p) for p in new_partitions}
+    out = np.asarray([int(p) if int(p) in new_set else -1 for p in resident], np.int32)
+    admit = sorted(new_set - {int(p) for p in out if p >= 0})
+    free = np.nonzero(out < 0)[0]
+    if len(admit) > len(free):
+        raise ValueError(f"{len(new_set)} partitions exceed the capacity {len(resident)}")
+    out[free[:len(admit)]] = admit
+    return out
+
+
+def initial_layout(partitions: Sequence[int], capacity: int) -> np.ndarray:
+    """The slot table of ``load(partitions)``: slot i holds the i-th partition."""
+    parts = [int(p) for p in partitions]
+    if len(parts) > capacity:
+        raise ValueError(f"{len(parts)} partitions exceed the capacity {capacity}")
+    return np.asarray(parts + [-1] * (capacity - len(parts)), np.int32)
+
+
+def _part_to_slot(layout: np.ndarray, num_partitions: int) -> np.ndarray:
+    out = np.full(num_partitions, -1, np.int32)
+    for slot, p in enumerate(layout):
+        if p >= 0:
+            out[p] = slot
+    return out
+
+
 @dataclasses.dataclass
 class PartitionBuffer:
     num_nodes: int
@@ -145,10 +183,7 @@ class PartitionBuffer:
         # drop the previous tensors before allocating: holding both would
         # double the device footprint
         self.device_values = self.device_state = None
-        parts = [int(p) for p in partitions]
-        if len(parts) > self.capacity:
-            raise ValueError(f"{len(parts)} partitions exceed the capacity {self.capacity}")
-        parts += [-1] * (self.capacity - len(parts))
+        parts = [int(p) for p in initial_layout(partitions, self.capacity)]
         dv = transfer.alloc_rows(self.buffer_rows, self.dim, self.host_values.dtype, self.device)
         for slot, p in enumerate(parts):
             if p >= 0:
@@ -164,10 +199,7 @@ class PartitionBuffer:
         if self.dirty is not None:
             self.dirty = torch.zeros(self.buffer_rows + 1, dtype=torch.bool, device=self.device)
         self.resident = np.asarray(parts, np.int32)
-        self.part_to_slot = np.full(self.num_partitions, -1, np.int32)
-        for slot, p in enumerate(parts):
-            if p >= 0:
-                self.part_to_slot[p] = slot
+        self.part_to_slot = _part_to_slot(self.resident, self.num_partitions)
 
     def enable_dirty_tracking(self) -> None:
         """Opt in to dirty-row (sparse) writeback: the trainer marks updated
@@ -203,17 +235,14 @@ class PartitionBuffer:
         if self.resident is None:
             raise RuntimeError("call load() first")
         self._drain_writebacks()   # the previous state's evictions land now
-        new_set = {int(p) for p in new_partitions}
-        old_set = {int(p) for p in self.resident if p >= 0}
-        evict = sorted(old_set - new_set)
-        admit = sorted(new_set - old_set)
-        for p in evict:
+        layout = swap_layout(self.resident, new_partitions)
+        for p in sorted(int(p) for p in self.resident if p >= 0 and p not in layout):
             self._evict_one(p)
-        for p in evict:
-            self.resident[self.part_to_slot[p]] = -1
-            self.part_to_slot[p] = -1
-        free_slots = [int(s) for s in np.where(self.resident < 0)[0]]
-        for p, slot in zip(admit, free_slots):
+        admitted = [(slot, int(p)) for slot, p in enumerate(layout)
+                    if p >= 0 and p != self.resident[slot]]
+        self.resident = layout
+        self.part_to_slot = _part_to_slot(layout, self.num_partitions)
+        for slot, p in admitted:
             start = slot * self.psize
             transfer.write_rows(self.device_values, self.host_values[self.part_rows(p)], start)
             block = self.host_state[self.part_rows(p)]
@@ -221,8 +250,6 @@ class PartitionBuffer:
                 transfer.write_rows(self.device_state, block, start)
             else:
                 transfer.zero_rows(self.device_state, start, self.psize)
-            self.resident[slot] = p
-            self.part_to_slot[p] = slot
 
     def _evict_one(self, p: int) -> None:
         """Queue the device->host writeback of partition ``p``'s slot."""
@@ -292,3 +319,75 @@ def sparse_adagrad_update_buffer(values: torch.Tensor, state: torch.Tensor,
     tensors)."""
     adagrad_kernel.sparse_adagrad_update_(values, state, unique_local_ids,
                                           grads.contiguous(), lr)
+
+
+@dataclasses.dataclass
+class ReadOnlyPartitionCache:
+    """Partition-sliced read-only device cache over a host array: the feature
+    tier beside the embedding buffer (JAX :433-510; the reference streams
+    feature partitions through the same PartitionBuffer). Nothing is written
+    back, so an eviction only frees the slot. ``device_rows`` holds one zero
+    row past ``buffer_rows``, so the padding id ``buffer_rows`` (and any id
+    past it, which the gather clamps there) reads zeros."""
+
+    num_rows: int
+    num_partitions: int
+    capacity: int
+    host: np.ndarray                              # (num_partitions * psize, dim)
+    device: torch.device = torch.device("cpu")
+    device_rows: Optional[torch.Tensor] = None    # (capacity * psize + 1, dim)
+    resident: Optional[np.ndarray] = None         # (capacity,) partition ids, -1 empty
+    part_to_slot: Optional[np.ndarray] = None     # (num_partitions,) slot or -1
+
+    @property
+    def psize(self) -> int:
+        return self.host.shape[0] // self.num_partitions
+
+    @property
+    def buffer_rows(self) -> int:
+        return self.capacity * self.psize
+
+    @staticmethod
+    def create(host_rows: np.ndarray, num_rows: int, num_partitions: int, capacity: int,
+               device="cpu") -> "ReadOnlyPartitionCache":
+        """The first ``num_rows`` rows of ``host_rows``, padded with zero rows
+        to whole partitions."""
+        psize = -(-num_rows // num_partitions)
+        padded = np.zeros((num_partitions * psize, host_rows.shape[1]), host_rows.dtype)
+        padded[:num_rows] = host_rows[:num_rows]
+        return ReadOnlyPartitionCache(num_rows=num_rows, num_partitions=num_partitions,
+                                      capacity=min(capacity, num_partitions), host=padded,
+                                      device=torch.device(device))
+
+    def _admit(self, slot: int, p: int) -> None:
+        transfer.write_rows(self.device_rows, self.host[p * self.psize:(p + 1) * self.psize],
+                            slot * self.psize)
+
+    def _adopt(self, layout: np.ndarray) -> None:
+        """Copy in every partition of ``layout`` that its slot does not hold yet."""
+        for slot, p in enumerate(layout):
+            if p >= 0 and p != self.resident[slot]:
+                self._admit(slot, int(p))
+        self.resident = np.asarray(layout, np.int32).copy()
+        self.part_to_slot = _part_to_slot(self.resident, self.num_partitions)
+
+    def load(self, partitions: Sequence[int]) -> None:
+        """Admit an initial resident set; empty slots hold zero rows."""
+        self.device_rows = None
+        self.device_rows = transfer.alloc_rows(self.buffer_rows + 1, self.host.shape[1],
+                                               self.host.dtype, self.device)
+        self.resident = np.full(self.capacity, -1, np.int32)
+        self._adopt(initial_layout(partitions, self.capacity))
+
+    def swap_to_state(self, new_partitions: Sequence[int]) -> None:
+        if self.resident is None:
+            self.load(new_partitions)
+            return
+        self._adopt(swap_layout(self.resident, new_partitions))
+
+    def mirror_layout(self, resident: np.ndarray) -> None:
+        """Adopt another buffer's slot assignment (the embedding
+        PartitionBuffer's), so buffer-local ids index both tiers alike."""
+        if self.resident is None:
+            self.load([])
+        self._adopt(np.asarray(resident, np.int32))

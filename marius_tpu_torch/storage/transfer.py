@@ -149,6 +149,47 @@ def write_rows(buf: torch.Tensor, host_block: np.ndarray, start: int,
     return done
 
 
+class Upload:
+    """Whole host arrays on their way to the device (:func:`upload_async`)."""
+
+    def __init__(self, tensors: Dict[str, Optional[torch.Tensor]],
+                 done: Optional[torch.cuda.Event] = None):
+        self.tensors = tensors
+        self.done = done
+
+    def result(self) -> Dict[str, Optional[torch.Tensor]]:
+        """The device tensors, once the compute stream (of the calling
+        thread) waits for their copies; the tensors are recorded on it, so
+        their memory outlives its work on them."""
+        if self.done is not None:
+            compute = torch.cuda.current_stream(self.done.device)
+            compute.wait_event(self.done)
+            for t in self.tensors.values():
+                if t is not None:
+                    t.record_stream(compute)
+        return self.tensors
+
+
+def upload_async(arrays: Dict[str, Optional[np.ndarray]], device) -> Upload:
+    """Start copying whole host ``arrays`` (None entries stay None) to
+    ``device`` on the copy stream, from any thread: each array is pinned (a
+    host copy on the calling thread) and its copy issued without a wait. The
+    thread that uses the tensors calls :meth:`Upload.result`. On the CPU the
+    arrays are only wrapped."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return Upload({k: None if a is None else torch.from_numpy(a) for k, a in arrays.items()})
+    st = _stage(device)
+    out = {}
+    with torch.cuda.stream(st.stream):
+        for k, a in arrays.items():
+            out[k] = (None if a is None
+                      else torch.from_numpy(a).pin_memory().to(device, non_blocking=True))
+    done = torch.cuda.Event()
+    done.record(st.stream)
+    return Upload(out, done)
+
+
 def zero_rows(buf: torch.Tensor, start: int, rows: int) -> None:
     """Zero-fill ``buf[start:start + rows]`` on the device (no host copy): an
     admitted block known to be all zeros. Ordered on the copy stream, after

@@ -35,8 +35,21 @@ step is provably a no-op (SGD without momentum, Adagrad; no weight decay),
 where only the step count advances. So the state after every epoch equals the
 JAX trainer's.
 
-GNN and FEATURE encoders, meshes and CORRUPT_REL raise
-``NotImplementedError`` naming the slice that brings them.
+FEATURE stages read a ``ReadOnlyPartitionCache`` of the features whose
+slots mirror the embedding buffer's, so one buffer-local id indexes both
+(ids at or past ``buffer_rows`` read zeros). A GNN encoder (JAX :366-410)
+always dedups: the batch's unique local ids seed the neighbour sampler over
+the state's resident subgraph (``_gnn_draws`` is the seam for its numbers,
+drawn after the negatives), the rows gathered and updated are the outermost
+hop's (padded with ``buffer_rows``, which the Adagrad kernel skips and the
+dirty mask's extra row takes). The resident subgraph is a local CSR over
+every resident bucket pair (JAX ``_state_graph`` :489-529), its edge arrays
+padded to the epoch's power-of-two edge count; the prefetch thread builds
+it with the next state's edges, from the slot layout that
+``storage.partition_buffer.swap_layout`` gives that state before the swap.
+
+Meshes and CORRUPT_REL raise ``NotImplementedError`` naming the slice that
+brings them.
 """
 
 from __future__ import annotations
@@ -55,12 +68,19 @@ from marius_tpu_torch.data.ordering import (
     comet_ordering,
     greedy_assign_edge_buckets,
 )
+from marius_tpu_torch.data.graph import DeviceGraph
 from marius_tpu_torch.data.samplers.negative import (
     NegativeSamplingConfig,
     deg_local_filter_mask,
 )
+from marius_tpu_torch.data.samplers.neighbor import (
+    Draws,
+    estimate_hop_caps,
+    generator_draws,
+    sample_neighbor_batch,
+)
 from marius_tpu_torch.nn.decoders.edge import normalize_decoder_method
-from marius_tpu_torch.nn.encoder import encoder_forward
+from marius_tpu_torch.nn.encoder import check_sampled_ported, encoder_forward
 from marius_tpu_torch.nn.model import (
     LINK_PREDICTION,
     Model,
@@ -85,9 +105,14 @@ from marius_tpu_torch.parallel.embedding_table import (
 )
 from marius_tpu_torch.storage.partition_buffer import (
     PartitionBuffer,
+    ReadOnlyPartitionCache,
+    _part_to_slot,
+    initial_layout,
     mark_dirty,
     sparse_adagrad_update_buffer,
+    swap_layout,
 )
+from marius_tpu_torch.storage import transfer
 from marius_tpu_torch.tools.preprocess.partitioner import partition_edges
 from marius_tpu_torch.train.trainer import TrainState, _later_slice, resolve_device
 
@@ -119,8 +144,46 @@ def padded_batch_count(state_sizes: List[int], batch_size: int) -> int:
     return -(-max_batches // step) * step
 
 
+def state_graph_arrays(edges_by_bucket: np.ndarray, bucket_offsets: np.ndarray,
+                       layout: np.ndarray, num_partitions: int, psize: int,
+                       max_edges: int) -> dict:
+    """The local CSR of one buffer state's resident subgraph, on the host
+    (JAX ``_state_graph`` :489-529): the edges of every resident bucket pair
+    in buffer-local ids, sorted by source (out) and by destination (in),
+    offsets of buffer_rows + 2 entries, neighbour (and relation) arrays
+    padded to ``max_edges`` with buffer_rows (0), degrees counting both
+    ends, the padding row's 0."""
+    part_to_slot = _part_to_slot(layout, num_partitions)
+    resident = [int(p) for p in layout if p >= 0]
+    bucket_ids = np.asarray([i * num_partitions + j for i in resident for j in resident],
+                            np.int32)
+    local = native.gather_remap_buckets(edges_by_bucket, bucket_offsets, bucket_ids,
+                                        part_to_slot, psize)
+    n = len(layout) * psize
+    src, dst = local[:, 0], local[:, -1]
+    rel = local[:, 1] if local.shape[1] == 3 else None
+    out = {}
+    for name, anchor, other in (("out", src, dst), ("in", dst, src)):
+        order = np.argsort(anchor, kind="stable")
+        offs = native.csr_offsets(anchor[order], n).astype(np.int32)
+        out[f"{name}_offsets"] = np.concatenate([offs, offs[-1:]])
+        cols = np.full(max_edges, n, np.int32)
+        cols[:len(other)] = other[order]
+        out[f"{name}_cols"] = cols
+        out[f"{name}_rels"] = None
+        if rel is not None:
+            rels = np.zeros(max_edges, np.int32)
+            rels[:len(rel)] = rel[order]
+            out[f"{name}_rels"] = rels
+    out["degrees"] = (np.bincount(src, minlength=n + 1)
+                      + np.bincount(dst, minlength=n + 1)).astype(np.int32)
+    out["degrees"][n:] = 0
+    return out
+
+
 class PartitionBufferLPTrainer:
-    """Shallow-encoder LP training with the embedding table in host RAM."""
+    """LP training with the embedding table in host RAM: shallow, FEATURE
+    and GNN encoders."""
 
     def __init__(
         self,
@@ -137,8 +200,8 @@ class PartitionBufferLPTrainer:
         fine_to_coarse_ratio: int = 2,
         num_cache_partitions: int = 0,
         randomly_assign_edge_buckets: bool = True,
-        nbr_configs=(),
-        features: Optional[np.ndarray] = None,
+        nbr_configs=(),                   # GNN encoders: sampling over the resident subgraph
+        features: Optional[np.ndarray] = None,   # (N, F): FEATURE layers, partition-cached
         mesh=None,
         prefetching: bool = True,         # next-state host prep on a thread
         epochs_per_shuffle: int = 1,
@@ -159,15 +222,15 @@ class PartitionBufferLPTrainer:
         if self.decoder_method != "CORRUPT_NODE":
             raise ValueError(f"training supports CORRUPT_NODE/CORRUPT_REL, "
                              f"got {self.decoder_method}")
-        if nbr_configs or model.encoder.num_gnn_stages:
-            raise _later_slice("GNN encoders over the partition buffer", "the GNN LP slice")
-        if features is not None or model.encoder.has_features:
-            raise _later_slice("FEATURE encoders over the partition buffer",
-                               "the GNN LP slice")
         if mesh is not None:
             raise _later_slice("mesh training", "the multi-GPU slice")
         if not model.has_embeddings:
             raise ValueError("partition-buffer LP needs an embedding table")
+        check_sampled_ported(model.encoder)
+        if model.encoder.num_gnn_stages and not nbr_configs:
+            raise ValueError("a GNN encoder needs one neighbour config per GNN stage")
+        if model.encoder.has_features and features is None:
+            raise ValueError("FEATURE layers need a feature matrix")
 
         self.device = resolve_device(device)
         self.model = model
@@ -188,6 +251,9 @@ class PartitionBufferLPTrainer:
                                   tuple(k.to(self.device) for k in train_filter_keys))
         self.profile_states = profile_states
         self.last_state_timings: List[Tuple[float, float, float]] = []
+        # the prefetch thread's seconds building each state's local CSR and
+        # issuing its copy to the device (pinning included)
+        self.last_graph_seconds: List[float] = []
 
         table_seed = int(np.random.SeedSequence((seed, 0)).generate_state(1)[0])
         self.buffer = PartitionBuffer.create(table_seed, num_nodes,
@@ -204,6 +270,7 @@ class PartitionBufferLPTrainer:
         self.opt_state = init_optimizer(model.dense_optimizer, self.params)
         self.epoch = 0
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self._draws = generator_draws(self.generator)
 
         # bucket-grouped edges: one stable counting sort, then per-bucket slices
         edges = np.asarray(train_edges, np.int32)
@@ -215,8 +282,20 @@ class PartitionBufferLPTrainer:
 
         c, n = neg_config.num_chunks, neg_config.negatives_per_positive
         self.unique_cap = 2 * batch_size + 2 * c * n
-        self.dense_accum = (self.buffer.buffer_rows * model.encoder.embedding_dim
-                            <= DENSE_ACCUM_ELEMENTS)
+        self.nbr_configs = tuple(nbr_configs)
+        self.dense_accum = (not self.nbr_configs and self.buffer.buffer_rows
+                            * model.encoder.embedding_dim <= DENSE_ACCUM_ELEMENTS)
+        self.hop_caps = (tuple(estimate_hop_caps(self.unique_cap, self.nbr_configs,
+                                                 self.buffer.buffer_rows))
+                         if self.nbr_configs else ())
+        self.feature_cache = None
+        self._features_host = self._features_dev = None
+        if features is not None and model.encoder.has_features:
+            f = np.zeros((num_nodes + 1, features.shape[1]), np.float32)
+            f[:num_nodes] = features
+            self._features_host = f
+            self.feature_cache = ReadOnlyPartitionCache.create(
+                f, num_nodes, num_partitions, self.capacity, device=self.device)
 
     def _to_device_leaf(self, t: Tensor) -> Tensor:
         if t.device == self.device:
@@ -238,6 +317,10 @@ class PartitionBufferLPTrainer:
         rows = (torch.randint(0, self.batch_size, (c, num_deg), generator=gen, device=dev)
                 if num_deg else None)
         return slots, offs, rows
+
+    def _gnn_draws(self, step: int) -> Draws:
+        """The neighbour sampler's numbers for epoch step ``step``."""
+        return self._draws
 
     # ------------------------------------------------------------------------
 
@@ -275,8 +358,15 @@ class PartitionBufferLPTrainer:
         deg = torch.where(mask_b[rows], edges_b[:, col][rows], uni[:, :d])
         return torch.cat([deg, uni[:, d:]], dim=1), rows
 
+    def _buffer_feats(self, ids: Tensor) -> Optional[Tensor]:
+        """Feature rows of buffer-local ``ids`` from the slot-aligned cache;
+        ids at or past buffer_rows read its zero row (JAX :348-359)."""
+        cache = self.feature_cache
+        return None if cache is None else gather_rows(cache.device_rows, ids)
+
     def _batch_step(self, edges_b: Tensor, mask_b: Tensor, step: int,
-                    slot_valid: Tensor, slot_parts: Tensor) -> Tensor:
+                    slot_valid: Tensor, slot_parts: Tensor,
+                    graph: Optional[DeviceGraph]) -> Tensor:
         """One CORRUPT_NODE batch against the buffer (JAX batch_step
         :264-477); returns the detached loss."""
         model, cfg, buf = self.model, self.neg_config, self.buffer
@@ -317,9 +407,20 @@ class PartitionBufferLPTrainer:
         else:
             uniq = unique_padded(all_ids, size=self.unique_cap, fill_value=buffer_rows)
             update_ids, pos = uniq.ids, uniq.inverse
+        nbr_batch = None
+        if self.nbr_configs:
+            # the unique local ids seed sampling over the resident subgraph;
+            # rows are gathered, and updated, for the outermost hop
+            nbr_batch = sample_neighbor_batch(self._gnn_draws(step), graph, update_ids,
+                                              update_ids < buffer_rows, self.nbr_configs,
+                                              self.hop_caps)
+            update_ids = nbr_batch.node_ids[0]
         x0 = gather_rows(buf.device_values, update_ids)
         x0.requires_grad_(True)
-        enc = encoder_forward(model.encoder, self.params["encoder"], x0, None)
+        enc = encoder_forward(model.encoder, self.params["encoder"], x0,
+                              self._buffer_feats(update_ids), nbr_batch,
+                              degrees=None if graph is None else graph.degrees, train=True,
+                              dropout_key=self.generator)
         cn = c * nneg
         if self.dense_accum:
             d = enc.shape[-1]
@@ -335,6 +436,8 @@ class PartitionBufferLPTrainer:
 
         leaves = tree_leaves(self.params)
         gx, *gdense = torch.autograd.grad(loss, [x0] + leaves, allow_unused=True)
+        if gx is None:
+            gx = torch.zeros_like(x0)
         if self.dense_accum:
             sparse_adagrad_update_dense_accum(
                 EmbeddingTable(values=buf.device_values, state=buf.device_state),
@@ -350,7 +453,14 @@ class PartitionBufferLPTrainer:
                                             tree_map(lambda _: next(it), self.params))
         return loss.detach()
 
-    def _train_state(self, local: np.ndarray, first_step: int, max_batches: int) -> Tensor:
+    def _device_graph(self, upload: transfer.Upload) -> DeviceGraph:
+        """A state's local CSR (``state_graph_arrays``), uploaded on the
+        prefetch thread, as a graph on the device."""
+        return DeviceGraph(**upload.result(), num_nodes=self.buffer.buffer_rows,
+                           num_relations=self.num_relations)
+
+    def _train_state(self, local: np.ndarray, first_step: int, max_batches: int,
+                     graph: Optional[DeviceGraph] = None) -> Tensor:
         """Train one buffer state's (shuffled, remapped) edges; returns the
         state's loss sum on the device."""
         b = self.batch_size
@@ -366,7 +476,7 @@ class PartitionBufferLPTrainer:
         total = torch.zeros((), dtype=torch.float32, device=self.device)
         for i in range(nb):
             total += self._batch_step(edges[i * b:(i + 1) * b], masks[i * b:(i + 1) * b],
-                                      first_step + i, slot_valid, slot_parts)
+                                      first_step + i, slot_valid, slot_parts, graph)
         self.opt_state = apply_zero_grad_steps(self.model.dense_optimizer, self.params,
                                                self.opt_state, max_batches - nb)
         return total
@@ -387,22 +497,44 @@ class PartitionBufferLPTrainer:
                                - self.bucket_offsets[i * P + j]) for i, j in buckets)
                        for buckets in assignment]
         max_batches = padded_batch_count(state_sizes, self.batch_size)
+        # each state's slot layout, known before its swap
+        layouts = [initial_layout(states[0], self.capacity)]
+        for st in states[1:]:
+            layouts.append(swap_layout(layouts[-1], st))
+        max_graph_edges = 0
+        if self.nbr_configs:
+            # the resident subgraph's edge arrays, padded to one power of two
+            # per epoch (JAX :563-573)
+            max_graph_edges = 1 << (max(1, max(
+                int(sum(self.bucket_offsets[i * P + j + 1] - self.bucket_offsets[i * P + j]
+                        for i in st for j in st)) for st in states)) - 1).bit_length()
         self.buffer.load(states[0])
         cols = 3 if self.has_rels else 2
         shuffle_epoch = self.epoch // self.epochs_per_shuffle
 
         def prep(s_idx):
-            """The state's edges in GLOBAL ids (the remap needs the state's
-            slots, known only once it is swapped in), shuffled."""
+            """The state's edges in GLOBAL ids (the remap runs once the state
+            is swapped in), shuffled, and with a GNN encoder its local CSR,
+            already on its way to the device."""
             bucket_ids = np.asarray([i * P + j for i, j in assignment[s_idx]], np.int32)
             e = native.gather_remap_buckets(self.edges_by_bucket, self.bucket_offsets,
                                             bucket_ids, np.arange(P, dtype=np.int32),
                                             self.buffer.psize)
-            return native.shuffle_rows(e, seed=(self.seed * 977 + shuffle_epoch) * 1009 + s_idx)
+            e = native.shuffle_rows(e, seed=(self.seed * 977 + shuffle_epoch) * 1009 + s_idx)
+            graph = None
+            if self.nbr_configs:
+                t0 = time.perf_counter()
+                graph = transfer.upload_async(
+                    state_graph_arrays(self.edges_by_bucket, self.bucket_offsets,
+                                       layouts[s_idx], P, self.buffer.psize, max_graph_edges),
+                    self.device)
+                self.last_graph_seconds.append(time.perf_counter() - t0)
+            return e, graph
 
         losses = []
         edges_trained = states_run = batches_run = 0
         self.last_state_timings = []
+        self.last_graph_seconds = []
         sync = (lambda: torch.cuda.synchronize(self.device)) if self.device.type == "cuda" \
             else (lambda: None)
         with cf.ThreadPoolExecutor(max_workers=1) as pool:
@@ -410,11 +542,17 @@ class PartitionBufferLPTrainer:
             fut = submit(prep, 0)
             for s_idx, st in enumerate(states):
                 t_s0 = time.perf_counter()
-                local = fut.result()
+                local, graph_upload = fut.result()
                 if s_idx + 1 < len(states):
                     fut = submit(prep, s_idx + 1)
                 t_s1 = time.perf_counter()
                 self.buffer.swap_to_state(st)
+                if not np.array_equal(self.buffer.resident, layouts[s_idx]):
+                    raise RuntimeError("the buffer's slots differ from the planned layout")
+                if self.feature_cache is not None:
+                    # local ids must index both tiers alike
+                    self.feature_cache.mirror_layout(self.buffer.resident)
+                graph = None if graph_upload is None else self._device_graph(graph_upload)
                 if self.profile_states:
                     sync()   # the admits' copies land in the swap bucket
                 t_s2 = time.perf_counter()
@@ -422,7 +560,8 @@ class PartitionBufferLPTrainer:
                     local[:, col] = native.global_to_local(
                         local[:, col], self.buffer.part_to_slot, self.buffer.psize,
                         self.buffer.buffer_rows)[0]
-                losses.append(self._train_state(local, states_run * max_batches, max_batches))
+                losses.append(self._train_state(local, states_run * max_batches, max_batches,
+                                                graph))
                 edges_trained += len(local)
                 batches_run += -(-len(local) // self.batch_size)
                 states_run += 1
@@ -451,6 +590,7 @@ class PartitionBufferLPTrainer:
             "num_buffer_states": len(states),
             "states_run": states_run,
             "max_batches": max_batches,
+            "max_graph_edges": max_graph_edges,
             "batches_run": batches_run,
             "masked_batches": states_run * max_batches - batches_run,
         }
@@ -488,3 +628,13 @@ class PartitionBufferLPTrainer:
             tree_map(lambda d, v: d.copy_(v), self.opt_state.slots, s.opt_state.slots)
         self.opt_state = OptState(s.opt_state.step, self.opt_state.slots)
         self.epoch = int(s.epoch)
+
+    @property
+    def features(self) -> Optional[Tensor]:
+        """(N + 1, F) features with the zero sentinel row, on the device, for
+        evaluation (training reads the partition cache); copied on first use."""
+        if self._features_host is None:
+            return None
+        if self._features_dev is None:
+            self._features_dev = torch.from_numpy(self._features_host).to(self.device)
+        return self._features_dev

@@ -23,9 +23,16 @@ order, and are read back once per evaluation. A table that is not on the
 evaluator's device (a partition-buffer trainer's host table) is moved there
 whole for ``evaluate``; ``evaluate_from_host_table`` instead keeps it in host
 RAM and streams it through the device in node tiles (JAX :413-576).
-CORRUPT_REL ranking, ``compute_pos_scores`` (only_pos_forward) and GNN or
-FEATURE encoders raise ``NotImplementedError`` naming the slice that brings
-them.
+
+Every node's encoding comes from ``encode_all_nodes`` before the batches
+are scored: one pass over the table for a shallow encoder; node tiles
+through the neighbour sampler for a GNN encoder (``graph`` and
+``nbr_configs``, the draws of a fixed per-tile seed, so every evaluation of
+one state gives the same ranks); one full-graph pass with ``full_graph``
+(exact ALL). FEATURE stages read ``features``, the (N + 1, F) block with a
+zero sentinel row. CORRUPT_REL ranking and ``compute_pos_scores``
+(only_pos_forward) raise ``NotImplementedError`` naming the slice that
+brings them.
 """
 
 from __future__ import annotations
@@ -92,6 +99,11 @@ class LinkPredictionEvaluator:
         filtered: bool = True,
         neg_config: Optional[NegativeSamplingConfig] = None,
         seed: int = 7,
+        graph=None,                 # DeviceGraph, required for GNN encoders
+        nbr_configs=(),             # eval-time NeighborSamplingConfigs
+        features: Optional[Tensor] = None,   # (N + 1, F) with the sentinel row
+        full_graph=None,            # FullGraphAdjacency: exact-ALL one-pass encoding
+        fg_ops=None,                # its prepared ops (prepare_full_graph), else per call
         node_chunk: Optional[int] = None,   # streamed-scan chunk override
         device=None,
     ):
@@ -112,6 +124,11 @@ class LinkPredictionEvaluator:
         self.device = resolve_device(device)
         self.neg_config = neg_config or NegativeSamplingConfig()
         self.seed = seed
+        self.graph = None if graph is None else graph.to(self.device)
+        self.nbr_configs = tuple(nbr_configs)
+        self.features = None if features is None else features.to(self.device)
+        self.full_graph = None if full_graph is None else full_graph.to(self.device)
+        self._fg_ops = fg_ops
         if not filtered and batch_size % self.neg_config.num_chunks:
             raise ValueError(f"evaluation batch_size {batch_size} must be divisible by "
                              f"num_chunks {self.neg_config.num_chunks}")
@@ -266,12 +283,13 @@ class LinkPredictionEvaluator:
         """All-node encoder outputs, shared by evaluate() and compute_all_ranks().
         A table elsewhere (a partition-buffer trainer's host table) is moved
         to the evaluator's device first."""
-        if self.model.encoder.num_gnn_stages or self.model.encoder.has_features:
-            raise _later_slice("all-node encoding through a GNN or FEATURE encoder",
-                               "the GNN LP slice")
         table_values = (state.table.values.to(self.device) if state.table is not None
                         else None)
-        return encode_all_nodes(self.model, state.params, table_values).contiguous()
+        return encode_all_nodes(
+            self.model, state.params, table_values, graph=self.graph,
+            nbr_configs=self.nbr_configs, features=self.features,
+            batch_size=self.batch_size, full_graph=self.full_graph,
+            fg_ops=self._fg_ops).contiguous()
 
     @torch.no_grad()
     def compute_all_ranks(self, state: TrainState, encoded: Optional[Tensor] = None):
@@ -327,9 +345,11 @@ class LinkPredictionEvaluator:
         return counts
 
     @torch.no_grad()
-    def evaluate_from_host_table(self, host_values: np.ndarray, params,
+    def evaluate_from_host_table(self, host_values: Optional[np.ndarray], params,
                                  edge_slice: int = 4096,
-                                 node_tile: int = 262_144) -> Dict[str, float]:
+                                 node_tile: int = 262_144,
+                                 features_host: Optional[np.ndarray] = None,
+                                 ) -> Dict[str, float]:
         """Filtered evaluation for a table that stays in host RAM (JAX
         :413-576): the table is encoded tile by tile through the device
         (``encode_all_nodes_host``), then streamed back through it in node
@@ -338,12 +358,19 @@ class LinkPredictionEvaluator:
         num_nodes. Node tiles stream outermost, so the encoded table crosses
         the link once for both directions, and the next tile's copy is issued
         (on the copy stream, into the other of two tile buffers) before this
-        tile's scoring waits on anything."""
+        tile's scoring waits on anything. With a GNN encoder each encoding
+        tile is sampled on the device from the evaluator's graph, with the
+        seeds of ``encode_all_nodes``; ``features_host`` ((N, F) or
+        (N + 1, F)) defaults to the evaluator's features."""
         if not self.filtered:
             raise ValueError("host-tiled evaluation is for filtered evaluation")
         t0 = time.perf_counter()
         decoder, num_nodes, dev = self.model.decoder, self.num_nodes, self.device
-        host = encode_all_nodes_host(self.model, params, host_values, dev, self.batch_size)
+        if features_host is None and self.features is not None:
+            features_host = self.features.cpu().numpy()
+        host = encode_all_nodes_host(self.model, params, host_values, dev, graph=self.graph,
+                                     nbr_configs=self.nbr_configs, features_host=features_host,
+                                     batch_size=self.batch_size)
         edges = self.edges[:self.num_edges]
         e = edges.shape[0]
         rels = edges[:, 1] if self.has_rels else None

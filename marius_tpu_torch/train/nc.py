@@ -125,6 +125,9 @@ class NodeClassificationTrainer:
             raise _later_slice(f"{dtype} training", "the bf16 slice")
         if full_graph is not None:
             check_ported(model.encoder)
+            if model.has_embeddings:
+                raise _later_slice("an EMBEDDING table in full-graph node classification",
+                                   "a later GNN slice")
             if features is None:
                 raise ValueError("full-graph training needs node features")
         else:

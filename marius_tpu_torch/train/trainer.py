@@ -1,4 +1,4 @@
-"""Link-prediction trainer for shallow (embedding-table) encoders.
+"""Link-prediction trainer: shallow, FEATURE and GNN encoders.
 
 Port of ``marius_tpu/train/trainer.py`` (TrainState :55-62, pad_edges :80-87,
 LinkPredictionTrainer :90-717) for one device, edges in device memory
@@ -7,7 +7,15 @@ compiles the whole epoch into one ``lax.scan``, this one runs an eager Python
 loop over batches. Each batch:
 
 1. draws negatives (``_sample_negatives``, the test seam for sampling);
-2. gathers the batch's embedding rows with the gather kernel;
+2. gathers the batch's embedding rows with the gather kernel; with a GNN
+   encoder (``nbr_configs`` and ``graph``), the batch's sorted unique ids
+   (padded with N) seed the neighbour sampler instead, whose numbers come
+   from ``_batch_draws`` (the test seam: one call per batch, after the
+   negatives, as the JAX key schedule splits ``k_nb`` after them), and the
+   rows gathered, and later updated, are the outermost hop's (padded with
+   N: the Adagrad kernel skips it). FEATURE stages read the (N + 1)-row
+   feature block (a zero sentinel row N) at the same ids, also through the
+   gather kernel. A pure-FEATURE encoder has no table;
 3. scores and takes the loss, then the gradient with respect to the gathered
    rows and the dense parameters (the table itself is not an autograd leaf);
 4. updates the table in place with the row-sparse Adagrad kernel, and the
@@ -33,8 +41,8 @@ chunk order and a permutation inside each chunk of a memmap. The JAX chunk
 function pads the last chunk with fully masked batches; the port runs only
 real batches and gives the dense optimizer the masked ones' zero-gradient
 steps (``apply_zero_grad_steps``), so both reach the same state.
-CORRUPT_REL, meshes and GNN or FEATURE encoders raise
-``NotImplementedError`` naming the slice that brings them.
+CORRUPT_REL, meshes and GAT/RGCN stages raise ``NotImplementedError`` naming
+the slice that brings them.
 """
 
 from __future__ import annotations
@@ -54,7 +62,13 @@ from marius_tpu_torch.data.samplers.negative import (
 )
 from marius_tpu_torch.nn.decoders.edge import normalize_decoder_method
 from marius_tpu_torch.ops.edge_keys import filter_mask_sampled
-from marius_tpu_torch.nn.encoder import encoder_forward
+from marius_tpu_torch.data.samplers.neighbor import (
+    Draws,
+    estimate_hop_caps,
+    generator_draws,
+    sample_neighbor_batch,
+)
+from marius_tpu_torch.nn.encoder import check_sampled_ported, encoder_forward
 from marius_tpu_torch.nn.model import (
     LINK_PREDICTION,
     Model,
@@ -131,9 +145,10 @@ class LinkPredictionTrainer:
         batch_size: int = 1000,
         seed: int = 0,
         train_filter_keys=None,
-        graph=None,
-        nbr_configs=(),
-        features: Optional[np.ndarray] = None,
+        graph=None,                 # DeviceGraph: required when the encoder has GNN stages
+        nbr_configs=(),             # train-time NeighborSamplingConfigs, outermost first
+        features: Optional[np.ndarray] = None,   # (N, F) for FEATURE layers
+        hop_caps=None,              # per-hop unique-node caps (default: worst case)
         mesh=None,
         edges_backend: str = "DEVICE_MEMORY",
         epochs_per_shuffle: int = 1,
@@ -156,10 +171,13 @@ class LinkPredictionTrainer:
             raise ValueError(f"unknown edges backend {edges_backend}")
         if mesh is not None:
             raise _later_slice("mesh training", "the multi-GPU slice")
-        if (graph is not None or nbr_configs or features is not None
-                or model.encoder.num_gnn_stages or model.encoder.has_features
-                or not model.has_embeddings):
-            raise _later_slice("a GNN or FEATURE encoder", "the GNN slice")
+        check_sampled_ported(model.encoder)
+        if model.encoder.num_gnn_stages and not nbr_configs:
+            raise ValueError("a GNN encoder needs one neighbour config per GNN stage")
+        if nbr_configs and graph is None:
+            raise ValueError("a GNN encoder needs a DeviceGraph")
+        if model.encoder.has_features and features is None:
+            raise ValueError("FEATURE layers need a feature matrix")
 
         self.device = resolve_device(device)
         self.train_filter_keys = (None if train_filter_keys is None else
@@ -191,21 +209,39 @@ class LinkPredictionTrainer:
         model.decoder.to(self.device)
         params = init_model_params(init_gen, model)
         params = tree_map(self._to_device_leaf, params)
-        table = init_embedding_table(init_gen, num_nodes, model.encoder.embedding_dim)
-        table = EmbeddingTable(values=table.values.to(self.device),
-                               state=table.state.to(self.device))
+        table = None
+        if model.has_embeddings:
+            t = init_embedding_table(init_gen, num_nodes, model.encoder.embedding_dim)
+            table = EmbeddingTable(values=t.values.to(self.device),
+                                   state=t.state.to(self.device))
         self.state = TrainState(table=table, params=params,
                                 opt_state=init_optimizer(model.dense_optimizer, params),
                                 epoch=0)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self._draws = generator_draws(self.generator)
+        self._overflow = torch.zeros((), dtype=torch.int64, device=self.device)
 
         c, n = neg_config.num_chunks, neg_config.negatives_per_positive
         self.unique_cap = 2 * batch_size + 2 * c * n
         # Small tables skip dedup: per-occurrence grads sum into a table-shaped
         # accumulator and Adagrad runs over every row (see
         # sparse_adagrad_update_dense_accum); large tables keep the unique path
-        # whose cost is independent of num_nodes.
-        self.dense_accum = num_nodes * model.encoder.embedding_dim <= 8_000_000
+        # whose cost is independent of num_nodes. A GNN encoder always dedups:
+        # the unique ids seed the sampler.
+        self.dense_accum = (model.has_embeddings and not nbr_configs
+                            and num_nodes * model.encoder.embedding_dim <= 8_000_000)
+
+        self.graph = None if graph is None else graph.to(self.device)
+        self.nbr_configs = tuple(nbr_configs)
+        self.hop_caps = (tuple(hop_caps or estimate_hop_caps(self.unique_cap, self.nbr_configs,
+                                                             num_nodes))
+                         if self.nbr_configs else ())
+        # the sentinel row N: padded and clamped ids read zero features
+        self.features = None
+        if features is not None:
+            f = np.zeros((num_nodes + 1, features.shape[1]), np.float32)
+            f[:num_nodes] = features
+            self.features = torch.as_tensor(f, device=self.device)
 
     def _to_device_leaf(self, t: Tensor) -> Tensor:
         if t.device == self.device:
@@ -217,6 +253,10 @@ class LinkPredictionTrainer:
     def _sample_negatives(self, edges_b: Tensor, inverse: bool) -> NegativeSample:
         return sample_negatives(self.generator, self.neg_config, edges_b,
                                 self.num_nodes, inverse=inverse)
+
+    def _batch_draws(self) -> Draws:
+        """The neighbour sampler's numbers for the next training batch."""
+        return self._draws
 
     def _epoch_permutation(self, shuffle_epoch: int) -> Tensor:
         seed = int(np.random.SeedSequence((12345, shuffle_epoch)).generate_state(1)[0])
@@ -264,9 +304,25 @@ class LinkPredictionTrainer:
             uniq = unique_padded(all_ids, size=self.unique_cap, fill_value=num_nodes)
             gather_ids, pos = uniq.ids, uniq.inverse
 
-        x0 = gather_rows(state.table.values, gather_ids)
-        x0.requires_grad_(True)
-        encoded = encoder_forward(model.encoder, state.params["encoder"], x0, None)
+        # With a GNN encoder the batch's unique ids seed the sampler and the
+        # rows come from the outermost hop (dataloader.cpp:417-441)
+        nbr_batch = None
+        row_ids = gather_ids
+        if self.nbr_configs:
+            nbr_batch = sample_neighbor_batch(self._batch_draws(), self.graph, gather_ids,
+                                              gather_ids < num_nodes, self.nbr_configs,
+                                              self.hop_caps)
+            row_ids = nbr_batch.node_ids[0]
+            self._overflow += nbr_batch.overflow
+        x0 = feats = None
+        if state.table is not None:
+            x0 = gather_rows(state.table.values, row_ids)
+            x0.requires_grad_(True)
+        if self.features is not None:
+            feats = gather_rows(self.features, row_ids)
+        encoded = encoder_forward(model.encoder, state.params["encoder"], x0, feats, nbr_batch,
+                                  degrees=None if self.graph is None else self.graph.degrees,
+                                  train=True, dropout_key=self.generator)
         if self.dense_accum:
             # batch layout is [src; dst; dst_negs; src_negs]: slice, not gather
             d = encoded.shape[-1]
@@ -283,15 +339,18 @@ class LinkPredictionTrainer:
                 mask_b, dst_filter, src_filter)
 
         leaves = tree_leaves(state.params)
-        gx, *gdense = torch.autograd.grad(loss, [x0] + leaves, allow_unused=True)
-        if self.dense_accum:
-            sparse_adagrad_update_dense_accum(state.table, all_ids, gx, model.sparse_lr)
-        else:
-            sparse_adagrad_update(state.table, gather_ids, gx, model.sparse_lr)
-        it = iter(gdense)
-        grads = tree_map(lambda _: next(it), state.params)
+        inputs = leaves + ([x0] if x0 is not None else [])
+        grads = torch.autograd.grad(loss, inputs, allow_unused=True)
+        if x0 is not None:
+            gx = grads[-1] if grads[-1] is not None else torch.zeros_like(x0)
+            if self.dense_accum:
+                sparse_adagrad_update_dense_accum(state.table, all_ids, gx, model.sparse_lr)
+            else:
+                sparse_adagrad_update(state.table, row_ids, gx, model.sparse_lr)
+        it = iter(grads[:len(leaves)])
         _, state.opt_state = apply_optimizer(model.dense_optimizer, state.params,
-                                             state.opt_state, grads)
+                                             state.opt_state,
+                                             tree_map(lambda _: next(it), state.params))
         return loss.detach()
 
     def _host_chunks(self):
@@ -327,6 +386,8 @@ class LinkPredictionTrainer:
     def train_epoch(self) -> Dict[str, float]:
         t0 = time.perf_counter()
         nb, b = self.num_batches, self.batch_size
+        # frontier ids that tight hop caps dropped (none under the default caps)
+        self._overflow = torch.zeros((), dtype=torch.int64, device=self.device)
         if self.edges_backend == "DEVICE_MEMORY":
             perm = self._epoch_permutation(self.state.epoch // self.epochs_per_shuffle)
             shuffled = self.edges[perm]
@@ -346,14 +407,18 @@ class LinkPredictionTrainer:
             total = torch.stack(chunk_losses).sum()
             self._host_epoch += 1
         self.state.epoch += 1
-        total_loss = float(total)  # the epoch's one device-to-host sync
+        # the epoch's one device-to-host read, both numbers at once
+        total_loss, truncated = torch.stack([total.double(), self._overflow.double()]).tolist()
         dt = time.perf_counter() - t0
-        return {
+        out = {
             "loss": total_loss,
             "epoch_time_s": dt,
             "edges_per_sec": self.num_edges / dt,
             "num_edges": self.num_edges,
         }
+        if self.nbr_configs:
+            out["truncated_frontier_ids"] = int(truncated)
+        return out
 
     def train(self, num_epochs: int):
         return [self.train_epoch() for _ in range(num_epochs)]

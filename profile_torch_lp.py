@@ -11,18 +11,24 @@ set. It prints the card, the host time per batch, the device time per batch,
 the device's busy share (device time over host time without the profiler; one
 stream, so kernels do not overlap), device operations per batch, the
 kernels that take the most device time and the port's own kernels'
-time and share. It does the same for the out-of-core step: one buffer
-state's batches of ``freebase86m_comet.yaml`` at a node count cut to
-4,000,000 (``profile_oocore_state``). Then it times the row-gather kernel, its plain version and
-``index_select`` against the bound at the flagship batch, the evaluation
-batch, the out-of-core batch and K = 1 (``chip_smoke.gather_shapes``), after
-printing the kernel's registers and spills. The last line is one JSON object
-with the same numbers; device numbers the profiler did not report are null.
+time and share. It does the same for the GNN LP step (``profile_gnn_lp``:
+the same data and model with fb15k_237.yaml's encoder replaced by the
+gs_1_layer fragment, EMBEDDING then GraphSAGE MEAN 50 -> 50 over UNIFORM 10
+sampling, as chip_smoke.py's lp_gnn runs it) and for the out-of-core step:
+one buffer state's batches of ``freebase86m_comet.yaml`` at a node count
+cut to 4,000,000 (``profile_oocore_state``). Then it times the row-gather
+kernel, its plain version and ``index_select`` against the bound at the
+flagship batch, the evaluation batch, the out-of-core batch and K = 1
+(``chip_smoke.gather_shapes``), after printing the kernel's registers and
+spills. The last line is one JSON object with the same numbers (``lp``,
+``lp_gnn``, ``oocore``, ``gather_shapes``); device numbers the profiler
+did not report are null.
 ``profile_batches`` is shared with profile_torch_nc.py.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import sys
 import tempfile
@@ -105,6 +111,39 @@ def profile_batches(run, nb: int, card: str, tag: str = "") -> dict:
     return result
 
 
+def gnn_lp_trainer():
+    """The flagship's data and model with gs_1_layer's encoder (chip_smoke.py
+    lp_gnn's model) on the GPU."""
+    from marius_tpu_torch.data.graph import build_device_graph
+    from marius_tpu_torch.data.samplers.negative import NegativeSamplingConfig
+    from marius_tpu_torch.data.samplers.neighbor import NeighborSamplingConfig
+    from marius_tpu_torch.nn.encoder import EncoderConfig
+    from marius_tpu_torch.nn.layers import LayerConfig
+    from marius_tpu_torch.train.trainer import LinkPredictionTrainer
+
+    model = dataclasses.replace(lp_model(NUM_RELS, DIM), encoder=EncoderConfig((
+        (LayerConfig("EMBEDDING", output_dim=DIM),),
+        (LayerConfig("GNN", input_dim=DIM, output_dim=DIM, gnn_type="GRAPH_SAGE",
+                     aggregator="MEAN"),))))
+    edges = synthetic_edges(0, NUM_NODES, NUM_RELS, NUM_EDGES)
+    return LinkPredictionTrainer(
+        model, NUM_NODES, NUM_RELS, edges,
+        NegativeSamplingConfig(num_chunks=CHUNKS, negatives_per_positive=NEGATIVES),
+        batch_size=BATCH, seed=0,
+        graph=build_device_graph(edges, NUM_NODES, NUM_RELS, device="cuda"),
+        nbr_configs=[NeighborSamplingConfig("UNIFORM", 10)])
+
+
+def profile_gnn_lp(card: str) -> dict:
+    """One epoch of the GNN LP step after a warm-up epoch, as the flagship's."""
+    trainer = gnn_lp_trainer()
+    trainer.train_epoch()
+    perm = trainer._epoch_permutation(1)
+    shuffled, masks = trainer.edges[perm], perm < trainer.num_edges
+    return profile_batches(lambda: run_batches(trainer, shuffled, masks), trainer.num_batches,
+                           card, tag="GNN ")
+
+
 def profile_oocore_state(card: str) -> dict:
     """The out-of-core step: freebase86m_comet.yaml (ComplEx d=100, batch
     10,000, 10 x 500 negatives, degree_fraction 0.5, Adagrad) through
@@ -162,10 +201,12 @@ def main() -> int:
     result = profile_batches(lambda: run_batches(trainer, shuffled, masks),
                              trainer.num_batches, card)
     del trainer, shuffled, masks
+    gnn = profile_gnn_lp(card)
     oocore = profile_oocore_state(card)
     shapes = gather_shapes(gather, torch.device("cuda"), card_rates(torch.cuda.get_device_name(0)))
     print_gather_shapes(shapes, card)
-    print(json.dumps({"lp": result, "oocore": oocore, "gather_shapes": shapes}), flush=True)
+    print(json.dumps({"lp": result, "lp_gnn": gnn, "oocore": oocore, "gather_shapes": shapes}),
+          flush=True)
     return 0
 
 

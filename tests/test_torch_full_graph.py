@@ -334,9 +334,21 @@ def test_full_graph_encoder_rejects_later_slices(graph):
         assert not tfge.supports_seed_restrict(cfg)
         with pytest.raises(NotImplementedError):
             tfge.prepare_full_graph(tadj, cfg, torch.zeros(N, F))
-    with pytest.raises(NotImplementedError):
-        tfge.full_graph_encoder_forward(TEncoderConfig(_stages(TLayerConfig, "gcn")), None,
-                                        torch.zeros(N, F), torch.zeros(N, F), tadj)
+    # a learnable EMBEDDING input is ported: an EMBEDDING stage over the
+    # table runs the GNN stages as a FEATURE stage over the same block does,
+    # and as JAX's full-graph encoder does
+    rng = np.random.default_rng(7)
+    jp, tp = _params("gcn", rng)
+    block = rng.standard_normal((N, F)).astype(np.float32)
+    emb_stages = lambda L: ((L("EMBEDDING", output_dim=F, bias=True),),) + \
+        _stages(L, "gcn")[1:]  # noqa: E731
+    tout = tfge.full_graph_encoder_forward(TEncoderConfig(emb_stages(TLayerConfig)), tp,
+                                           torch.from_numpy(block), None, tadj)
+    _close(tout, tfge.full_graph_encoder_forward(TEncoderConfig(_stages(TLayerConfig, "gcn")),
+                                                 tp, None, torch.from_numpy(block), tadj))
+    _, jadj, _ = graph
+    _close(tout, jfge.full_graph_encoder_forward(JEncoderConfig(emb_stages(JLayerConfig)), jp,
+                                                 jnp.asarray(block), None, jadj))
 
 
 @pytest.mark.parametrize("kind", list(GNN_KINDS))

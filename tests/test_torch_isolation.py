@@ -128,6 +128,43 @@ def test_sampled_nc_trainer_without_device_needs_cuda(monkeypatch):
     assert (gather.launches, nbr_sum.launches) == before
 
 
+def test_gnn_lp_trainer_without_device_needs_cuda(monkeypatch):
+    from marius_tpu_torch.data.graph import build_device_graph
+    from marius_tpu_torch.data.samplers.negative import NegativeSamplingConfig
+    from marius_tpu_torch.data.samplers.neighbor import NeighborSamplingConfig
+    from marius_tpu_torch.nn.decoders.edge import EdgeDecoder
+    from marius_tpu_torch.nn.encoder import EncoderConfig
+    from marius_tpu_torch.nn.layers import LayerConfig
+    from marius_tpu_torch.nn.model import LINK_PREDICTION, Model
+    from marius_tpu_torch.ops.cuda import adagrad, gather, nbr_sum
+    from marius_tpu_torch.train.evaluator import LinkPredictionEvaluator
+    from marius_tpu_torch.train.trainer import LinkPredictionTrainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = Model(LINK_PREDICTION, EncoderConfig((
+        (LayerConfig("EMBEDDING", output_dim=4), LayerConfig("FEATURE", output_dim=2)),
+        (LayerConfig("GNN", input_dim=6, output_dim=6, gnn_type="GRAPH_SAGE",
+                     aggregator="MEAN"),))), EdgeDecoder("DISTMULT", 2, 6))
+    edges = np.array([[0, 0, 1], [1, 1, 2], [2, 0, 3], [3, 1, 4], [4, 0, 0]], np.int32)
+    features = np.random.default_rng(0).standard_normal((5, 2)).astype(np.float32)
+    kw = dict(graph=build_device_graph(edges, 5, 2),
+              nbr_configs=[NeighborSamplingConfig("UNIFORM", 2)], features=features)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LinkPredictionTrainer(model, 5, 2, edges, NegativeSamplingConfig(1, 2), batch_size=2,
+                              **kw)
+    before = (gather.launches, nbr_sum.launches, adagrad.launches)
+    trainer = LinkPredictionTrainer(model, 5, 2, edges, NegativeSamplingConfig(1, 2),
+                                    batch_size=2, device="cpu", **kw)
+    assert trainer.device.type == "cpu" and trainer.graph.degrees.device.type == "cpu"
+    assert np.isfinite(trainer.train_epoch()["loss"])
+    ev = LinkPredictionEvaluator(model, 5, 2, edges, all_edges=edges, batch_size=2,
+                                 graph=kw["graph"], nbr_configs=kw["nbr_configs"],
+                                 features=trainer.features, device="cpu")
+    assert 0.0 < ev.evaluate(trainer.state)["mrr"] <= 1.0
+    # the CPU path runs the plain versions
+    assert (gather.launches, nbr_sum.launches, adagrad.launches) == before
+
+
 def test_manager_without_device_needs_cuda(monkeypatch, tmp_path):
     from marius_tpu.tools.preprocess import generate_random_dataset_lp
     from marius_tpu_torch.config import load_config

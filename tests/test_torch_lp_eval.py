@@ -433,7 +433,7 @@ def test_evaluator_sampling_is_deterministic_and_clips_padding():
     assert not torch.equal(a.ids, other.ids)
 
 
-def test_evaluator_rejects_later_slices():
+def test_evaluator_rejects_later_slices(jax_search_clamped):
     edges, test, _ = _eval_data(True)
     _, tmodel = _models("DISTMULT", 32, ER)
     rel_model = dataclasses.replace(
@@ -441,12 +441,30 @@ def test_evaluator_rejects_later_slices():
     with pytest.raises(NotImplementedError, match="CORRUPT_REL"):
         tevaluator.LinkPredictionEvaluator(rel_model, EN, ER, test, all_edges=edges,
                                            device="cpu")
+    # FEATURE encoders are ported: a pure-FEATURE model ranks as JAX's does
+    # (quantized features and relations: exact scores)
+    jmodel, _ = _models("DISTMULT", 32, ER)
     feature_model = dataclasses.replace(tmodel, encoder=TEncoderConfig(
         ((TLayerConfig("FEATURE", output_dim=32),),)))
+    j_feature_model = dataclasses.replace(jmodel, encoder=JEncoderConfig(
+        ((JLayerConfig("FEATURE", output_dim=32),),)))
+    rng = np.random.default_rng(8)
+    feats = np.concatenate([rng.integers(-8, 9, (EN, 32)).astype(np.float32) / 4,
+                            np.zeros((1, 32), np.float32)])
+    rels = {k: rng.integers(-8, 9, (ER, 32)).astype(np.float32) / 4
+            for k in ("relations", "inverse_relations")}
     tev = tevaluator.LinkPredictionEvaluator(feature_model, EN, ER, test, all_edges=edges,
+                                             batch_size=EB, features=torch.from_numpy(feats),
                                              device="cpu")
-    with pytest.raises(NotImplementedError, match="GNN or FEATURE"):
-        tev.evaluate(TTrainState(None, {"encoder": [[{}]]}, None, 0))
+    jev = jevaluator.LinkPredictionEvaluator(j_feature_model, EN, ER, test, all_edges=edges,
+                                             batch_size=EB, features=jnp.asarray(feats))
+    tstate = TTrainState(None, {"encoder": [[{}]], "decoder": {
+        k: torch.from_numpy(v) for k, v in rels.items()}}, None, 0)
+    jstate = jtrainer_mod.TrainState(None, {"encoder": [[{}]], "decoder": {
+        k: jnp.asarray(v) for k, v in rels.items()}}, None, None, 0)
+    tranks, jranks = tev.compute_all_ranks(tstate)[0], jev.compute_all_ranks(jstate)[0]
+    np.testing.assert_array_equal(tranks, jranks)
+    assert (jranks > 1).any()
     tev = tevaluator.LinkPredictionEvaluator(tmodel, EN, ER, test, all_edges=edges,
                                              device="cpu")
     # host-tiled evaluation is ported; it ranks against all nodes only

@@ -148,9 +148,11 @@ def test_trainer_rejects_later_slices(monkeypatch):
                    TEncoderConfig(((TLayerConfig("EMBEDDING", output_dim=D),),)),
                    TEdgeDecoder("DISTMULT", R, D))
     edges, cfg = _edges(True), TNegConfig(C, NEG)
-    for kwargs in [dict(mesh=object()), dict(nbr_configs=(object(),))]:
-        with pytest.raises(NotImplementedError):
-            TTrainer(model, N, R, edges, cfg, batch_size=B, device="cpu", **kwargs)
+    with pytest.raises(NotImplementedError):
+        TTrainer(model, N, R, edges, cfg, batch_size=B, device="cpu", mesh=object())
+    # GNN encoders are ported (tests/test_torch_lp_gnn.py); they sample a graph
+    with pytest.raises(ValueError, match="DeviceGraph"):
+        TTrainer(model, N, R, edges, cfg, batch_size=B, device="cpu", nbr_configs=(object(),))
     # host-streamed edges are ported (tests/test_torch_edges_backend.py)
     assert TTrainer(model, N, R, edges, cfg, batch_size=B, device="cpu",
                     edges_backend="HOST_MEMORY").edges is None

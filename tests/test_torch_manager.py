@@ -44,6 +44,7 @@ from marius_tpu_torch.nn.optimizers import tree_leaves
 from marius_tpu_torch.storage import checkpoint as ckpt
 from marius_tpu_torch.train.trainer import LinkPredictionTrainer
 from tests.test_manager import GS_ENCODER, LP_BASE
+from tests.test_torch_lp_eval import jax_search_clamped  # noqa: F401  (a fixture)
 from tests.test_torch_lp_trainer import _np_state
 
 
@@ -174,15 +175,16 @@ def test_lp_config_matrix(tmp_path, variant):
     if variant == "gs_1_layer":
         overrides["model.encoder"] = copy.deepcopy(GS_ENCODER)
     raw = _lp_config(tmp_path, variant, **overrides)
-    if variant == "gs_1_layer":
-        with pytest.raises(NotImplementedError, match="GNN"):
-            _train(raw)
-        return
     result = _train(raw)
     assert len(result["epochs"]) == 2 and len(result["evals"]) == 2
     assert result["epochs"][1]["loss"] < result["epochs"][0]["loss"] * 1.5
     assert 0.0 < result["test"]["mrr"] <= 1.0
-    assert result["runtime"].test_evaluator.filtered == (variant == "distmult")
+    assert result["runtime"].test_evaluator.filtered == (variant != "distmult_unfiltered")
+    tr, ev = result["runtime"].trainer, result["runtime"].test_evaluator
+    if variant == "gs_1_layer":
+        # the GNN path: sampled training and all-node encoding through the sampler
+        assert tr.nbr_configs and tr.graph is not None and not tr.dense_accum
+        assert ev.nbr_configs and ev.graph is not None and ev.full_graph is None
 
 
 def test_lp_save_eval_and_export(tmp_path):
@@ -312,12 +314,28 @@ def test_evaluation_cadence_shuffle_and_train_filter(tmp_path):
 
 PB = {"type": "PARTITION_BUFFER", "options": {"num_partitions": 4, "buffer_capacity": 2}}
 # paths this test refused before they were ported: each now runs (see also
-# test_freebase_shaped_configs_match_jax)
+# test_freebase_shaped_configs_match_jax and test_gnn_lp_configs)
 PORTED = {
     "partition_buffer": {"storage.embeddings": PB},
     "host_streaming": {"evaluation.host_streaming": True},
     "flat_file": {"storage.edges": {"type": "FLAT_FILE"}},
+    "buffer_gnn": {"storage.embeddings": PB, "model.encoder": copy.deepcopy(GS_ENCODER)},
+    "buffer_feature": {"storage.embeddings": PB, "model.encoder": {"layers": [[
+        {"type": "EMBEDDING", "output_dim": 8}, {"type": "FEATURE", "output_dim": 8}]]}},
 }
+
+
+def _add_features(raw, dim=8):
+    """A feature file for the dataset of ``raw``, as the config's FEATURE stage needs."""
+    from marius_tpu.storage.dataset import load_stats, save_node_array, save_stats
+
+    ds = raw["storage"]["dataset"]["dataset_dir"]
+    stats = load_stats(ds)
+    rng = np.random.default_rng(0)
+    save_node_array(ds, "features",
+                    rng.standard_normal((stats.num_nodes, dim)).astype(np.float32))
+    stats.feature_dim = dim
+    save_stats(ds, stats)
 
 
 @pytest.mark.parametrize("what", ["partition_buffer", "host_streaming", "flat_file", "mesh",
@@ -326,11 +344,16 @@ PORTED = {
 def test_unported_paths_raise(tmp_path, what):
     if what in PORTED:
         raw = _lp_config(tmp_path, what, **PORTED[what])
+        if what == "buffer_feature":
+            _add_features(raw)
         result = _train(raw)
         rt = result["runtime"]
         assert len(result["epochs"]) == 2 and 0.0 < result["test"]["mrr"] <= 1.0
         assert (type(rt.trainer).__name__ == "PartitionBufferLPTrainer") == (
-            what == "partition_buffer")
+            what.startswith(("partition_buffer", "buffer")))
+        if what.startswith("buffer"):
+            assert (rt.trainer.feature_cache is not None) == (what == "buffer_feature")
+            assert bool(rt.trainer.nbr_configs) == (what == "buffer_gnn")
         assert (type(rt.test_evaluator).__name__ == "_HostStreamLPEval") == (
             what == "host_streaming")
         if what == "flat_file":
@@ -349,26 +372,89 @@ def test_unported_paths_raise(tmp_path, what):
         "bf16": {"storage.embeddings": {"type": "DEVICE_MEMORY",
                                         "options": {"dtype": "bfloat16"}}},
         "layer_optimizer": {"model.decoder.optimizer": {"type": "ADAGRAD"}},
-        "buffer_gnn": {"storage.embeddings": PB, "model.encoder": copy.deepcopy(GS_ENCODER)},
-        "buffer_feature": {"storage.embeddings": PB, "model.encoder": {"layers": [[
-            {"type": "EMBEDDING", "output_dim": 8}, {"type": "FEATURE", "output_dim": 8}]]}},
         "buffer_corrupt_rel": {"storage.embeddings": PB,
                                "model.decoder.options.edge_decoder_method": "CORRUPT_REL"},
         "buffer_mesh": {"storage.embeddings": PB, "training.mesh": {"data": 1, "node": 2}},
     }[what]
     raw = _lp_config(tmp_path, what, **overrides)
-    if what == "buffer_feature":
-        # a feature file so that the config is valid; the trainer refuses it
-        from marius_tpu.storage.dataset import load_stats, save_node_array, save_stats
-        ds = raw["storage"]["dataset"]["dataset_dir"]
-        save_node_array(ds, "features", np.ones((50, 8), np.float32))
-        stats = load_stats(ds)
-        stats.feature_dim = 8
-        save_stats(ds, stats)
-    match = {"buffer_gnn": "GNN", "buffer_feature": "FEATURE", "buffer_corrupt_rel": "CORRUPT_REL",
-             "buffer_mesh": "mesh"}.get(what, "comes with")
+    match = {"buffer_corrupt_rel": "CORRUPT_REL", "buffer_mesh": "mesh"}.get(what, "comes with")
     with pytest.raises(NotImplementedError, match=match):
         marius_init(load_config(raw), device="cpu")
+
+
+# -- GNN and FEATURE encoders for link prediction -------------------------------
+
+GNN_LP = {
+    # JAX trains; exact-ALL evaluation (no draws) in both packages
+    "jax_all_eval": {"model.encoder": dict(copy.deepcopy(GS_ENCODER),
+                                           eval_neighbor_sampling=[{"type": "ALL"}])},
+    # sampled evaluation, the model saved, reloaded and exported
+    "sampled_export": {"model.encoder": copy.deepcopy(GS_ENCODER),
+                       "storage.export_encoded_nodes": True},
+    # tests/test_manager.py:303: a buffer-backed GNN model evaluated from the host table
+    "buffer_host_streaming": {"model.encoder": copy.deepcopy(GS_ENCODER),
+                              "storage.embeddings": PB, "evaluation.host_streaming": True},
+    # a shallow EMBEDDING + FEATURE encoder and a GNN over features
+    "features": {"model.encoder": {"layers": [
+        [{"type": "EMBEDDING", "output_dim": 8}, {"type": "FEATURE", "output_dim": 8}],
+        [{"type": "GNN", "input_dim": 16, "output_dim": 16,
+          "options": {"type": "GRAPH_SAGE", "aggregator": "MEAN"}}]],
+        "train_neighbor_sampling": [{"type": "UNIFORM", "options": {"max_neighbors": 4}}]}},
+}
+
+
+@pytest.mark.parametrize("variant", list(GNN_LP))
+def test_gnn_lp_configs(jax_search_clamped, tmp_path, variant):  # noqa: F811
+    """GNN and FEATURE LP configs through the port's marius_train and
+    marius_eval: the test metrics reload exactly. A model the JAX manager
+    trains with exact-ALL evaluation gives JAX's test metrics through the
+    port's marius_eval (trained weights: near-ties may flip, so MRR to rtol
+    1e-4 and >= 99.9% equal ranks; the JAX search clamped as in
+    tests/test_torch_lp_eval.py, ROADMAP C1)."""
+    size = {}
+    if variant == "jax_all_eval":
+        # >= 2,000 ranks, as in test_port_marius_eval_reproduces_jax
+        size = dict(num_nodes=200, num_edges=20_000, **{"training.batch_size": 1000,
+                                                         "evaluation.batch_size": 500})
+    raw = _lp_config(tmp_path, variant, **size, **{"storage.save_model": True,
+                                                   "storage.model_dir": str(tmp_path / "model"),
+                                                   **GNN_LP[variant]})
+    if variant == "features":
+        _add_features(raw)
+    if variant == "jax_all_eval":
+        j_marius_train(j_load_config(raw))
+        jres = j_marius_eval(j_load_config(raw))
+        tres = marius_eval(load_config(raw), device="cpu")
+        jrt, trt = jres["runtime"], tres["runtime"]
+        assert trt.test_evaluator.full_graph is not None
+        assert jrt.test_evaluator.full_graph is not None
+        np.testing.assert_array_equal(trt.trainer.state.table.values.numpy(),
+                                      np.asarray(jrt.trainer.state.table.values))
+        np.testing.assert_allclose(tres["test"]["mrr"], jres["test"]["mrr"], rtol=1e-4)
+        assert tres["test"]["num_evaluated"] == jres["test"]["num_evaluated"]
+        jranks = jrt.test_evaluator.compute_all_ranks(jrt.trainer.state)[0]
+        tranks = trt.test_evaluator.compute_all_ranks(trt.trainer.state)[0]
+        assert tranks.shape == jranks.shape and tranks.size >= 2000
+        assert np.mean(tranks == jranks) >= 0.999
+        return
+    res = _train(raw)
+    rt = res["runtime"]
+    assert len(res["epochs"]) == 2 and len(res["evals"]) == 2
+    assert all(np.isfinite(e["loss"]) for e in res["epochs"])
+    assert 0.0 < res["test"]["mrr"] <= 1.0
+    again = _eval(raw)
+    assert all(again["test"][k] == res["test"][k] for k in METRICS)
+    if variant == "sampled_export":
+        encoded = np.fromfile(tmp_path / "model" / "encoded_nodes.bin", np.float32)
+        np.testing.assert_array_equal(
+            encoded.reshape(50, 16),
+            encode_and_export(again["runtime"], path=str(tmp_path / "again.bin")))
+    if variant == "buffer_host_streaming":
+        assert type(rt.trainer).__name__ == "PartitionBufferLPTrainer"
+        assert type(rt.test_evaluator).__name__ == "_HostStreamLPEval"
+        assert rt.test_evaluator.ev.graph is not None
+    if variant == "features":
+        assert rt.trainer.features.shape == (51, 8) and rt.test_evaluator.features is not None
 
 
 # -- freebase86m_comet.yaml's shape through both managers ----------------------

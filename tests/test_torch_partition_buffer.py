@@ -198,6 +198,64 @@ def test_transfer_round_trip_on_cpu():
     assert not buf[2:7].any() and buf[7:10].all()
 
 
+# -- the read-only feature cache ------------------------------------------------
+
+def _caches(device="cpu", n=83, f=6, parts=8, cap=4):
+    feats = np.random.default_rng(3).standard_normal((n, f)).astype(np.float32)
+    return (jpb.ReadOnlyPartitionCache.create(feats, n, parts, cap),
+            tpb.ReadOnlyPartitionCache.create(feats, n, parts, cap, device=device))
+
+
+def _cache_same(jc, tc):
+    np.testing.assert_array_equal(tc.resident, jc.resident)
+    np.testing.assert_array_equal(tc.part_to_slot, jc.part_to_slot)
+    rows = tc.device_rows.cpu().numpy()
+    np.testing.assert_array_equal(rows[:tc.buffer_rows], np.asarray(jc.device))
+    assert rows.shape[0] == tc.buffer_rows + 1 and not rows[-1].any()   # the zero row
+
+
+def test_read_only_cache_matches_jax():
+    """create (zero-padded partitions), load, swap_to_state over the swap
+    sequence, and mirror_layout to a buffer's slots (its empty slots keep
+    whatever they held): device rows and slot tables equal JAX's exactly."""
+    jc, tc = _caches()
+    assert (tc.psize, tc.buffer_rows, tc.host.shape) == (jc.psize, jc.buffer_rows, jc.host.shape)
+    np.testing.assert_array_equal(tc.host, jc.host)
+    assert not tc.host[83:].any()
+    for i, (parts, _) in enumerate(SEQUENCE):
+        for c in (jc, tc):
+            c.load(parts) if i == 0 else c.swap_to_state(parts)
+        _cache_same(jc, tc)
+    # a fresh cache mirrors a buffer's layout through its state sequence
+    jb, tb = _buffers(False)
+    jc, tc = _caches()
+    for i, (parts, _) in enumerate(SEQUENCE):
+        for b in (jb, tb):
+            b.load(parts) if i == 0 else b.swap_to_state(parts)
+        np.testing.assert_array_equal(tb.resident, jb.resident)
+        jc.mirror_layout(jb.resident)
+        tc.mirror_layout(tb.resident)
+        _cache_same(jc, tc)
+        for slot, p in enumerate(tc.resident):
+            if p >= 0:
+                np.testing.assert_array_equal(
+                    tc.device_rows[slot * tc.psize:(slot + 1) * tc.psize].numpy(),
+                    tc.host[p * tc.psize:(p + 1) * tc.psize])
+
+
+def test_swap_layout_is_the_buffers():
+    """The planned slot table of each state equals the one the swap makes."""
+    _, tb = _buffers(False)
+    layout = tpb.initial_layout(SEQUENCE[0][0], tb.capacity)
+    for i, (parts, _) in enumerate(SEQUENCE):
+        tb.load(parts) if i == 0 else tb.swap_to_state(parts)
+        if i:
+            layout = tpb.swap_layout(layout, parts)
+        np.testing.assert_array_equal(tb.resident, layout)
+    with pytest.raises(ValueError, match="capacity"):
+        tpb.swap_layout(layout, [0, 1, 2, 3, 4])
+
+
 # -- the copy stream on the card ------------------------------------------------
 
 @pytest.fixture
@@ -253,3 +311,15 @@ def test_cuda_swap_sequence_matches_cpu(cuda_device, sparse):
         b.flush()
     np.testing.assert_array_equal(gpu.host_values, cpu.host_values)
     np.testing.assert_array_equal(gpu.host_state, cpu.host_state)
+
+
+@pytest.mark.cuda
+def test_cuda_read_only_cache_matches_cpu(cuda_device):
+    _, cpu = _caches()
+    _, gpu = _caches(cuda_device)
+    for i, (parts, _) in enumerate(SEQUENCE):
+        for c in (cpu, gpu):
+            c.load(parts) if i == 0 else c.swap_to_state(parts)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(gpu.resident, cpu.resident)
+        np.testing.assert_array_equal(gpu.device_rows.cpu().numpy(), cpu.device_rows.numpy())
