@@ -54,6 +54,34 @@ counters set to 0 just before it and read just after:
    small sampled runs, with and without an EMBEDDING stage (the Adagrad
    kernel), against the CPU.
 
+Then GAT and RGCN (the slice of ``nn/layers/layers.py`` gat_layer and
+rgcn_layer, ``data/full_graph_rel.py`` and the inverse occurrence map):
+
+- ``nc_gat``, the main path: ``ogbn_arxiv.yaml`` with its three GraphSAGE
+  layers switched to GAT with ``bench_nc_full.py:92-96``'s gat8 options (8
+  heads averaged, d = 128 -> 128 -> 40, bias), the YAML's sampling and hop
+  caps kept, through ``marius_train`` (2 epochs, the one cut) and
+  ``marius_eval`` on the arxiv-shaped dataset: per epoch loss, s, train
+  nodes/s, truncated frontier ids and valid accuracy; test accuracy, peak
+  device memory, the row gather's launches (7 per batch: the outer hop's
+  features and each layer's two slot gathers) and, under torch.profiler,
+  host and device ms and device operations per batch. ``gat_slot_shapes``
+  times the row gather at the first layer's 65,536 x 65-slot block, and
+  ``gat_against_cpu`` holds the trained model's first batches at full width
+  against the CPU (logits, loss, gradients);
+- ``nc_rgcn_full``: exact-ALL full-graph RGCN at arxiv shape over 8 uniform
+  relations (``bench_nc_full.py:69,88-113``: FEATURE 128, RGCN 128 -> 128
+  -> 128 -> 40, bias, the seed-restricted final stage) through
+  ``NodeClassificationTrainer``, 1 epoch and evaluation: the same figures
+  and 4 gather-sum launches per batch; ``nc_gat_full``: the same with gat8
+  layers, 10 batches, s per batch; ``full_graph_shapes`` holds both kernels
+  bit for bit at every full-graph shape of the two (the relational anchor
+  sum and occurrence backward, GAT's inverse-map backward at d = 128 and 8;
+  RGCN's slot and anchor-row gathers, GAT's block gathers at d = 128 and
+  8) and times each. ``compare_nc_with_cpu``,
+  ``compare_sampled_nc_with_cpu`` and ``compare_gnn_lp_with_cpu`` also hold
+  small GAT (with dropout) and RGCN runs against the CPU.
+
 Then GNN- and FEATURE-encoded link prediction:
 
 5. ``lp_gnn``: the FB15K-237-shaped dataset of ``lp_manager`` and
@@ -158,6 +186,16 @@ NC_DIM, NC_GNN_STAGES, NC_LR = 128, 3, 0.01
 # ogbn-arxiv's published valid and test split sizes, and the one cut of ogbn_arxiv.yaml
 # (10 epochs)
 ARXIV_VALID, NC_SAMPLED_EPOCHS = 29_799, 3
+# GAT and RGCN at arxiv shape (bench_nc_full.py:69,92-96): gat8's heads, the RGCN
+# variant's relations; the cuts of ogbn_arxiv.yaml's 10 epochs for nc_gat and of
+# the full-graph runs (one epoch for RGCN, a few batches for GAT)
+GAT_HEADS, ARXIV_RELS, NC_GAT_EPOCHS, NC_GAT_FULL_BATCHES = 8, 8, 2, 10
+# nc_gat's test accuracy floor (chance 0.025): the labels are a linear function of each
+# node's own features, which gat8's attention averages with up to 64 neighbours; three
+# card runs gave 0.093-0.102, and tests/test_torch_gat_arxiv_labels.py shows the JAX
+# package's gat8 reaching the port's accuracy, far below GraphSAGE's, on a cut of this
+# data. The nc_gat model's batches at full width on the card against the CPU:
+NC_GAT_MIN_ACCURACY, NC_GAT_CPU_BATCHES, NC_GAT_GRAD_F64_TOL = 0.08, 2, 3e-2
 # the neighbour sum's widths: d=1 (GCN counts), the model's 128, the collapse's 129/259/519
 SUM_DIMS = (1, 33, 128, 129, 259, 519)
 # the edges of the gather-sum kernel's 128-byte column slabs (32 f32 or 64 bf16 columns)
@@ -1215,27 +1253,29 @@ def lp_accuracy(card: str) -> None:
 
 # -- full-graph node classification -------------------------------------------
 
-def arxiv_edges() -> np.ndarray:
+def arxiv_edges(num_nodes: int = ARXIV_NODES, num_edges: int = ARXIV_EDGES,
+                hub: int = ARXIV_HUB) -> np.ndarray:
     """Arxiv-shaped citation graph, a copy of bench_nc_full.py:make_graph
     (:40-66): power-law in-degrees matched to ogbn-arxiv's (max 13,161, mean
-    ~6.9), uniform sources."""
+    ~6.9), uniform sources. A smaller graph of the same shape takes smaller
+    counts."""
     rng = np.random.default_rng(0)
-    w = (np.arange(ARXIV_NODES) + 1.0) ** -0.78
+    w = (np.arange(num_nodes) + 1.0) ** -0.78
     lo, hi = 0.5, 4.0
-    for _ in range(40):  # bisect the scale so the clipped sum hits ARXIV_EDGES
+    for _ in range(40):  # bisect the scale so the clipped sum hits num_edges
         mid = (lo + hi) / 2
-        s = np.minimum(np.round(w * (ARXIV_EDGES / w.sum()) * mid), ARXIV_HUB).sum()
-        lo, hi = (mid, hi) if s < ARXIV_EDGES else (lo, mid)
-    deg = np.minimum(np.round(w * (ARXIV_EDGES / w.sum()) * lo), ARXIV_HUB).astype(np.int64)
-    short = ARXIV_EDGES - int(deg.sum())
+        s = np.minimum(np.round(w * (num_edges / w.sum()) * mid), hub).sum()
+        lo, hi = (mid, hi) if s < num_edges else (lo, mid)
+    deg = np.minimum(np.round(w * (num_edges / w.sum()) * lo), hub).astype(np.int64)
+    short = num_edges - int(deg.sum())
     if short > 0:
-        np.add.at(deg, rng.integers(0, ARXIV_NODES, short), 1)
+        np.add.at(deg, rng.integers(0, num_nodes, short), 1)
     elif short < 0:
         deg[np.argsort(deg)[::-1][:-short]] -= 1
-    if int(deg.sum()) != ARXIV_EDGES:
+    if int(deg.sum()) != num_edges:
         raise AssertionError("the degree sequence does not sum to the edge count")
-    dst = rng.permutation(ARXIV_NODES)[np.repeat(np.arange(ARXIV_NODES), deg)]
-    src = rng.integers(0, ARXIV_NODES, ARXIV_EDGES)
+    dst = rng.permutation(num_nodes)[np.repeat(np.arange(num_nodes), deg)]
+    src = rng.integers(0, num_nodes, num_edges)
     return np.stack([src, dst], 1).astype(np.int32)
 
 
@@ -1265,22 +1305,6 @@ def nc_model(feat_dim: int, dims):
     return Model(NODE_CLASSIFICATION, EncoderConfig(tuple(stages)), None,
                  loss_type="CROSS_ENTROPY", loss_reduction="SUM",
                  dense_optimizer=OptimizerConfig("ADAM", learning_rate=NC_LR))
-
-
-def sum_matrix(adj, layout):
-    """The combined adjacency as an (N, N) f32 CSR matrix in original order,
-    repeated neighbours as counts and padding dropped: torch.sparse.mm(A, x)
-    is the neighbour sum in one library call (cuSPARSE)."""
-    n, dev = adj.num_nodes, adj.device
-    perm = torch.argsort(adj.inv_pos.long(), stable=True)   # sorted row -> id
-    rows = torch.cat([perm[s:s + b.shape[0]].repeat_interleave(b.shape[1])
-                      for s, b in zip(adj.bucket_starts, adj.nbrs)])
-    cols = layout.ids.long()
-    keep = cols < n
-    coo = torch.sparse_coo_tensor(torch.stack([rows[keep], cols[keep]]),
-                                  torch.ones(int(keep.sum()), device=dev), (n, n),
-                                  check_invariants=False)
-    return coo.coalesce().to_sparse_csr()
 
 
 def check_gather_sum(adj, rates):
@@ -1341,7 +1365,7 @@ def check_gather_sum(adj, rates):
     err = float((out - ns.nbr_sum_plain(x, layout)).abs().max())
     if err != 0.0:
         raise AssertionError(f"gather-sum differs from plain by {err}")
-    a = sum_matrix(adj, layout)
+    a = layout_matrix(layout, n)
 
     def library():
         return torch.sparse.mm(a, x)
@@ -1504,6 +1528,56 @@ def compare_nc_with_cpu():
     print(f"small NC run, card against CPU (collapse and general, 2 epochs): "
           f"max abs difference {worst:.3g} (tolerance rtol 1e-4, atol 1e-5)", flush=True)
 
+    # full-graph GAT (dropout masks from one CPU generator on both devices) and RGCN
+    # over 3 relations, seed-restricted, through the slice's kernel consumers
+    from marius_tpu_torch.nn.layers import DropoutKey
+    rels = np.random.default_rng(7).integers(0, 3, len(edges))
+    edges3 = np.stack([edges[:, 0], rels, edges[:, 1]], 1).astype(np.int32)
+    worst = 0.0
+    for gnn in ("GAT", "RGCN"):
+        adj_g = build_full_graph_adjacency(edges3, n, with_relations=gnn == "RGCN")
+        model = small_gnn_model(gnn, f, 3)
+        graph3 = build_device_graph(edges3, n, 3)
+        cpu, gpu = [NodeClassificationTrainer(model, graph3, features, labels, train_nodes,
+                                              batch_size=50, seed=1, full_graph=adj_g,
+                                              device=dev) for dev in ("cpu", "cuda")]
+        if not gpu._fg_seed_restrict:
+            raise AssertionError(f"full-graph {gnn} must take the seed-restricted path")
+        keys = DropoutKey(torch.Generator().manual_seed(1))
+        gpu._dropout_key = lambda _k=keys: _k
+        gpu._epoch_permutation = lambda s, _c=cpu, _g=gpu: _c._epoch_permutation(s).to(_g.device)
+        for _ in range(2):
+            lc, lg = cpu.train_epoch()["loss"], gpu.train_epoch()["loss"]
+            if not math.isclose(lc, lg, rel_tol=1e-4):
+                raise AssertionError(f"full-graph {gnn} loss on the card {lg} != on the CPU {lc}")
+        for a, b in zip(tree_leaves([cpu.state.params, cpu.state.opt_state.slots]),
+                        tree_leaves([gpu.state.params, gpu.state.opt_state.slots])):
+            b = b.detach().cpu()
+            worst = max(worst, float((a.detach() - b).abs().max()))
+            torch.testing.assert_close(b, a.detach(), rtol=1e-4, atol=1e-5)
+    print(f"small full-graph GAT (8 heads, input and attention dropout) and RGCN (3 "
+          f"relations) NC runs, card against CPU, seed-restricted, 2 epochs: max abs "
+          f"difference {worst:.3g} (tolerance rtol 1e-4, atol 1e-5)", flush=True)
+
+
+def small_gnn_model(gnn_type: str, f: int, rels: int):
+    """FEATURE (bias), then two GNN layers with bias (RELU between): GAT with
+    8 averaged heads, input dropout 0.1 and attention dropout 0.2, or RGCN
+    over ``rels`` relations; 5 classes, CE SUM, Adam lr 0.01."""
+    from marius_tpu_torch.nn.encoder import EncoderConfig
+    from marius_tpu_torch.nn.layers import LayerConfig
+    from marius_tpu_torch.nn.model import NODE_CLASSIFICATION, Model
+    from marius_tpu_torch.nn.optimizers import OptimizerConfig
+
+    kw = (dict(gnn_type="GAT", num_heads=8, input_dropout=0.1, attention_dropout=0.2)
+          if gnn_type == "GAT" else dict(gnn_type="RGCN", num_relations=rels))
+    return Model(NODE_CLASSIFICATION, EncoderConfig((
+        (LayerConfig("FEATURE", output_dim=f, bias=True),),
+        (LayerConfig("GNN", input_dim=f, output_dim=16, bias=True, activation="RELU", **kw),),
+        (LayerConfig("GNN", input_dim=16, output_dim=5, bias=True, **kw),))), None,
+        loss_type="CROSS_ENTROPY", loss_reduction="SUM",
+        dense_optimizer=OptimizerConfig("ADAM", learning_rate=NC_LR))
+
 
 # -- sampled node classification through the manager ----------------------------
 
@@ -1637,7 +1711,9 @@ def nc_sampled(card: str, data) -> dict:
     print(f"nc_sampled launches: gather_rows {rows}, gather_sum {sums}, Adagrad 0 "
           f"({trainer.num_batches} train batches per epoch, {len(train_evals)} valid "
           f"evaluations of {train_evals[0][0]} batches, test {evals[-1][0]} batches)", flush=True)
-    return {"gather_rows": rows, "gather_sum": sums, "trainer": trainer}
+    return {"gather_rows": rows, "gather_sum": sums, "trainer": trainer,
+            "sparse_adagrad_update_": {"nc_sampled train": totals[2],
+                                       "nc_sampled marius_eval": reload_totals[2]}}
 
 
 def sampled_shapes(trainer, rates, card) -> dict:
@@ -1791,6 +1867,559 @@ def compare_sampled_nc_with_cpu():
           f"UNIFORM and DROPOUT hops, tight caps: {truncated} frontier ids truncated, 2 "
           f"epochs): max abs difference {worst:.3g} (tolerance rtol 1e-4, atol 1e-5)",
           flush=True)
+
+    # sampled GAT (the sampler's numbers and the dropout masks from one CPU
+    # generator, in the CPU trainer's order) and RGCN over 3 relations
+    from marius_tpu_torch.nn.layers import DropoutKey
+    rels = np.random.default_rng(7).integers(0, 3, len(edges))
+    graph3 = build_device_graph(np.stack([edges[:, 0], rels, edges[:, 1]], 1), n, 3)
+    worst = 0.0
+    for gnn in ("GAT", "RGCN"):
+        cpu, gpu = [NodeClassificationTrainer(small_gnn_model(gnn, f, 3), graph3, features,
+                                              labels, train_nodes, nbr, batch_size=50,
+                                              hop_caps=[50, 160, 260], seed=1, device=dev)
+                    for dev in ("cpu", "cuda")]
+        g1 = torch.Generator().manual_seed(1)
+        gpu_draws, keys = _moved(generator_draws(g1), gpu.device), DropoutKey(g1)
+        gpu._batch_draws, gpu._dropout_key = (lambda: gpu_draws), (lambda: keys)
+        gpu._epoch_permutation = lambda p, _c=cpu, _g=gpu: _c._epoch_permutation(p).to(_g.device)
+        for _ in range(2):
+            rc, rg = cpu.train_epoch(), gpu.train_epoch()
+            if not math.isclose(rc["loss"], rg["loss"], rel_tol=1e-4):
+                raise AssertionError(f"sampled {gnn} NC on the card {rg} != on the CPU {rc}")
+        for a, b in zip(tree_leaves([cpu.state.params, cpu.state.opt_state.slots]),
+                        tree_leaves([gpu.state.params, gpu.state.opt_state.slots])):
+            b = b.detach().cpu()
+            worst = max(worst, float((a.detach() - b).abs().max()))
+            torch.testing.assert_close(b, a.detach(), rtol=1e-4, atol=1e-5)
+    print(f"small sampled GAT (8 heads, input and attention dropout) and RGCN (3 relations) "
+          f"NC runs, card against CPU, 2 epochs: max abs difference {worst:.3g} (tolerance "
+          f"rtol 1e-4, atol 1e-5)", flush=True)
+
+
+# -- GAT and RGCN ------------------------------------------------------------------
+
+def profile_steps(step, nb: int, tag: str, card: str) -> dict:
+    """``nb`` training batches (``step`` each) through
+    profile_torch_lp.profile_batches: host and device ms per batch, busy
+    share, device operations per batch, the top kernels."""
+    from profile_torch_lp import profile_batches
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(nb):
+            step()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    return profile_batches(run, nb, card, f"{tag}: ")
+
+
+def layout_matrix(layout, n_in: int):
+    """A gather-sum layout as an (num_out, n_in) f32 CSR matrix, padding
+    dropped and repeated slots as counts: torch.sparse.mm(A, x) is the same
+    sum in one library call (cuSPARSE)."""
+    dev = layout.ids.device
+    lens = layout.task_len.long()
+    first = torch.cumsum(lens, 0) - lens
+    slot = torch.repeat_interleave(layout.task_start, lens) + (
+        torch.arange(int(lens.sum()), device=dev) - torch.repeat_interleave(first, lens))
+    hub_of_piece = torch.zeros(max(layout.num_partials, 1), dtype=torch.long, device=dev)
+    for k in range(int(layout.fold_count.max()) if layout.fold_count.numel() else 0):
+        has = k < layout.fold_count
+        hub_of_piece[(layout.fold_first[has] + k).long()] = layout.fold_dest[has].long()
+    dest = layout.task_dest.long()
+    row = torch.where(dest >= 0, dest, hub_of_piece[(-dest - 1).clamp(min=0)])
+    rows, cols = torch.repeat_interleave(row, lens), layout.ids[slot].long()
+    keep = (cols >= 0) & (cols < n_in)
+    coo = torch.sparse_coo_tensor(torch.stack([rows[keep], cols[keep]]),
+                                  torch.ones(int(keep.sum()), device=dev),
+                                  (layout.num_out, n_in), check_invariants=False)
+    return coo.coalesce().to_sparse_csr()
+
+
+def time_layout_sum(layout, n_in: int, d: int, rates, what: str, card: str) -> dict:
+    """The gather-sum kernel on one layout of a new consumer, bit for bit
+    against its plain version, timed beside the plain version, the bound
+    (each real slot's row read once, the ids, the output written once; one
+    add per real slot element) and torch.sparse.mm."""
+    from marius_tpu_torch.ops.cuda import nbr_sum as ns
+
+    dev = layout.ids.device
+    x = torch.randn(n_in, d, device=dev, generator=torch.Generator(device=dev).manual_seed(11))
+    out = ns.nbr_sum(x, layout)
+    ref = ns.nbr_sum_plain(x, layout)
+    torch.cuda.synchronize()
+    if not torch.equal(out, ref):
+        raise AssertionError(f"gather-sum differs from plain at {what}")
+    a = layout_matrix(layout, n_in)
+    torch.testing.assert_close(torch.sparse.mm(a, x), out, rtol=1e-4, atol=1e-3)
+    real = int(((layout.ids >= 0) & (layout.ids < n_in)).sum())
+    nbytes = real * d * 4 + layout.ids.numel() * 4 + layout.num_out * d * 4
+    b_ms, b_by = bound_ms(nbytes, real * d, rates)
+    r = {"slots": layout.ids.numel(), "real_slots": real, "rows_out": layout.num_out, "d": d,
+         "max_abs_err": 0.0, "ms": time_ms(lambda: ns.nbr_sum(x, layout)),
+         "plain_ms": time_ms(lambda: ns.nbr_sum_plain(x, layout), reps=2, samples=3),
+         "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": nbytes,
+         "library_ms": time_ms(lambda: torch.sparse.mm(a, x), reps=10, samples=5)}
+    print(f"gather_sum, {what} ({r['slots']} slots, {real} real, {layout.num_out} rows out, "
+          f"d={d}, {nbytes / 1e6:.4f} MB): max_abs_err 0.0  kernel {r['ms'] * 1e3:.2f} us  "
+          f"plain {r['plain_ms'] * 1e3:.2f} us  torch.sparse.mm {r['library_ms'] * 1e3:.2f} us"
+          f"  bound {b_ms * 1e3:.2f} us ({b_by})  [{card}]", flush=True)
+    return r
+
+
+def gat_options() -> dict:
+    """bench_nc_full.py:92-96's gat8: 8 heads, averaged."""
+    return {"type": "GAT", "num_heads": GAT_HEADS, "average_heads": True}
+
+
+def nc_gat(card: str, data) -> dict:
+    """The slice's main path: examples/configuration/ogbn_arxiv.yaml with its
+    three GraphSAGE layers switched to GAT (gat8: 8 heads averaged, d = 128
+    -> 128 -> 40, bias; the YAML's UNIFORM 32 in and out and hop caps)
+    through marius_train and marius_eval on the card. Every GAT layer here
+    takes the aggregate-then-project form (8 x 128 > 128 and 8 x 40 > 128):
+    two slot gathers (the raw rows, the per-head logits) through the row
+    gather, so training and each evaluation launch it 7 times per batch (the
+    outer hop's features and 2 per layer) and the gather-sum never.
+    Returns the launches per part and the trainer."""
+    from marius_tpu_torch.config import load_config
+    from marius_tpu_torch.manager import marius_eval, marius_train
+    from marius_tpu_torch.ops.cuda import adagrad, gather
+    from marius_tpu_torch.ops.cuda import nbr_sum as ns
+    from marius_tpu_torch.train import nc as nc_mod
+
+    config = Path(__file__).resolve().parent / "examples" / "configuration" / "ogbn_arxiv.yaml"
+    with open(config) as f:
+        raw = yaml.safe_load(f)
+    for stage in raw["model"]["encoder"]["layers"][1:]:
+        stage[0]["options"] = gat_options()
+    per_batch = 1 + 2 * NC_GNN_STAGES
+    evals = []
+    evaluate = nc_mod.NodeClassificationEvaluator.evaluate
+
+    def counted(self, state):
+        before = (gather.launches, ns.launches)
+        res = evaluate(self, state)
+        evals.append((self.num_batches, gather.launches - before[0], ns.launches - before[1]))
+        return res
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_arxiv_shaped(f"{tmp}/dataset", data)
+        raw["storage"]["dataset"]["dataset_dir"] = f"{tmp}/dataset"
+        epochs_in_yaml = raw["training"]["num_epochs"]
+        raw["training"]["num_epochs"] = NC_GAT_EPOCHS
+        cfg = load_config(raw, model_dir=f"{tmp}/model")
+        print(f"nc_gat: {config.relative_to(config.parents[2])} with its GRAPH_SAGE layers "
+              f"switched to {gat_options()}, dataset_dir and model_dir redirected; one cut: "
+              f"num_epochs {epochs_in_yaml} -> {NC_GAT_EPOCHS}; dataset written in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        nc_mod.NodeClassificationEvaluator.evaluate = counted
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            gather.launches = ns.launches = adagrad.launches = 0
+            out = marius_train(cfg)   # device=None: the GPU
+            totals = (gather.launches, ns.launches, adagrad.launches)
+            peak = torch.cuda.max_memory_allocated()
+            train_evals = list(evals)
+            gather.launches = ns.launches = adagrad.launches = 0
+            again = marius_eval(cfg)
+            reload_totals = (gather.launches, ns.launches, adagrad.launches)
+        finally:
+            nc_mod.NodeClassificationEvaluator.evaluate = evaluate
+
+    trainer = out["runtime"].trainer
+    layers = [s[0] for s in trainer.model.encoder.stages[1:]]
+    if trainer.device.type != "cuda" or trainer.full_graph is not None or any(
+            (l.gnn_type, l.num_heads, l.average_heads) != ("GAT", GAT_HEADS, True)
+            for l in layers):
+        raise AssertionError("the GAT model must train on the GPU through the sampled trainer")
+    if trainer.hop_caps != tuple(raw["model"]["encoder"]["hop_caps"]):
+        raise AssertionError(f"hop caps {trainer.hop_caps} are not the YAML's")
+    losses = [e["loss"] for e in out["epochs"]]
+    for i, (e, v) in enumerate(zip(out["epochs"], out["evals"])):
+        print(f"nc_gat epoch {i}: loss {e['loss']:.6f}  {e['epoch_time_s']:.4f} s  "
+              f"{e['nodes_per_sec']:.1f} train nodes/s  truncated frontier ids "
+              f"{e['truncated_frontier_ids']}  valid accuracy {v['accuracy']:.6f}  [{card}]",
+              flush=True)
+        if not v["accuracy"] > 1.0 / ARXIV_CLASSES:
+            raise AssertionError(f"valid accuracy is not above chance: {v}")
+    if len(losses) != NC_GAT_EPOCHS or not all(math.isfinite(x) for x in losses) or not all(
+            b < a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"nc_gat losses are not finite and falling: {losses}")
+    test, reloaded = out["test"], again["test"]
+    print(f"nc_gat: test accuracy {test['accuracy']:.6f} over {int(test['num_evaluated'])} "
+          f"nodes (chance {1 / ARXIV_CLASSES}, floor {NC_GAT_MIN_ACCURACY}); peak device "
+          f"memory {peak / 2**30:.3f} GiB  [{card}]", flush=True)
+    if not test["accuracy"] >= NC_GAT_MIN_ACCURACY or test["num_evaluated"] != ARXIV_NODES - \
+            ARXIV_TRAIN - ARXIV_VALID:
+        raise AssertionError(f"test evaluation is wrong or below {NC_GAT_MIN_ACCURACY}: {test}")
+    if any(test[k] != reloaded[k] for k in ("accuracy", "num_evaluated")):
+        raise AssertionError(f"marius_eval's test metrics {reloaded} differ from "
+                             f"marius_train's {test}")
+    print("nc_gat: marius_eval reloaded the checkpoint and reproduced the test metrics exactly",
+          flush=True)
+
+    train_batches = NC_GAT_EPOCHS * trainer.num_batches
+    eval_batches = sum(b for b, _, _ in train_evals)
+    train_rows = totals[0] - sum(g for _, g, _ in train_evals)
+    train_sums = totals[1] - sum(s for _, _, s in train_evals)
+    if (train_rows, train_sums, totals[2]) != (per_batch * train_batches, 0, 0):
+        raise AssertionError(f"nc_gat training launched gather_rows {train_rows}, gather_sum "
+                             f"{train_sums} and Adagrad {totals[2]} times for {train_batches} "
+                             f"batches (expected {per_batch}, 0 and 0 per batch)")
+    for batches, g, s in evals:
+        if (g, s) != (per_batch * batches, 0):
+            raise AssertionError(f"an evaluation of {batches} batches launched gather_rows {g} "
+                                 f"and gather_sum {s} times (expected {per_batch} and 0 per "
+                                 "batch)")
+    if reload_totals[2] != 0 or len(evals) != len(train_evals) + 1:
+        raise AssertionError("marius_eval must evaluate once, without Adagrad")
+    rows = {"nc_gat train": train_rows, "nc_gat eval": per_batch * eval_batches,
+            "nc_gat marius_eval": reload_totals[0]}
+    print(f"nc_gat launches: gather_rows {rows} ({per_batch} per batch), gather_sum 0, Adagrad "
+          f"0 ({trainer.num_batches} train batches per epoch, {len(train_evals)} valid "
+          f"evaluations of {train_evals[0][0]} batches, test {evals[-1][0]} batches)", flush=True)
+
+    b = trainer.batch_size
+    seeds = trainer.train_nodes[:b]
+    mask = torch.ones(b, dtype=torch.bool, device=trainer.device)
+    prof = profile_steps(lambda: trainer._sampled_batch_step(seeds, mask), 5, "nc_gat step",
+                         card)
+    timed = out["epochs"][1:] or out["epochs"]
+    return {"gather_rows": rows, "trainer": trainer, "profile": prof,
+            "gather_sum": {"nc_gat train": totals[1], "nc_gat marius_eval": reload_totals[1]},
+            "sparse_adagrad_update_": {"nc_gat train": totals[2],
+                                       "nc_gat marius_eval": reload_totals[2]},
+            "nodes_per_s": sum(e["num_nodes"] for e in timed) / sum(
+                e["epoch_time_s"] for e in timed)}
+
+
+def gat_slot_shapes(trainer, rates, card) -> dict:
+    """The row gather at the GAT slot block of one real nc_gat training
+    batch's first layer: 65,536 targets x 65 slots (32 in, 32 out, self)
+    into the outer hop's 169,344 rows, d = 128, bit for bit against the
+    plain version, timed beside its bound and index_select."""
+    from marius_tpu_torch.data.samplers.neighbor import sample_neighbor_batch
+    from marius_tpu_torch.ops.cuda import gather
+    from marius_tpu_torch.ops.segment import slot_ids
+
+    dev, b = trainer.device, trainer.batch_size
+    nb = sample_neighbor_batch(trainer._batch_draws(), trainer.graph, trainer.train_nodes[:b],
+                               torch.ones(b, dtype=torch.bool, device=dev), trainer.nbr_configs,
+                               trainer.hop_caps)
+    adj, n_x = nb.layers[0], nb.node_ids[0].shape[0]
+    ids = torch.cat([slot_ids(n_x, adj.in_nbr_idx.long(), adj.in_mask),
+                     slot_ids(n_x, adj.out_nbr_idx.long(), adj.out_mask),
+                     adj.self_idx.long().clamp(max=n_x - 1)[:, None]], 1).int().reshape(-1)
+    table = torch.randn(n_x, NC_DIM, device=dev, generator=torch.Generator(device=dev)
+                        .manual_seed(12))
+    err = gather_max_err(gather, table, ids)
+    r = time_gather(gather, table, [ids], rates)
+    r["max_abs_err"] = err
+    print(f"gather_rows, GAT layer 0 slots (K={r['k']} = {adj.self_idx.shape[0]} x "
+          f"{ids.numel() // adj.self_idx.shape[0]}, d={r['d']}, {r['distinct_rows']:.0f} "
+          f"distinct rows, {r['bound_bytes'] / 1e6:.4f} MB): max_abs_err {err}  kernel "
+          f"{r['ms'] * 1e3:.2f} us  plain {r['plain_ms'] * 1e3:.2f} us  index_select "
+          f"{r['library_ms'] * 1e3:.2f} us  bound {r['bound_ms'] * 1e3:.2f} us "
+          f"({r['bound_by']})  [{card}]", flush=True)
+    return r
+
+
+def gat_against_cpu(gpu, data, card) -> dict:
+    """The nc_gat model as trained, at full width, on the card against the
+    same model on the CPU (the kernels' plain versions): NC_GAT_CPU_BATCHES
+    training batches of the first train nodes, each from the trained
+    parameters with the same sampler numbers (one CPU generator per device,
+    seeded alike) at the YAML's hop caps. The truncated frontier ids must be
+    equal and the loss agrees to rtol 1e-4 / atol 1e-5, as in the small
+    card-against-CPU runs. Logits and gradients are float32 results whose
+    order of summation differs between the devices, so each device is held
+    against the same batch in float64 on the CPU. The logits: the card's
+    largest error, relative to the largest logit, at most 10 times the CPU
+    float32 run's, or 1e-6. The gradients, normwise (|g - g64| / |g64|), on
+    both devices at most NC_GAT_GRAD_F64_TOL: by softmax's shift invariance
+    the target-side attention term (a_l, and through it the first layer's w
+    and bias and the FEATURE bias) has a gradient that is a residual of
+    per-slot terms which cancel except where LeakyReLU bends, and float32
+    leaves up to ~3e-3 of it (on either device, in different trained
+    states); a fault in a gather or its backward moves whole rows. Returns
+    the worst of each."""
+    from marius_tpu_torch.data.samplers.neighbor import generator_draws
+    from marius_tpu_torch.nn.encoder import encoder_forward
+    from marius_tpu_torch.nn.model import nc_batch_loss
+    from marius_tpu_torch.nn.optimizers import tree_leaves, tree_map
+    from marius_tpu_torch.train.nc import NodeClassificationTrainer
+
+    _, features, labels, train_nodes = data
+    t0 = time.perf_counter()
+    cpu = NodeClassificationTrainer(gpu.model, gpu.graph.to("cpu"), features, labels,
+                                    train_nodes, gpu.nbr_configs, batch_size=gpu.batch_size,
+                                    hop_caps=gpu.hop_caps, device="cpu")
+    with torch.no_grad():
+        for a, b in zip(tree_leaves(cpu.state.params), tree_leaves(gpu.state.params)):
+            a.copy_(b.cpu())
+    params64 = tree_map(lambda x: x.detach().double().requires_grad_(True), cpu.state.params)
+
+    def grads_of(t, params, nb, feats, seeds, mask):
+        logits = encoder_forward(t.model.encoder, params["encoder"], None, feats, nb,
+                                 degrees=t.graph.degrees, train=True,
+                                 dropout_key=t._dropout_key())
+        loss = nc_batch_loss(t.model, logits, t.labels[seeds], mask & nb.seed_mask)
+        return logits.detach(), loss.detach(), torch.autograd.grad(loss, tree_leaves(params))
+
+    def batch(t, draws, seeds):
+        mask = torch.ones(seeds.shape[0], dtype=torch.bool, device=t.device)
+        nb, feats, _ = t._encode_batch(None, draws, seeds, mask, t.hop_caps)
+        out = grads_of(t, t.state.params, nb, feats, seeds, mask)
+        ref = grads_of(t, params64, nb, feats.double(), seeds, mask) if t is cpu else None
+        return int(nb.overflow), out, ref
+
+    def rel_err(g, ref):
+        return float((g.cpu().double() - ref).abs().max()) / max(float(ref.abs().max()), 1e-300)
+
+    def norm_err(g, ref):
+        return float((g.cpu().double() - ref).norm()) / max(float(ref.norm()), 1e-300)
+
+    worst = {"logits": 0.0, "logits_card_vs_f64": 0.0, "logits_cpu_vs_f64": 0.0,
+             "loss_rel": 0.0, "grad_rel": 0.0, "grad_card_vs_f64": 0.0, "grad_cpu_vs_f64": 0.0}
+    b = gpu.batch_size
+    for i in range(NC_GAT_CPU_BATCHES):
+        seeds = gpu.train_nodes[i * b:(i + 1) * b]
+        gd = _moved(generator_draws(torch.Generator().manual_seed(100 + i)), gpu.device)
+        cd = generator_draws(torch.Generator().manual_seed(100 + i))
+        og, (lg, sg, gg), _ = batch(gpu, gd, seeds)
+        oc, (lc, sc, gc), (l64, _, g64) = batch(cpu, cd, seeds.cpu())
+        if og != oc:
+            raise AssertionError(f"nc_gat batch {i}: {og} frontier ids truncated on the card, "
+                                 f"{oc} on the CPU")
+        torch.testing.assert_close(sg.cpu(), sc, rtol=1e-4, atol=1e-5)
+        worst["logits"] = max(worst["logits"], float((lg.cpu() - lc).abs().max()))
+        worst["loss_rel"] = max(worst["loss_rel"], abs(float(sg) - float(sc)) / abs(float(sc)))
+        card_err, cpu_err = rel_err(lg, l64), rel_err(lc, l64)
+        worst["logits_card_vs_f64"] = max(worst["logits_card_vs_f64"], card_err)
+        worst["logits_cpu_vs_f64"] = max(worst["logits_cpu_vs_f64"], cpu_err)
+        if card_err > max(10 * cpu_err, 1e-6):
+            raise AssertionError(f"nc_gat batch {i}: the logits are {card_err:.3g} of the "
+                                 f"largest from the float64 reference on the card, "
+                                 f"{cpu_err:.3g} on the CPU")
+        for a, c, r in zip(gg, gc, g64):
+            card_err, cpu_err = norm_err(a, r), norm_err(c, r)
+            worst["grad_rel"] = max(worst["grad_rel"], norm_err(a, c.double()))
+            worst["grad_card_vs_f64"] = max(worst["grad_card_vs_f64"], card_err)
+            worst["grad_cpu_vs_f64"] = max(worst["grad_cpu_vs_f64"], cpu_err)
+            if max(card_err, cpu_err) > NC_GAT_GRAD_F64_TOL:
+                raise AssertionError(f"nc_gat batch {i}: a {tuple(c.shape)} gradient is "
+                                     f"{card_err:.3g} (card) and {cpu_err:.3g} (CPU) of its "
+                                     f"norm from the float64 reference")
+    print(f"nc_gat at full width, card against CPU ({NC_GAT_CPU_BATCHES} training batches of "
+          f"{b} seeds from the trained parameters, same sampler numbers, hop caps "
+          f"{gpu.hop_caps}, {og} frontier ids truncated in the last): loss relative "
+          f"{worst['loss_rel']:.3g} (tolerance rtol 1e-4, atol 1e-5); logits card against CPU "
+          f"{worst['logits']:.3g} max abs; relative to their largest element, against float64 "
+          f"card {worst['logits_card_vs_f64']:.3g} and CPU {worst['logits_cpu_vs_f64']:.3g} "
+          f"(tolerance: the card within 10 times the CPU's error, or 1e-6); gradients, "
+          f"normwise: card against CPU {worst['grad_rel']:.3g}, against float64 card "
+          f"{worst['grad_card_vs_f64']:.3g} and CPU {worst['grad_cpu_vs_f64']:.3g} (tolerance "
+          f"{NC_GAT_GRAD_F64_TOL} on both); {time.perf_counter() - t0:.1f} s  [{card}]",
+          flush=True)
+    return worst
+
+
+def arxiv_gnn_model(gnn_type: str):
+    """bench_nc_full.py:88-113: FEATURE 128 (bias), then three GNN layers 128
+    -> 128 -> 128 -> 40 with bias (GAT: gat8; RGCN: 8 relations), CE SUM,
+    Adam lr 0.01."""
+    from marius_tpu_torch.nn.encoder import EncoderConfig
+    from marius_tpu_torch.nn.layers import LayerConfig
+    from marius_tpu_torch.nn.model import NODE_CLASSIFICATION, Model
+    from marius_tpu_torch.nn.optimizers import OptimizerConfig
+
+    def gnn(din, dout):
+        return (LayerConfig("GNN", input_dim=din, output_dim=dout, gnn_type=gnn_type,
+                            bias=True, num_heads=GAT_HEADS, average_heads=True,
+                            num_relations=ARXIV_RELS),)
+
+    return Model(NODE_CLASSIFICATION, EncoderConfig((
+        (LayerConfig("FEATURE", output_dim=ARXIV_FEATS, bias=True),),
+        gnn(ARXIV_FEATS, NC_DIM), gnn(NC_DIM, NC_DIM), gnn(NC_DIM, ARXIV_CLASSES))), None,
+        loss_type="CROSS_ENTROPY", loss_reduction="SUM",
+        dense_optimizer=OptimizerConfig("ADAM", learning_rate=NC_LR))
+
+
+def nc_full_graph_gnn(card: str, data, gnn_type: str, batches=None) -> dict:
+    """Exact-ALL full-graph NC at arxiv shape through NodeClassificationTrainer
+    (as bench_nc_full.py drives it), the final stage seed-restricted: RGCN
+    over 8 uniform relations drawn from a seed (bench_nc_full.py:69), one
+    epoch, then evaluation on the non-train nodes; or gat8, ``batches``
+    batches. Per training batch the two full stages launch the gather-sum
+    twice each (RGCN: the anchor sum and the slot gather's backward; GAT:
+    the inverse-map backward of the raw rows and of the logits) and the row
+    gather twice each (RGCN: the slot gather and the anchor sum's backward;
+    GAT: the two slot gathers); evaluation runs the three stages forward
+    (RGCN: one slot gather and one anchor sum each)."""
+    from marius_tpu_torch.data.full_graph import build_full_graph_adjacency
+    from marius_tpu_torch.data.graph import build_device_graph
+    from marius_tpu_torch.ops.cuda import adagrad, gather
+    from marius_tpu_torch.ops.cuda import nbr_sum as ns
+    from marius_tpu_torch.train.nc import NodeClassificationEvaluator, NodeClassificationTrainer
+
+    def zero():
+        gather.launches = ns.launches = adagrad.launches = 0
+
+    def read():
+        return gather.launches, ns.launches, adagrad.launches
+
+    tag = f"nc_{gnn_type.lower()}_full"
+    edges, features, labels, train_nodes = data
+    rels = gnn_type == "RGCN"
+    if rels:
+        r = np.random.default_rng(8).integers(0, ARXIV_RELS, len(edges)).astype(np.int32)
+        edges = np.stack([edges[:, 0], r, edges[:, 1]], 1)
+    t0 = time.perf_counter()
+    adj = build_full_graph_adjacency(edges, ARXIV_NODES, with_relations=rels)
+    graph = build_device_graph(edges, ARXIV_NODES, ARXIV_RELS if rels else 1)
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero()
+    t0 = time.perf_counter()
+    trainer = NodeClassificationTrainer(arxiv_gnn_model(gnn_type), graph, features, labels,
+                                        train_nodes, batch_size=BATCH, seed=0, full_graph=adj)
+    torch.cuda.synchronize()
+    setup = (time.perf_counter() - t0,) + read()
+    if trainer.device.type != "cuda" or trainer._fg_collapse is not None or \
+            not trainer._fg_seed_restrict or (trainer._fg_rel_csr is not None) != rels or \
+            (trainer.full_graph.inv_map is not None) == rels:
+        raise AssertionError(f"{tag} must train on the GPU on the seed-restricted general path")
+    what = (f"{adj.rel.total_slots} relational slots ({ARXIV_RELS} relations), "
+            f"{len(adj.rel.anchor_slots)} anchor and {len(adj.rel.occ_slots)} occurrence "
+            "buckets" if rels else f"{adj.total_slots} slots in {len(adj.nbrs)} buckets, the "
+            "inverse occurrence map of the same shapes")
+    print(f"{tag}: adjacency and graph on the host {host_s:.2f} s ({what}); trainer set-up "
+          f"{setup[0]:.2f} s, launches gather_rows {setup[1]}, gather_sum {setup[2]}, Adagrad "
+          f"{setup[3]}  [{card}]", flush=True)
+    counts = {f"{tag} setup": setup[1:]}
+    zero()
+    if batches is None:
+        res = trainer.train_epoch()
+        nb = trainer.num_batches
+        print(f"{tag} epoch: loss {res['loss']:.6f}  {res['epoch_time_s']:.4f} s  "
+              f"{res['nodes_per_sec']:.1f} train nodes/s  "
+              f"{res['epoch_time_s'] / nb * 1e3:.4f} ms per batch  [{card}]", flush=True)
+        if not math.isfinite(res["loss"]):
+            raise AssertionError(f"{tag} loss is not finite: {res}")
+        out = {"epoch_s": res["epoch_time_s"], "nodes_per_s": res["nodes_per_sec"]}
+    else:
+        nb = batches
+        perm = trainer._epoch_permutation(0)[:nb * BATCH]
+        seeds = trainer.train_nodes[perm].reshape(nb, BATCH)
+        masks = (perm < trainer.num_train).reshape(nb, BATCH)
+        slots = trainer._batch_slot_counts(seeds, masks)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = [trainer._batch_step(seeds[i], masks[i], slots[i]) for i in range(nb)]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        losses = [float(x) for x in losses]
+        print(f"{tag}: {nb} batches of the first epoch in {dt:.4f} s, {dt / nb:.4f} s per "
+              f"batch, {nb * BATCH / dt:.1f} train nodes/s; losses {losses[0]:.3f} ... "
+              f"{losses[-1]:.3f}  [{card}]", flush=True)
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{tag} losses are not finite: {losses}")
+        out = {"s_per_batch": dt / nb, "nodes_per_s": nb * BATCH / dt}
+    counts[f"{tag} train"] = read()
+    if counts[f"{tag} setup"] != (0, 0, 0) or counts[f"{tag} train"] != (4 * nb, 4 * nb, 0):
+        raise AssertionError(f"{tag} launched (gather_rows, gather_sum, Adagrad) {counts} for "
+                             f"{nb} training batches (expected none at set-up; 4, 4 and 0 per "
+                             "batch)")
+    peak = torch.cuda.max_memory_allocated()
+    if batches is not None:
+        out["profile"] = profile_steps(lambda: trainer._batch_step(seeds[0], masks[0],
+                                                                   slots[0]), 2,
+                                       f"{tag} step", card)
+    else:
+        eval_nodes = np.setdiff1d(np.arange(ARXIV_NODES), train_nodes)
+        zero()
+        t0 = time.perf_counter()
+        acc = NodeClassificationEvaluator(trainer, eval_nodes).evaluate(trainer.state)
+        eval_s = time.perf_counter() - t0
+        counts[f"{tag} evaluation"] = read()
+        expect = (NC_GNN_STAGES, NC_GNN_STAGES, 0) if rels else (2 * NC_GNN_STAGES, 0, 0)
+        if counts[f"{tag} evaluation"] != expect or not acc["accuracy"] > 1.0 / ARXIV_CLASSES:
+            raise AssertionError(f"{tag} evaluation: {acc}, launches "
+                                 f"{counts[f'{tag} evaluation']} (expected {expect})")
+        print(f"{tag} evaluation: accuracy {acc['accuracy']:.6f} over "
+              f"{int(acc['num_evaluated'])} non-train nodes (chance {1 / ARXIV_CLASSES}) in "
+              f"{eval_s:.4f} s", flush=True)
+        out["accuracy"] = acc["accuracy"]
+        b = trainer.batch_size
+        seeds, mask = trainer.train_nodes[:b], torch.ones(b, dtype=torch.bool,
+                                                          device=trainer.device)
+        slots = trainer._batch_slot_counts(seeds[None], mask[None])[0]
+        out["profile"] = profile_steps(lambda: trainer._batch_step(seeds, mask, slots), 5,
+                                       f"{tag} step", card)
+    print(f"{tag}: peak device memory {peak / 2**30:.3f} GiB; launches (gather_rows, "
+          f"gather_sum, Adagrad) {counts}: 4, 4 and 0 per training batch  [{card}]", flush=True)
+    out.update(trainer=trainer, peak_gib=peak / 2**30,
+               gather_rows={k: v[0] for k, v in counts.items()},
+               gather_sum={k: v[1] for k, v in counts.items()},
+               sparse_adagrad_update_={k: v[2] for k, v in counts.items()})
+    return out
+
+
+def full_graph_shapes(rgcn_trainer, gat_trainer, rates, card) -> dict:
+    """Both kernels at every shape the full-graph RGCN and GAT stages give
+    them, each bit for bit against its plain version and timed beside its
+    bound and library call. The gather-sum: the relational anchor sum (each
+    node's transformed out-edge slots, 8 relations at arxiv shape) and the
+    slot gather's backward over the occurrence layout (each node's slots
+    among the relation buckets), at d = 128; GAT's inverse-map backward
+    (each node's occurrences among the adjacency's slots) at d = 128 (the raw
+    rows) and d = 8 (the per-head logits). The row gather, over x with its
+    zero row appended: RGCN's slot gather and the anchor sum's backward (each
+    slot's anchor row) at d = 128, GAT's block gathers at d = 128 and 8."""
+    from marius_tpu_torch.ops.cuda import gather
+    from marius_tpu_torch.ops.cuda import nbr_sum as ns
+
+    rel_sum = rgcn_trainer._fg_ops["rel_sum"]
+    adj = gat_trainer.full_graph
+    perm = torch.argsort(adj.inv_pos.long(), stable=True)
+    inv_layout = ns.bucket_layout(adj.inv_map, perm, adj.num_nodes)
+    t = rel_sum.rg.total_slots
+    sums = {"rgcn_anchor_sum": time_layout_sum(
+                rel_sum.anchor_layout, t, NC_DIM, rates, "RGCN relational anchor sum", card),
+            "rgcn_slot_gather_backward": time_layout_sum(
+                rel_sum.occ_layout, t, NC_DIM, rates, "RGCN slot gather's backward (occurrence "
+                "layout)", card),
+            "gat_inverse_map": time_layout_sum(
+                inv_layout, adj.total_slots, NC_DIM, rates, "GAT inverse-map backward", card),
+            "gat_inverse_map_logits": time_layout_sum(
+                inv_layout, adj.total_slots, GAT_HEADS, rates,
+                "GAT inverse-map backward of the logits", card)}
+
+    dev, n = adj.nbrs[0].device, adj.num_nodes
+    g = torch.Generator(device=dev).manual_seed(13)
+    block_ids = torch.cat([b.reshape(-1) for b in adj.nbrs])
+    rows = {}
+    for name, ids, d in (("rgcn_slot_gather", rel_sum.ids, NC_DIM),
+                         ("rgcn_anchor_sum_backward", rel_sum.rg.slot_src, NC_DIM),
+                         ("gat_block_gather", block_ids, NC_DIM),
+                         ("gat_block_gather_logits", block_ids, GAT_HEADS)):
+        table = torch.randn(n + 1, d, device=dev, generator=g)
+        table[n] = 0
+        err = gather_max_err(gather, table, ids)
+        r = rows[name] = time_gather(gather, table, [ids], rates)
+        r["max_abs_err"] = err
+        print(f"gather_rows, {name} (K={r['k']} {ids.dtype} ids into ({n + 1}, {d}), "
+              f"{r['distinct_rows']:.0f} distinct rows, {r['bound_bytes'] / 1e6:.4f} MB): "
+              f"max_abs_err {err}  kernel {r['ms'] * 1e3:.2f} us  plain "
+              f"{r['plain_ms'] * 1e3:.2f} us  index_select {r['library_ms'] * 1e3:.2f} us  "
+              f"bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})  [{card}]", flush=True)
+    return {"gather_rows": rows, "gather_sum": sums}
 
 
 # -- GNN- and FEATURE-encoded link prediction ---------------------------------
@@ -2028,7 +2657,7 @@ def _close_leaves(a_tree, b_tree, worst: float) -> float:
     return worst
 
 
-def _gnn_lp_stages(variant: str, d: int = 8, f: int = 6):
+def _gnn_lp_stages(variant: str, d: int = 8, f: int = 6, r: int = 4):
     from marius_tpu_torch.nn.layers import LayerConfig as L
 
     emb = (L("EMBEDDING", output_dim=d),)
@@ -2044,6 +2673,10 @@ def _gnn_lp_stages(variant: str, d: int = 8, f: int = 6):
         "embedding-feature": ((L("EMBEDDING", output_dim=d - f),
                                L("FEATURE", output_dim=f, bias=True)),),
         "pure-feature": ((L("FEATURE", output_dim=f, bias=True),),),
+        # the reference's gat_1_layer and rgcn_1_layer fragments (tests/test_manager.py:239)
+        "gat": (emb, (L("GNN", input_dim=d, output_dim=d, gnn_type="GAT", num_heads=2),)),
+        "rgcn": (emb, (L("GNN", input_dim=d, output_dim=d, gnn_type="RGCN", num_relations=r,
+                         bias=True),)),
     }[variant]
 
 
@@ -2054,7 +2687,7 @@ def _gnn_lp_model(variant: str, r: int, d: int = 8, opt: str = "ADAGRAD", lr: fl
     from marius_tpu_torch.nn.model import LINK_PREDICTION, Model
     from marius_tpu_torch.nn.optimizers import OptimizerConfig
 
-    enc = EncoderConfig(_gnn_lp_stages(variant, d))
+    enc = EncoderConfig(_gnn_lp_stages(variant, d, r=r))
     width = sum(layer.output_dim for layer in enc.stages[-1])   # parallel outputs concatenate
     return Model(LINK_PREDICTION, enc, EdgeDecoder("DISTMULT", r, width),
                  loss_type="SOFTMAX_CE", loss_reduction="SUM",
@@ -2122,9 +2755,10 @@ def compare_gnn_lp_with_cpu():
     """Small GNN and FEATURE LP runs on the card against the same runs on the
     CPU (plain versions), with the same negatives, permutation and sampler
     numbers, at the optimizers and learning rates of fb15k_237.yaml (in
-    memory: SAGE, GCN, 2 layers, EMBEDDING + FEATURE, pure FEATURE) and
-    freebase86m_comet.yaml (over the partition buffer: GNN, GNN + FEATURE
-    under COMET and BETA). Every leaf of the state is held to the tolerance
+    memory: SAGE, GCN, 2 layers, EMBEDDING + FEATURE, pure FEATURE, and the
+    reference's gat_1_layer and rgcn_1_layer) and freebase86m_comet.yaml
+    (over the partition buffer: GNN, GNN + FEATURE under COMET and BETA;
+    GAT and RGCN with the table at lr 0.02). Every leaf of the state is held to the tolerance
     of tests/test_torch_lp_gnn.py (rtol 1e-4, atol 1e-5) after the first 2
     batches or 2 buffer states; over 2 whole epochs, the loss of each epoch
     (rtol 1e-4). The card's atomics add in another order than the CPU, and
@@ -2132,8 +2766,9 @@ def compare_gnn_lp_with_cpu():
     few more batches, as it does against JAX (ROADMAP C5). Then
     filtered ranks through a GNN on quantized inputs (evaluate() and the
     host-tiled evaluation, card and CPU exactly equal), exact-ALL evaluation
-    with an EMBEDDING input against sampled ALL, and the MRR of
-    tests/test_lp_gnn.py's graph above twice a random ranking's."""
+    with an EMBEDDING input against sampled ALL (SAGE, RGCN with the
+    relational companion, GAT), and the MRR of tests/test_lp_gnn.py's graph
+    above twice a random ranking's."""
     from marius_tpu_torch.data.full_graph import build_full_graph_adjacency
     from marius_tpu_torch.data.graph import build_device_graph
     from marius_tpu_torch.data.samplers.negative import NegativeSamplingConfig
@@ -2154,11 +2789,18 @@ def compare_gnn_lp_with_cpu():
     nbr = {"sage-mean": [NeighborSamplingConfig("UNIFORM", 3)],
            "gcn": [NeighborSamplingConfig("DROPOUT", 3, rate=0.3)],
            "sage-2-layers": [NeighborSamplingConfig("UNIFORM", 2),
-                             NeighborSamplingConfig("UNIFORM", 3)]}
-    variants = ("sage-mean", "gcn", "sage-2-layers", "embedding-feature", "pure-feature")
+                             NeighborSamplingConfig("UNIFORM", 3)],
+           "gat": [NeighborSamplingConfig("UNIFORM", 3)],
+           "rgcn": [NeighborSamplingConfig("UNIFORM", 3)]}
+    variants = ("sage-mean", "gcn", "sage-2-layers", "embedding-feature", "pure-feature", "gat",
+                "rgcn")
     buffer_runs = (("gnn", "sage-mean", 2000, "COMET"), ("gnn", "sage-mean", 80, "BETA"),
                    ("gnn-feature", "gnn-feature", 80, "COMET"),
-                   ("gnn-feature", "gnn-feature", 2000, "BETA"))
+                   ("gnn-feature", "gnn-feature", 2000, "BETA"),
+                   # the table at tests/test_torch_buffer_trainer.py's lr 0.02: at 0.1 one
+                   # element of the GAT run's table drifted to 2x the tolerance within 2
+                   # buffer states, float32 noise that Adagrad amplifies (ROADMAP C5)
+                   ("gat", "gat", 2000, "COMET", 0.02), ("rgcn", "rgcn", 80, "BETA", 0.02))
 
     def in_memory_pair(variant, train_edges):
         """fb15k_237.yaml's optimizers: dense Adam and table Adagrad at YAML_LR."""
@@ -2178,13 +2820,14 @@ def compare_gnn_lp_with_cpu():
         gpu._epoch_permutation = lambda s: cpu._epoch_permutation(s).to(gpu.device)
         return cpu, gpu
 
-    def buffer_pair(name, stages, nb_n, ordering):
+    def buffer_pair(name, stages, nb_n, ordering, sparse_lr=YAML_LR):
         """freebase86m_comet.yaml's optimizers: dense and table Adagrad at
-        YAML_LR; the same in-buffer and sampler draws on both devices."""
+        YAML_LR (the table at ``sparse_lr``); the same in-buffer and sampler
+        draws on both devices."""
         be = synthetic_edges(7, nb_n, r, 1500)
         bf = np.random.default_rng(6).standard_normal((nb_n, 6)).astype(np.float32)
         cpu, gpu = trainers = [PartitionBufferLPTrainer(
-            _gnn_lp_model(stages, r, d=12, lr=YAML_LR, sparse_lr=YAML_LR), nb_n, r, be, cfg,
+            _gnn_lp_model(stages, r, d=12, lr=YAML_LR, sparse_lr=sparse_lr), nb_n, r, be, cfg,
             batch_size=50 if nb_n > 80 else 100,
             num_partitions=4, buffer_capacity=2, ordering=ordering, seed=1,
             nbr_configs=[NeighborSamplingConfig("UNIFORM", 2)],
@@ -2221,7 +2864,7 @@ def compare_gnn_lp_with_cpu():
                               [gpu.buffer.host_values, gpu.buffer.host_state, gpu.params], worst)
     print(f"small GNN and FEATURE LP runs at the YAMLs' lr {YAML_LR}, card against CPU, the "
           f"state after 2 batches ({', '.join(variants)}) and 2 buffer states ("
-          + ", ".join(f"{nm} {o} {k} nodes" for nm, _, k, o in buffer_runs)
+          + ", ".join(f"{nm} {o} {k} nodes" for nm, _, k, o, *_ in buffer_runs)
           + f"): largest difference {worst:.3g} of the tolerance (rtol 1e-4, atol 1e-5)",
           flush=True)
 
@@ -2313,6 +2956,25 @@ def compare_gnn_lp_with_cpu():
           f"{random_mrr:.4f}); exact-ALL evaluation with an EMBEDDING input: MRR "
           f"{b['mrr']:.6f}, sampled ALL {a['mrr']:.6f}, encodings within rtol 1e-5, "
           f"atol 1e-6", flush=True)
+    # the same with RGCN (tests/test_lp_gnn.py:195; the relational companion) and GAT
+    # encoders, trained 2 epochs under ALL sampling
+    for variant in ("rgcn", "gat"):
+        model = _gnn_lp_model(variant, 10, d=16, opt="ADAM", lr=0.05, sparse_lr=0.1)
+        tr = LinkPredictionTrainer(model, 100, 10, train_e, NegativeSamplingConfig(5, 20),
+                                   batch_size=100, seed=0, graph=g, nbr_configs=nbr_all)
+        tr.train(2)
+        sampled = LinkPredictionEvaluator(model, 100, 10, test_e, nbr_configs=nbr_all, **kw)
+        exact = LinkPredictionEvaluator(model, 100, 10, test_e, nbr_configs=nbr_all,
+                                        full_graph=build_full_graph_adjacency(
+                                            train_e, 100, with_relations=variant == "rgcn"),
+                                        **kw)
+        a, b = sampled.evaluate(tr.state), exact.evaluate(tr.state)
+        torch.testing.assert_close(exact._encode(tr.state), sampled._encode(tr.state),
+                                   rtol=1e-5, atol=1e-5)
+        if abs(a["mrr"] - b["mrr"]) > 1e-4:
+            raise AssertionError(f"{variant} exact-ALL MRR {b['mrr']} != sampled ALL {a['mrr']}")
+        print(f"{variant} LP exact-ALL evaluation on the card: MRR {b['mrr']:.6f}, sampled "
+              f"ALL {a['mrr']:.6f}, encodings within rtol 1e-5, atol 1e-5", flush=True)
 
 
 def lp_gnn_oocore(card: str) -> dict:
@@ -2431,6 +3093,18 @@ def main() -> int:
     kernels[2]["sampled_layer0"] = shapes["gather_sum"]
     torch.cuda.empty_cache()
     compare_sampled_nc_with_cpu()
+    gat = nc_gat(card, nc)
+    gat_trainer = gat.pop("trainer")
+    kernels[0]["gat_layer0_slots"] = gat_slot_shapes(gat_trainer, rates, card)
+    gat_against_cpu(gat_trainer, nc, card)
+    del gat_trainer
+    torch.cuda.empty_cache()
+    rgcn_full = nc_full_graph_gnn(card, nc, "RGCN")
+    gat_full = nc_full_graph_gnn(card, nc, "GAT", batches=NC_GAT_FULL_BATCHES)
+    shapes = full_graph_shapes(rgcn_full.pop("trainer"), gat_full.pop("trainer"), rates, card)
+    kernels[0].update(shapes["gather_rows"])
+    kernels[2].update(shapes["gather_sum"])
+    torch.cuda.empty_cache()
     manager = lp_manager(card)
     gnn = lp_gnn(card)
     shapes = lp_gnn_shapes(gnn.pop("trainer"), rates, card)
@@ -2448,15 +3122,22 @@ def main() -> int:
     # each row's launches: the sum over the paths it runs on, each part's beside it
     by_part = {
         "gather_rows": {"lp flagship": flagship["gather_rows"], **manager["gather_rows"],
-                        **sampled["gather_rows"], **gnn["gather_rows"], **reload["gather_rows"],
+                        **sampled["gather_rows"], **gat["gather_rows"],
+                        **rgcn_full["gather_rows"], **gat_full["gather_rows"],
+                        **gnn["gather_rows"], **reload["gather_rows"],
                         **gnn_oocore["gather_rows"], **oocore["gather_rows"]},
         "sparse_adagrad_update_": {"lp flagship": flagship["sparse_adagrad_update_"],
                                    "lp_manager train": manager["sparse_adagrad_update_"],
-                                   "nc_sampled": 0, **gnn["sparse_adagrad_update_"],
+                                   **sampled["sparse_adagrad_update_"],
+                                   **gat["sparse_adagrad_update_"],
+                                   **rgcn_full["sparse_adagrad_update_"],
+                                   **gat_full["sparse_adagrad_update_"],
+                                   **gnn["sparse_adagrad_update_"],
                                    **reload["sparse_adagrad_update_"],
                                    **gnn_oocore["sparse_adagrad_update_"],
                                    **oocore["sparse_adagrad_update_"]},
-        "gather_sum": {**nc_counts, **sampled["gather_sum"], **gnn["gather_sum"],
+        "gather_sum": {**nc_counts, **sampled["gather_sum"], **gat["gather_sum"],
+                       **rgcn_full["gather_sum"], **gat_full["gather_sum"], **gnn["gather_sum"],
                        **gnn_oocore["gather_sum"]},
     }
     for k in kernels:

@@ -3,7 +3,8 @@
 Port of ``marius_tpu/data/full_graph.py`` (FullGraphAdjacency :44-93,
 _greedy_buckets :96-118, build_full_graph_adjacency :121-192,
 host_csr_from_adjacency :195-220, device_csr :223-230,
-device_seed_flat_lists :233-267, make_nbr_sums :333-408). Every GNN layer
+device_seed_flat_lists :233-267, make_nbr_sums :333-408, build_inverse_map
+:411-437, make_permuters :440-455, make_gather_blocks :458-487). Every GNN layer
 runs over ALL nodes with one fixed adjacency and the batch's rows are sliced
 from the result, which equals unbounded ALL sampling.
 
@@ -21,8 +22,14 @@ from the result, which equals unbounded ALL sampling.
   kernel (``ops/cuda/nbr_sum.py``): each sorted row is written straight to
   its original-order row, and padding ids add zero without a sentinel row.
 
-RGCN's relational companion, GAT's inverse map and ``locality_reorder``
-come with later slices and raise ``NotImplementedError``.
+GAT weighs each slot, so it gathers every bucket's (n_b, cap_b, d) slot
+block (``make_gather_blocks``, the row-gather kernel) and backs through the
+inverse occurrence map (``build_inverse_map``): by symmetry each node's
+occurrences as a neighbour fill a row of the same bucket shapes, so the
+gather's backward is one more gather-sum kernel call, never a scatter. RGCN
+reads the directional, per-relation companion (``data/full_graph_rel.py``),
+built with ``with_relations=True``. ``locality_reorder`` is not ported yet
+and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import numpy as np
 import torch
 
 from marius_tpu_torch.ops.cuda import nbr_sum as nbr_sum_kernel
+from marius_tpu_torch.ops.cuda.gather import gather_rows
 
 Tensor = torch.Tensor
 
@@ -53,6 +61,13 @@ class FullGraphAdjacency:
     in_deg: Tensor             # (N,) int32, original order
     out_deg: Tensor            # (N,) int32, original order
     num_nodes: int
+    # build_inverse_map: the buckets' shapes; sorted row r slot t = the flat
+    # (bucket-major) slot of node perm[r]'s t-th occurrence as a neighbour,
+    # pad = total_slots
+    inv_map: Optional[Tuple[Tensor, ...]] = None
+    # the directional per-relation companion RGCN stages read
+    # (data/full_graph_rel.py RelFullGraph), with_relations=True
+    rel: Optional[object] = None
 
     @property
     def total_slots(self) -> int:
@@ -73,7 +88,9 @@ class FullGraphAdjacency:
     def to(self, device) -> "FullGraphAdjacency":
         return dataclasses.replace(
             self, nbrs=tuple(b.to(device) for b in self.nbrs), inv_pos=self.inv_pos.to(device),
-            in_deg=self.in_deg.to(device), out_deg=self.out_deg.to(device))
+            in_deg=self.in_deg.to(device), out_deg=self.out_deg.to(device),
+            inv_map=None if self.inv_map is None else tuple(b.to(device) for b in self.inv_map),
+            rel=None if self.rel is None else self.rel.to(device))
 
 
 def _greedy_buckets(deg_sorted: np.ndarray, waste: float = 1.15,
@@ -106,10 +123,8 @@ def build_full_graph_adjacency(
         with_relations: bool = False,
         locality_reorder: bool = False) -> Optional[FullGraphAdjacency]:
     """Build the bucketed symmetric adjacency on the host (CPU tensors; the
-    trainer moves it to its device)."""
-    if with_relations:
-        raise NotImplementedError("the relational companion (RGCN) is not ported yet; "
-                                  "it comes with the RGCN slice")
+    trainer moves it to its device). ``with_relations`` also builds the
+    directional per-relation companion RGCN stages read."""
     if locality_reorder:
         raise NotImplementedError("locality_reorder is not ported yet; it comes with a "
                                   "later full-graph slice")
@@ -144,10 +159,14 @@ def build_full_graph_adjacency(
         nbr[rows, cols] = nbrs_sorted[np.repeat(offsets[nodes], d_b) + cols]
         buckets.append(torch.from_numpy(nbr))
 
+    rel = None
+    if with_relations:
+        from marius_tpu_torch.data.full_graph_rel import build_rel_full_graph
+        rel = build_rel_full_graph(e, num_nodes)
     return FullGraphAdjacency(
         nbrs=tuple(buckets), inv_pos=torch.from_numpy(inv_pos),
         in_deg=torch.from_numpy(in_deg), out_deg=torch.from_numpy(out_deg),
-        num_nodes=int(num_nodes))
+        num_nodes=int(num_nodes), rel=rel)
 
 
 def host_csr_from_adjacency(adj: FullGraphAdjacency) -> Tuple[np.ndarray, np.ndarray]:
@@ -241,3 +260,100 @@ def make_nbr_sums(adj: FullGraphAdjacency):
         return _NbrSum.apply(x, layout)
 
     return nbr_sum
+
+
+def build_inverse_map(adj: FullGraphAdjacency) -> FullGraphAdjacency:
+    """Fill ``inv_map``: for each node, the flat (bucket-major) slots where
+    it appears as a neighbour. By symmetry a node occurs exactly
+    combined-degree times, so the map has the SAME bucket shapes as
+    ``nbrs``. Host numpy, one stable argsort over the slots; the map lands
+    on the adjacency's device."""
+    if adj.inv_map is not None:
+        return adj
+    nbrs = [b.cpu().numpy() for b in adj.nbrs]
+    flat = np.concatenate([b.reshape(-1) for b in nbrs])
+    total = flat.shape[0]
+    order = np.argsort(flat, kind="stable").astype(np.int64)
+    occ_off = np.searchsorted(flat[order], np.arange(adj.num_nodes + 1))
+    perm = np.argsort(adj.inv_pos.cpu().numpy(), kind="stable")   # sorted row -> id
+    inv_buckets = []
+    row0 = 0
+    for b in nbrs:
+        n_b, cap = b.shape
+        nodes = perm[row0:row0 + n_b]
+        d = (occ_off[nodes + 1] - occ_off[nodes]).astype(np.int64)
+        inv = np.full((n_b, cap), total, np.int32)
+        rows = np.repeat(np.arange(n_b), d)
+        cols = np.arange(int(d.sum())) - np.repeat(np.cumsum(d) - d, d)
+        inv[rows, cols] = order[np.repeat(occ_off[nodes], d) + cols]
+        inv_buckets.append(torch.from_numpy(inv).to(adj.device))
+        row0 += n_b
+    return dataclasses.replace(adj, inv_map=tuple(inv_buckets))
+
+
+class _RowPermute(torch.autograd.Function):
+    """``x[fwd]`` whose backward is the gather ``u[bwd]`` (a permutation's
+    inverse), never a scatter."""
+
+    @staticmethod
+    def forward(ctx, x, fwd, bwd):
+        ctx.bwd = bwd
+        return x[fwd]
+
+    @staticmethod
+    def backward(ctx, u):
+        return u[ctx.bwd], None, None
+
+
+def make_permuters(adj: FullGraphAdjacency):
+    """(to_sorted, to_orig): row permutations into and out of the degree-
+    sorted order, each with a gather-only backward."""
+    inv_pos = adj.inv_pos.long()
+    perm = torch.argsort(inv_pos, stable=True)          # sorted row -> id
+
+    def to_sorted(x: Tensor) -> Tensor:
+        return _RowPermute.apply(x, perm, inv_pos)
+
+    def to_orig(x: Tensor) -> Tensor:
+        return _RowPermute.apply(x, inv_pos, perm)
+
+    return to_sorted, to_orig
+
+
+class _PaddedGather(torch.autograd.Function):
+    """(S, d) rows of x at the flat ids, the id N reading zeros (JAX's
+    ``mode="fill"``): the row-gather kernel over x with a zero row appended.
+    The backward is one gather-sum kernel call over ``layout``, the ids'
+    occurrence lists (padding occurrences add zero)."""
+
+    @staticmethod
+    def forward(ctx, x, ids, layout):
+        ctx.layout, ctx.dtype = layout, x.dtype
+        x_pad = torch.cat([x, x.new_zeros((1, x.shape[1]))])
+        return gather_rows(x_pad, ids)
+
+    @staticmethod
+    def backward(ctx, u):
+        g = nbr_sum_kernel.nbr_sum(u.to(ctx.dtype).contiguous(), ctx.layout)
+        return g.to(ctx.dtype), None, None
+
+
+def make_gather_blocks(adj: FullGraphAdjacency):
+    """Returns ``gather_blocks``: x:(N, d) -> tuple of (n_b, cap_b, d)
+    neighbour blocks, padding slots reading zeros. The backward sums each
+    node's occurrences over ``inv_map`` in one gather-sum kernel call, the
+    sorted rows landing in their original-order rows, so per-slot weighted
+    aggregations (GAT) stay scatter-free."""
+    if adj.inv_map is None:
+        raise ValueError("call build_inverse_map(adj) first (needed for weighted aggregation)")
+    ids = torch.cat([b.reshape(-1) for b in adj.nbrs])
+    perm = torch.argsort(adj.inv_pos.long(), stable=True)   # sorted row -> id
+    layout = nbr_sum_kernel.bucket_layout(adj.inv_map, perm, adj.num_nodes)
+    shapes = [tuple(b.shape) for b in adj.nbrs]
+
+    def gather_blocks(x: Tensor):
+        flat = _PaddedGather.apply(x.contiguous(), ids, layout)
+        parts = flat.split([n * cap for n, cap in shapes])
+        return tuple(p.view(n, cap, x.shape[1]) for p, (n, cap) in zip(parts, shapes))
+
+    return gather_blocks

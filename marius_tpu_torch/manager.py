@@ -9,15 +9,17 @@ from one config and restores a checkpoint for resume or evaluation.
   RAM or a memory-mapped FLAT_FILE), PARTITION_BUFFER embeddings with
   ``PartitionBufferLPTrainer``; ``evaluation.host_streaming`` evaluates from
   the host table in node tiles (``_HostStreamLPEval``). Encoders may have
-  GNN stages (neighbour sampling over the train graph, ALL fanouts sized to
-  its degrees) and FEATURE stages (the dataset's features); evaluation
-  encodes every node through the sampler, or in one exact full-graph pass
-  when every eval hop samples ALL.
+  GNN stages (GraphSAGE, GCN, GAT, RGCN; neighbour sampling over the train
+  graph, ALL fanouts sized to its degrees) and FEATURE stages (the dataset's
+  features); evaluation encodes every node through the sampler, or in one
+  exact full-graph pass when every eval hop samples ALL (with the relational
+  companion for RGCN).
 - Node classification (:261-425), features and embeddings in DEVICE_MEMORY:
   configs whose every hop samples ALL go to the full-graph trainer where a
   batch's frontier would cover a sizable share of the graph, the others to
   the sampled trainer, with ``hop_caps``, ``hop_caps: auto``
-  (``estimate_hop_caps_empirical``) or worst-case caps.
+  (``estimate_hop_caps_empirical``) or worst-case caps. An RGCN encoder's
+  full-graph adjacency carries the relational companion.
 
 ``marius_train`` (:479-554) runs the epoch loop with the eval cadence,
 save_best (MRR for LP, accuracy for NC), interval checkpoints and the final
@@ -27,8 +29,7 @@ model; ``encode_and_export`` (:570-598) writes every node's encoder output.
 Every entry point takes ``device``: None means the GPU (and raises without
 one), ``"cpu"`` runs the plain versions of the kernels. What is not ported
 yet raises ``NotImplementedError`` naming the slice that brings it:
-out-of-core NC, meshes, CORRUPT_REL, GAT and RGCN, per-layer optimizers and
-bf16 tables.
+out-of-core NC, meshes, CORRUPT_REL, per-layer optimizers and bf16 tables.
 """
 
 from __future__ import annotations
@@ -50,8 +51,11 @@ from marius_tpu_torch.data.samplers.neighbor import (
     estimate_hop_caps_empirical,
     resolve_all_caps,
 )
-from marius_tpu_torch.nn.encoder import check_sampled_ported
-from marius_tpu_torch.nn.full_graph_encoder import prepare_full_graph, supports_full_graph
+from marius_tpu_torch.nn.full_graph_encoder import (
+    encoder_has_rgcn,
+    prepare_full_graph,
+    supports_full_graph,
+)
 from marius_tpu_torch.nn.model import LINK_PREDICTION, NODE_CLASSIFICATION
 from marius_tpu_torch.nn.optimizers import GroupedOptimizerConfig
 from marius_tpu_torch.ops.edge_keys import build_edge_key_set
@@ -124,7 +128,6 @@ def _refuse_unported(cfg: MariusConfig) -> None:
             or (model.has_embeddings and s.embeddings_backend == "PARTITION_BUFFER")):
         raise _later_slice("out-of-core node classification (PARTITION_BUFFER features "
                            "or embeddings)", "the out-of-core NC slice")
-    check_sampled_ported(model.encoder)
     if isinstance(model.dense_optimizer, GroupedOptimizerConfig):
         raise _later_slice("per-layer and per-decoder optimizers (GroupedOptimizerConfig)",
                            "a later slice")
@@ -173,7 +176,8 @@ def _init_nc(cfg: MariusConfig, dev, log):
         avg_deg = 2.0 * len(edges) / max(num_nodes, 1)
         frontier = cfg.training.batch_size * max(avg_deg, 1.0) ** len(train_nbr)
         if fg_mode == "ON" or frontier >= num_nodes / 4:
-            full_graph = build_full_graph_adjacency(edges, num_nodes)
+            full_graph = build_full_graph_adjacency(
+                edges, num_nodes, with_relations=encoder_has_rgcn(model.encoder))
             log.info("Full-graph ALL mode: %d padded slots over %d degree buckets, exact ALL",
                      full_graph.total_slots, len(full_graph.nbrs))
     if full_graph is None:
@@ -328,7 +332,8 @@ def _init_lp(cfg: MariusConfig, dev, log) -> MariusRuntime:
             and cfg.full_graph.upper() != "OFF"
             and all(n.sampling_type.upper() == "ALL" for n in eval_nbr)
             and supports_full_graph(model.encoder)):
-        adj = build_full_graph_adjacency(train_edges, num_nodes).to(dev)
+        adj = build_full_graph_adjacency(
+            train_edges, num_nodes, with_relations=encoder_has_rgcn(model.encoder)).to(dev)
         feats = None if eval_features is None else eval_features[:-1]
         eval_full_graph, eval_fg_ops = prepare_full_graph(adj, model.encoder, feats)
         log.info("Evaluation uses exact-ALL full-graph encoding")

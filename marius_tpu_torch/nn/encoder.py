@@ -6,9 +6,9 @@ reference nn/encoders/encoder.cpp:195-258). Stages are lists of parallel
 layers whose outputs concatenate; parameters are a nested list (stage,
 layer) of dicts of tensors. ``encoder_forward`` runs EMBEDDING, FEATURE,
 REDUCTION and registered stage layers, and GNN stages over a sampled
-``NeighborBatch``, each moving representations one hop inward. The
-full-graph GNN forward lives in ``nn/full_graph_encoder.py``. GAT and RGCN
-stages raise ``NotImplementedError`` (:func:`check_sampled_ported`).
+``NeighborBatch``, each moving representations one hop inward: GraphSAGE,
+GCN, GAT, RGCN and registered layers. The full-graph GNN forward lives in
+``nn/full_graph_encoder.py``.
 """
 
 from __future__ import annotations
@@ -20,13 +20,16 @@ import torch
 
 from marius_tpu_torch.data.batch import NeighborBatch
 from marius_tpu_torch.nn.layers import (
+    DropoutKey,
     LayerConfig,
     embedding_layer,
     feature_layer,
+    gat_layer,
     gcn_layer,
     graph_sage_layer,
     init_layer_params,
     reduction_layer,
+    rgcn_layer,
 )
 
 Tensor = torch.Tensor
@@ -70,18 +73,6 @@ def init_encoder_params(generator: torch.Generator, config: EncoderConfig,
             for stage in config.stages]
 
 
-def check_sampled_ported(config: EncoderConfig) -> None:
-    """Raise ``NotImplementedError`` for the GNN types the sampled forward
-    does not run yet."""
-    for stage in config.stages:
-        for layer in stage:
-            g = layer.gnn_type.upper()
-            if layer.layer_type.upper() == "GNN" and g in ("GAT", "RGCN"):
-                raise NotImplementedError(
-                    f"sampled {g} layers are not ported yet; they come with the GAT and "
-                    "RGCN slice")
-
-
 def _apply_gnn(layer: LayerConfig, p, x, adj, degrees, node_ids_outer, train, dropout_key):
     g = layer.gnn_type.upper()
     if g == "GRAPH_SAGE":
@@ -91,7 +82,10 @@ def _apply_gnn(layer: LayerConfig, p, x, adj, degrees, node_ids_outer, train, dr
         if degrees is not None:
             outer = degrees[node_ids_outer.long().clamp(max=degrees.shape[0] - 1)]
         return gcn_layer(layer, p, x, adj, outer_degrees=outer)
-    check_sampled_ported(EncoderConfig(((layer,),)))
+    if g == "GAT":
+        return gat_layer(layer, p, x, adj, train=train, dropout_key=dropout_key)
+    if g == "RGCN":
+        return rgcn_layer(layer, p, x, adj)
     from marius_tpu_torch.nn import registry
     custom = registry.gnn_layer(g)
     if custom is None:
@@ -108,11 +102,12 @@ def encoder_forward(
     nbr_batch: Optional[NeighborBatch] = None,
     degrees: Optional[Tensor] = None,  # (num_nodes + 1,) global degrees for GCN
     train: bool = False,
-    dropout_key: Optional[torch.Generator] = None,
+    dropout_key: Optional[DropoutKey] = None,
 ) -> Tensor:
     """Run all stages; returns representations on the seed node set (on the
-    batch's nodes when there is no GNN stage). ``dropout_key`` reaches
-    registered GNN layers only: no built-in layer of the port draws."""
+    batch's nodes when there is no GNN stage). GNN stage ``i`` gets
+    ``dropout_key.fold(i)`` (GAT's dropouts, registered layers), as JAX's
+    ``fold_in(dropout_key, i)``."""
     from marius_tpu_torch.nn import registry
 
     gnn_seen = 0
@@ -138,7 +133,8 @@ def encoder_forward(
                     raise ValueError("a GNN stage needs a NeighborBatch")
                 stage_outputs.append(_apply_gnn(
                     layer, p, current, nbr_batch.layers[gnn_seen], degrees,
-                    nbr_batch.node_ids[gnn_seen], train, dropout_key))
+                    nbr_batch.node_ids[gnn_seen], train,
+                    None if dropout_key is None else dropout_key.fold(i)))
             else:
                 custom = registry.stage_layer(lt)
                 if custom is None:

@@ -30,7 +30,8 @@ from typing import Callable, Dict, Optional, Tuple
 
 # name -> (init_fn(generator, layer_config, dtype) -> params,
 #          forward_fn(layer_config, params, x, adj, **ctx) -> Tensor)
-# ctx kwargs: degrees, node_ids_outer, train, dropout_key
+# ctx kwargs: degrees, node_ids_outer, train, dropout_key (the stage's
+# nn.layers.DropoutKey, or None)
 _GNN_LAYERS: Dict[str, Tuple[Callable, Callable]] = {}
 
 # name -> (init_fn(generator, layer_config, dtype) -> params,

@@ -80,7 +80,8 @@ from marius_tpu_torch.data.samplers.neighbor import (
     sample_neighbor_batch,
 )
 from marius_tpu_torch.nn.decoders.edge import normalize_decoder_method
-from marius_tpu_torch.nn.encoder import check_sampled_ported, encoder_forward
+from marius_tpu_torch.nn.encoder import encoder_forward
+from marius_tpu_torch.nn.layers import DropoutKey
 from marius_tpu_torch.nn.model import (
     LINK_PREDICTION,
     Model,
@@ -226,7 +227,6 @@ class PartitionBufferLPTrainer:
             raise _later_slice("mesh training", "the multi-GPU slice")
         if not model.has_embeddings:
             raise ValueError("partition-buffer LP needs an embedding table")
-        check_sampled_ported(model.encoder)
         if model.encoder.num_gnn_stages and not nbr_configs:
             raise ValueError("a GNN encoder needs one neighbour config per GNN stage")
         if model.encoder.has_features and features is None:
@@ -271,6 +271,7 @@ class PartitionBufferLPTrainer:
         self.epoch = 0
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self._draws = generator_draws(self.generator)
+        self._dropout = DropoutKey(self.generator)
 
         # bucket-grouped edges: one stable counting sort, then per-bucket slices
         edges = np.asarray(train_edges, np.int32)
@@ -420,7 +421,7 @@ class PartitionBufferLPTrainer:
         enc = encoder_forward(model.encoder, self.params["encoder"], x0,
                               self._buffer_feats(update_ids), nbr_batch,
                               degrees=None if graph is None else graph.degrees, train=True,
-                              dropout_key=self.generator)
+                              dropout_key=self._dropout)
         cn = c * nneg
         if self.dense_accum:
             d = enc.shape[-1]

@@ -17,7 +17,9 @@ feature block and the labels carry a sentinel row N (zeros, label 0) for
 padded ids. The sampler's numbers come from the trainer's generator through
 ``_batch_draws`` (the test seam: one call per batch); the evaluator's from a
 generator seeded from (seed, batch). The overflow count of tight hop caps
-stays on the device until the epoch's one read-back.
+stays on the device until the epoch's one read-back. GAT's dropout masks come
+from the same generator through ``_dropout_key`` (the test seam: one call per
+batch, after the draws, as JAX's ``fold_in(k_s, 99)``).
 
 **Full graph** (``full_graph`` given: every hop samples ALL): every batch
 computes the GNN over ALL nodes (``nn/full_graph_encoder.py``) and takes the
@@ -26,15 +28,18 @@ the JAX package chooses them: the linear collapse (default for
 activation-free encoders; ``nn/linear_collapse.py``), and the general form
 (``fg_linear_collapse=False`` or an encoder with an activation), whose final
 stage runs for the seed rows only over their flat neighbour lists
-(``fg_seed_restrict``). Each batch's list length is computed on the host from
+(``fg_seed_restrict``; an RGCN final stage also over the seeds' directional
+relational lists). Each batch's list lengths are computed on the host from
 the epoch's permutation, so the JAX package's slot budget and retrace
-machinery has no counterpart.
+machinery has no counterpart. Each batch's dropout key comes from
+``_dropout_key`` (JAX's ``split(state.key)``).
 
 Where the JAX version compiles the epoch into one ``lax.scan``, this one
 runs an eager Python loop over batches. The epoch's permutation
 (``_epoch_permutation``, a test seam) comes from a generator seeded from
-(54321, epoch // epochs_per_shuffle). Meshes, bf16 and GAT/RGCN stages raise
-``NotImplementedError`` naming the slice that brings them.
+(54321, epoch // epochs_per_shuffle). Meshes, bf16 and an EMBEDDING table in
+full-graph mode raise ``NotImplementedError`` naming the slice that brings
+them.
 """
 
 from __future__ import annotations
@@ -61,13 +66,19 @@ from marius_tpu_torch.data.samplers.neighbor import (
     sample_neighbor_batch,
     seeded_draws,
 )
-from marius_tpu_torch.nn.encoder import check_sampled_ported, encoder_forward
+from marius_tpu_torch.nn.encoder import encoder_forward
+from marius_tpu_torch.data.full_graph_rel import (
+    device_rel_csr,
+    device_seed_flat_lists_rel,
+    host_out_csr,
+)
 from marius_tpu_torch.nn.full_graph_encoder import (
-    check_ported,
+    final_stage_has_rgcn,
     full_graph_encoder_forward,
     prepare_full_graph,
     supports_seed_restrict,
 )
+from marius_tpu_torch.nn.layers import DropoutKey
 from marius_tpu_torch.nn.linear_collapse import build_linear_collapse, linear_collapse_eligible
 from marius_tpu_torch.nn.model import NODE_CLASSIFICATION, Model, init_model_params, nc_batch_loss
 from marius_tpu_torch.nn.optimizers import apply_optimizer, init_optimizer, tree_leaves, tree_map
@@ -124,14 +135,12 @@ class NodeClassificationTrainer:
         if dtype != torch.float32:
             raise _later_slice(f"{dtype} training", "the bf16 slice")
         if full_graph is not None:
-            check_ported(model.encoder)
             if model.has_embeddings:
                 raise _later_slice("an EMBEDDING table in full-graph node classification",
                                    "a later GNN slice")
             if features is None:
                 raise ValueError("full-graph training needs node features")
         else:
-            check_sampled_ported(model.encoder)
             if not nbr_configs and model.encoder.num_gnn_stages:
                 raise ValueError("sampled GNN training needs one neighbour config per GNN stage")
 
@@ -175,7 +184,9 @@ class NodeClassificationTrainer:
             table = EmbeddingTable(values=t.values.to(self.device), state=t.state.to(self.device))
         self.state = TrainState(table=table, params=params,
                                 opt_state=init_optimizer(model.dense_optimizer, params), epoch=0)
-        self._draws = generator_draws(torch.Generator(device=self.device).manual_seed(seed))
+        generator = torch.Generator(device=self.device).manual_seed(seed)
+        self._draws = generator_draws(generator)
+        self._dropout = DropoutKey(generator)
 
     def _init_full_graph(self, adj: FullGraphAdjacency, fg_seed_restrict, fg_linear_collapse):
         model, feats = self.model, self.features[:-1]
@@ -191,11 +202,16 @@ class NodeClassificationTrainer:
             False if self._fg_collapse is not None
             else (supports_seed_restrict(model.encoder) if fg_seed_restrict is None
                   else bool(fg_seed_restrict)))
+        self._fg_rel_csr = None
         if self._fg_seed_restrict:
             if not supports_seed_restrict(model.encoder):
                 raise ValueError("the encoder's final stage does not support seed_restrict")
             self._fg_csr = host_csr_from_adjacency(self.full_graph)
             self._fg_csr_dev = device_csr(self._fg_csr, self.device)
+            if final_stage_has_rgcn(model.encoder):
+                # the directional out-CSR with each slot's relation
+                self._fg_rel_csr = host_out_csr(self.full_graph.rel)
+                self._fg_rel_csr_dev = device_rel_csr(self._fg_rel_csr, self.device)
 
     # -- the seams a test may replace ------------------------------------------
 
@@ -208,6 +224,10 @@ class NodeClassificationTrainer:
     def _batch_draws(self) -> Draws:
         """The sampler's numbers for the next training batch."""
         return self._draws
+
+    def _dropout_key(self):
+        """The dropout key of the next training batch (GAT's masks)."""
+        return self._dropout
 
     # -- sampled --------------------------------------------------------------
 
@@ -226,7 +246,8 @@ class NodeClassificationTrainer:
 
     def _sampled_logits(self, params, nb, feats, emb, train: bool) -> Tensor:
         return encoder_forward(self.model.encoder, params["encoder"], emb, feats, nb,
-                               degrees=self.graph.degrees, train=train)
+                               degrees=self.graph.degrees, train=train,
+                               dropout_key=self._dropout_key() if train else None)
 
     def _sampled_batch_step(self, seeds: Tensor, mask_b: Tensor):
         """One sampled batch (JAX _batch_step_local :466-544 without the mesh
@@ -255,10 +276,11 @@ class NodeClassificationTrainer:
 
     # -- full graph -------------------------------------------------------------
 
-    def _batch_step(self, seeds: Tensor, mask_b: Tensor, num_slots: Optional[int]) -> Tensor:
+    def _batch_step(self, seeds: Tensor, mask_b: Tensor, num_slots) -> Tensor:
         """One full-graph batch (JAX _batch_step_full_graph :388-464); returns
         the detached loss. ``num_slots``: the batch's flat neighbour-list
-        length (seed-restricted mode)."""
+        length and, with an RGCN final stage, its out-edge list length
+        (seed-restricted mode)."""
         model, state = self.model, self.state
         seeds_c = seeds.clamp(max=self.num_nodes - 1)
         labels_b = self.labels[seeds_c]
@@ -268,11 +290,15 @@ class NodeClassificationTrainer:
         else:
             sr = None
             if self._fg_seed_restrict:
+                slots, rel_slots = num_slots
                 sr = (seeds_c,) + device_seed_flat_lists(self._fg_csr_dev, seeds, mask_b,
-                                                         num_slots, self.num_nodes)
+                                                         slots, self.num_nodes)
+                if self._fg_rel_csr is not None:
+                    sr += (device_seed_flat_lists_rel(self._fg_rel_csr_dev, seeds, mask_b,
+                                                      rel_slots, self.num_nodes),)
             out = full_graph_encoder_forward(model.encoder, enc, None, self.features[:-1],
-                                             self.full_graph, ops=self._fg_ops,
-                                             seed_restrict=sr)
+                                             self.full_graph, ops=self._fg_ops, train=True,
+                                             dropout_key=self._dropout_key(), seed_restrict=sr)
             logits = out if sr is not None else out[seeds_c]
         loss = nc_batch_loss(model, logits, labels_b, mask_b)
         grads = iter(torch.autograd.grad(loss, tree_leaves(state.params), allow_unused=True))
@@ -282,10 +308,17 @@ class NodeClassificationTrainer:
         return loss.detach()
 
     def _batch_slot_counts(self, shuffled: Tensor, masks: Tensor):
-        """Each batch's seed-list length: its valid seeds' combined degrees."""
-        offsets = self._fg_csr[0]
+        """Each batch's (seed-list length, out-edge list length): its valid
+        seeds' combined degrees and, with an RGCN final stage, out-degrees."""
         s = np.minimum(shuffled.cpu().numpy(), self.num_nodes - 1)
-        return ((offsets[s + 1] - offsets[s]) * masks.cpu().numpy()).sum(axis=1).tolist()
+        m = masks.cpu().numpy()
+
+        def lengths(offsets):
+            return ((offsets[s + 1] - offsets[s]) * m).sum(axis=1).tolist()
+
+        rel = (lengths(self._fg_rel_csr[0]) if self._fg_rel_csr is not None
+               else [None] * len(s))
+        return list(zip(lengths(self._fg_csr[0]), rel))
 
     # ---------------------------------------------------------------------------
 

@@ -68,7 +68,8 @@ from marius_tpu_torch.data.samplers.neighbor import (
     generator_draws,
     sample_neighbor_batch,
 )
-from marius_tpu_torch.nn.encoder import check_sampled_ported, encoder_forward
+from marius_tpu_torch.nn.encoder import encoder_forward
+from marius_tpu_torch.nn.layers import DropoutKey
 from marius_tpu_torch.nn.model import (
     LINK_PREDICTION,
     Model,
@@ -171,7 +172,6 @@ class LinkPredictionTrainer:
             raise ValueError(f"unknown edges backend {edges_backend}")
         if mesh is not None:
             raise _later_slice("mesh training", "the multi-GPU slice")
-        check_sampled_ported(model.encoder)
         if model.encoder.num_gnn_stages and not nbr_configs:
             raise ValueError("a GNN encoder needs one neighbour config per GNN stage")
         if nbr_configs and graph is None:
@@ -219,6 +219,7 @@ class LinkPredictionTrainer:
                                 epoch=0)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self._draws = generator_draws(self.generator)
+        self._dropout = DropoutKey(self.generator)
         self._overflow = torch.zeros((), dtype=torch.int64, device=self.device)
 
         c, n = neg_config.num_chunks, neg_config.negatives_per_positive
@@ -322,7 +323,7 @@ class LinkPredictionTrainer:
             feats = gather_rows(self.features, row_ids)
         encoded = encoder_forward(model.encoder, state.params["encoder"], x0, feats, nbr_batch,
                                   degrees=None if self.graph is None else self.graph.degrees,
-                                  train=True, dropout_key=self.generator)
+                                  train=True, dropout_key=self._dropout)
         if self.dense_accum:
             # batch layout is [src; dst; dst_negs; src_negs]: slice, not gather
             d = encoded.shape[-1]

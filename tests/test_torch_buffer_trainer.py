@@ -257,6 +257,18 @@ def _gnn_feature_stages(L, d, f=6):
             (L("GNN", input_dim=d, output_dim=d, gnn_type="GRAPH_SAGE", aggregator="MEAN"),))
 
 
+def _gat_stages(L, d):
+    """EMBEDDING, then GAT with 2 averaged heads (gat_1_layer)."""
+    return ((L("EMBEDDING", output_dim=d),),
+            (L("GNN", input_dim=d, output_dim=d, gnn_type="GAT", num_heads=2),))
+
+
+def _rgcn_stages(L, d, r=4):
+    """EMBEDDING, then RGCN over the resident subgraph's relations (rgcn_1_layer)."""
+    return ((L("EMBEDDING", output_dim=d),),
+            (L("GNN", input_dim=d, output_dim=d, gnn_type="RGCN", num_relations=r, bias=True),))
+
+
 def _feature_stages(L, d, f=6):
     """Shallow EMBEDDING + FEATURE, concatenated (tests/test_buffer.py:297)."""
     return ((L("EMBEDDING", output_dim=d - f), L("FEATURE", output_dim=f, bias=True)),)
@@ -275,6 +287,9 @@ BUFFER_ENCODERS = {
                              ordering="BETA", b=50, features=True),
     "feature-comet": dict(n=80, stages=_feature_stages, nbr=[], ordering="COMET", b=100,
                           features=True),
+    "gat-comet": dict(n=2000, stages=_gat_stages, nbr=[("UNIFORM", 2)], ordering="COMET",
+                      b=50),
+    "rgcn-beta": dict(n=80, stages=_rgcn_stages, nbr=[("UNIFORM", 4)], ordering="BETA", b=100),
 }
 
 

@@ -87,10 +87,15 @@ def test_greedy_buckets_match_jax():
 
 
 def test_adjacency_rejects_later_slices():
+    """locality_reorder waits for a later slice; with_relations attaches the
+    relational companion RGCN stages read (its arrays are held against
+    JAX's in tests/test_torch_rgcn.py)."""
     edges = power_law_edges()
-    for kw in (dict(with_relations=True), dict(locality_reorder=True)):
-        with pytest.raises(NotImplementedError):
-            tfg.build_full_graph_adjacency(edges, N, **kw)
+    with pytest.raises(NotImplementedError):
+        tfg.build_full_graph_adjacency(edges, N, locality_reorder=True)
+    adj = tfg.build_full_graph_adjacency(edges, N, with_relations=True)
+    assert adj.rel is not None and adj.rel.num_nodes == N
+    assert adj.rel.total_slots >= len(edges) and tfg.build_full_graph_adjacency(edges, N).rel is None
 
 
 def test_seed_flat_lists_same_multiset_per_seed(graph):
@@ -250,6 +255,12 @@ def test_nbr_sum_matches_jax_forward_and_vjp(graph, sorted_space):
 
 # -- the encoder and the collapse --------------------------------------------
 
+def tlayers_init(cfg):
+    """The last stage's parameters, from a seeded generator."""
+    from marius_tpu_torch.nn.layers import init_layer_params
+    return init_layer_params(torch.Generator().manual_seed(0), cfg.stages[-1][0])
+
+
 GNN_KINDS = {"sage-mean": ("GRAPH_SAGE", "MEAN"), "sage-gcn": ("GRAPH_SAGE", "GCN"),
              "gcn": ("GCN", "MEAN")}
 DIMS = (F, 16, 16, 5)
@@ -326,14 +337,27 @@ def test_full_graph_encoder_matches_jax(graph, kind, seed_restrict):
 
 
 def test_full_graph_encoder_rejects_later_slices(graph):
-    _, _, tadj = graph
+    """GAT and RGCN stages run on the full-graph path now (held against JAX in
+    tests/test_torch_gat.py and tests/test_torch_rgcn.py): GAT prepares the
+    inverse map, RGCN needs the relational companion; a registered layer
+    type still has no full-graph form."""
+    edges, _, tadj = graph
     for gnn in ("GAT", "RGCN"):
         cfg = TEncoderConfig(((TLayerConfig("FEATURE", output_dim=F),),
                               (TLayerConfig("GNN", input_dim=F, output_dim=4, gnn_type=gnn),)))
-        assert not tfge.supports_full_graph(cfg)
-        assert not tfge.supports_seed_restrict(cfg)
-        with pytest.raises(NotImplementedError):
-            tfge.prepare_full_graph(tadj, cfg, torch.zeros(N, F))
+        assert tfge.supports_full_graph(cfg) and tfge.supports_seed_restrict(cfg)
+        adj = tfg.build_full_graph_adjacency(edges, N, with_relations=gnn == "RGCN")
+        adj2, ops = tfge.prepare_full_graph(adj, cfg, torch.zeros(N, F))
+        assert (adj2.inv_map is not None) == (gnn == "GAT") and ("rel_sum" in ops) == (gnn == "RGCN")
+        params = [[{}], [{k: v.requires_grad_(True) for k, v in tlayers_init(cfg).items()}]]
+        out = tfge.full_graph_encoder_forward(cfg, params, None, torch.zeros(N, F), adj2, ops=ops)
+        assert out.shape == (N, 4)
+    with pytest.raises(ValueError, match="with_relations"):
+        tfge.prepare_full_graph(tadj, TEncoderConfig(((TLayerConfig("FEATURE", output_dim=F),), (
+            TLayerConfig("GNN", input_dim=F, output_dim=4, gnn_type="RGCN"),))))
+    custom = TEncoderConfig(((TLayerConfig("FEATURE", output_dim=F),),
+                             (TLayerConfig("GNN", input_dim=F, output_dim=4, gnn_type="MINE"),)))
+    assert not tfge.supports_full_graph(custom) and not tfge.supports_seed_restrict(custom)
     # a learnable EMBEDDING input is ported: an EMBEDDING stage over the
     # table runs the GNN stages as a FEATURE stage over the same block does,
     # and as JAX's full-graph encoder does

@@ -114,6 +114,10 @@ def _stages(L, variant, d=8):
                         (L("GNN", input_dim=d, output_dim=d, **sage),)),
         "embedding-feature": ((L("EMBEDDING", output_dim=d), L("FEATURE", output_dim=F)),),
         "pure-feature": ((L("FEATURE", output_dim=F, bias=True),),),
+        # the reference's gat_1_layer and rgcn_1_layer fragments (tests/test_manager.py:239)
+        "gat": (emb, (L("GNN", input_dim=d, output_dim=d, gnn_type="GAT", num_heads=2),)),
+        "rgcn": (emb, (L("GNN", input_dim=d, output_dim=d, gnn_type="RGCN", num_relations=R,
+                         bias=True),)),
     }[variant]
 
 
@@ -135,7 +139,8 @@ def _models(variant, d=8, r=R, lr=0.1, sparse_lr=0.02, opt="ADAGRAD"):
 
 NBR = {"sage-mean": [("UNIFORM", 3)], "sage-relu": [("UNIFORM", 3)], "gcn": [("DROPOUT", 3, 0.3)],
        "sage-2-layers": [("UNIFORM", 2), ("UNIFORM", 3)], "gnn-feature": [("UNIFORM", 3)],
-       "embedding-feature": [], "pure-feature": []}
+       "embedding-feature": [], "pure-feature": [], "gat": [("UNIFORM", 3)],
+       "rgcn": [("UNIFORM", 3)]}
 
 
 class KeyReplay:
@@ -214,7 +219,7 @@ def check_states(ts, js):
 # -- the trainer -------------------------------------------------------------
 
 @pytest.mark.parametrize("variant", ["sage-mean", "gcn", "sage-2-layers", "gnn-feature",
-                                     "embedding-feature", "pure-feature"])
+                                     "embedding-feature", "pure-feature", "gat", "rgcn"])
 def test_gnn_lp_trainer_matches_jax(monkeypatch, variant):
     jtr, ttr = trainer_pair(monkeypatch, variant)
     if NBR[variant]:

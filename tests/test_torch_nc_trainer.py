@@ -141,15 +141,23 @@ def test_nc_trainer_rejects_later_slices():
     gat = dataclasses.replace(model, encoder=TEncoderConfig(
         model.encoder.stages[:1] + ((TLayerConfig("GNN", input_dim=F, output_dim=CLASSES,
                                                   gnn_type="GAT"),),)))
-    # sampled training is ported (tests/test_torch_sampled_nc.py); its GAT stages are not
-    for m, kwargs in [(gat, dict(full_graph=None)), (model, dict(full_graph=adj, mesh=object())),
+    for m, kwargs in [(model, dict(full_graph=adj, mesh=object())),
                       (model, dict(full_graph=adj, dtype=torch.bfloat16))]:
         with pytest.raises(NotImplementedError):
             tnc.NodeClassificationTrainer(m, graph, feats, labels, train,
                                           [TNbr("UNIFORM", 4)],
                                           batch_size=B, device="cpu", **kwargs)
-    with pytest.raises(NotImplementedError):
-        tnc.NodeClassificationTrainer(gat, graph, feats, labels, train, batch_size=B,
+    # GAT stages train sampled and full-graph (held against JAX in
+    # tests/test_torch_gat.py); an EMBEDDING table in full-graph mode waits
+    sampled = tnc.NodeClassificationTrainer(gat, graph, feats, labels, train,
+                                            [TNbr("UNIFORM", 4)], batch_size=B, device="cpu")
+    full = tnc.NodeClassificationTrainer(gat, graph, feats, labels, train, batch_size=B,
+                                         full_graph=adj, device="cpu")
+    assert full.full_graph.inv_map is not None and sampled.full_graph is None
+    emb = dataclasses.replace(model, encoder=TEncoderConfig(
+        ((TLayerConfig("EMBEDDING", output_dim=F),),) + model.encoder.stages[1:]))
+    with pytest.raises(NotImplementedError, match="EMBEDDING"):
+        tnc.NodeClassificationTrainer(emb, graph, feats, labels, train, batch_size=B,
                                       full_graph=adj, device="cpu")
     with pytest.raises(ValueError):
         tnc.NodeClassificationTrainer(dataclasses.replace(model, learning_task="LINK_PREDICTION"),

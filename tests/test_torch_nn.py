@@ -301,12 +301,14 @@ def test_encoder_forward_matches_jax():
     g = torch.Generator().manual_seed(0)
     tinit_p = tenc.init_encoder_params(g, tcfg)
     assert set(tinit_p[0][0]) == {"bias"} and tinit_p[0][1] == {}
-    # GraphSAGE/GCN stages have parameters now (test_gnn_layer_params_match_jax);
-    # GAT waits for a later slice; the sampled GNN forward runs over a
-    # NeighborBatch (tests/test_torch_sampled_nc.py) and refuses to run without one
-    with pytest.raises(NotImplementedError):
-        tenc.init_encoder_params(g, tenc.EncoderConfig(((TLayerConfig("GNN", 4, 4,
-                                                                      gnn_type="GAT"),),)))
+    # GraphSAGE/GCN stages have parameters (test_gnn_layer_params_match_jax),
+    # GAT stages w, a_l and a_r (tests/test_torch_gat.py holds them against
+    # JAX); the sampled GNN forward runs over a NeighborBatch
+    # (tests/test_torch_sampled_nc.py) and refuses to run without one
+    gat = tenc.init_encoder_params(g, tenc.EncoderConfig(((TLayerConfig("GNN", 4, 4, gnn_type="GAT",
+                                                                        num_heads=2),),)))
+    assert {k: tuple(v.shape) for k, v in gat[0][0].items()} == \
+        {"w": (4, 8), "a_l": (2, 4), "a_r": (2, 4)}
     with pytest.raises(ValueError, match="NeighborBatch"):
         tenc.encoder_forward(tenc.EncoderConfig(((TLayerConfig("GNN", 4, 4),),)),
                              [[{}]], None, torch.zeros(3, 4))

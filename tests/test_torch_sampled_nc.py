@@ -202,11 +202,25 @@ def test_encoder_forward_matches_jax():
 
 
 def test_sampled_encoder_rejects_gat_and_rgcn():
+    """The sampled encoder runs GAT and RGCN stages now: over JAX's batch,
+    from JAX's parameters, it gives JAX's encodings (the layers' forms and
+    gradients are held in tests/test_torch_gat.py and test_torch_rgcn.py)."""
+    jg, jb = _jax_batch([JNbr("UNIFORM", 5), JNbr("UNIFORM", 4)])
+    tb = to_torch_batch(jb)
+    feats = np.random.default_rng(6).standard_normal((jb.node_ids[0].shape[0], 4)).astype(
+        np.float32)
     for gnn in ("GAT", "RGCN"):
-        cfg = TEncoderConfig(((TLayerConfig("FEATURE", output_dim=4),),
-                              (TLayerConfig("GNN", input_dim=4, output_dim=2, gnn_type=gnn),)))
-        with pytest.raises(NotImplementedError, match=gnn):
-            tenc.check_sampled_ported(cfg)
+        def stages(L):
+            return ((L("FEATURE", output_dim=4),),
+                    (L("GNN", input_dim=4, output_dim=6, gnn_type=gnn, num_heads=2,
+                       activation="RELU"),),
+                    (L("GNN", input_dim=6, output_dim=2, gnn_type=gnn, num_heads=2),))
+        jcfg, tcfg = JEncoderConfig(stages(JLayerConfig)), TEncoderConfig(stages(TLayerConfig))
+        jp = jenc.init_encoder_params(jax.random.key(1), jcfg)
+        tp = [[{k: torch.from_numpy(np.array(v)) for k, v in d.items()} for d in s] for s in jp]
+        _close(tenc.encoder_forward(tcfg, tp, None, torch.from_numpy(feats), tb),
+               jenc.encoder_forward(jcfg, jp, None, jnp.asarray(feats), jb),
+               LAYER_RTOL, LAYER_ATOL)
 
 
 # -- the trainer -------------------------------------------------------------
