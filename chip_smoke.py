@@ -118,7 +118,8 @@ Then out-of-core link prediction:
    then ``marius_eval``, which must reproduce the test metrics exactly;
    ``lp_gnn_oocore`` the same with gs_1_layer's encoder at d = 100 (the
    buffer's GNN branch: sampling over each state's resident subgraph, whose
-   CSR the prefetch thread builds), with per-state prep, state-graph, swap
+   edges the prefetch thread remaps and uploads and the card sorts into a
+   CSR), with per-state prep, state-graph, swap
    and compute seconds and the three kernels' launches;
 8. ``lp_oocore``: the same YAML at Freebase86m's published shape (86,054,151
    nodes, 14,824 relations, d = 100, 16 partitions, buffer capacity 8, COMET)
@@ -128,6 +129,43 @@ Then out-of-core link prediction:
    ``marius_train``: per epoch edges/s, loss, states, per-state prep, swap
    and compute seconds, bytes copied each way, the padded-batch share, peak
    device memory, kernel launches and the valid MRR.
+
+After the GAT and RGCN phases, the full-graph NC leftovers at arxiv shape:
+``nc_locality`` trains the general seed-restricted trainer 1 epoch over the
+plain adjacency and over ``locality_reorder=True`` (reverse Cuthill-McKee;
+each neighbour sum permutes its input with the row gather): the losses
+agree within rtol 2e-5, and the whole neighbour sum is timed in both orders
+with the gather-sum alone on the permuted x; ``nc_embedding_full`` trains
+EMBEDDING (d = 128) beside FEATURE full-graph GraphSAGE 1 epoch (one
+all-rows Adagrad launch per batch) and evaluates, then holds the Adagrad
+kernel at all 169,343 rows bit for bit, timed against its bound;
+``compare_fg_leftovers_with_cpu`` runs both small on the card and the CPU.
+
+Then out-of-core node classification, last:
+
+9. ``compare_nc_oocore_with_cpu``: small PartitionBufferNCTrainer runs
+   (2,000 nodes, 8 partitions, capacity 4) on the card and the CPU with
+   the same draws, DISPERSED and SEQUENTIAL, features and features +
+   EMBEDDING, 2 epochs and evaluation (all three kernels);
+   ``nc_oocore_reload``: the config below cut to 1,000,000 nodes with one
+   layer's own optimizer block (a grouped optimizer), through marius_train
+   with the model saved; marius_eval must reproduce the test accuracy;
+10. ``nc_oocore``, the slice's main path: ``ogbn_arxiv.yaml``'s model at
+   ogbn-papers100M's shape (111,059,956 nodes, 128 f32 features, 172
+   classes, its published train / valid / test sizes, uniform edges from
+   seed 0; UNIFORM 8 per direction over 3 hops, features PARTITION_BUFFER
+   in 16 partitions, capacity 8, DISPERSED), the dataset written to disk
+   and its features file mapped, not read, through marius_train: 1 epoch,
+   a valid and a test evaluation. Printed cuts: edges to a tenth
+   (161,568,587), 1 epoch, and nodes where host memory, free disk or the
+   32 GiB disk budget of its features file cannot hold them (on an H100
+   host with ~95 GiB available: 64,000,000). Per epoch the loss, seconds,
+   train nodes/s, states, per-state swap, state-graph and compute seconds,
+   GB and GB/s to the device, the padded share, peak device memory, host
+   peak RSS, truncated frontier ids and the launches; valid and test
+   accuracy above chance (1/172). ``nc_oocore_shapes`` then holds the row
+   gather at the outer hop's shape (K = 4,913,000 into the cache) and the
+   gather-sum at layer 0's (289,000 x 16 slots) bit for bit, timed.
 
 Small runs on the card are compared with the same runs on the CPU (plain
 versions, which tests/test_torch_*.py hold against the JAX package).
@@ -198,6 +236,19 @@ GAT_HEADS, ARXIV_RELS, NC_GAT_EPOCHS, NC_GAT_FULL_BATCHES = 8, 8, 2, 10
 NC_GAT_MIN_ACCURACY, NC_GAT_CPU_BATCHES, NC_GAT_GRAD_F64_TOL = 0.08, 2, 3e-2
 # the neighbour sum's widths: d=1 (GCN counts), the model's 128, the collapse's 129/259/519
 SUM_DIMS = (1, 33, 128, 129, 259, 519)
+# ogbn-papers100M's shape (BASELINE.json configs[4], BASELINE.md:22): nodes, f32 feature
+# width, classes, the published train / valid / test split sizes and edges; nc_oocore
+# cuts the edges to a tenth
+PAPERS_NODES, PAPERS_FEATS, PAPERS_CLASSES = 111_059_956, 128, 172
+PAPERS_TRAIN, PAPERS_VALID, PAPERS_TEST = 1_207_179, 125_265, 214_338
+PAPERS_EDGES, PAPERS_NC_EDGES = 1_615_685_872, 161_568_587
+# its buffer (the reference's defaults, SURVEY.md:136), fanout per direction
+# (bench_products.py:48), the cut of ogbn_arxiv.yaml's 10 epochs, and nc_oocore_reload's cut
+PAPERS_PARTITIONS, PAPERS_BUFFER, PAPERS_FANOUT, PAPERS_EPOCHS = 16, 8, 8, 1
+NC_RELOAD_NODES = 1_000_000
+# the most nc_oocore writes to disk for its features file: with the rest of the run's
+# datasets and checkpoints, the whole run writes well under 45 GiB
+PAPERS_DISK_BYTES = 32 << 30
 # the edges of the gather-sum kernel's 128-byte column slabs (32 f32 or 64 bf16 columns)
 SLAB_EDGE_DIMS = (15, 16, 17, 31, 32, 63, 64, 65)
 # single buckets: caps from one slot to the 13k-slot hub, with the hub split's edges
@@ -1015,9 +1066,10 @@ def report_oocore_epochs(tag: str, out: dict, probe: EpochProbe, card: str) -> d
             f"({a:.3f}, {b:.3f}, {c:.3f})" for a, b, c in e["timings"])
             + f"; sums {prep:.3f}, {swap:.3f}, {comp:.3f}", flush=True)
         if e["graph_s"]:
-            print(f"{tag} epoch {i} state graphs built and uploaded on the prefetch thread (s): " + ", ".join(
-                f"{g:.3f}" for g in e["graph_s"]) + f"; sum {sum(e['graph_s']):.3f}, "
-                f"edge arrays padded to {e['max_graph_edges']}", flush=True)
+            print(f"{tag} epoch {i} state graphs' edges remapped and uploaded on the "
+                  f"prefetch thread (s): " + ", ".join(f"{g:.3f}" for g in e["graph_s"])
+                  + f"; sum {sum(e['graph_s']):.3f}, edge arrays padded to "
+                  f"{e['max_graph_edges']}", flush=True)
         print(f"{tag} epoch {i} copies: host->device {e['h2d'] / 1e9:.3f} GB in "
               f"{e['h2d_s']:.3f} s ({e['h2d'] / 1e9 / max(e['h2d_s'], 1e-9):.3f} GB/s), "
               f"device->host {e['d2h'] / 1e9:.3f} GB in {e['d2h_s']:.3f} s "
@@ -1746,7 +1798,8 @@ def sampled_shapes(trainer, rates, card) -> dict:
     sums = time_layer_sum(nb.layers[0], outer.shape[0], NC_DIM, rates, dev)
     print(f"gather_sum, sampled layer 0 ({sums['targets']} targets x {sums['width']} slots, "
           f"{sums['valid_slots']} real, {sums['distinct_rows']} distinct rows of "
-          f"{outer.shape[0]}, d={NC_DIM}, {sums['bound_bytes'] / 1e6:.4f} MB): max_abs_err 0.0  "
+          f"{outer.shape[0]}, d={NC_DIM}, {sums['bound_bytes'] / 1e6:.4f} MB): "
+          f"max_abs_err {sums['max_abs_err']}  "
           f"kernel {sums['ms'] * 1e3:.2f} us (with the layout built: "
           f"{sums['with_layout_ms'] * 1e3:.2f} us)  plain {sums['plain_ms'] * 1e3:.2f} us  "
           f"embedding_bag {sums['library_ms'] * 1e3:.2f} us  bound {sums['bound_ms'] * 1e3:.2f} "
@@ -1771,11 +1824,11 @@ def time_layer_sum(adj, n_x: int, d: int, rates, dev) -> dict:
                      torch.where(adj.out_mask, adj.out_nbr_idx, n_x)], 1).int().contiguous()
     x = torch.randn(n_x, d, device=dev, generator=torch.Generator(device=dev).manual_seed(9))
     layout = ns._single_bucket(ids)
-    out = ns.nbr_sum(x, layout)
+    out, ref = ns.nbr_sum(x, layout), ns.gather_sum_plain(x, ids)
     torch.cuda.synchronize()
-    if not (torch.equal(out, ns.gather_sum_plain(x, ids))
-            and torch.equal(ns.gather_sum(x, ids), out)):
+    if not (torch.equal(out, ref) and torch.equal(ns.gather_sum(x, ids), out)):
         raise AssertionError(f"gather_sum differs from plain at {n} x {ids.shape[1]} slots, d={d}")
+    err = float((out - ref).abs().max())
     x_pad = torch.cat([x, x.new_zeros(1, d)])
     ids64 = ids.long()
 
@@ -1792,7 +1845,7 @@ def time_layer_sum(adj, n_x: int, d: int, rates, dev) -> dict:
     y = sampled_nbr_sum(xg, adj.in_nbr_idx, adj.in_mask, adj.out_nbr_idx, adj.out_mask)
     gy = torch.randn_like(y)
     return {"targets": n, "width": ids.shape[1], "slots": ids.numel(),
-            "valid_slots": int(valid.numel()), "distinct_rows": rows_read, "max_abs_err": 0.0,
+            "valid_slots": int(valid.numel()), "distinct_rows": rows_read, "max_abs_err": err,
             "ms": time_ms(lambda: ns.nbr_sum(x, layout)),
             "with_layout_ms": time_ms(lambda: ns.gather_sum(x, ids)),
             "plain_ms": time_ms(lambda: ns.gather_sum_plain(x, ids), reps=2, samples=3),
@@ -1942,8 +1995,9 @@ def layout_matrix(layout, n_in: int):
 def time_layout_sum(layout, n_in: int, d: int, rates, what: str, card: str) -> dict:
     """The gather-sum kernel on one layout of a new consumer, bit for bit
     against its plain version, timed beside the plain version, the bound
-    (each real slot's row read once, the ids, the output written once; one
-    add per real slot element) and torch.sparse.mm."""
+    (each distinct row of x that a real slot names read once, the ids, the
+    output written once; one add per real slot element) and
+    torch.sparse.mm."""
     from marius_tpu_torch.ops.cuda import nbr_sum as ns
 
     dev = layout.ids.device
@@ -1953,18 +2007,22 @@ def time_layout_sum(layout, n_in: int, d: int, rates, what: str, card: str) -> d
     torch.cuda.synchronize()
     if not torch.equal(out, ref):
         raise AssertionError(f"gather-sum differs from plain at {what}")
+    err = float((out - ref).abs().max()) if out.numel() else 0.0
     a = layout_matrix(layout, n_in)
     torch.testing.assert_close(torch.sparse.mm(a, x), out, rtol=1e-4, atol=1e-3)
-    real = int(((layout.ids >= 0) & (layout.ids < n_in)).sum())
-    nbytes = real * d * 4 + layout.ids.numel() * 4 + layout.num_out * d * 4
+    valid = layout.ids[(layout.ids >= 0) & (layout.ids < n_in)]
+    real, distinct = valid.numel(), int(torch.unique(valid).numel())
+    nbytes = distinct * d * 4 + layout.ids.numel() * 4 + layout.num_out * d * 4
     b_ms, b_by = bound_ms(nbytes, real * d, rates)
-    r = {"slots": layout.ids.numel(), "real_slots": real, "rows_out": layout.num_out, "d": d,
-         "max_abs_err": 0.0, "ms": time_ms(lambda: ns.nbr_sum(x, layout)),
+    r = {"slots": layout.ids.numel(), "real_slots": real, "distinct_rows": distinct,
+         "rows_out": layout.num_out, "d": d,
+         "max_abs_err": err, "ms": time_ms(lambda: ns.nbr_sum(x, layout)),
          "plain_ms": time_ms(lambda: ns.nbr_sum_plain(x, layout), reps=2, samples=3),
          "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": nbytes,
          "library_ms": time_ms(lambda: torch.sparse.mm(a, x), reps=10, samples=5)}
-    print(f"gather_sum, {what} ({r['slots']} slots, {real} real, {layout.num_out} rows out, "
-          f"d={d}, {nbytes / 1e6:.4f} MB): max_abs_err 0.0  kernel {r['ms'] * 1e3:.2f} us  "
+    print(f"gather_sum, {what} ({r['slots']} slots, {real} real, {distinct} distinct rows, "
+          f"{layout.num_out} rows out, "
+          f"d={d}, {nbytes / 1e6:.4f} MB): max_abs_err {err}  kernel {r['ms'] * 1e3:.2f} us  "
           f"plain {r['plain_ms'] * 1e3:.2f} us  torch.sparse.mm {r['library_ms'] * 1e3:.2f} us"
           f"  bound {b_ms * 1e3:.2f} us ({b_by})  [{card}]", flush=True)
     return r
@@ -2597,7 +2655,8 @@ def lp_gnn_shapes(trainer, rates, card) -> dict:
     sums = time_layer_sum(nb.layers[0], outer.shape[0], d, rates, dev)
     print(f"gather_sum, lp_gnn layer ({sums['targets']} seeds x {sums['width']} slots, "
           f"{sums['valid_slots']} real, {sums['distinct_rows']} distinct rows of "
-          f"{outer.shape[0]}, d={d}, {sums['bound_bytes'] / 1e6:.4f} MB): max_abs_err 0.0  "
+          f"{outer.shape[0]}, d={d}, {sums['bound_bytes'] / 1e6:.4f} MB): "
+          f"max_abs_err {sums['max_abs_err']}  "
           f"kernel {sums['ms'] * 1e3:.2f} us (with the layout built: "
           f"{sums['with_layout_ms'] * 1e3:.2f} us)  plain {sums['plain_ms'] * 1e3:.2f} us  "
           f"embedding_bag {sums['library_ms'] * 1e3:.2f} us  bound {sums['bound_ms'] * 1e3:.2f} "
@@ -2694,13 +2753,19 @@ def _gnn_lp_model(variant: str, r: int, d: int = 8, opt: str = "ADAGRAD", lr: fl
                  dense_optimizer=OptimizerConfig(opt, learning_rate=lr), sparse_lr=sparse_lr)
 
 
+def _cpu_draws(device, *key):
+    """Sampler numbers from a CPU generator seeded from ``key``, moved to
+    ``device``: the same on any device."""
+    from marius_tpu_torch.data.samplers.neighbor import generator_draws
+
+    s = int(np.random.SeedSequence(key).generate_state(1)[0])
+    return _moved(generator_draws(torch.Generator().manual_seed(s)), device)
+
+
 def _step_draws(trainer, step: int, seed: int = 5):
     """A buffer trainer's sampler numbers for (epoch, step), drawn on the CPU
     and moved to its device: the same on any device."""
-    from marius_tpu_torch.data.samplers.neighbor import generator_draws
-
-    s = int(np.random.SeedSequence((seed, trainer.epoch, step)).generate_state(1)[0])
-    return _moved(generator_draws(torch.Generator().manual_seed(s)), trainer.device)
+    return _cpu_draws(trainer.device, seed, trainer.epoch, step)
 
 
 def _moved(draw, device):
@@ -3020,6 +3085,666 @@ def lp_gnn_oocore(card: str) -> dict:
     return counts
 
 
+# -- out-of-core node classification and the full-graph leftovers -----------------
+
+def concat_sage_model(feat_dim: int, emb_dim: int, dims, feature_bias: bool = False):
+    """FEATURE (and an EMBEDDING table of ``emb_dim`` beside it,
+    concatenated), then GraphSAGE MEAN stages of widths ``dims`` with bias
+    and RELU between, CE SUM, Adam lr 0.01, table lr 0.1."""
+    from marius_tpu_torch.nn.encoder import EncoderConfig
+    from marius_tpu_torch.nn.layers import LayerConfig
+    from marius_tpu_torch.nn.model import NODE_CLASSIFICATION, Model
+    from marius_tpu_torch.nn.optimizers import OptimizerConfig
+
+    first = [LayerConfig("FEATURE", output_dim=feat_dim, bias=feature_bias)]
+    if emb_dim:
+        first.append(LayerConfig("EMBEDDING", output_dim=emb_dim))
+    d = feat_dim + emb_dim
+    stages = [tuple(first)]
+    if emb_dim:
+        stages.append((LayerConfig("REDUCTION", input_dim=d, output_dim=d, reduction="CONCAT"),))
+    for i, (din, dout) in enumerate(zip((d,) + tuple(dims[:-1]), dims)):
+        stages.append((LayerConfig("GNN", input_dim=din, output_dim=dout, gnn_type="GRAPH_SAGE",
+                                   aggregator="MEAN", bias=True,
+                                   activation="RELU" if i < len(dims) - 1 else "NONE"),))
+    return Model(NODE_CLASSIFICATION, EncoderConfig(tuple(stages)), None,
+                 loss_type="CROSS_ENTROPY", loss_reduction="SUM", sparse_lr=0.1,
+                 dense_optimizer=OptimizerConfig("ADAM", learning_rate=NC_LR))
+
+
+def compare_nc_oocore_with_cpu():
+    """Small out-of-core NC runs on the card and on the CPU with the same
+    draws (one CPU generator per (epoch, step) and per evaluation batch, on
+    both devices): DISPERSED and SEQUENTIAL, features only and features +
+    EMBEDDING, 2000 nodes in 8 partitions, capacity 4, 2 epochs; every dense
+    leaf, the flushed co-buffer and the evaluation accuracy agree. Runs all
+    three kernels (row gather, gather-sum, Adagrad)."""
+    from marius_tpu_torch.data.samplers.neighbor import NeighborSamplingConfig
+    from marius_tpu_torch.nn.optimizers import tree_leaves
+    from marius_tpu_torch.ops.cuda import adagrad, gather
+    from marius_tpu_torch.ops.cuda import nbr_sum as ns
+    from marius_tpu_torch.train.nc_buffer import PartitionBufferNCTrainer
+
+    n, e, f, classes = 2000, 16000, 16, 5
+    edges = synthetic_edges(11, n, 1, e)[:, [0, 2]]
+    _, features, labels, train_nodes = nc_data(12, edges, n, f, classes, 1200)
+    eval_nodes = np.setdiff1d(np.arange(n), train_nodes)
+    nbr = [NeighborSamplingConfig("UNIFORM", 4)] * 2
+    worst, launches = 0.0, [0, 0, 0]
+    for ordering in ("DISPERSED", "SEQUENTIAL"):
+        for emb_dim in (0, 8):
+            model = concat_sage_model(f, emb_dim, (16, classes))
+            pair = [PartitionBufferNCTrainer(model, edges, features, labels, train_nodes, nbr,
+                                             num_nodes=n, batch_size=100, num_partitions=8,
+                                             buffer_capacity=4, ordering=ordering, seed=2,
+                                             device=dev) for dev in ("cpu", "cuda")]
+            for t in pair:
+                t._batch_draws = lambda ep, step, _t=t: _cpu_draws(_t.device, 9, ep, step)
+                t._eval_draws = lambda count, _t=t: _cpu_draws(_t.device, 10, count)
+            cpu, gpu = pair
+            if emb_dim and not np.array_equal(cpu.emb_buffer.host_values,
+                                              gpu.emb_buffer.host_values):
+                raise AssertionError("the two co-buffers start from different tables")
+            gather.launches = ns.launches = adagrad.launches = 0
+            for _ in range(2):
+                lc, lg = cpu.train_epoch()["loss"], gpu.train_epoch()["loss"]
+                if not math.isclose(lc, lg, rel_tol=1e-4):
+                    raise AssertionError(f"out-of-core NC loss on the card {lg} != on the CPU "
+                                         f"{lc} ({ordering}, EMBEDDING {emb_dim})")
+            ac, ag = cpu.evaluate_nodes(eval_nodes), gpu.evaluate_nodes(eval_nodes)
+            for i, k in enumerate((gather.launches, ns.launches, adagrad.launches)):
+                launches[i] += k
+            if ac["num_evaluated"] != ag["num_evaluated"] or not math.isclose(
+                    ac["accuracy"], ag["accuracy"], rel_tol=1e-4):
+                raise AssertionError(f"out-of-core NC accuracy on the card {ag} != on the CPU "
+                                     f"{ac} ({ordering}, EMBEDDING {emb_dim})")
+            pairs = [(a.detach(), b.detach().cpu()) for a, b in zip(
+                tree_leaves([cpu.params, cpu.opt_state.slots]),
+                tree_leaves([gpu.params, gpu.opt_state.slots]))]
+            if emb_dim:
+                cpu.flush()
+                gpu.flush()
+                pairs += [(torch.from_numpy(cpu.emb_buffer.host_values),
+                           torch.from_numpy(gpu.emb_buffer.host_values)),
+                          (torch.from_numpy(cpu.emb_buffer.host_state),
+                           torch.from_numpy(gpu.emb_buffer.host_state))]
+            for a, b in pairs:
+                worst = max(worst, float((a - b).abs().max()))
+                torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-5)
+            if gpu.opt_state.step != cpu.opt_state.step:
+                raise AssertionError("the two optimizers took different step counts")
+    if not all(launches):
+        raise AssertionError(f"the small out-of-core runs must launch every kernel: {launches}")
+    print(f"small out-of-core NC runs, card against CPU (DISPERSED and SEQUENTIAL, features "
+          f"and features + EMBEDDING, 2 epochs and evaluation): max abs difference "
+          f"{worst:.3g} (tolerance rtol 1e-4, atol 1e-5), accuracy equal within rtol 1e-4; "
+          f"card launches gather_rows {launches[0]}, gather_sum {launches[1]}, "
+          f"sparse_adagrad_update_ {launches[2]}", flush=True)
+
+
+def write_papers_shaped(directory: str, num_nodes: int, num_edges: int, splits) -> float:
+    """A papers100M-shaped dataset in the layout of storage/dataset.py, made on
+    the card from seed 0 and written in chunks: f32 features of PAPERS_FEATS
+    unit normals, labels the argmax of a random linear function of each
+    node's own features (as nc_data makes them), uniform edges, and train,
+    valid and test nodes of the given sizes, disjoint. Returns the seconds."""
+    import os
+
+    from marius_tpu_torch.storage.dataset import (
+        NODE_FILES,
+        DatasetStats,
+        save_node_array,
+        save_split,
+        save_stats,
+    )
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    w = torch.randn(PAPERS_FEATS, PAPERS_CLASSES, device=dev, generator=g)
+    labels = np.empty(num_nodes, np.int32)
+    path = os.path.join(directory, NODE_FILES["features"])
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    chunk = 1 << 22
+    with open(path, "wb") as fh:
+        for lo in range(0, num_nodes, chunk):
+            x = torch.randn(min(chunk, num_nodes - lo), PAPERS_FEATS, device=dev, generator=g)
+            labels[lo:lo + len(x)] = torch.argmax(x @ w, 1).int().cpu().numpy()
+            x.cpu().numpy().tofile(fh)
+    edges = torch.randint(0, num_nodes, (num_edges, 2), device=dev, generator=g,
+                          dtype=torch.int32).cpu().numpy()
+    save_split(directory, "train", edges)
+    del edges
+    nodes = torch.randperm(num_nodes, device=dev, generator=g)[:sum(splits)].int().cpu().numpy()
+    save_node_array(directory, "labels", labels)
+    bounds = np.cumsum((0,) + tuple(splits))
+    for name, lo, hi in zip(("train_nodes", "valid_nodes", "test_nodes"), bounds, bounds[1:]):
+        save_node_array(directory, name, nodes[lo:hi])
+    save_stats(directory, DatasetStats(
+        num_nodes=num_nodes, num_edges=num_edges, num_relations=1, num_edge_cols=2,
+        num_train=splits[0], num_valid=splits[1], num_test=splits[2],
+        num_classes=PAPERS_CLASSES, feature_dim=PAPERS_FEATS))
+    return time.perf_counter() - t0
+
+
+def papers_config(tmp: str, epochs: int, save_model: bool, grouped: bool = False):
+    """examples/configuration/ogbn_arxiv.yaml's model (FEATURE 128, 3 x
+    GraphSAGE MEAN, bias, CE SUM, Adam lr 0.01, batch 1000) over the
+    papers100M-shaped dataset in ``tmp``: 172 classes, UNIFORM 8 per
+    direction over 3 hops (bench_products.py:48), the YAML's hop caps
+    dropped (the buffer trainer sizes them over its buffer rows), node
+    features in a PARTITION_BUFFER of 16 partitions, capacity 8, DISPERSED
+    (the reference's defaults); ``grouped`` gives the second GNN layer its
+    own optimizer block."""
+    from marius_tpu_torch.config import load_config
+
+    path = Path(__file__).resolve().parent / "examples" / "configuration" / "ogbn_arxiv.yaml"
+    with open(path) as f:
+        raw = yaml.safe_load(f)
+    enc = raw["model"]["encoder"]
+    del enc["hop_caps"]
+    enc["train_neighbor_sampling"] = [{"type": "UNIFORM",
+                                       "options": {"max_neighbors": PAPERS_FANOUT}}] * 3
+    enc["layers"][-1][0]["output_dim"] = PAPERS_CLASSES
+    if grouped:
+        enc["layers"][2][0]["optimizer"] = {"type": "ADAGRAD", "options": {"learning_rate": 0.01}}
+    raw["storage"]["dataset"]["dataset_dir"] = f"{tmp}/dataset"
+    raw["storage"]["features"] = {"type": "PARTITION_BUFFER"}
+    raw["storage"]["embeddings"] = {"options": {
+        "num_partitions": PAPERS_PARTITIONS, "buffer_capacity": PAPERS_BUFFER,
+        "node_partition_ordering": "DISPERSED"}}
+    raw["storage"]["save_model"] = save_model
+    raw["training"]["num_epochs"] = epochs
+    return load_config(raw, model_dir=f"{tmp}/model")
+
+
+class RssSampler:
+    """Samples this process's resident memory (VmRSS, /proc/self/status)
+    every 0.1 s on a thread and keeps the peak; the pages of a mapped file
+    that the process has read count in it."""
+
+    def __enter__(self):
+        import threading
+
+        self.peak = 0
+        self._stop = threading.Event()
+
+        def run():
+            while not self._stop.is_set():
+                with open("/proc/self/status") as f:
+                    for line in f:
+                        if line.startswith("VmRSS:"):
+                            self.peak = max(self.peak, int(line.split()[1]) * 1024)
+                self._stop.wait(0.1)
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+
+class NCBufferProbe:
+    """Wraps PartitionBufferNCTrainer.train_epoch and evaluate_nodes while a
+    manager call runs: per-state timings on, and per epoch and evaluation
+    the launch counts (counters set to 0 at the start of each call, read at
+    its end), the bytes copied to the device, peak device memory and the
+    seconds."""
+
+    def __init__(self):
+        from marius_tpu_torch.train import nc_buffer
+
+        self.cls = nc_buffer.PartitionBufferNCTrainer
+        self.epochs, self.evals, self.first_epoch_at = [], [], None
+
+    def __enter__(self):
+        from marius_tpu_torch.ops.cuda import adagrad, gather
+        from marius_tpu_torch.ops.cuda import nbr_sum as ns
+        from marius_tpu_torch.storage import transfer
+
+        train_epoch, evaluate = self.cls.train_epoch, self.cls.evaluate_nodes
+        self._saved = (train_epoch, evaluate)
+        probe = self
+
+        def reset():
+            torch.cuda.reset_peak_memory_stats()
+            gather.launches = adagrad.launches = ns.launches = 0
+            transfer.bytes_h2d = transfer.bytes_d2h = 0
+            transfer.seconds_h2d = transfer.seconds_d2h = 0.0
+
+        def read(res):
+            res.update(gather=gather.launches, adagrad=adagrad.launches, gather_sum=ns.launches,
+                       h2d=transfer.bytes_h2d, h2d_s=transfer.seconds_h2d,
+                       peak=torch.cuda.max_memory_allocated())
+            return res
+
+        def profiled(trainer, *a, **kw):
+            if probe.first_epoch_at is None:
+                probe.first_epoch_at = time.perf_counter()
+            trainer.profile_states = True
+            reset()
+            res = read(train_epoch(trainer, *a, **kw))
+            res["timings"] = list(trainer.last_state_timings)
+            probe.epochs.append(res)
+            return res
+
+        def counted(trainer, nodes):
+            reset()
+            t0 = time.perf_counter()
+            res = evaluate(trainer, nodes)
+            probe.evals.append(read({"s": time.perf_counter() - t0,
+                                     "batches": trainer.last_eval_batches}))
+            return res
+
+        self.cls.train_epoch = profiled
+        self.cls.evaluate_nodes = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.train_epoch, self.cls.evaluate_nodes = self._saved
+
+
+def report_nc_oocore(tag: str, out: dict, probe: NCBufferProbe, card: str, epochs: int) -> dict:
+    """Print and check each epoch and evaluation of a papers-shaped run;
+    return the launches by part."""
+    trainer = out["runtime"].trainer
+    if type(trainer).__name__ != "PartitionBufferNCTrainer" or trainer.device.type != "cuda":
+        raise AssertionError(f"{tag} must train through PartitionBufferNCTrainer on the GPU")
+    layers = trainer.model.encoder.num_gnn_stages
+    for i, e in enumerate(probe.epochs):
+        swap, graph, comp = (sum(t[k] for t in e["timings"]) for k in range(3))
+        padded = e["masked_batches"] / (e["batches_run"] + e["masked_batches"])
+        print(f"{tag} epoch {i}: loss {e['loss']:.6f}  {e['epoch_time_s']:.4f} s  "
+              f"{e['nodes_per_sec']:.1f} train nodes/s  {len(e['timings'])} of "
+              f"{e['num_buffer_states']} states, {e['batches_run']} batches + "
+              f"{e['masked_batches']} padded (padded share {padded:.4f}, max_batches "
+              f"{e['max_batches']}), truncated frontier ids {e['truncated_frontier_ids']}  "
+              f"[{card}]", flush=True)
+        print(f"{tag} epoch {i} per state (swap, state graph, compute) s: " + ", ".join(
+            f"({a:.3f}, {b:.3f}, {c:.3f})" for a, b, c in e["timings"])
+            + f"; sums {swap:.3f}, {graph:.3f}, {comp:.3f}; edge arrays padded to "
+            f"{e['max_graph_edges']}", flush=True)
+        print(f"{tag} epoch {i}: host->device {e['h2d'] / 1e9:.3f} GB in {e['h2d_s']:.3f} s "
+              f"({e['h2d'] / 1e9 / max(e['h2d_s'], 1e-9):.3f} GB/s); peak device memory "
+              f"{e['peak'] / 2**30:.3f} GiB; launches gather_rows {e['gather']}, gather_sum "
+              f"{e['gather_sum']}, sparse_adagrad_update_ {e['adagrad']}  [{card}]", flush=True)
+        if (e["gather"], e["gather_sum"], e["adagrad"]) != (
+                e["batches_run"], layers * e["batches_run"], 0) or not e["batches_run"]:
+            raise AssertionError(f"{tag} epoch {i}: launches do not match the batches: {e}")
+        if not math.isfinite(e["loss"]):
+            raise AssertionError(f"{tag} epoch {i}: the loss is not finite")
+    if len(probe.epochs) != epochs:
+        raise AssertionError(f"{tag} ran {len(probe.epochs)} epochs, not {epochs}")
+    for ev in probe.evals:
+        print(f"{tag} evaluation: {ev['batches']} batches in {ev['s']:.3f} s, host->device "
+              f"{ev['h2d'] / 1e9:.3f} GB, peak device memory {ev['peak'] / 2**30:.3f} GiB, "
+              f"launches gather_rows {ev['gather']}, gather_sum {ev['gather_sum']}  [{card}]",
+              flush=True)
+        if (ev["gather"], ev["gather_sum"], ev["adagrad"]) != (
+                ev["batches"], layers * ev["batches"], 0):
+            raise AssertionError(f"{tag}: an evaluation's launches do not match its batches")
+    for res in out["evals"] + [out["test"]]:
+        print(f"{tag} {res['split']} accuracy {res['accuracy']:.6f} over "
+              f"{int(res['num_evaluated'])} nodes (chance {1 / PAPERS_CLASSES:.6f})  [{card}]",
+              flush=True)
+        if not 1.0 / PAPERS_CLASSES < res["accuracy"] <= 1.0:
+            raise AssertionError(f"{tag}: {res['split']} accuracy is not above chance: {res}")
+    return {"gather_rows": {f"{tag} train": sum(e["gather"] for e in probe.epochs),
+                            f"{tag} eval": sum(ev["gather"] for ev in probe.evals)},
+            "gather_sum": {f"{tag} train": sum(e["gather_sum"] for e in probe.epochs),
+                           f"{tag} eval": sum(ev["gather_sum"] for ev in probe.evals)},
+            "sparse_adagrad_update_": {f"{tag} train": sum(e["adagrad"] for e in probe.epochs)}}
+
+
+def papers_splits(num_nodes: int):
+    """Train, valid and test sizes: papers100M's, scaled with the node count."""
+    return tuple(int(round(k * num_nodes / PAPERS_NODES))
+                 for k in (PAPERS_TRAIN, PAPERS_VALID, PAPERS_TEST))
+
+
+def nc_oocore_reload(card: str) -> dict:
+    """The main config cut to NC_RELOAD_NODES nodes (edges and splits in
+    proportion), the second GNN layer with its own optimizer block (a
+    grouped optimizer), 1 epoch through marius_train with the model saved;
+    marius_eval must reproduce the test accuracy exactly."""
+    from marius_tpu_torch.manager import marius_eval, marius_train
+    from marius_tpu_torch.nn.optimizers import GroupedOptimizerConfig
+
+    n = NC_RELOAD_NODES
+    edges = int(round(PAPERS_NC_EDGES * n / PAPERS_NODES))
+    with tempfile.TemporaryDirectory() as tmp:
+        secs = write_papers_shaped(f"{tmp}/dataset", n, edges, papers_splits(n))
+        cfg = papers_config(tmp, 1, save_model=True, grouped=True)
+        if not isinstance(cfg.model.dense_optimizer, GroupedOptimizerConfig):
+            raise AssertionError("the layer's optimizer block must build a grouped optimizer")
+        print(f"nc_oocore_reload: the nc_oocore config cut to {n} nodes, {edges} edges, "
+              f"splits {papers_splits(n)}, 1 epoch; layer 2 with its own Adagrad block; "
+              f"dataset written in {secs:.2f} s", flush=True)
+        with NCBufferProbe() as probe:
+            out = marius_train(cfg)   # device=None: the GPU
+            counts = report_nc_oocore("nc_oocore_reload", out, probe, card, 1)
+            again = marius_eval(cfg)
+        if not Path(f"{tmp}/model/meta.yaml").exists():
+            raise AssertionError("marius_train did not save the model")
+    if any(out["test"][k] != again["test"][k] for k in ("accuracy", "num_evaluated")):
+        raise AssertionError(f"marius_eval's test metrics {again['test']} differ from "
+                             f"marius_train's {out['test']}")
+    print("nc_oocore_reload: marius_eval reloaded the checkpoint (grouped optimizer state "
+          "included) and reproduced the test accuracy exactly", flush=True)
+    counts["gather_rows"]["nc_oocore_reload marius_eval"] = probe.evals[-1]["gather"]
+    counts["gather_sum"]["nc_oocore_reload marius_eval"] = probe.evals[-1]["gather_sum"]
+    return counts
+
+
+def nc_oocore(card: str, rates) -> dict:
+    """The papers100M-shaped PARTITION_BUFFER config through marius_train
+    (1 epoch, a valid evaluation, the test evaluation), then the row gather
+    and the gather-sum at one real batch's shapes of its last state."""
+    import shutil
+
+    from marius_tpu_torch.data.samplers.neighbor import estimate_hop_caps
+    from marius_tpu_torch.manager import marius_train
+
+    n, edges = PAPERS_NODES, PAPERS_NC_EDGES
+    with tempfile.TemporaryDirectory() as tmp:
+        mem, disk = host_memory(), shutil.disk_usage(tmp)
+        print(f"nc_oocore host: MemTotal {mem['MemTotal'] / 2**30:.2f} GiB, MemAvailable "
+              f"{mem['MemAvailable'] / 2**30:.2f} GiB; free disk {disk.free / 2**30:.2f} GiB "
+              f"under {tmp}", flush=True)
+        # host memory: the features' pages, the edges held about 4 times over, a spare;
+        # disk: the features file and the edges file, within PAPERS_DISK_BYTES
+        row = PAPERS_FEATS * 4
+        rooms = {"MemAvailable": mem["MemAvailable"] - OOC_HOST_SPARE - 4 * edges * 8,
+                 "free disk": disk.free - (8 << 30) - edges * 8,
+                 f"the {PAPERS_DISK_BYTES / 2**30:.0f} GiB disk budget":
+                     PAPERS_DISK_BYTES - edges * 8}
+        cut = ""
+        limit = min(rooms, key=rooms.get)
+        if n * row > rooms[limit]:
+            n = int(rooms[limit] // row) // 1_000_000 * 1_000_000
+            cut = (f", nodes {PAPERS_NODES} -> {n} ({limit} cannot hold the "
+                   f"{PAPERS_NODES * row / 2**30:.1f} GiB of features and "
+                   f"{edges * 8 / 2**30:.1f} GiB of edges)")
+        splits = (PAPERS_TRAIN, PAPERS_VALID, PAPERS_TEST)
+        secs = write_papers_shaped(f"{tmp}/dataset", n, edges, splits)
+        print(f"nc_oocore dataset: {n} nodes, {n * row / 1e9:.2f} GB of f32 features, "
+              f"{edges} uniform edges, papers100M's splits {splits}, written in {secs:.2f} s",
+              flush=True)
+        cfg = papers_config(tmp, PAPERS_EPOCHS, save_model=False)
+        print(f"nc_oocore: ogbn_arxiv.yaml's model at papers100M's shape (172 classes), "
+              f"UNIFORM {PAPERS_FANOUT} per direction over 3 hops, features PARTITION_BUFFER "
+              f"{PAPERS_PARTITIONS} partitions, capacity {PAPERS_BUFFER}, DISPERSED; cuts: "
+              f"edges {PAPERS_EDGES} -> {edges}, num_epochs 10 -> {PAPERS_EPOCHS}{cut}",
+              flush=True)
+        torch.cuda.empty_cache()
+        with NCBufferProbe() as probe, RssSampler() as rss:
+            t0 = time.perf_counter()
+            out = marius_train(cfg)   # device=None: the GPU
+            total = time.perf_counter() - t0
+        trainer = out["runtime"].trainer
+        cache = trainer.cache
+        expected = tuple(estimate_hop_caps(BATCH, trainer.nbr_configs, cache.buffer_rows))
+        print(f"nc_oocore: marius_train {total:.2f} s, of which set-up before the first epoch "
+              f"{probe.first_epoch_at - t0:.2f} s; cache {cache.buffer_rows} x "
+              f"{cache.host.shape[1]} rows ({cache.buffer_rows * cache.host.shape[1] * 4 / 1e9:.2f}"
+              f" GB), psize {cache.psize}, hop caps {trainer.hop_caps}; host peak RSS "
+              f"{rss.peak / 2**30:.2f} GiB (the mapped features file's pages read "
+              f"included: {n * PAPERS_FEATS * 4 / 2**30:.2f} GiB if every one was)  [{card}]",
+              flush=True)
+        if trainer.hop_caps != expected or not isinstance(cache.host, np.memmap):
+            raise AssertionError("nc_oocore must read a mapped features file under worst-case "
+                                 "caps over the buffer rows")
+        counts = report_nc_oocore("nc_oocore", out, probe, card, PAPERS_EPOCHS)
+        shapes = nc_oocore_shapes(trainer, rates, card)
+        del out, trainer, cache
+    return {**counts, "shapes": shapes}
+
+
+def nc_oocore_shapes(trainer, rates, card) -> dict:
+    """One real training batch of the last resident state: the row gather
+    at the outer hop's shape (K = the outermost cap, into the cache's rows)
+    and the gather-sum at layer 0's, each bit for bit against its plain
+    version and timed beside its bound and its library call; between them,
+    host and device ms per training step (profile_steps)."""
+    from marius_tpu_torch.data.samplers.neighbor import sample_neighbor_batch
+    from marius_tpu_torch.ops.cuda import gather
+
+    dev = trainer.device
+    st = [int(p) for p in trainer.cache.resident if p >= 0]
+    max_edges = 1 << (trainer._state_edges(st) - 1).bit_length()
+    graph = trainer._state_graph(max_edges)
+    seeds_g = np.concatenate([trainer.train_by_part[p] for p in st])[:trainer.batch_size]
+    seeds, labels = trainer._local_seeds(seeds_g)
+    mask = torch.ones(len(seeds), dtype=torch.bool, device=dev)
+    draws = trainer._batch_draws(trainer.epoch, 0)   # the trainer's own, on the card
+    nb = sample_neighbor_batch(draws, graph, seeds, mask, trainer.nbr_configs, trainer.hop_caps)
+    outer = nb.node_ids[0]
+    table = trainer.cache.device_rows
+    err = gather_max_err(gather, table, outer)
+    rows = time_gather(gather, table, [outer], rates)
+    rows["max_abs_err"] = err
+    print(f"gather_rows, nc_oocore_outer (K={rows['k']} into {table.shape[0]} x {rows['d']}, "
+          f"{rows['distinct_rows']:.1f} distinct rows, {rows['bound_bytes'] / 1e6:.4f} MB): "
+          f"max_abs_err {err}  kernel {rows['ms'] * 1e3:.2f} us  plain "
+          f"{rows['plain_ms'] * 1e3:.2f} us  index_select {rows['library_ms'] * 1e3:.2f} us  "
+          f"bound {rows['bound_ms'] * 1e3:.2f} us ({rows['bound_by']})  [{card}]", flush=True)
+    # where one training step's time goes (5 steps on these seeds, twice:
+    # timed, then under the profiler)
+    profile_steps(lambda: trainer._batch_step(graph, seeds, mask, labels, draws,
+                                              trainer._dropout), 5, "nc_oocore step", card)
+    sums = time_layer_sum(nb.layers[0], outer.shape[0], NC_DIM, rates, dev)
+    print(f"gather_sum, nc_oocore layer 0 ({sums['targets']} targets x {sums['width']} slots, "
+          f"{sums['valid_slots']} real, {sums['distinct_rows']} distinct rows of "
+          f"{outer.shape[0]}, d={NC_DIM}, {sums['bound_bytes'] / 1e6:.4f} MB): "
+          f"max_abs_err {sums['max_abs_err']}  "
+          f"kernel {sums['ms'] * 1e3:.2f} us  plain {sums['plain_ms'] * 1e3:.2f} us  "
+          f"embedding_bag {sums['library_ms'] * 1e3:.2f} us  bound {sums['bound_ms'] * 1e3:.2f} "
+          f"us ({sums['bound_by']})  [{card}]", flush=True)
+    return {"gather_rows": rows, "gather_sum": sums}
+
+
+def nc_locality(card: str, adj, data, rates) -> dict:
+    """train_nc's general seed-restricted trainer at arxiv shape, 1 epoch
+    over the plain adjacency and over build_full_graph_adjacency(...,
+    locality_reorder=True) from the same initial state and permutation: the
+    losses agree within rtol 2e-5; then the whole neighbour sum (d = 128)
+    timed in the two orders, and the gather-sum alone on the permuted x."""
+    from marius_tpu_torch.data.full_graph import (
+        build_full_graph_adjacency,
+        make_nbr_sums,
+        nbr_sum_layout,
+    )
+    from marius_tpu_torch.data.graph import build_device_graph
+    from marius_tpu_torch.ops.cuda import gather
+    from marius_tpu_torch.ops.cuda import nbr_sum as ns
+    from marius_tpu_torch.train.nc import NodeClassificationTrainer
+
+    edges, features, labels, train_nodes = data
+    t0 = time.perf_counter()
+    adj_l = build_full_graph_adjacency(edges, ARXIV_NODES, locality_reorder=True)
+    print(f"nc_locality: reverse Cuthill-McKee and the locality adjacency on the host in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    graph = build_device_graph(edges, ARXIV_NODES)
+    model = nc_model(ARXIV_FEATS, (NC_DIM, NC_DIM, ARXIV_CLASSES))
+    losses, counts = {}, {}
+    for name, a in (("plain", adj), ("locality", adj_l)):
+        gather.launches = ns.launches = 0
+        tr = NodeClassificationTrainer(model, graph, features, labels, train_nodes,
+                                       batch_size=BATCH, seed=0, full_graph=a,
+                                       fg_linear_collapse=False)
+        res = tr.train_epoch()
+        losses[name] = res["loss"]
+        counts[name] = (gather.launches, ns.launches, tr.num_batches)
+        print(f"nc_locality {name}: loss {res['loss']:.6f}  {res['epoch_time_s']:.4f} s  "
+              f"{res['nodes_per_sec']:.1f} nodes/s; launches gather_rows {gather.launches}, "
+              f"gather_sum {ns.launches} over {tr.num_batches} batches  [{card}]", flush=True)
+        del tr
+    rel = abs(losses["locality"] - losses["plain"]) / abs(losses["plain"])
+    print(f"nc_locality: loss relative difference {rel:.3g} (tolerance 2e-5)", flush=True)
+    if rel > 2e-5:
+        raise AssertionError("the locality adjacency's loss differs from the plain one's")
+    # the general path: one neighbour sum at setup and 2 per batch (a middle stage,
+    # forward and backward); each locality sum adds one row gather (the permutation)
+    (g_p, s_p, nb), (g_l, s_l, _) = counts["plain"], counts["locality"]
+    if not s_p == s_l == 1 + 2 * nb or g_l - g_p != s_l:
+        raise AssertionError(f"nc_locality launches do not match the batches: {counts}")
+    x = torch.randn(ARXIV_NODES, NC_DIM, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(4))
+    a_p, a_l = adj.to("cuda"), adj_l.to("cuda")
+    f_p, f_l = make_nbr_sums(a_p), make_nbr_sums(a_l)
+    y_p, y_l = f_p(x), f_l(x)
+    torch.cuda.synchronize()
+    if not torch.equal(y_p, y_l):
+        raise AssertionError("the locality neighbour sum differs from the plain one")
+    lay_p, lay_l = nbr_sum_layout(a_p), nbr_sum_layout(a_l)
+    sums = time_layout_sum(lay_l, ARXIV_NODES, NC_DIM, rates, "nc_locality order", card)
+    sums.update(plain_sum_ms=time_ms(lambda: f_p(x)), locality_sum_ms=time_ms(lambda: f_l(x)),
+                kernel_plain_order_ms=time_ms(lambda: ns.nbr_sum(x, lay_p)))
+    perm = time_gather(gather, x, [a_l.loc_perm], rates)
+    perm["max_abs_err"] = gather_max_err(gather, x, a_l.loc_perm)
+    print(f"nc_locality neighbour sum (N={ARXIV_NODES}, d={NC_DIM}): whole sum plain "
+          f"{sums['plain_sum_ms'] * 1e3:.2f} us, locality {sums['locality_sum_ms'] * 1e3:.2f} "
+          f"us; gather-sum kernel alone: original order "
+          f"{sums['kernel_plain_order_ms'] * 1e3:.2f} us, locality order "
+          f"{sums['ms'] * 1e3:.2f} us  [{card}]", flush=True)
+    print(f"gather_rows, nc_locality permutation (K={perm['k']} into {ARXIV_NODES} x "
+          f"{NC_DIM}): max_abs_err {perm['max_abs_err']}  kernel {perm['ms'] * 1e3:.2f} us  "
+          f"plain {perm['plain_ms'] * 1e3:.2f} us  index_select {perm['library_ms'] * 1e3:.2f} "
+          f"us  bound {perm['bound_ms'] * 1e3:.2f} us ({perm['bound_by']})  [{card}]",
+          flush=True)
+    return {"gather_rows": {"nc_locality plain train": g_p, "nc_locality train": g_l},
+            "gather_sum": {"nc_locality plain train": s_p, "nc_locality train": s_l},
+            "sum_shape": sums, "permute_shape": perm}
+
+
+def nc_embedding_full(card: str, data, rates) -> dict:
+    """EMBEDDING (d = 128) beside FEATURE, full-graph GraphSAGE at arxiv
+    shape, 1 epoch through NodeClassificationTrainer and the evaluation: one
+    all-rows Adagrad launch per batch; then the Adagrad kernel at all
+    169,343 rows, bit for bit against the plain version, timed beside its
+    bound and torch's sparse Adagrad."""
+    from marius_tpu_torch.data.full_graph import build_full_graph_adjacency
+    from marius_tpu_torch.data.graph import build_device_graph
+    from marius_tpu_torch.ops.cuda import adagrad, gather
+    from marius_tpu_torch.ops.cuda import nbr_sum as ns
+    from marius_tpu_torch.train.nc import NodeClassificationEvaluator, NodeClassificationTrainer
+
+    edges, features, labels, train_nodes = data
+    model = concat_sage_model(ARXIV_FEATS, NC_DIM, (NC_DIM, NC_DIM, ARXIV_CLASSES),
+                              feature_bias=True)
+    adj = build_full_graph_adjacency(edges, ARXIV_NODES)
+    tr = NodeClassificationTrainer(model, build_device_graph(edges, ARXIV_NODES), features,
+                                   labels, train_nodes, batch_size=BATCH, seed=0, full_graph=adj)
+    if tr._fg_collapse is not None or tr.state.table is None:
+        raise AssertionError("an EMBEDDING encoder must take the general full-graph path")
+    before = tr.state.table.values.clone()
+    torch.cuda.reset_peak_memory_stats()
+    gather.launches = ns.launches = adagrad.launches = 0
+    res = tr.train_epoch()
+    train = (gather.launches, ns.launches, adagrad.launches)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"nc_embedding_full epoch 0: loss {res['loss']:.6f}  {res['epoch_time_s']:.4f} s  "
+          f"{res['nodes_per_sec']:.1f} nodes/s  ({res['epoch_time_s'] / tr.num_batches * 1e3:.2f}"
+          f" ms per batch); launches gather_rows {train[0]}, gather_sum {train[1]}, "
+          f"sparse_adagrad_update_ {train[2]} over {tr.num_batches} batches; peak device memory "
+          f"{peak / 2**30:.3f} GiB  [{card}]", flush=True)
+    if train[2] != tr.num_batches or not math.isfinite(res["loss"]) or torch.equal(
+            before, tr.state.table.values):
+        raise AssertionError(f"nc_embedding_full: one Adagrad launch per batch and a trained "
+                             f"table expected: {train}")
+    gather.launches = ns.launches = adagrad.launches = 0
+    eval_nodes = np.setdiff1d(np.arange(ARXIV_NODES), train_nodes)
+    acc = NodeClassificationEvaluator(tr, eval_nodes).evaluate(tr.state)
+    evals = (gather.launches, ns.launches, adagrad.launches)
+    print(f"nc_embedding_full evaluation: accuracy {acc['accuracy']:.6f} over "
+          f"{int(acc['num_evaluated'])} nodes; launches gather_rows {evals[0]}, gather_sum "
+          f"{evals[1]}, Adagrad {evals[2]}  [{card}]", flush=True)
+    if evals[2] or not 1.0 / ARXIV_CLASSES < acc["accuracy"] <= 1.0:
+        raise AssertionError(f"nc_embedding_full evaluation is wrong: {acc}")
+
+    table = tr.state.table
+    g = torch.Generator(device="cuda").manual_seed(6)
+    grads = torch.randn(table.values.shape, device="cuda", generator=g)
+    ids = tr._all_ids
+    v1, s1, v2, s2 = (t.clone() for t in (table.values, table.state) * 2)
+    adagrad.sparse_adagrad_update_(v1, s1, ids, grads, 0.1)
+    adagrad.sparse_adagrad_update_plain_(v2, s2, ids, grads, 0.1)
+    torch.cuda.synchronize()
+    err = max(float((v1 - v2).abs().max()), float((s1 - s2).abs().max()))
+    if err != 0.0 or not torch.equal(v1, v2):
+        raise AssertionError(f"sparse_adagrad_update_ over all rows differs from plain by {err}")
+    n, d = table.values.shape
+    b_ms, b_by = bound_ms(n * 8 + n * d * 4 * 5, n * d * 7, rates)
+    from torch.optim.adagrad import adagrad as torch_adagrad
+
+    sparse = torch.sparse_coo_tensor(ids[None], grads, (n, d), is_coalesced=True,
+                                     check_invariants=False)
+    v3, s3, step = v1.clone(), s1.clone(), torch.zeros((), device="cuda")
+    shape = {"rows": n, "d": d, "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+             "ms": time_ms(lambda: adagrad.sparse_adagrad_update_(v1, s1, ids, grads, 0.1)),
+             "plain_ms": time_ms(lambda: adagrad.sparse_adagrad_update_plain_(
+                 v2, s2, ids, grads, 0.1)),
+             "library_ms": time_ms(lambda: torch_adagrad(
+                 [v3], [sparse], [s3], [step], has_sparse_grad=True, lr=0.1, weight_decay=0.0,
+                 lr_decay=0.0, eps=1e-10, maximize=False))}
+    print(f"sparse_adagrad_update_, nc_embedding_full all rows ({n} x {d}): max_abs_err {err}  "
+          f"kernel {shape['ms'] * 1e3:.2f} us  plain {shape['plain_ms'] * 1e3:.2f} us  "
+          f"torch.optim.adagrad (sparse) {shape['library_ms'] * 1e3:.2f} us  bound "
+          f"{b_ms * 1e3:.2f} us ({b_by})  [{card}]", flush=True)
+    return {"gather_rows": {"nc_embedding_full train": train[0],
+                            "nc_embedding_full eval": evals[0]},
+            "gather_sum": {"nc_embedding_full train": train[1],
+                           "nc_embedding_full eval": evals[1]},
+            "sparse_adagrad_update_": {"nc_embedding_full train": train[2]},
+            "shape": shape}
+
+
+def compare_fg_leftovers_with_cpu():
+    """Small full-graph runs on the card against the CPU: the general
+    trainer over the locality adjacency, and EMBEDDING + FEATURE; 2 epochs
+    each, every dense leaf (and the table) within rtol 1e-4 / atol 1e-5."""
+    from marius_tpu_torch.data.full_graph import build_full_graph_adjacency
+    from marius_tpu_torch.data.graph import build_device_graph
+    from marius_tpu_torch.nn.optimizers import tree_leaves
+    from marius_tpu_torch.train.nc import NodeClassificationTrainer
+
+    n, e, f = 300, 3000, 16
+    rng = np.random.default_rng(5)
+    w = (np.arange(n) + 1.0) ** -1.0
+    edges = np.stack([rng.integers(0, n, e), rng.choice(n, e, p=w / w.sum())], 1)
+    _, features, labels, train_nodes = nc_data(6, edges, n, f, 5, 200)
+    graph = build_device_graph(edges, n)
+    worst = 0.0
+    for name, model, loc in (("locality", nc_model(f, (16, 16, 5)), True),
+                             ("EMBEDDING + FEATURE",
+                              concat_sage_model(f, 8, (16, 5), feature_bias=True), False)):
+        adj = build_full_graph_adjacency(edges, n, locality_reorder=loc)
+        cpu, gpu = [NodeClassificationTrainer(model, graph, features, labels, train_nodes,
+                                              batch_size=50, seed=1, full_graph=adj,
+                                              fg_linear_collapse=False, device=dev)
+                    for dev in ("cpu", "cuda")]
+        gpu._epoch_permutation = lambda s, _c=cpu, _g=gpu: _c._epoch_permutation(s).to(_g.device)
+        for _ in range(2):
+            lc, lg = cpu.train_epoch()["loss"], gpu.train_epoch()["loss"]
+            if not math.isclose(lc, lg, rel_tol=1e-4):
+                raise AssertionError(f"full-graph {name} loss on the card {lg} != CPU {lc}")
+        leaves = [(a, b) for a, b in zip(
+            tree_leaves([cpu.state.params, cpu.state.opt_state.slots]),
+            tree_leaves([gpu.state.params, gpu.state.opt_state.slots]))]
+        if cpu.state.table is not None:
+            leaves += [(cpu.state.table.values, gpu.state.table.values),
+                       (cpu.state.table.state, gpu.state.table.state)]
+        for a, b in leaves:
+            b = b.detach().cpu()
+            worst = max(worst, float((a.detach() - b).abs().max()))
+            torch.testing.assert_close(b, a.detach(), rtol=1e-4, atol=1e-5)
+    print(f"small full-graph runs over the locality adjacency and with an EMBEDDING table, "
+          f"card against CPU, 2 epochs: max abs difference {worst:.3g} (tolerance rtol 1e-4, "
+          f"atol 1e-5)", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a GPU",
@@ -3105,6 +3830,13 @@ def main() -> int:
     kernels[0].update(shapes["gather_rows"])
     kernels[2].update(shapes["gather_sum"])
     torch.cuda.empty_cache()
+    locality = nc_locality(card, adj, nc, rates)
+    kernels[2]["nc_locality_order"] = locality.pop("sum_shape")
+    kernels[0]["nc_locality_permutation"] = locality.pop("permute_shape")
+    emb_full = nc_embedding_full(card, nc, rates)
+    kernels[1]["nc_embedding_full_all_rows"] = emb_full.pop("shape")
+    compare_fg_leftovers_with_cpu()
+    torch.cuda.empty_cache()
     manager = lp_manager(card)
     gnn = lp_gnn(card)
     shapes = lp_gnn_shapes(gnn.pop("trainer"), rates, card)
@@ -3118,6 +3850,13 @@ def main() -> int:
     reload = lp_oocore_reload(card)
     gnn_oocore = lp_gnn_oocore(card)
     oocore = lp_oocore(card)
+    torch.cuda.empty_cache()
+    compare_nc_oocore_with_cpu()
+    nc_reload = nc_oocore_reload(card)
+    nc_ooc = nc_oocore(card, rates)
+    shapes = nc_ooc.pop("shapes")
+    kernels[0]["nc_oocore_outer"] = shapes["gather_rows"]
+    kernels[2]["nc_oocore_layer0"] = shapes["gather_sum"]
 
     # each row's launches: the sum over the paths it runs on, each part's beside it
     by_part = {
@@ -3125,7 +3864,9 @@ def main() -> int:
                         **sampled["gather_rows"], **gat["gather_rows"],
                         **rgcn_full["gather_rows"], **gat_full["gather_rows"],
                         **gnn["gather_rows"], **reload["gather_rows"],
-                        **gnn_oocore["gather_rows"], **oocore["gather_rows"]},
+                        **gnn_oocore["gather_rows"], **oocore["gather_rows"],
+                        **locality["gather_rows"], **emb_full["gather_rows"],
+                        **nc_reload["gather_rows"], **nc_ooc["gather_rows"]},
         "sparse_adagrad_update_": {"lp flagship": flagship["sparse_adagrad_update_"],
                                    "lp_manager train": manager["sparse_adagrad_update_"],
                                    **sampled["sparse_adagrad_update_"],
@@ -3135,10 +3876,15 @@ def main() -> int:
                                    **gnn["sparse_adagrad_update_"],
                                    **reload["sparse_adagrad_update_"],
                                    **gnn_oocore["sparse_adagrad_update_"],
-                                   **oocore["sparse_adagrad_update_"]},
+                                   **oocore["sparse_adagrad_update_"],
+                                   **emb_full["sparse_adagrad_update_"],
+                                   **nc_reload["sparse_adagrad_update_"],
+                                   **nc_ooc["sparse_adagrad_update_"]},
         "gather_sum": {**nc_counts, **sampled["gather_sum"], **gat["gather_sum"],
                        **rgcn_full["gather_sum"], **gat_full["gather_sum"], **gnn["gather_sum"],
-                       **gnn_oocore["gather_sum"]},
+                       **gnn_oocore["gather_sum"], **locality["gather_sum"],
+                       **emb_full["gather_sum"], **nc_reload["gather_sum"],
+                       **nc_ooc["gather_sum"]},
     }
     for k in kernels:
         k["launches"] = sum(by_part[k["name"]].values())

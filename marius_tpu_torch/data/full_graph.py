@@ -1,7 +1,8 @@
 """Full-graph padded adjacency and the exact ALL-neighbour sum over it.
 
 Port of ``marius_tpu/data/full_graph.py`` (FullGraphAdjacency :44-93,
-_greedy_buckets :96-118, build_full_graph_adjacency :121-192,
+_greedy_buckets :96-118, build_full_graph_adjacency :121-192 with
+``locality_reorder``,
 host_csr_from_adjacency :195-220, device_csr :223-230,
 device_seed_flat_lists :233-267, make_nbr_sums :333-408, build_inverse_map
 :411-437, make_permuters :440-455, make_gather_blocks :458-487). Every GNN layer
@@ -28,8 +29,17 @@ inverse occurrence map (``build_inverse_map``): by symmetry each node's
 occurrences as a neighbour fill a row of the same bucket shapes, so the
 gather's backward is one more gather-sum kernel call, never a scatter. RGCN
 reads the directional, per-relation companion (``data/full_graph_rel.py``),
-built with ``with_relations=True``. ``locality_reorder`` is not ported yet
-and raises ``NotImplementedError``.
+built with ``with_relations=True``.
+
+``locality_reorder`` relabels the gather SOURCE by reverse Cuthill-McKee
+(scipy): bucket slots hold positions in a permuted copy of x
+(``loc_perm[p]`` = the original id at position p), so one bucket's slots read
+rows near each other. Each pass of the neighbour sum permutes its input with
+the row-gather kernel (one-to-one, no atomics) before the gather-sum; the
+composite operator is the plain one, symmetric, so the backward is the same
+pair of calls on the cotangent. Inputs and outputs stay in original order, and
+``host_csr_from_adjacency`` still gives original ids. Plain SAGE/GCN sums
+only: not with the relational companion nor the inverse map.
 """
 
 from __future__ import annotations
@@ -68,6 +78,9 @@ class FullGraphAdjacency:
     # the directional per-relation companion RGCN stages read
     # (data/full_graph_rel.py RelFullGraph), with_relations=True
     rel: Optional[object] = None
+    # locality_reorder=True: (N,) int32, the ORIGINAL id at each locality
+    # position; bucket slots then hold locality positions
+    loc_perm: Optional[Tensor] = None
 
     @property
     def total_slots(self) -> int:
@@ -90,7 +103,8 @@ class FullGraphAdjacency:
             self, nbrs=tuple(b.to(device) for b in self.nbrs), inv_pos=self.inv_pos.to(device),
             in_deg=self.in_deg.to(device), out_deg=self.out_deg.to(device),
             inv_map=None if self.inv_map is None else tuple(b.to(device) for b in self.inv_map),
-            rel=None if self.rel is None else self.rel.to(device))
+            rel=None if self.rel is None else self.rel.to(device),
+            loc_perm=None if self.loc_perm is None else self.loc_perm.to(device))
 
 
 def _greedy_buckets(deg_sorted: np.ndarray, waste: float = 1.15,
@@ -124,10 +138,12 @@ def build_full_graph_adjacency(
         locality_reorder: bool = False) -> Optional[FullGraphAdjacency]:
     """Build the bucketed symmetric adjacency on the host (CPU tensors; the
     trainer moves it to its device). ``with_relations`` also builds the
-    directional per-relation companion RGCN stages read."""
-    if locality_reorder:
-        raise NotImplementedError("locality_reorder is not ported yet; it comes with a "
-                                  "later full-graph slice")
+    directional per-relation companion RGCN stages read;
+    ``locality_reorder`` relabels the gather source by reverse
+    Cuthill-McKee (see ``loc_perm``)."""
+    if locality_reorder and with_relations:
+        raise ValueError("locality_reorder supports the plain SAGE/GCN neighbour-sum path, "
+                         "not the relational companion")
     e = np.asarray(edges)
     if len(e) == 0 or num_nodes == 0:
         return None
@@ -139,6 +155,17 @@ def build_full_graph_adjacency(
     order = np.argsort(anchor, kind="stable")
     nbrs_sorted = other[order]
     offsets = np.searchsorted(anchor[order], np.arange(num_nodes + 1))
+    loc_perm = None
+    if locality_reorder:
+        import scipy.sparse as sp
+        from scipy.sparse.csgraph import reverse_cuthill_mckee
+        m = sp.csr_matrix((np.ones(len(anchor), np.int8), (anchor, other.astype(np.int64))),
+                          shape=(num_nodes, num_nodes))
+        loc_perm = np.asarray(reverse_cuthill_mckee(m, symmetric_mode=True), np.int64)
+        loc_inv = np.empty(num_nodes + 1, np.int32)
+        loc_inv[loc_perm] = np.arange(num_nodes, dtype=np.int32)
+        loc_inv[num_nodes] = num_nodes          # the padding id stays the padding id
+        nbrs_sorted = loc_inv[nbrs_sorted]      # slot ids -> locality positions
     in_deg = np.bincount(dst, minlength=num_nodes).astype(np.int32)
     out_deg = np.bincount(src, minlength=num_nodes).astype(np.int32)
     deg = (offsets[1:] - offsets[:-1]).astype(np.int64)
@@ -166,7 +193,8 @@ def build_full_graph_adjacency(
     return FullGraphAdjacency(
         nbrs=tuple(buckets), inv_pos=torch.from_numpy(inv_pos),
         in_deg=torch.from_numpy(in_deg), out_deg=torch.from_numpy(out_deg),
-        num_nodes=int(num_nodes), rel=rel)
+        num_nodes=int(num_nodes), rel=rel,
+        loc_perm=None if loc_perm is None else torch.from_numpy(loc_perm.astype(np.int32)))
 
 
 def host_csr_from_adjacency(adj: FullGraphAdjacency) -> Tuple[np.ndarray, np.ndarray]:
@@ -188,6 +216,10 @@ def host_csr_from_adjacency(adj: FullGraphAdjacency) -> Tuple[np.ndarray, np.nda
         cols = np.arange(int(d.sum())) - np.repeat(np.cumsum(d) - d, d)
         nbrs[np.repeat(offsets[nodes], d) + cols] = nb_[rows, cols]
         row0 += nb_.shape[0]
+    if adj.loc_perm is not None:
+        # bucket slots hold locality positions; the CSR holds original ids
+        nbrs = np.concatenate([adj.loc_perm.cpu().numpy().astype(np.int32),
+                               np.asarray([adj.num_nodes], np.int32)])[nbrs]
     return offsets, nbrs
 
 
@@ -250,16 +282,40 @@ def nbr_sum_layout(adj: FullGraphAdjacency) -> nbr_sum_kernel.GatherSumLayout:
     return nbr_sum_kernel.bucket_layout(adj.nbrs, perm, adj.num_nodes)
 
 
+class _LocalityNbrSum(torch.autograd.Function):
+    """The neighbour sum over a locality adjacency: x permuted into locality
+    order by the row-gather kernel (``x[loc_perm]``, one-to-one), then the
+    gather-sum. The composite operator is the plain adjacency's, symmetric,
+    so the backward is the same two kernel calls on the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, perm, layout):
+        ctx.perm, ctx.layout, ctx.dtype = perm, layout, x.dtype
+        return nbr_sum_kernel.nbr_sum(gather_rows(x.contiguous(), perm), layout).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, u):
+        g = nbr_sum_kernel.nbr_sum(gather_rows(u.to(ctx.dtype).contiguous(), ctx.perm),
+                                   ctx.layout)
+        return g.to(ctx.dtype), None, None
+
+
 def make_nbr_sums(adj: FullGraphAdjacency):
     """Returns ``nbr_sum``: x:(N, d) -> (N, d), the sum of each node's
     combined (in+out) neighbour rows, in original node order. One kernel
-    call per pass, forward and backward alike."""
+    call per pass, forward and backward alike; with ``loc_perm`` each pass
+    first permutes its input into locality order (one row-gather call)."""
     layout = nbr_sum_layout(adj)
+    if adj.loc_perm is None:
+        def nbr_sum(x: Tensor) -> Tensor:
+            return _NbrSum.apply(x, layout)
+        return nbr_sum
+    perm = adj.loc_perm
 
-    def nbr_sum(x: Tensor) -> Tensor:
-        return _NbrSum.apply(x, layout)
+    def nbr_sum_local(x: Tensor) -> Tensor:
+        return _LocalityNbrSum.apply(x, perm, layout)
 
-    return nbr_sum
+    return nbr_sum_local
 
 
 def build_inverse_map(adj: FullGraphAdjacency) -> FullGraphAdjacency:
@@ -270,6 +326,9 @@ def build_inverse_map(adj: FullGraphAdjacency) -> FullGraphAdjacency:
     on the adjacency's device."""
     if adj.inv_map is not None:
         return adj
+    if adj.loc_perm is not None:
+        raise ValueError("locality_reorder supports the plain SAGE/GCN neighbour-sum path, "
+                         "not the inverse map")
     nbrs = [b.cpu().numpy() for b in adj.nbrs]
     flat = np.concatenate([b.reshape(-1) for b in nbrs])
     total = flat.shape[0]

@@ -1,22 +1,25 @@
 """Dense optimizers: SGD / Adagrad / Adam as plain functions on tensors.
 
-Port of ``marius_tpu/nn/optimizers.py`` (OptimizerConfig, OptState,
-init_optimizer, apply_optimizer :20-229; reference nn/optim.cpp). Parameters
-are a nested structure of dicts and lists of tensors; the optimizer state maps
-one to one onto the JAX package's: ``OptState(step, slots)`` with
-``slots = {"exp_avg": tree, "exp_avg_sq": tree[, "max_exp_avg_sq": tree]}``
-for Adam, ``{"sum": tree}`` for Adagrad, ``{"momentum": tree}`` or ``{}`` for
-SGD. Where the JAX version returns new arrays, ``apply_optimizer`` updates
-the parameters and slots in place (same formulas, same operation order) and
+Port of ``marius_tpu/nn/optimizers.py`` (OptimizerConfig,
+GroupedOptimizerConfig, OptState, init_optimizer, apply_optimizer :20-229;
+reference nn/optim.cpp). Parameters are a nested structure of dicts and lists
+of tensors; the optimizer state maps one to one onto the JAX package's:
+``OptState(step, slots)`` with ``slots = {"exp_avg": tree, "exp_avg_sq":
+tree[, "max_exp_avg_sq": tree]}`` for Adam, ``{"sum": tree}`` for Adagrad,
+``{"momentum": tree}`` or ``{}`` for SGD. A ``GroupedOptimizerConfig``
+(per-layer and per-decoder optimizers, model.cpp:161-218) gives every leaf
+the optimizer of its most specific path prefix, and its slot tree is shaped
+like the parameters with a dict of that leaf's slots at each leaf, as in the
+JAX package (so a JAX checkpoint of a grouped model loads leaf by leaf).
+Where the JAX version returns new arrays, ``apply_optimizer`` updates the
+parameters and slots in place (same formulas, same operation order) and
 returns them. Step scalars are Python floats; JAX rounds them to float32.
-``GroupedOptimizerConfig`` (per-layer optimizers) is here as the config
-loader's type; applying it waits for a later slice, and the manager refuses it.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, NamedTuple, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Tuple, Union
 
 import torch
 
@@ -43,15 +46,27 @@ class OptimizerConfig:
 class GroupedOptimizerConfig:
     """Per-layer/per-decoder optimizers (setup_optimizers, nn/model.cpp:
     161-218), keyed by path prefixes: ``("encoder", stage, layer)`` for a
-    layer's params, ``("decoder",)`` for the decoder's."""
+    layer's params, ``("decoder",)`` for the decoder's. A leaf takes the
+    longest matching prefix's optimizer, else ``default``."""
 
     default: OptimizerConfig
     overrides: Tuple[Tuple[Tuple, OptimizerConfig], ...] = ()
 
+    def config_for(self, path: Tuple) -> OptimizerConfig:
+        best, best_len = self.default, -1
+        for prefix, cfg in self.overrides:
+            k = len(prefix)
+            if k > best_len and path[:k] == prefix:
+                best, best_len = cfg, k
+        return best
+
+
+AnyOptimizerConfig = Union[OptimizerConfig, GroupedOptimizerConfig]
+
 
 class OptState(NamedTuple):
     step: int    # optimizer steps taken
-    slots: Any   # dict of per-param state trees
+    slots: Any   # dict of per-param state trees (grouped: per-leaf slot dicts)
 
 
 def tree_map(fn: Callable, tree, *rest):
@@ -64,106 +79,145 @@ def tree_map(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
+def tree_map_with_path(fn: Callable, tree, *rest, path: Tuple = ()):
+    """``tree_map`` whose ``fn`` also gets each leaf's path: the dict keys and
+    list positions from the root (the JAX package's ``_norm_path``)."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, *(r[k] for r in rest), path=path + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, v, *(r[i] for r in rest), path=path + (i,))
+                          for i, v in enumerate(tree))
+    return fn(path, tree, *rest)
+
+
 def tree_leaves(tree) -> list:
     out = []
     tree_map(out.append, tree)
     return out
 
 
-def init_optimizer(config: OptimizerConfig, params) -> OptState:
+def _slot_names(config: OptimizerConfig) -> Tuple[str, ...]:
     ot = config.optimizer_type.upper()
-    zeros = lambda p: torch.zeros_like(p, requires_grad=False)  # noqa: E731
     if ot == "SGD":
-        slots = {"momentum": tree_map(zeros, params)} if config.momentum else {}
-    elif ot == "ADAGRAD":
-        slots = {"sum": tree_map(
-            lambda p: torch.full_like(p, config.init_value, requires_grad=False), params)}
-    elif ot == "ADAM":
-        slots = {"exp_avg": tree_map(zeros, params),
-                 "exp_avg_sq": tree_map(zeros, params)}
-        if config.amsgrad:
-            slots["max_exp_avg_sq"] = tree_map(zeros, params)
-    else:
-        raise ValueError(f"Unknown optimizer type: {config.optimizer_type}")
+        return ("momentum",) if config.momentum else ()
+    if ot == "ADAGRAD":
+        return ("sum",)
+    if ot == "ADAM":
+        return ("exp_avg", "exp_avg_sq") + (("max_exp_avg_sq",) if config.amsgrad else ())
+    raise ValueError(f"Unknown optimizer type: {config.optimizer_type}")
+
+
+def _slot_fill(config: OptimizerConfig) -> float:
+    return config.init_value if config.optimizer_type.upper() == "ADAGRAD" else 0.0
+
+
+def _leaf_init(config: OptimizerConfig, p: torch.Tensor) -> Dict[str, torch.Tensor]:
+    return {name: torch.full_like(p, _slot_fill(config), requires_grad=False)
+            for name in _slot_names(config)}
+
+
+def init_optimizer(config: AnyOptimizerConfig, params) -> OptState:
+    if isinstance(config, GroupedOptimizerConfig):
+        return OptState(step=0, slots=tree_map_with_path(
+            lambda path, p: _leaf_init(config.config_for(path), p), params))
+    fill = _slot_fill(config)
+    slots = {name: tree_map(lambda p: torch.full_like(p, fill, requires_grad=False), params)
+             for name in _slot_names(config)}
     return OptState(step=0, slots=slots)
 
 
-@torch.no_grad()
-def apply_optimizer(config: OptimizerConfig, params, state: OptState,
-                    grads) -> Tuple[Any, OptState]:
-    """One optimizer step in place; returns (params, new_state). A ``None``
-    gradient leaf counts as zeros (autograd leaves unused params without one,
-    where JAX returns zeros)."""
+def _leaf_apply_(config: OptimizerConfig, p: torch.Tensor, g: torch.Tensor,
+                 slots: Dict[str, torch.Tensor], step: int) -> None:
+    """One leaf's optimizer step, in place on ``p`` and its ``slots``."""
     ot = config.optimizer_type.upper()
-    grads = tree_map(lambda g, p: torch.zeros_like(p) if g is None else g, grads, params)
     if config.weight_decay:
-        grads = tree_map(lambda g, p: g + config.weight_decay * p, grads, params)
-
+        g = g + config.weight_decay * p
     if ot == "SGD":
         if config.momentum:
-            def sgd_m(p, g, m):
-                m.copy_(config.momentum * m + g)
-                p.copy_(p - config.learning_rate * m)
-            tree_map(sgd_m, params, grads, state.slots["momentum"])
+            m = slots["momentum"]
+            m.copy_(config.momentum * m + g)
+            p.copy_(p - config.learning_rate * m)
         else:
-            tree_map(lambda p, g: p.copy_(p - config.learning_rate * g), params, grads)
-        return params, OptState(state.step + 1, state.slots)
-
+            p.copy_(p - config.learning_rate * g)
+        return
     if ot == "ADAGRAD":
         # lr / (1 + num_steps * lr_decay); sum += g²; p -= lr * g / (sqrt(sum)+eps)
-        lr = config.learning_rate / (1.0 + state.step * config.lr_decay)
-
-        def adagrad(p, g, s):
-            s.copy_(s + g * g)
-            p.copy_(p - lr * g / (torch.sqrt(s) + config.eps))
-        tree_map(adagrad, params, grads, state.slots["sum"])
-        return params, OptState(state.step + 1, state.slots)
-
+        lr = config.learning_rate / (1.0 + step * config.lr_decay)
+        s = slots["sum"]
+        s.copy_(s + g * g)
+        p.copy_(p - lr * g / (torch.sqrt(s) + config.eps))
+        return
     if ot == "ADAM":
         b1, b2 = config.beta_1, config.beta_2
-        t = state.step + 1.0
+        t = step + 1.0
         bc1 = 1.0 - b1 ** t
         bc2 = 1.0 - b2 ** t
         step_size = config.learning_rate / bc1
         sqrt_bc2 = bc2 ** 0.5
-        slots = state.slots
-
-        def adam(p, g, m, v, vmax=None):
-            m.copy_(b1 * m + (1.0 - b1) * g)
-            v.copy_(b2 * v + (1.0 - b2) * g * g)
-            denom_src = v
-            if vmax is not None:
-                vmax.copy_(torch.maximum(vmax, v))
-                denom_src = vmax
-            p.copy_(p - step_size * m / (torch.sqrt(denom_src) / sqrt_bc2 + config.adam_eps))
-
+        m, v = slots["exp_avg"], slots["exp_avg_sq"]
+        m.copy_(b1 * m + (1.0 - b1) * g)
+        v.copy_(b2 * v + (1.0 - b2) * g * g)
+        denom_src = v
         if config.amsgrad:
-            tree_map(adam, params, grads, slots["exp_avg"], slots["exp_avg_sq"],
-                     slots["max_exp_avg_sq"])
-        else:
-            tree_map(adam, params, grads, slots["exp_avg"], slots["exp_avg_sq"])
-        return params, OptState(state.step + 1, slots)
-
+            vmax = slots["max_exp_avg_sq"]
+            vmax.copy_(torch.maximum(vmax, v))
+            denom_src = vmax
+        p.copy_(p - step_size * m / (torch.sqrt(denom_src) / sqrt_bc2 + config.adam_eps))
+        return
     raise ValueError(f"Unknown optimizer type: {config.optimizer_type}")
 
 
-def is_noop_at_zero_grad(config: OptimizerConfig) -> bool:
+@torch.no_grad()
+def apply_optimizer(config: AnyOptimizerConfig, params, state: OptState,
+                    grads) -> Tuple[Any, OptState]:
+    """One optimizer step in place; returns (params, new_state). A ``None``
+    gradient leaf counts as zeros (autograd leaves unused params without one,
+    where JAX returns zeros)."""
+    grads = tree_map(lambda g, p: torch.zeros_like(p) if g is None else g, grads, params)
+    if isinstance(config, GroupedOptimizerConfig):
+        tree_map_with_path(lambda path, p, g, s: _leaf_apply_(config.config_for(path), p, g, s,
+                                                              state.step),
+                           params, grads, state.slots)
+        return params, OptState(state.step + 1, state.slots)
+    names = _slot_names(config)
+    tree_map(lambda p, g, *s: _leaf_apply_(config, p, g, dict(zip(names, s)), state.step),
+             params, grads, *(state.slots[n] for n in names))
+    return params, OptState(state.step + 1, state.slots)
+
+
+def is_noop_at_zero_grad(config: AnyOptimizerConfig) -> bool:
     """True when a step with an all-zero gradient changes no parameter and
     no slot, only the step count: SGD without momentum and Adagrad, neither
-    with weight decay. Adam's moments decay on zero gradients."""
+    with weight decay (for a grouped config: every group's optimizer). Adam's
+    moments decay on zero gradients."""
+    if isinstance(config, GroupedOptimizerConfig):
+        return all(is_noop_at_zero_grad(c)
+                   for c in (config.default,) + tuple(c for _, c in config.overrides))
     if config.weight_decay:
         return False
     ot = config.optimizer_type.upper()
     return ot == "ADAGRAD" or (ot == "SGD" and not config.momentum)
 
 
-def apply_zero_grad_steps(config: OptimizerConfig, params, state: OptState,
+@torch.no_grad()
+def apply_zero_grad_steps(config: AnyOptimizerConfig, params, state: OptState,
                           count: int) -> OptState:
     """``count`` optimizer steps with all-zero gradients (the JAX trainers'
-    fully masked padding batches), in place; the no-op ones only count."""
+    fully masked padding batches), in place; the no-op ones only count. A
+    grouped config steps the leaves whose own optimizer is not a no-op."""
     if count <= 0:
         return state
     if is_noop_at_zero_grad(config):
+        return OptState(state.step + count, state.slots)
+    if isinstance(config, GroupedOptimizerConfig):
+        def leaf(path, p, s):
+            cfg = config.config_for(path)
+            if not is_noop_at_zero_grad(cfg):
+                zero = torch.zeros_like(p)
+                for k in range(count):
+                    _leaf_apply_(cfg, p, zero, s, state.step + k)
+        tree_map_with_path(leaf, params, state.slots)
         return OptState(state.step + count, state.slots)
     zeros = tree_map(torch.zeros_like, params)
     for _ in range(count):

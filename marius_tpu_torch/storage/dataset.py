@@ -91,10 +91,16 @@ def save_node_array(dataset_dir: str, name: str, arr: np.ndarray) -> None:
     np.ascontiguousarray(arr).tofile(path)
 
 
-def load_features(dataset_dir: str, stats: Optional[DatasetStats] = None) -> np.ndarray:
+def load_features(dataset_dir: str, stats: Optional[DatasetStats] = None,
+                  mmap: bool = False) -> np.ndarray:
+    """The (N, F) float32 features; ``mmap`` maps the file read-only
+    instead of reading it (pages come from the file as they are touched)."""
     stats = stats or load_stats(dataset_dir)
     path = os.path.join(dataset_dir, NODE_FILES["features"])
-    return np.fromfile(path, np.float32).reshape(stats.num_nodes, stats.feature_dim)
+    shape = (stats.num_nodes, stats.feature_dim)
+    if mmap:
+        return np.memmap(path, np.float32, mode="r", shape=shape)
+    return np.fromfile(path, np.float32).reshape(shape)
 
 
 def load_labels(dataset_dir: str, stats: Optional[DatasetStats] = None) -> np.ndarray:

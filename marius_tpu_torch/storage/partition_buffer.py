@@ -26,8 +26,9 @@ resident set and the next state, so a trainer can know a state's layout
 before the swap (and build that state's local graph ahead of it).
 
 ``ReadOnlyPartitionCache`` (JAX :433-510) is the read-only tier beside it:
-partitions of a host array (node features) in device slots, loaded through
-the same copy stream and never written back. ``mirror_layout`` gives it the
+partitions of a host array (node features, in RAM or a memory-mapped file,
+never copied on the host) in device slots, loaded through the same copy
+stream and never written back. ``mirror_layout`` gives it the
 embedding buffer's slot assignment, so one buffer-local id indexes both.
 """
 
@@ -328,12 +329,18 @@ class ReadOnlyPartitionCache:
     feature partitions through the same PartitionBuffer). Nothing is written
     back, so an eviction only frees the slot. ``device_rows`` holds one zero
     row past ``buffer_rows``, so the padding id ``buffer_rows`` (and any id
-    past it, which the gather clamps there) reads zeros."""
+    past it, which the gather clamps there) reads zeros.
+
+    ``host`` is the caller's array as it is, never copied: an in-memory array
+    or a read-only ``np.memmap`` of the features file, whose partitions are
+    read from the file as they are admitted. Rows past ``num_rows`` of the
+    last partition (the JAX package's zero padding) are zero-filled on the
+    device, so a slot holds exactly JAX's padded partition."""
 
     num_rows: int
     num_partitions: int
     capacity: int
-    host: np.ndarray                              # (num_partitions * psize, dim)
+    host: np.ndarray                              # (>= num_rows, dim), unpadded
     device: torch.device = torch.device("cpu")
     device_rows: Optional[torch.Tensor] = None    # (capacity * psize + 1, dim)
     resident: Optional[np.ndarray] = None         # (capacity,) partition ids, -1 empty
@@ -341,7 +348,7 @@ class ReadOnlyPartitionCache:
 
     @property
     def psize(self) -> int:
-        return self.host.shape[0] // self.num_partitions
+        return -(-self.num_rows // self.num_partitions)
 
     @property
     def buffer_rows(self) -> int:
@@ -350,18 +357,27 @@ class ReadOnlyPartitionCache:
     @staticmethod
     def create(host_rows: np.ndarray, num_rows: int, num_partitions: int, capacity: int,
                device="cpu") -> "ReadOnlyPartitionCache":
-        """The first ``num_rows`` rows of ``host_rows``, padded with zero rows
-        to whole partitions."""
-        psize = -(-num_rows // num_partitions)
-        padded = np.zeros((num_partitions * psize, host_rows.shape[1]), host_rows.dtype)
-        padded[:num_rows] = host_rows[:num_rows]
+        """A cache over the first ``num_rows`` rows of ``host_rows`` (not
+        copied), in partitions of ceil(num_rows / num_partitions) rows."""
+        if host_rows.shape[0] < num_rows:
+            raise ValueError(f"{host_rows.shape[0]} host rows for {num_rows} cached rows")
         return ReadOnlyPartitionCache(num_rows=num_rows, num_partitions=num_partitions,
-                                      capacity=min(capacity, num_partitions), host=padded,
+                                      capacity=min(capacity, num_partitions), host=host_rows,
                                       device=torch.device(device))
 
+    def partition_rows(self, p: int) -> np.ndarray:
+        """Partition ``p``'s rows of the host array (a view; the last
+        partition may be short of psize rows)."""
+        lo = p * self.psize
+        return self.host[lo:max(lo, min(lo + self.psize, self.num_rows))]
+
     def _admit(self, slot: int, p: int) -> None:
-        transfer.write_rows(self.device_rows, self.host[p * self.psize:(p + 1) * self.psize],
-                            slot * self.psize)
+        rows = self.partition_rows(p)
+        start = slot * self.psize
+        if len(rows):
+            transfer.write_rows(self.device_rows, rows, start)
+        if len(rows) < self.psize:
+            transfer.zero_rows(self.device_rows, start + len(rows), self.psize - len(rows))
 
     def _adopt(self, layout: np.ndarray) -> None:
         """Copy in every partition of ``layout`` that its slot does not hold yet."""
@@ -384,6 +400,10 @@ class ReadOnlyPartitionCache:
             self.load(new_partitions)
             return
         self._adopt(swap_layout(self.resident, new_partitions))
+
+    def release(self) -> None:
+        """Free the device rows; the next swap loads afresh."""
+        self.device_rows = self.resident = self.part_to_slot = None
 
     def mirror_layout(self, resident: np.ndarray) -> None:
         """Adopt another buffer's slot assignment (the embedding

@@ -122,7 +122,8 @@ def write_rows(buf: torch.Tensor, host_block: np.ndarray, start: int,
     n = host_block.shape[0]
     dst = buf[start:start + n]
     if buf.device.type == "cpu":
-        dst.copy_(torch.from_numpy(np.ascontiguousarray(host_block)))
+        # a read-only block (a mapped file) is copied: torch wraps only writable arrays
+        dst.copy_(torch.from_numpy(np.require(host_block, requirements=("C", "W"))))
         return None
     t0 = time.perf_counter()
     st = _stage(buf.device)

@@ -44,9 +44,11 @@ drawn after the negatives), the rows gathered and updated are the outermost
 hop's (padded with ``buffer_rows``, which the Adagrad kernel skips and the
 dirty mask's extra row takes). The resident subgraph is a local CSR over
 every resident bucket pair (JAX ``_state_graph`` :489-529), its edge arrays
-padded to the epoch's power-of-two edge count; the prefetch thread builds
-it with the next state's edges, from the slot layout that
-``storage.partition_buffer.swap_layout`` gives that state before the swap.
+padded to the epoch's power-of-two edge count (``local_csr``, which the
+out-of-core NC trainer shares); the prefetch thread remaps the next state's
+resident edges, from the slot layout that
+``storage.partition_buffer.swap_layout`` gives that state before the swap,
+and uploads them, and the card sorts them once the state is swapped in.
 
 Meshes and CORRUPT_REL raise ``NotImplementedError`` naming the slice that
 brings them.
@@ -145,41 +147,56 @@ def padded_batch_count(state_sizes: List[int], batch_size: int) -> int:
     return -(-max_batches // step) * step
 
 
-def state_graph_arrays(edges_by_bucket: np.ndarray, bucket_offsets: np.ndarray,
-                       layout: np.ndarray, num_partitions: int, psize: int,
-                       max_edges: int) -> dict:
-    """The local CSR of one buffer state's resident subgraph, on the host
-    (JAX ``_state_graph`` :489-529): the edges of every resident bucket pair
-    in buffer-local ids, sorted by source (out) and by destination (in),
-    offsets of buffer_rows + 2 entries, neighbour (and relation) arrays
-    padded to ``max_edges`` with buffer_rows (0), degrees counting both
-    ends, the padding row's 0."""
+def resident_local_edges(edges_by_bucket: np.ndarray, bucket_offsets: np.ndarray,
+                         layout: np.ndarray, num_partitions: int, psize: int) -> np.ndarray:
+    """The edges of every bucket pair of the partitions in the slot table
+    ``layout``, in buffer-local ids (the native remap, on the host)."""
     part_to_slot = _part_to_slot(layout, num_partitions)
     resident = [int(p) for p in layout if p >= 0]
     bucket_ids = np.asarray([i * num_partitions + j for i in resident for j in resident],
                             np.int32)
-    local = native.gather_remap_buckets(edges_by_bucket, bucket_offsets, bucket_ids,
-                                        part_to_slot, psize)
-    n = len(layout) * psize
-    src, dst = local[:, 0], local[:, -1]
-    rel = local[:, 1] if local.shape[1] == 3 else None
+    return native.gather_remap_buckets(edges_by_bucket, bucket_offsets, bucket_ids,
+                                       part_to_slot, psize)
+
+
+def local_csr(local: Tensor, n: int, max_edges: int, num_relations: int = 1) -> DeviceGraph:
+    """The local CSR of one buffer state's resident subgraph from its edges
+    in buffer-local ids (``local``, (E, 2|3), on the target device; JAX
+    ``_state_graph``, buffer_trainer.py:489-529 and nc_buffer.py:273-305):
+    sorted stably by source (out) and by destination (in) on the device,
+    offsets of n + 2 entries, neighbour (and relation) arrays padded to
+    ``max_edges`` with n (0), degrees counting both ends (a bincount; the
+    padding row's 0)."""
+    device = local.device
+    src, dst = local[:, 0].long(), local[:, -1].long()
+    rel = local[:, 1].long() if local.shape[1] == 3 else None
+    i32 = torch.int32
     out = {}
     for name, anchor, other in (("out", src, dst), ("in", dst, src)):
-        order = np.argsort(anchor, kind="stable")
-        offs = native.csr_offsets(anchor[order], n).astype(np.int32)
-        out[f"{name}_offsets"] = np.concatenate([offs, offs[-1:]])
-        cols = np.full(max_edges, n, np.int32)
-        cols[:len(other)] = other[order]
-        out[f"{name}_cols"] = cols
+        order = torch.argsort(anchor, stable=True)
+        offs = torch.zeros(n + 2, dtype=torch.int64, device=device)
+        offs[1:n + 1] = torch.cumsum(torch.bincount(anchor, minlength=n), 0)
+        offs[n + 1] = offs[n]
+        cols = torch.full((max_edges,), n, dtype=i32, device=device)
+        cols[:len(order)] = other[order].to(i32)
+        out[f"{name}_offsets"], out[f"{name}_cols"] = offs.to(i32), cols
         out[f"{name}_rels"] = None
         if rel is not None:
-            rels = np.zeros(max_edges, np.int32)
-            rels[:len(rel)] = rel[order]
+            rels = torch.zeros(max_edges, dtype=i32, device=device)
+            rels[:len(order)] = rel[order].to(i32)
             out[f"{name}_rels"] = rels
-    out["degrees"] = (np.bincount(src, minlength=n + 1)
-                      + np.bincount(dst, minlength=n + 1)).astype(np.int32)
-    out["degrees"][n:] = 0
-    return out
+    deg = torch.bincount(src, minlength=n + 1) + torch.bincount(dst, minlength=n + 1)
+    deg[n:] = 0
+    return DeviceGraph(**out, degrees=deg.to(i32), num_nodes=n, num_relations=num_relations)
+
+
+def state_graph(edges_by_bucket: np.ndarray, bucket_offsets: np.ndarray, layout: np.ndarray,
+                num_partitions: int, psize: int, max_edges: int, device) -> DeviceGraph:
+    """:func:`local_csr` of the buffer state with slot table ``layout``: its
+    resident edges remapped on the host, sorted on ``device``."""
+    local = resident_local_edges(edges_by_bucket, bucket_offsets, layout, num_partitions, psize)
+    return local_csr(torch.from_numpy(np.ascontiguousarray(local)).to(device),
+                     len(layout) * psize, max_edges)
 
 
 class PartitionBufferLPTrainer:
@@ -454,11 +471,11 @@ class PartitionBufferLPTrainer:
                                             tree_map(lambda _: next(it), self.params))
         return loss.detach()
 
-    def _device_graph(self, upload: transfer.Upload) -> DeviceGraph:
-        """A state's local CSR (``state_graph_arrays``), uploaded on the
-        prefetch thread, as a graph on the device."""
-        return DeviceGraph(**upload.result(), num_nodes=self.buffer.buffer_rows,
-                           num_relations=self.num_relations)
+    def _device_graph(self, upload: transfer.Upload, max_edges: int) -> DeviceGraph:
+        """A state's local CSR (:func:`local_csr`) from its resident edges,
+        which the prefetch thread remapped and uploaded."""
+        return local_csr(upload.result()["edges"], self.buffer.buffer_rows, max_edges,
+                         self.num_relations)
 
     def _train_state(self, local: np.ndarray, first_step: int, max_batches: int,
                      graph: Optional[DeviceGraph] = None) -> Tensor:
@@ -526,8 +543,8 @@ class PartitionBufferLPTrainer:
             if self.nbr_configs:
                 t0 = time.perf_counter()
                 graph = transfer.upload_async(
-                    state_graph_arrays(self.edges_by_bucket, self.bucket_offsets,
-                                       layouts[s_idx], P, self.buffer.psize, max_graph_edges),
+                    {"edges": resident_local_edges(self.edges_by_bucket, self.bucket_offsets,
+                                                   layouts[s_idx], P, self.buffer.psize)},
                     self.device)
                 self.last_graph_seconds.append(time.perf_counter() - t0)
             return e, graph
@@ -553,7 +570,8 @@ class PartitionBufferLPTrainer:
                 if self.feature_cache is not None:
                     # local ids must index both tiers alike
                     self.feature_cache.mirror_layout(self.buffer.resident)
-                graph = None if graph_upload is None else self._device_graph(graph_upload)
+                graph = (None if graph_upload is None
+                         else self._device_graph(graph_upload, max_graph_edges))
                 if self.profile_states:
                     sync()   # the admits' copies land in the swap bucket
                 t_s2 = time.perf_counter()

@@ -26,20 +26,22 @@ computes the GNN over ALL nodes (``nn/full_graph_encoder.py``) and takes the
 loss at the seed rows, which equals unbounded ALL sampling. Two forms, as
 the JAX package chooses them: the linear collapse (default for
 activation-free encoders; ``nn/linear_collapse.py``), and the general form
-(``fg_linear_collapse=False`` or an encoder with an activation), whose final
+(``fg_linear_collapse=False``, an encoder with an activation or an
+EMBEDDING stage), whose final
 stage runs for the seed rows only over their flat neighbour lists
 (``fg_seed_restrict``; an RGCN final stage also over the seeds' directional
 relational lists). Each batch's list lengths are computed on the host from
 the epoch's permutation, so the JAX package's slot budget and retrace
 machinery has no counterpart. Each batch's dropout key comes from
-``_dropout_key`` (JAX's ``split(state.key)``).
+``_dropout_key`` (JAX's ``split(state.key)``). An EMBEDDING table takes a
+table-shaped gradient, applied by the row-sparse Adagrad kernel over every
+id (the JAX package's dense Adagrad over the table, the same function).
 
 Where the JAX version compiles the epoch into one ``lax.scan``, this one
 runs an eager Python loop over batches. The epoch's permutation
 (``_epoch_permutation``, a test seam) comes from a generator seeded from
-(54321, epoch // epochs_per_shuffle). Meshes, bf16 and an EMBEDDING table in
-full-graph mode raise ``NotImplementedError`` naming the slice that brings
-them.
+(54321, epoch // epochs_per_shuffle). Meshes and bf16 raise
+``NotImplementedError`` naming the slice that brings them.
 """
 
 from __future__ import annotations
@@ -135,11 +137,9 @@ class NodeClassificationTrainer:
         if dtype != torch.float32:
             raise _later_slice(f"{dtype} training", "the bf16 slice")
         if full_graph is not None:
-            if model.has_embeddings:
-                raise _later_slice("an EMBEDDING table in full-graph node classification",
-                                   "a later GNN slice")
-            if features is None:
-                raise ValueError("full-graph training needs node features")
+            if features is None and not model.has_embeddings:
+                raise ValueError("full-graph training needs node features or an EMBEDDING "
+                                 "table")
         else:
             if not nbr_configs and model.encoder.num_gnn_stages:
                 raise ValueError("sampled GNN training needs one neighbour config per GNN stage")
@@ -182,6 +182,9 @@ class NodeClassificationTrainer:
         if model.has_embeddings:
             t = init_embedding_table(init_gen, n, model.encoder.embedding_dim)
             table = EmbeddingTable(values=t.values.to(self.device), state=t.state.to(self.device))
+        # the full-graph table update runs the row-sparse Adagrad over every id
+        self._all_ids = (torch.arange(n, device=self.device)
+                         if table is not None and self.full_graph is not None else None)
         self.state = TrainState(table=table, params=params,
                                 opt_state=init_optimizer(model.dense_optimizer, params), epoch=0)
         generator = torch.Generator(device=self.device).manual_seed(seed)
@@ -189,10 +192,10 @@ class NodeClassificationTrainer:
         self._dropout = DropoutKey(generator)
 
     def _init_full_graph(self, adj: FullGraphAdjacency, fg_seed_restrict, fg_linear_collapse):
-        model, feats = self.model, self.features[:-1]
+        model, feats = self.model, self._all_features()
         want_collapse = ((fg_linear_collapse if fg_linear_collapse is not None
                           else fg_seed_restrict is None)
-                         and linear_collapse_eligible(model.encoder, True))
+                         and linear_collapse_eligible(model.encoder, feats is not None))
         self.full_graph = adj
         if want_collapse:
             self._fg_collapse = build_linear_collapse(adj, model.encoder, feats)
@@ -212,6 +215,10 @@ class NodeClassificationTrainer:
                 # the directional out-CSR with each slot's relation
                 self._fg_rel_csr = host_out_csr(self.full_graph.rel)
                 self._fg_rel_csr_dev = device_rel_csr(self._fg_rel_csr, self.device)
+
+    def _all_features(self) -> Optional[Tensor]:
+        """The (N, F) feature block without its sentinel row, or None."""
+        return None if self.features is None else self.features[:-1]
 
     # -- the seams a test may replace ------------------------------------------
 
@@ -280,11 +287,15 @@ class NodeClassificationTrainer:
         """One full-graph batch (JAX _batch_step_full_graph :388-464); returns
         the detached loss. ``num_slots``: the batch's flat neighbour-list
         length and, with an RGCN final stage, its out-edge list length
-        (seed-restricted mode)."""
+        (seed-restricted mode). An EMBEDDING table's gradient is
+        table-shaped: the JAX package applies Adagrad densely over it, which
+        is the row-sparse Adagrad kernel over every id (rows with a zero
+        gradient do not move)."""
         model, state = self.model, self.state
         seeds_c = seeds.clamp(max=self.num_nodes - 1)
         labels_b = self.labels[seeds_c]
         enc = state.params["encoder"]
+        emb = None
         if self._fg_collapse is not None:
             logits = self._fg_collapse.logits(enc, seeds_c)
         else:
@@ -296,15 +307,25 @@ class NodeClassificationTrainer:
                 if self._fg_rel_csr is not None:
                     sr += (device_seed_flat_lists_rel(self._fg_rel_csr_dev, seeds, mask_b,
                                                       rel_slots, self.num_nodes),)
-            out = full_graph_encoder_forward(model.encoder, enc, None, self.features[:-1],
+            if state.table is not None:
+                # a leaf over the table's storage: autograd sees the rows, the
+                # update below writes them in place
+                emb = state.table.values.detach().requires_grad_(True)
+            out = full_graph_encoder_forward(model.encoder, enc, emb, self._all_features(),
                                              self.full_graph, ops=self._fg_ops, train=True,
                                              dropout_key=self._dropout_key(), seed_restrict=sr)
             logits = out if sr is not None else out[seeds_c]
         loss = nc_batch_loss(model, logits, labels_b, mask_b)
-        grads = iter(torch.autograd.grad(loss, tree_leaves(state.params), allow_unused=True))
+        leaves = tree_leaves(state.params)
+        grads = torch.autograd.grad(loss, leaves + ([emb] if emb is not None else []),
+                                    allow_unused=True)
+        if emb is not None:
+            g_emb = grads[-1] if grads[-1] is not None else torch.zeros_like(emb)
+            sparse_adagrad_update(state.table, self._all_ids, g_emb, model.sparse_lr)
+        dense = iter(grads[:len(leaves)])
         _, state.opt_state = apply_optimizer(model.dense_optimizer, state.params,
                                              state.opt_state,
-                                             tree_map(lambda _: next(grads), state.params))
+                                             tree_map(lambda _: next(dense), state.params))
         return loss.detach()
 
     def _batch_slot_counts(self, shuffled: Tensor, masks: Tensor):
@@ -394,7 +415,8 @@ class NodeClassificationEvaluator:
                 logits = tr._fg_collapse.logits(state.params["encoder"], rows)
             else:
                 logits = full_graph_encoder_forward(
-                    tr.model.encoder, state.params["encoder"], None, tr.features[:-1],
+                    tr.model.encoder, state.params["encoder"],
+                    None if state.table is None else state.table.values, tr._all_features(),
                     tr.full_graph, ops=tr._fg_ops)[rows]
             yield logits, nodes, None
             return

@@ -345,7 +345,7 @@ def test_gnn_buffer_states_at_the_yaml_lr_match_jax(name):
 def test_state_graph_matches_jax():
     """One state's resident-subgraph CSR, built from its planned layout,
     equals JAX's ``_state_graph`` exactly."""
-    from marius_tpu_torch.train.buffer_trainer import state_graph_arrays
+    from marius_tpu_torch.train.buffer_trainer import state_graph
 
     jtr, ttr = pair(300, 4, 8, 1500, parts=4, cap=2, ordering="BETA", deg=0.0,
                     stages=_gnn_stages, nbr=[("UNIFORM", 2)], b=50)
@@ -353,13 +353,15 @@ def test_state_graph_matches_jax():
     jtr.buffer.load(states[0])
     jtr.buffer.swap_to_state(states[1])
     jg = jtr._state_graph(1 << 12)
-    arrays = state_graph_arrays(ttr.edges_by_bucket, ttr.bucket_offsets, jtr.buffer.resident,
-                                4, ttr.buffer.psize, 1 << 12)
-    for name, t in arrays.items():
-        j = getattr(jg, name)
+    tg = state_graph(ttr.edges_by_bucket, ttr.bucket_offsets, jtr.buffer.resident,
+                     4, ttr.buffer.psize, 1 << 12, "cpu")
+    assert tg.num_nodes == jg.num_nodes
+    for name in ("out_offsets", "out_cols", "out_rels", "in_offsets", "in_cols", "in_rels",
+                 "degrees"):
+        t, j = getattr(tg, name), getattr(jg, name)
         assert (t is None) == (j is None), name
         if t is not None:
-            np.testing.assert_array_equal(t, np.asarray(j), err_msg=name)
+            np.testing.assert_array_equal(t.numpy(), np.asarray(j), err_msg=name)
 
 
 def test_unported_options_raise():

@@ -87,15 +87,87 @@ def test_greedy_buckets_match_jax():
 
 
 def test_adjacency_rejects_later_slices():
-    """locality_reorder waits for a later slice; with_relations attaches the
-    relational companion RGCN stages read (its arrays are held against
-    JAX's in tests/test_torch_rgcn.py)."""
+    """locality_reorder: the reverse Cuthill-McKee permutation, the buckets
+    (slots in locality positions) and the host CSR (back in original ids)
+    equal JAX's exactly, and the CSR equals the plain adjacency's; it
+    refuses the relational companion and the inverse map, as JAX does.
+    with_relations attaches the relational companion RGCN stages read (its
+    arrays are held against JAX's in tests/test_torch_rgcn.py)."""
     edges = power_law_edges()
-    with pytest.raises(NotImplementedError):
-        tfg.build_full_graph_adjacency(edges, N, locality_reorder=True)
+    jl = jfg.build_full_graph_adjacency(edges, N, locality_reorder=True)
+    tl = tfg.build_full_graph_adjacency(edges, N, locality_reorder=True)
+    np.testing.assert_array_equal(tl.loc_perm.numpy(), np.asarray(jl.loc_perm))
+    assert sorted(tl.loc_perm.tolist()) == list(range(N))
+    assert len(tl.nbrs) == len(jl.nbrs)
+    for tb, jb in zip(tl.nbrs, jl.nbrs):
+        np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
+    np.testing.assert_array_equal(tl.inv_pos.numpy(), np.asarray(jl.inv_pos))
+    plain = tfg.host_csr_from_adjacency(tfg.build_full_graph_adjacency(edges, N))
+    for t, j, p in zip(tfg.host_csr_from_adjacency(tl), jfg.host_csr_from_adjacency(jl), plain):
+        np.testing.assert_array_equal(t, j)
+        np.testing.assert_array_equal(t, p)
+    assert tl.to("cpu").loc_perm is not None
+    with pytest.raises(ValueError, match="locality_reorder"):
+        tfg.build_full_graph_adjacency(edges, N, with_relations=True, locality_reorder=True)
+    with pytest.raises(ValueError, match="locality_reorder"):
+        tfg.build_inverse_map(tl)
     adj = tfg.build_full_graph_adjacency(edges, N, with_relations=True)
     assert adj.rel is not None and adj.rel.num_nodes == N
     assert adj.rel.total_slots >= len(edges) and tfg.build_full_graph_adjacency(edges, N).rel is None
+
+
+def test_locality_reorder_nc_run_matches_plain_and_jax():
+    """tests/test_nc_e2e.py:297-336 in the port: the FEATURE + 2 x GraphSAGE
+    MEAN (RELU) model trains 2 epochs full-graph over the locality adjacency
+    and over the plain one, from JAX's initial state with JAX's
+    permutations. Locality losses are within rtol 2e-5 of the plain
+    adjacency's (float32 sums in another order) and within the trainer
+    tests' rtol 1e-4 of JAX's locality run; the accuracies are equal."""
+    from marius_tpu.data.graph import build_device_graph as j_graph
+    from marius_tpu.train import nc as jnc
+    from marius_tpu_torch.convert import copy_train_state_, train_state_from_jax
+    from marius_tpu_torch.data.graph import build_device_graph as t_graph
+    from marius_tpu_torch.nn.model import Model as TModel
+    from marius_tpu_torch.nn.optimizers import OptimizerConfig as TOpt
+    from marius_tpu_torch.train import nc as tnc
+    from tests.test_nc_e2e import FEAT_DIM, NUM_CLASSES, NUM_NODES, _gs_model, community_graph
+    from tests.test_torch_nc_trainer import _np_state
+
+    edges, feats, labels = community_graph()
+    perm = np.random.default_rng(1).permutation(NUM_NODES)
+    train_nodes, test_nodes = perm[:300], perm[300:]
+    dims = (FEAT_DIM, 16, NUM_CLASSES)
+    tmodel = TModel("NODE_CLASSIFICATION", TEncoderConfig(
+        ((TLayerConfig("FEATURE", output_dim=FEAT_DIM),),)
+        + tuple((TLayerConfig("GNN", input_dim=dims[i], output_dim=dims[i + 1],
+                              gnn_type="GRAPH_SAGE", aggregator="MEAN", bias=True,
+                              activation="RELU" if i == 0 else "NONE"),) for i in range(2))),
+        None, loss_type="CROSS_ENTROPY", loss_reduction="SUM",
+        dense_optimizer=TOpt("ADAM", learning_rate=0.01))
+    jtr = jnc.NodeClassificationTrainer(
+        _gs_model(), j_graph(edges, NUM_NODES), feats, labels, train_nodes, [], batch_size=100,
+        seed=0, full_graph=jfg.build_full_graph_adjacency(edges, NUM_NODES,
+                                                          locality_reorder=True))
+    size = jtr.num_batches * 100
+    losses, accs = {}, {}
+    for name, loc in (("plain", False), ("locality", True)):
+        tr = tnc.NodeClassificationTrainer(
+            tmodel, t_graph(edges, NUM_NODES), feats, labels, train_nodes, batch_size=100,
+            seed=0, full_graph=tfg.build_full_graph_adjacency(edges, NUM_NODES,
+                                                              locality_reorder=loc),
+            device="cpu")
+        assert (tr.full_graph.loc_perm is not None) == loc and tr._fg_seed_restrict
+        tr._epoch_permutation = lambda e: torch.from_numpy(np.array(jax.random.permutation(
+            jax.random.fold_in(jax.random.key(54321), e), size))).long()
+        copy_train_state_(tr.state, train_state_from_jax(_np_state(jtr.state)))
+        losses[name] = [s["loss"] for s in tr.train(2)]
+        accs[name] = tnc.NodeClassificationEvaluator(tr, test_nodes).evaluate(tr.state)
+    jlosses = [s["loss"] for s in jtr.train(2)]
+    jacc = jnc.NodeClassificationEvaluator(jtr, test_nodes).evaluate(jtr.state)
+    np.testing.assert_allclose(losses["locality"], losses["plain"], rtol=2e-5)
+    np.testing.assert_allclose(losses["locality"], jlosses, rtol=1e-4)
+    assert accs["locality"]["accuracy"] == accs["plain"]["accuracy"] == pytest.approx(
+        jacc["accuracy"], abs=1e-12)
 
 
 def test_seed_flat_lists_same_multiset_per_seed(graph):
@@ -230,9 +302,18 @@ def test_nbr_sum_plain_on_layout_matches_pallas_interpret(graph):
            atol=ATOL * max(b.shape[1] for b in buckets) / 64)
 
 
-@pytest.mark.parametrize("sorted_space", [False, True], ids=["original", "sorted"])
+@pytest.mark.parametrize("sorted_space", [False, True, "locality"],
+                         ids=["original", "sorted", "locality"])
 def test_nbr_sum_matches_jax_forward_and_vjp(graph, sorted_space):
+    """The sum and its vjp in original order; "locality" sums over the
+    locality-reordered adjacency in both packages (the permutation gathers
+    forward and backward)."""
     _, jadj, tadj = graph
+    if sorted_space == "locality":
+        edges = power_law_edges()
+        jadj = jfg.build_full_graph_adjacency(edges, N, locality_reorder=True)
+        tadj = tfg.build_full_graph_adjacency(edges, N, locality_reorder=True)
+        sorted_space = False
     rng = np.random.default_rng(6)
     d = 16
     x = rng.standard_normal((N, d)).astype(np.float32)

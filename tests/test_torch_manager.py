@@ -360,18 +360,40 @@ def test_unported_paths_raise(tmp_path, what):
             assert isinstance(rt.trainer.edges_host, np.memmap)
         return
     if what == "nc":
-        # node classification is ported; out-of-core NC is not
+        # out-of-core NC is ported: PARTITION_BUFFER features route to
+        # PartitionBufferNCTrainer with JAX's hop caps over the buffer rows
+        from marius_tpu.manager import marius_init as j_marius_init
+
         raw = _nc_raw(tmp_path, "nc_buffer")
         raw["storage"]["features"] = {"type": "PARTITION_BUFFER"}
         raw["storage"]["embeddings"] = {"options": copy.deepcopy(PB["options"])}
-        with pytest.raises(NotImplementedError, match="out-of-core node classification"):
-            marius_init(load_config(raw), device="cpu")
+        rt = marius_init(load_config(raw), device="cpu")
+        jtr = j_marius_init(j_load_config(copy.deepcopy(raw))).trainer
+        assert type(rt.trainer).__name__ == type(jtr).__name__ == "PartitionBufferNCTrainer"
+        assert rt.trainer.hop_caps == tuple(jtr.hop_caps)
+        assert (rt.trainer.num_partitions, rt.trainer.capacity) == (4, 2)
+        assert isinstance(rt.trainer.cache.host, np.memmap) and rt.trainer.emb_buffer is None
+        assert type(rt.test_evaluator).__name__ == "_BufferNCEval"
+        return
+    if what == "layer_optimizer":
+        # a decoder-level optimizer block builds JAX's grouped config and trains
+        from marius_tpu_torch.nn.optimizers import GroupedOptimizerConfig
+
+        raw = _lp_config(tmp_path, what, **{"model.decoder.optimizer": {"type": "ADAGRAD"}})
+        cfg = load_config(raw)
+        jcfg = j_load_config(copy.deepcopy(raw))
+        assert isinstance(cfg.model.dense_optimizer, GroupedOptimizerConfig)
+        assert [p for p, _ in cfg.model.dense_optimizer.overrides] == \
+            [p for p, _ in jcfg.model.dense_optimizer.overrides] == [("decoder",)]
+        result = marius_train(cfg, device="cpu")
+        st = result["runtime"].trainer.state
+        assert set(st.opt_state.slots["decoder"]["relations"]) == {"sum"}
+        assert len(result["epochs"]) == 2 and 0.0 < result["test"]["mrr"] <= 1.0
         return
     overrides = {
         "mesh": {"training.mesh": {"data": 2, "node": 1}},
         "bf16": {"storage.embeddings": {"type": "DEVICE_MEMORY",
                                         "options": {"dtype": "bfloat16"}}},
-        "layer_optimizer": {"model.decoder.optimizer": {"type": "ADAGRAD"}},
         "buffer_corrupt_rel": {"storage.embeddings": PB,
                                "model.decoder.options.edge_decoder_method": "CORRUPT_REL"},
         "buffer_mesh": {"storage.embeddings": PB, "training.mesh": {"data": 1, "node": 2}},

@@ -11,7 +11,9 @@ path (``fg_seed_restrict=False``). After each epoch the loss, the parameters
 and the Adam slots must agree to rtol 1e-4, atol 1e-5 (the LP trainer test's
 tolerance): both run float32, but sums run in another order, and 8 Adam
 steps carry those differences forward. Evaluation (accuracy and the
-predicted labels) must then agree exactly.
+predicted labels) must then agree exactly. An EMBEDDING + FEATURE encoder
+(the general seed-restricted path, a table-shaped Adagrad step per batch)
+agrees the same way, its table and Adagrad state included.
 """
 
 import dataclasses
@@ -37,6 +39,7 @@ from marius_tpu_torch.nn.encoder import EncoderConfig as TEncoderConfig
 from marius_tpu_torch.nn.layers import LayerConfig as TLayerConfig
 from marius_tpu_torch.nn.model import Model as TModel
 from marius_tpu_torch.nn.optimizers import OptimizerConfig as TOptimizerConfig
+from marius_tpu_torch.nn.optimizers import tree_map
 from marius_tpu_torch.train import nc as tnc
 
 RTOL, ATOL = 1e-4, 1e-5
@@ -154,11 +157,79 @@ def test_nc_trainer_rejects_later_slices():
     full = tnc.NodeClassificationTrainer(gat, graph, feats, labels, train, batch_size=B,
                                          full_graph=adj, device="cpu")
     assert full.full_graph.inv_map is not None and sampled.full_graph is None
+    # an EMBEDDING table trains full-graph too (held against JAX below), with
+    # or without features, on the general path
     emb = dataclasses.replace(model, encoder=TEncoderConfig(
         ((TLayerConfig("EMBEDDING", output_dim=F),),) + model.encoder.stages[1:]))
-    with pytest.raises(NotImplementedError, match="EMBEDDING"):
-        tnc.NodeClassificationTrainer(emb, graph, feats, labels, train, batch_size=B,
-                                      full_graph=adj, device="cpu")
+    for f in (feats, None):
+        tr = tnc.NodeClassificationTrainer(emb, graph, f, labels, train, batch_size=B,
+                                           full_graph=adj, device="cpu")
+        assert tr._fg_collapse is None and tr.state.table.values.shape == (N, F)
     with pytest.raises(ValueError):
         tnc.NodeClassificationTrainer(dataclasses.replace(model, learning_task="LINK_PREDICTION"),
                                       graph, feats, labels, train, full_graph=adj, device="cpu")
+    with pytest.raises(ValueError, match="features or an EMBEDDING"):
+        tnc.NodeClassificationTrainer(model, graph, None, labels, train, full_graph=adj,
+                                      device="cpu")
+
+
+def _embedding_model(model_cls, enc_cls, layer_cls, opt_cls):
+    """FEATURE (bias) beside EMBEDDING 4, concatenated, 2 x GraphSAGE MEAN
+    (RELU between): the general seed-restricted path, a table-shaped
+    EMBEDDING gradient every batch."""
+    stages = ((layer_cls("FEATURE", output_dim=F, bias=True),
+               layer_cls("EMBEDDING", output_dim=4)),
+              (layer_cls("REDUCTION", input_dim=F + 4, output_dim=F + 4, reduction="CONCAT"),),
+              (layer_cls("GNN", input_dim=F + 4, output_dim=16, gnn_type="GRAPH_SAGE",
+                         aggregator="MEAN", bias=True, activation="RELU"),),
+              (layer_cls("GNN", input_dim=16, output_dim=CLASSES, gnn_type="GRAPH_SAGE",
+                         aggregator="MEAN", bias=True),))
+    return model_cls("NODE_CLASSIFICATION", enc_cls(stages), None, loss_type="CROSS_ENTROPY",
+                     loss_reduction="SUM", dense_optimizer=opt_cls("ADAM", learning_rate=0.01),
+                     sparse_lr=0.1)
+
+
+def test_nc_trainer_embedding_and_features_match_jax():
+    """EMBEDDING + FEATURE full-graph NC (JAX _batch_step_full_graph with
+    ``table_values``, :431-460): 2 epochs from JAX's initial state and
+    table, then evaluate and predict_labels (JAX :748-760, :819-838). The
+    loss, the parameters, the Adam slots, the table and its Adagrad state
+    agree to rtol 1e-4 / atol 1e-5; accuracy and labels exactly."""
+    edges, feats, labels, train = _data()
+    jtr = jnc.NodeClassificationTrainer(
+        _embedding_model(JModel, JEncoderConfig, JLayerConfig, JOptimizerConfig),
+        j_build_graph(edges, N), feats, labels, train,
+        [NeighborSamplingConfig("ALL", max_neighbors=1)] * 2, batch_size=B, seed=0,
+        full_graph=jfg.build_full_graph_adjacency(edges, N))
+    ttr = tnc.NodeClassificationTrainer(
+        _embedding_model(TModel, TEncoderConfig, TLayerConfig, TOptimizerConfig),
+        t_build_graph(edges, N), feats, labels, train, batch_size=B, seed=0,
+        full_graph=tfg.build_full_graph_adjacency(edges, N), device="cpu")
+    assert ttr._fg_seed_restrict and jtr._fg_seed_restrict
+    assert ttr._fg_collapse is None and jtr._fg_collapse is None
+    size = jtr.num_batches * B
+    ttr._epoch_permutation = lambda e: torch.from_numpy(np.array(jax.random.permutation(
+        jax.random.fold_in(jax.random.key(54321), e), size))).long()
+    copy_train_state_(ttr.state, train_state_from_jax(_np_state(jtr.state)))
+    before = ttr.state.table.values.clone()
+    for _ in range(2):
+        jres, tres = jtr.train_epoch(), ttr.train_epoch()
+        np.testing.assert_allclose(tres["loss"], jres["loss"], rtol=RTOL)
+        js, ts = _np_state(jtr.state), ttr.state
+        for t, j in ((ts.params, js.params), (ts.opt_state.slots, js.opt_state.slots)):
+            pairs = []
+            tree_map(lambda a, b: pairs.append((a, b)), t, j)
+            assert pairs
+            for a, b in pairs:
+                _close(a, b)
+        _close(ts.table.values, js.table.values)
+        _close(ts.table.state, js.table.state)
+        assert ts.opt_state.step == int(js.opt_state.step)
+    assert not torch.equal(ttr.state.table.values, before)
+    eval_nodes = np.setdiff1d(np.arange(N), train)
+    jev = jnc.NodeClassificationEvaluator(jtr, eval_nodes)
+    tev = tnc.NodeClassificationEvaluator(ttr, eval_nodes)
+    jacc, tacc = jev.evaluate(jtr.state), tev.evaluate(ttr.state)
+    assert tacc["num_evaluated"] == jacc["num_evaluated"] == len(eval_nodes)
+    assert tacc["accuracy"] == pytest.approx(jacc["accuracy"], abs=1e-12)
+    np.testing.assert_array_equal(tev.predict_labels(ttr.state), jev.predict_labels(jtr.state))

@@ -219,9 +219,14 @@ def test_read_only_cache_matches_jax():
     sequence, and mirror_layout to a buffer's slots (its empty slots keep
     whatever they held): device rows and slot tables equal JAX's exactly."""
     jc, tc = _caches()
-    assert (tc.psize, tc.buffer_rows, tc.host.shape) == (jc.psize, jc.buffer_rows, jc.host.shape)
-    np.testing.assert_array_equal(tc.host, jc.host)
-    assert not tc.host[83:].any()
+    assert (tc.psize, tc.buffer_rows) == (jc.psize, jc.buffer_rows)
+    # the port keeps the caller's rows unpadded; its partitions are JAX's
+    # padded ones less the zero rows, which the device slot gets instead
+    assert tc.host.shape == (83, jc.host.shape[1])
+    for p in range(tc.num_partitions):
+        rows = tc.partition_rows(p)
+        np.testing.assert_array_equal(rows, jc.host[p * tc.psize:p * tc.psize + len(rows)])
+        assert not jc.host[p * tc.psize + len(rows):(p + 1) * tc.psize].any()
     for i, (parts, _) in enumerate(SEQUENCE):
         for c in (jc, tc):
             c.load(parts) if i == 0 else c.swap_to_state(parts)
@@ -240,7 +245,32 @@ def test_read_only_cache_matches_jax():
             if p >= 0:
                 np.testing.assert_array_equal(
                     tc.device_rows[slot * tc.psize:(slot + 1) * tc.psize].numpy(),
-                    tc.host[p * tc.psize:(p + 1) * tc.psize])
+                    jc.host[p * tc.psize:(p + 1) * tc.psize])
+
+
+def test_read_only_cache_reads_a_mapped_file(tmp_path):
+    """Over a read-only memmap of a features file the cache makes no host
+    copy (its host array is the map), and every admitted slot holds the
+    file's rows followed by zero padding rows; the last partition (5 of its
+    11 rows past the file) is admitted into a slot that held another
+    partition's rows, which the padding overwrites with zeros."""
+    n, f, parts, cap = 83, 6, 8, 4
+    feats = np.random.default_rng(4).standard_normal((n, f)).astype(np.float32)
+    path = tmp_path / "features.bin"
+    feats.tofile(path)
+    mapped = np.memmap(path, np.float32, mode="r", shape=(n, f))
+    tc = tpb.ReadOnlyPartitionCache.create(mapped, n, parts, cap)
+    assert tc.host is mapped and tc.psize == 11
+    tc.load([0, 1, 2, 3])
+    tc.swap_to_state([0, 1, 2, 7])
+    slot = int(tc.part_to_slot[7])
+    block = tc.device_rows[slot * 11:(slot + 1) * 11].numpy()
+    np.testing.assert_array_equal(block[:6], feats[77:])
+    assert not block[6:].any() and not tc.device_rows[-1].any()
+    for p in (0, 1, 2):
+        s = int(tc.part_to_slot[p])
+        np.testing.assert_array_equal(tc.device_rows[s * 11:(s + 1) * 11].numpy(),
+                                      feats[p * 11:(p + 1) * 11])
 
 
 def test_swap_layout_is_the_buffers():
