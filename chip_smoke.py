@@ -167,6 +167,33 @@ Then out-of-core node classification, last:
    gather at the outer hop's shape (K = 4,913,000 into the cache) and the
    gather-sum at layer 0's (289,000 x 16 slots) bit for bit, timed.
 
+Relation corruption and bf16 tables and features (each phase beside the
+float32 run it varies):
+
+- ``nc_bf16`` after ``nc_sampled``: ``ogbn_arxiv.yaml`` with
+  storage.embeddings.options.dtype bfloat16 on the same dataset, 2 epochs
+  (the cut), through marius_train and marius_eval: bf16 features (the zero
+  sentinel row) and parameters, the sampled layers' sums through the
+  gather-sum's bf16 entry; accuracy beside nc_sampled's. Then
+  ``bf16_kernel_shapes``: each kernel's bf16 entry bit for bit against its
+  plain version and timed beside its bound (bf16 bytes) and its one-call
+  PyTorch equivalent, where PyTorch takes bf16: the row gather at every
+  vector width (2-byte vectors for odd widths) and at the flagship and an
+  out-of-core batch; Adagrad at the flagship and on Freebase86m's bf16
+  buffer pair; the gather-sum at nc_bf16's sampled layer 0 and over the
+  whole arxiv adjacency;
+- ``lp_corrupt_rel`` after ``lp_manager``: ``fb15k_237.yaml`` with
+  model.decoder.options.edge_decoder_method CORRUPT_REL (lp_manager's cut):
+  the filtered relation MRR, which marius_eval must reproduce; ``lp_bf16``:
+  the YAML with a bf16 table, its MRR and the table's device bytes beside
+  lp_manager's; ``compare_rel_and_bf16_with_cpu``: small CORRUPT_REL runs
+  (in memory, both update branches, and over the buffer) against the CPU at
+  rtol 1e-4 / atol 1e-5, and small bf16 runs (LP in memory and over the
+  buffer, full-graph NC) within 2^-3 of each leaf's norm;
+- ``lp_oocore_bf16`` after ``lp_oocore``: ``freebase86m_comet.yaml`` in bf16
+  at all 86,054,151 nodes, train edges cut to 8,000,000 and 1 epoch
+  (printed), its swap seconds and GB per state beside lp_oocore's.
+
 Small runs on the card are compared with the same runs on the CPU (plain
 versions, which tests/test_torch_*.py hold against the JAX package).
 
@@ -179,6 +206,7 @@ result. It imports nothing of JAX or marius_tpu.
 from __future__ import annotations
 
 import concurrent.futures
+import gc
 import itertools
 import json
 import math
@@ -295,6 +323,18 @@ def time_ms(fn, reps: int = 50, samples: int = 7) -> float:
     return float(np.median(out))
 
 
+def library_or_none(fn, what: str, dtype, **kw):
+    """``time_ms`` of a one-call PyTorch yardstick, or None (printed) where
+    PyTorch refuses the dtype; float32 calls are never excused."""
+    try:
+        return time_ms(fn, **kw)
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        if dtype == torch.float32:
+            raise
+        print(f"{what} does not take {dtype}: {type(e).__name__}: {str(e)[:160]}", flush=True)
+        return None
+
+
 def gather_max_err(gather, table, ids) -> float:
     """Max |kernel - plain version|; raises unless they agree bit for bit."""
     out, ref = gather.gather_rows(table, ids), gather.gather_rows_plain(table, ids)
@@ -314,11 +354,12 @@ def time_gather(gather, table, batches, rates) -> dict:
         return lambda: fn(table, next(it))
 
     n, d = table.shape
+    es = table.element_size()
     clamped = [ids.clamp(0, n - 1) for ids in batches]
     rows = [int(torch.unique(c).numel()) for c in clamped]
     k = batches[0].shape[0]
     # each distinct row read once, the ids read once, K rows written
-    nbytes = float(np.mean(rows)) * d * 4 + k * batches[0].element_size() + k * d * 4
+    nbytes = float(np.mean(rows)) * d * es + k * batches[0].element_size() + k * d * es
     b_ms, b_by = bound_ms(nbytes, 0.0, rates)
     return {
         "ms": time_ms(cycled(gather.gather_rows, batches)),
@@ -472,9 +513,9 @@ def check_adagrad(adagrad, dev, rates):
     return out
 
 
-def adagrad_out_of_core(adagrad, dev, rates) -> dict:
+def adagrad_out_of_core(adagrad, dev, rates, dtype=torch.float32) -> dict:
     """The Adagrad kernel on Freebase86m's buffer pair (two 43,027,080 x 100
-    f32 tensors, 8.6e9 elements together, offsets past 2^31) with one
+    f32 or bf16 tensors, 8.6e9 elements together, offsets past 2^31) with one
     batch's 30,000 sorted unique ids plus padding ids equal to buffer_rows.
     The touched rows must equal the plain version's bit for bit (applied to
     copies of those rows: a plain copy of the pair would not fit beside it)
@@ -486,8 +527,8 @@ def adagrad_out_of_core(adagrad, dev, rates) -> dict:
     from marius_tpu_torch.ops.unique import unique_padded
 
     g = torch.Generator(device=dev).manual_seed(6)
-    values = torch.empty((OOC_ROWS, FB86M_DIM), device=dev).normal_(generator=g)
-    state = torch.empty((OOC_ROWS, FB86M_DIM), device=dev).uniform_(generator=g)
+    values = torch.empty((OOC_ROWS, FB86M_DIM), device=dev, dtype=dtype).normal_(generator=g)
+    state = torch.empty((OOC_ROWS, FB86M_DIM), device=dev, dtype=dtype).uniform_(generator=g)
     batches = []
     for _ in range(OOC_BATCHES):
         # 30,000 sorted distinct ids, then 1,000 padding ids == buffer_rows at the tail,
@@ -502,7 +543,7 @@ def adagrad_out_of_core(adagrad, dev, rates) -> dict:
     valid = ids[ids < OOC_ROWS]
     if int(valid.max()) * FB86M_DIM < 2 ** 31:
         raise AssertionError("the check must touch rows past 2^31 elements")
-    grads = torch.randn(ids.numel(), FB86M_DIM, device=dev, generator=g)
+    grads = torch.randn(ids.numel(), FB86M_DIM, device=dev, generator=g).to(dtype)
     untouched = torch.randint(0, OOC_ROWS, (100_000,), device=dev, generator=g)
     untouched = untouched[~torch.isin(untouched, valid)]
     before = (values[untouched].clone(), state[untouched].clone())
@@ -513,12 +554,12 @@ def adagrad_out_of_core(adagrad, dev, rates) -> dict:
     adagrad.sparse_adagrad_update_(values, state, ids, grads, 0.1)
     torch.cuda.synchronize()
     err = max(float((values[valid] - v_ref).abs().max()), float((state[valid] - s_ref).abs().max()))
-    if err != 0.0:
+    if err != 0.0 or not (torch.equal(values[valid], v_ref) and torch.equal(state[valid], s_ref)):
         raise AssertionError(f"the Adagrad kernel differs from plain on the buffer pair by {err}")
     if not (torch.equal(values[untouched], before[0]) and torch.equal(state[untouched], before[1])):
         raise AssertionError("the Adagrad kernel wrote an untouched row of the buffer pair")
     k = int(keep.sum())
-    nbytes = 5 * k * FB86M_DIM * 4 + ids.numel() * ids.element_size()
+    nbytes = 5 * k * FB86M_DIM * values.element_size() + ids.numel() * ids.element_size()
     b_ms, b_by = bound_ms(nbytes, 7 * k * FB86M_DIM, rates)
     it = itertools.cycle(batches)
     sparse = [torch.sparse_coo_tensor(b[b < OOC_ROWS][None], grads[b < OOC_ROWS],
@@ -535,7 +576,8 @@ def adagrad_out_of_core(adagrad, dev, rates) -> dict:
         "ms": time_ms(lambda: adagrad.sparse_adagrad_update_(values, state, next(it), grads, 0.1)),
         "plain_ms": time_ms(lambda: adagrad.sparse_adagrad_update_plain_(
             values, state, next(it), grads, 0.1), reps=10, samples=5),
-        "library_ms": time_ms(library, reps=10, samples=5),
+        "library_ms": library_or_none(library, "torch.optim.adagrad (sparse)", dtype,
+                                      reps=10, samples=5),
         "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err, "k": k, "rows": OOC_ROWS,
         "d": FB86M_DIM, "bound_bytes": nbytes,
     }
@@ -544,7 +586,8 @@ def adagrad_out_of_core(adagrad, dev, rates) -> dict:
     return out
 
 
-def lp_model(num_rels: int, dim: int, decoder: str = "DISTMULT"):
+def lp_model(num_rels: int, dim: int, decoder: str = "DISTMULT",
+             method: str = "CORRUPT_NODE"):
     from marius_tpu_torch.nn.decoders.edge import EdgeDecoder
     from marius_tpu_torch.nn.encoder import EncoderConfig
     from marius_tpu_torch.nn.layers import LayerConfig
@@ -552,7 +595,7 @@ def lp_model(num_rels: int, dim: int, decoder: str = "DISTMULT"):
 
     return Model(LINK_PREDICTION,
                  EncoderConfig(((LayerConfig(layer_type="EMBEDDING", output_dim=dim),),)),
-                 EdgeDecoder(decoder, num_rels, dim))
+                 EdgeDecoder(decoder, num_rels, dim, decoder_method=method))
 
 
 def synthetic_edges(seed: int, num_nodes: int, num_rels: int, num_edges: int) -> np.ndarray:
@@ -732,9 +775,11 @@ def write_fb15k_shaped(directory: str) -> None:
         num_train=NUM_EDGES, num_valid=FB_VALID, num_test=FB_TEST))
 
 
-def lp_manager(card: str) -> dict:
-    """fb15k_237.yaml through marius_train and marius_eval on the card.
-    Returns {part: gather launches} and the Adagrad launches."""
+def lp_manager(card: str, tag: str = "lp_manager", edit=None) -> dict:
+    """fb15k_237.yaml through marius_train and marius_eval on the card;
+    ``edit(raw)`` changes the loaded YAML and returns what it changed.
+    Returns {part: gather launches}, the Adagrad launches, the test metrics
+    and the table's device bytes (values and Adagrad state)."""
     from marius_tpu_torch.config import load_config
     from marius_tpu_torch.manager import marius_eval, marius_train
     from marius_tpu_torch.ops.cuda import adagrad, gather
@@ -759,9 +804,10 @@ def lp_manager(card: str) -> dict:
         raw["storage"]["dataset"]["dataset_dir"] = f"{tmp}/dataset"
         epochs_in_yaml = raw["training"]["num_epochs"]
         raw["training"]["num_epochs"] = LP_MANAGER_EPOCHS
+        changed = "" if edit is None else f"; {edit(raw)}"
         cfg = load_config(raw, model_dir=f"{tmp}/model")
-        print(f"lp_manager: {config.relative_to(config.parents[2])} with dataset_dir and "
-              f"model_dir redirected; one cut: num_epochs {epochs_in_yaml} -> "
+        print(f"{tag}: {config.relative_to(config.parents[2])} with dataset_dir and "
+              f"model_dir redirected{changed}; one cut: num_epochs {epochs_in_yaml} -> "
               f"{LP_MANAGER_EPOCHS}", flush=True)
         evaluator_mod.LinkPredictionEvaluator.evaluate = counted
         try:
@@ -782,17 +828,17 @@ def lp_manager(card: str) -> dict:
         raise AssertionError("marius_train must run on the GPU")
     losses = [e["loss"] for e in out["epochs"]]
     for i, e in enumerate(out["epochs"]):
-        print(f"lp_manager epoch {i}: loss {e['loss']:.6f}  {e['epoch_time_s']:.4f} s  "
+        print(f"{tag} epoch {i}: loss {e['loss']:.6f}  {e['epoch_time_s']:.4f} s  "
               f"{e['edges_per_sec']:.1f} edges/s  [{card}]", flush=True)
     if len(losses) != LP_MANAGER_EPOCHS or not all(math.isfinite(x) for x in losses) or not all(
             b < a for a, b in zip(losses, losses[1:])):
-        raise AssertionError(f"lp_manager losses are not finite and falling: {losses}")
+        raise AssertionError(f"{tag} losses are not finite and falling: {losses}")
     valid = out["evals"]
     if [v["epoch"] for v in valid] != list(range(1, LP_MANAGER_EPOCHS + 1)) or "test" not in out:
         raise AssertionError("a valid evaluation must run after each epoch and a test "
                              "evaluation at the end")
     for res in valid + [out["test"]]:
-        print(f"lp_manager {res['split']} (epoch {res.get('epoch', LP_MANAGER_EPOCHS)}): "
+        print(f"{tag} {res['split']} (epoch {res.get('epoch', LP_MANAGER_EPOCHS)}): "
               f"filtered MRR {res['mrr']:.6f}  Hits@1 {res['hits@1']:.6f}  "
               f"Hits@10 {res['hits@10']:.6f}  mean rank {res['mean_rank']:.2f}  over "
               f"{int(res['num_evaluated'])} ranks  {res['eval_time_s']:.4f} s  [{card}]",
@@ -806,29 +852,32 @@ def lp_manager(card: str) -> dict:
         raise AssertionError(f"marius_eval's test metrics {reloaded} differ from "
                              f"marius_train's {test}")
     s = test["eval_time_s"]
-    print(f"lp_manager test evaluation: {s:.4f} s (marius_eval: {reloaded['eval_time_s']:.4f} s)"
+    print(f"{tag} test evaluation: {s:.4f} s (marius_eval: {reloaded['eval_time_s']:.4f} s)"
           f" for {FB_TEST} edges in {test_ev.num_batches} batches of {test_ev.batch_size}, "
           f"both directions: {FB_TEST / s:.1f} edges/s, {test['num_evaluated'] / s:.1f} ranks/s; "
           f"node_chunk {test_ev.node_chunk}, tail_cap dst {test_ev.dst_tail_cap} "
           f"src {test_ev.src_tail_cap}  [{card}]", flush=True)
-    print("lp_manager: marius_eval reloaded the checkpoint and reproduced the test metrics "
+    print(f"{tag}: marius_eval reloaded the checkpoint and reproduced the test metrics "
           "exactly", flush=True)
 
     train_batches = LP_MANAGER_EPOCHS * trainer.num_batches
     eval_launches = sum(n for _, n in train_evals)
-    counts = {"lp_manager train": train_total - eval_launches,
-              "lp_manager eval": eval_launches, "lp_manager marius_eval": reload_total}
-    if counts["lp_manager train"] != train_batches or adagrad_launches != train_batches:
-        raise AssertionError(f"lp_manager training launched the gather "
-                             f"{counts['lp_manager train']} and Adagrad {adagrad_launches} "
+    counts = {f"{tag} train": train_total - eval_launches,
+              f"{tag} eval": eval_launches, f"{tag} marius_eval": reload_total}
+    if counts[f"{tag} train"] != train_batches or adagrad_launches != train_batches:
+        raise AssertionError(f"{tag} training launched the gather "
+                             f"{counts[f'{tag} train']} and Adagrad {adagrad_launches} "
                              f"times, expected {train_batches} (one per batch)")
     for batches, n in evals:
         if n != 2 * batches:
             raise AssertionError(f"an evaluation of {batches} batches launched the gather "
                                  f"{n} times, expected {2 * batches}")
-    print("lp_manager gather launches: " + ", ".join(f"{k} {v}" for k, v in counts.items())
+    print(f"{tag} gather launches: " + ", ".join(f"{k} {v}" for k, v in counts.items())
           + f" ({len(train_evals)} evaluations in marius_train, 2 per batch)", flush=True)
-    return {"gather_rows": counts, "sparse_adagrad_update_": adagrad_launches}
+    table = trainer.state.table
+    return {"gather_rows": counts, "sparse_adagrad_update_": adagrad_launches, "test": test,
+            "table_bytes": table.values.nbytes + table.state.nbytes,
+            "table_dtype": str(table.values.dtype)}
 
 
 # -- out-of-core link prediction ------------------------------------------------
@@ -964,10 +1013,11 @@ def write_freebase_shaped(directory: str, num_nodes: int, train: int, held_out: 
 
 
 def freebase_config(tmp: str, num_nodes: int, save_model: bool, encoder=None,
-                    epochs: int = OOC_EPOCHS):
+                    epochs: int = OOC_EPOCHS, dtype=None):
     """freebase86m_comet.yaml with only dataset_dir and model_dir redirected,
     num_epochs cut to ``epochs`` and save_model set; ``encoder``, a raw
-    encoder section, replaces the YAML's."""
+    encoder section, replaces the YAML's; ``dtype`` sets
+    storage.embeddings.options.dtype."""
     from marius_tpu_torch.config import load_config
 
     path = Path(__file__).resolve().parent / "examples" / "configuration" / "freebase86m_comet.yaml"
@@ -978,6 +1028,8 @@ def freebase_config(tmp: str, num_nodes: int, save_model: bool, encoder=None,
     raw["training"]["num_epochs"] = epochs
     if encoder is not None:
         raw["model"]["encoder"] = encoder
+    if dtype is not None:
+        raw["storage"]["embeddings"]["options"]["dtype"] = dtype
     cfg = load_config(raw, model_dir=f"{tmp}/model")
     s = cfg.storage
     if (s.embeddings_backend, s.num_partitions, s.buffer_capacity, s.edge_bucket_ordering,
@@ -1045,8 +1097,11 @@ class EpochProbe:
         self.trainer_cls.train_epoch, self.evaluator_cls.evaluate = self._saved
 
 
-def report_oocore_epochs(tag: str, out: dict, probe: EpochProbe, card: str) -> dict:
-    """Print each epoch's numbers, check them, and return the launches by part."""
+def report_oocore_epochs(tag: str, out: dict, probe: EpochProbe, card: str,
+                         epochs: int = OOC_EPOCHS) -> dict:
+    """Print each epoch's numbers, check them, and return the launches by part
+    and, per epoch, the swaps: (seconds per state, GB per state to and from
+    the device)."""
     rt = out["runtime"]
     trainer = rt.trainer
     if type(trainer).__name__ != "PartitionBufferLPTrainer" or trainer.device.type != "cuda" \
@@ -1082,11 +1137,11 @@ def report_oocore_epochs(tag: str, out: dict, probe: EpochProbe, card: str) -> d
                 e["gather"] != e["batches_run"] + 2 * e["sparse_evictions"] or \
                 e["gather_sum"] != layers * e["batches_run"]:
             raise AssertionError(f"{tag} epoch {i}: launches do not match the batches: {e}")
-    if len(losses) != OOC_EPOCHS or not all(math.isfinite(x) for x in losses) \
-            or not losses[1] < losses[0]:
+    if len(losses) != epochs or not all(math.isfinite(x) for x in losses) \
+            or not all(b < a for a, b in zip(losses, losses[1:])):
         raise AssertionError(f"{tag} losses are not finite and falling: {losses}")
     for res in out["evals"] + [out["test"]]:
-        print(f"{tag} {res['split']} (epoch {res.get('epoch', OOC_EPOCHS)}): MRR "
+        print(f"{tag} {res['split']} (epoch {res.get('epoch', epochs)}): MRR "
               f"{res['mrr']:.6f}  Hits@1 {res['hits@1']:.6f}  Hits@10 {res['hits@10']:.6f}  "
               f"over {int(res['num_evaluated'])} ranks  {res['eval_time_s']:.4f} s  [{card}]",
               flush=True)
@@ -1103,6 +1158,9 @@ def report_oocore_epochs(tag: str, out: dict, probe: EpochProbe, card: str) -> d
     if layers:
         out["gather_sum"] = {f"{tag} train": sum(e["gather_sum"] for e in probe.epochs),
                              f"{tag} eval": sum(ev[3] for ev in evals)}
+    out["swaps"] = [(sum(t[1] for t in e["timings"]) / len(e["timings"]),
+                     e["h2d"] / 1e9 / len(e["timings"]), e["d2h"] / 1e9 / len(e["timings"]))
+                    for e in probe.epochs]
     return out
 
 
@@ -1659,13 +1717,15 @@ def write_arxiv_shaped(directory: str, data) -> None:
         num_classes=ARXIV_CLASSES, feature_dim=ARXIV_FEATS))
 
 
-def nc_sampled(card: str, data) -> dict:
+def nc_sampled(card: str, data, tag: str = "nc_sampled", edit=None,
+               epochs: int = NC_SAMPLED_EPOCHS) -> dict:
     """ogbn_arxiv.yaml (sampled GraphSAGE, UNIFORM 32 in and out per hop, hop
     caps [1000, 16384, 65536, 169344]) through marius_train and marius_eval on
     the card. Training and each evaluation are counted apart: the row gather
     once per batch (the outer hop's feature rows), the gather-sum three times
     per batch (one per GNN layer), Adagrad never (no EMBEDDING stage).
-    Returns the launches per part and the trainer."""
+    ``edit(raw)`` changes the loaded YAML and returns what it changed.
+    Returns the launches per part, the test metrics and the trainer."""
     from marius_tpu_torch.config import load_config
     from marius_tpu_torch.manager import marius_eval, marius_train
     from marius_tpu_torch.ops.cuda import adagrad, gather
@@ -1689,12 +1749,12 @@ def nc_sampled(card: str, data) -> dict:
         write_arxiv_shaped(f"{tmp}/dataset", data)
         raw["storage"]["dataset"]["dataset_dir"] = f"{tmp}/dataset"
         epochs_in_yaml = raw["training"]["num_epochs"]
-        raw["training"]["num_epochs"] = NC_SAMPLED_EPOCHS
+        raw["training"]["num_epochs"] = epochs
+        changed = "" if edit is None else f"; {edit(raw)}"
         cfg = load_config(raw, model_dir=f"{tmp}/model")
-        print(f"nc_sampled: {config.relative_to(config.parents[2])} with dataset_dir and "
-              f"model_dir redirected; one cut: num_epochs {epochs_in_yaml} -> "
-              f"{NC_SAMPLED_EPOCHS}; dataset written in {time.perf_counter() - t0:.2f} s",
-              flush=True)
+        print(f"{tag}: {config.relative_to(config.parents[2])} with dataset_dir and "
+              f"model_dir redirected{changed}; one cut: num_epochs {epochs_in_yaml} -> "
+              f"{epochs}; dataset written in {time.perf_counter() - t0:.2f} s", flush=True)
         nc_mod.NodeClassificationEvaluator.evaluate = counted
         try:
             torch.cuda.reset_peak_memory_stats()
@@ -1717,19 +1777,19 @@ def nc_sampled(card: str, data) -> dict:
         raise AssertionError(f"hop caps {trainer.hop_caps} are not the YAML's")
     losses = [e["loss"] for e in out["epochs"]]
     for i, (e, v) in enumerate(zip(out["epochs"], out["evals"])):
-        print(f"nc_sampled epoch {i}: loss {e['loss']:.6f}  {e['epoch_time_s']:.4f} s  "
+        print(f"{tag} epoch {i}: loss {e['loss']:.6f}  {e['epoch_time_s']:.4f} s  "
               f"{e['nodes_per_sec']:.1f} nodes/s  truncated frontier ids "
               f"{e['truncated_frontier_ids']}  valid accuracy {v['accuracy']:.6f}  [{card}]",
               flush=True)
         if not v["accuracy"] > 1.0 / ARXIV_CLASSES:
             raise AssertionError(f"valid accuracy is not above chance: {v}")
-    if len(losses) != NC_SAMPLED_EPOCHS or not all(math.isfinite(x) for x in losses) or not all(
+    if len(losses) != epochs or not all(math.isfinite(x) for x in losses) or not all(
             b < a for a, b in zip(losses, losses[1:])):
-        raise AssertionError(f"nc_sampled losses are not finite and falling: {losses}")
+        raise AssertionError(f"{tag} losses are not finite and falling: {losses}")
     timed = out["epochs"][1:]
     nps = sum(e["num_nodes"] for e in timed) / sum(e["epoch_time_s"] for e in timed)
     test, reloaded = out["test"], again["test"]
-    print(f"nc_sampled timed epochs: {nps:.1f} train nodes/s over {len(timed)} epochs; test "
+    print(f"{tag} timed epochs: {nps:.1f} train nodes/s over {len(timed)} epochs; test "
           f"accuracy {test['accuracy']:.6f} over {int(test['num_evaluated'])} nodes (chance "
           f"{1 / ARXIV_CLASSES}); peak device memory {peak / 2**30:.3f} GiB  [{card}]",
           flush=True)
@@ -1739,15 +1799,15 @@ def nc_sampled(card: str, data) -> dict:
     if any(test[k] != reloaded[k] for k in ("accuracy", "num_evaluated")):
         raise AssertionError(f"marius_eval's test metrics {reloaded} differ from "
                              f"marius_train's {test}")
-    print("nc_sampled: marius_eval reloaded the checkpoint and reproduced the test metrics "
+    print(f"{tag}: marius_eval reloaded the checkpoint and reproduced the test metrics "
           "exactly", flush=True)
 
-    train_batches = NC_SAMPLED_EPOCHS * trainer.num_batches
+    train_batches = epochs * trainer.num_batches
     eval_batches = sum(b for b, _, _ in train_evals)
     train_rows, train_sums = totals[0] - sum(g for _, g, _ in train_evals), \
         totals[1] - sum(s for _, _, s in train_evals)
     if (train_rows, train_sums, totals[2]) != (train_batches, 3 * train_batches, 0):
-        raise AssertionError(f"nc_sampled training launched gather_rows {train_rows}, "
+        raise AssertionError(f"{tag} training launched gather_rows {train_rows}, "
                              f"gather_sum {train_sums} and Adagrad {totals[2]} times for "
                              f"{train_batches} batches (expected 1, 3 and 0 per batch)")
     for batches, g, s in evals:
@@ -1756,16 +1816,16 @@ def nc_sampled(card: str, data) -> dict:
                                  f"and gather_sum {s} times (expected 1 and 3 per batch)")
     if reload_totals[2] != 0 or len(evals) != len(train_evals) + 1:
         raise AssertionError("marius_eval must evaluate once, without Adagrad")
-    rows = {"nc_sampled train": train_rows, "nc_sampled eval": eval_batches,
-            "nc_sampled marius_eval": reload_totals[0]}
-    sums = {"nc_sampled train": train_sums, "nc_sampled eval": 3 * eval_batches,
-            "nc_sampled marius_eval": reload_totals[1]}
-    print(f"nc_sampled launches: gather_rows {rows}, gather_sum {sums}, Adagrad 0 "
+    rows = {f"{tag} train": train_rows, f"{tag} eval": eval_batches,
+            f"{tag} marius_eval": reload_totals[0]}
+    sums = {f"{tag} train": train_sums, f"{tag} eval": 3 * eval_batches,
+            f"{tag} marius_eval": reload_totals[1]}
+    print(f"{tag} launches: gather_rows {rows}, gather_sum {sums}, Adagrad 0 "
           f"({trainer.num_batches} train batches per epoch, {len(train_evals)} valid "
           f"evaluations of {train_evals[0][0]} batches, test {evals[-1][0]} batches)", flush=True)
-    return {"gather_rows": rows, "gather_sum": sums, "trainer": trainer,
-            "sparse_adagrad_update_": {"nc_sampled train": totals[2],
-                                       "nc_sampled marius_eval": reload_totals[2]}}
+    return {"gather_rows": rows, "gather_sum": sums, "trainer": trainer, "test": test,
+            "sparse_adagrad_update_": {f"{tag} train": totals[2],
+                                       f"{tag} marius_eval": reload_totals[2]}}
 
 
 def sampled_shapes(trainer, rates, card) -> dict:
@@ -1808,7 +1868,7 @@ def sampled_shapes(trainer, rates, card) -> dict:
     return {"gather_rows": rows, "gather_sum": sums}
 
 
-def time_layer_sum(adj, n_x: int, d: int, rates, dev) -> dict:
+def time_layer_sum(adj, n_x: int, d: int, rates, dev, dtype=torch.float32) -> dict:
     """One sampled layer's neighbour sum (its in and out slots side by side
     over ``n_x`` rows of width ``d``) through the gather-sum kernel, bit for
     bit against the plain version, timed beside its bound, embedding_bag
@@ -1822,7 +1882,8 @@ def time_layer_sum(adj, n_x: int, d: int, rates, dev) -> dict:
     n = adj.self_idx.shape[0]
     ids = torch.cat([torch.where(adj.in_mask, adj.in_nbr_idx, n_x),
                      torch.where(adj.out_mask, adj.out_nbr_idx, n_x)], 1).int().contiguous()
-    x = torch.randn(n_x, d, device=dev, generator=torch.Generator(device=dev).manual_seed(9))
+    x = torch.randn(n_x, d, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(9)).to(dtype)
     layout = ns._single_bucket(ids)
     out, ref = ns.nbr_sum(x, layout), ns.gather_sum_plain(x, ids)
     torch.cuda.synchronize()
@@ -1835,11 +1896,16 @@ def time_layer_sum(adj, n_x: int, d: int, rates, dev) -> dict:
     def library():
         return torch.nn.functional.embedding_bag(ids64, x_pad, mode="sum", padding_idx=n_x)
 
-    # embedding_bag sums in another order: sums of up to 64 unit normals
-    torch.testing.assert_close(library(), out, rtol=1e-5, atol=1e-4)
+    # embedding_bag sums in another order: sums of up to 64 unit normals (in bf16, its
+    # output rounded to bf16: 2^-7 of the largest sum)
+    lib_ms = library_or_none(library, "embedding_bag", dtype, reps=10, samples=5)
+    if lib_ms is not None:
+        tol = (1e-5, 1e-4) if dtype == torch.float32 else (2 ** -7, 2 ** -7 * 40)
+        torch.testing.assert_close(library().float(), out, rtol=tol[0], atol=tol[1])
     valid = ids[ids < n_x]
     rows_read = int(torch.unique(valid).numel())
-    nbytes = rows_read * d * 4 + ids.numel() * 4 + n * d * 4
+    # distinct rows read once in x's type, the ids, the f32 sums written once
+    nbytes = rows_read * d * x.element_size() + ids.numel() * 4 + n * d * 4
     b_ms, b_by = bound_ms(nbytes, valid.numel() * d, rates)
     xg = x.clone().requires_grad_(True)
     y = sampled_nbr_sum(xg, adj.in_nbr_idx, adj.in_mask, adj.out_nbr_idx, adj.out_mask)
@@ -1850,7 +1916,7 @@ def time_layer_sum(adj, n_x: int, d: int, rates, dev) -> dict:
             "with_layout_ms": time_ms(lambda: ns.gather_sum(x, ids)),
             "plain_ms": time_ms(lambda: ns.gather_sum_plain(x, ids), reps=2, samples=3),
             "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": nbytes,
-            "library_ms": time_ms(library, reps=10, samples=5),
+            "library_ms": lib_ms,
             "backward_index_add_ms": time_ms(
                 lambda: torch.autograd.grad(y, xg, gy, retain_graph=True), reps=5, samples=5)}
 
@@ -1992,7 +2058,8 @@ def layout_matrix(layout, n_in: int):
     return coo.coalesce().to_sparse_csr()
 
 
-def time_layout_sum(layout, n_in: int, d: int, rates, what: str, card: str) -> dict:
+def time_layout_sum(layout, n_in: int, d: int, rates, what: str, card: str,
+                    dtype=torch.float32) -> dict:
     """The gather-sum kernel on one layout of a new consumer, bit for bit
     against its plain version, timed beside the plain version, the bound
     (each distinct row of x that a real slot names read once, the ids, the
@@ -2001,7 +2068,8 @@ def time_layout_sum(layout, n_in: int, d: int, rates, what: str, card: str) -> d
     from marius_tpu_torch.ops.cuda import nbr_sum as ns
 
     dev = layout.ids.device
-    x = torch.randn(n_in, d, device=dev, generator=torch.Generator(device=dev).manual_seed(11))
+    x = torch.randn(n_in, d, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(11)).to(dtype)
     out = ns.nbr_sum(x, layout)
     ref = ns.nbr_sum_plain(x, layout)
     torch.cuda.synchronize()
@@ -2009,22 +2077,40 @@ def time_layout_sum(layout, n_in: int, d: int, rates, what: str, card: str) -> d
         raise AssertionError(f"gather-sum differs from plain at {what}")
     err = float((out - ref).abs().max()) if out.numel() else 0.0
     a = layout_matrix(layout, n_in)
-    torch.testing.assert_close(torch.sparse.mm(a, x), out, rtol=1e-4, atol=1e-3)
+    library = None
+    try:
+        a = a.to(dtype)
+    except (RuntimeError, NotImplementedError) as e:
+        print(f"a CSR matrix does not convert to {dtype}: {str(e)[:160]}", flush=True)
+    else:
+        library = library_or_none(lambda: torch.sparse.mm(a, x), "torch.sparse.mm (CSR)", dtype,
+                                  reps=10, samples=5)
+    if library is not None and dtype == torch.float32:
+        # cuSPARSE sums in another order
+        torch.testing.assert_close(torch.sparse.mm(a, x), out, rtol=1e-4, atol=1e-3)
+    elif library is not None:
+        # cuSPARSE's bf16 product keeps bf16 partial sums: a hub row of 13k slots moves
+        # by several percent, so it is held to the kernel's sums as a whole
+        lib = torch.sparse.mm(a, x).float()
+        rel = float((lib - out).norm() / out.norm())
+        print(f"torch.sparse.mm in {dtype}: {rel:.3g} of the f32-accumulated sums' norm off, "
+              f"worst element {float((lib - out).abs().max()):.3g}", flush=True)
+        if not rel <= 2 ** -4:
+            raise AssertionError(f"torch.sparse.mm in {dtype} is not the same sum: {rel}")
     valid = layout.ids[(layout.ids >= 0) & (layout.ids < n_in)]
     real, distinct = valid.numel(), int(torch.unique(valid).numel())
-    nbytes = distinct * d * 4 + layout.ids.numel() * 4 + layout.num_out * d * 4
+    nbytes = distinct * d * x.element_size() + layout.ids.numel() * 4 + layout.num_out * d * 4
     b_ms, b_by = bound_ms(nbytes, real * d, rates)
     r = {"slots": layout.ids.numel(), "real_slots": real, "distinct_rows": distinct,
          "rows_out": layout.num_out, "d": d,
          "max_abs_err": err, "ms": time_ms(lambda: ns.nbr_sum(x, layout)),
          "plain_ms": time_ms(lambda: ns.nbr_sum_plain(x, layout), reps=2, samples=3),
-         "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": nbytes,
-         "library_ms": time_ms(lambda: torch.sparse.mm(a, x), reps=10, samples=5)}
+         "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": nbytes, "library_ms": library}
+    lib = "-" if library is None else f"{library * 1e3:.2f} us"
     print(f"gather_sum, {what} ({r['slots']} slots, {real} real, {distinct} distinct rows, "
-          f"{layout.num_out} rows out, "
-          f"d={d}, {nbytes / 1e6:.4f} MB): max_abs_err {err}  kernel {r['ms'] * 1e3:.2f} us  "
-          f"plain {r['plain_ms'] * 1e3:.2f} us  torch.sparse.mm {r['library_ms'] * 1e3:.2f} us"
-          f"  bound {b_ms * 1e3:.2f} us ({b_by})  [{card}]", flush=True)
+          f"{layout.num_out} rows out, d={d}, {dtype}, {nbytes / 1e6:.4f} MB): max_abs_err "
+          f"{err}  kernel {r['ms'] * 1e3:.2f} us  plain {r['plain_ms'] * 1e3:.2f} us  "
+          f"torch.sparse.mm {lib}  bound {b_ms * 1e3:.2f} us ({b_by})  [{card}]", flush=True)
     return r
 
 
@@ -3745,6 +3831,411 @@ def compare_fg_leftovers_with_cpu():
           f"atol 1e-5)", flush=True)
 
 
+# -- relation corruption (CORRUPT_REL) and bf16 tables and features -----------------
+
+# bf16 against the CPU: after the first 2 batches each state leaf within 2^-5 of its
+# norm (||card - cpu|| <= 2^-5 ||cpu||, 4 bf16 ulps); over 2 epochs the losses within
+# rtol 2^-6. Elementwise bounds do not hold, nor norms over epochs: a row's gradient is
+# the bf16 sum of its occurrences' gradients, which the card's atomics add in any order
+# and its reductions and index backward in another than the CPU's, each add rounded to
+# bf16; where they cancel the sum moves by many ulps, and Adagrad's step
+# lr * g / sqrt(state) turns a moved sum into a step (ROADMAP C10). On an NVIDIA H100
+# 80GB HBM3 (700 W), one epoch over the buffer: a leaf 0.07-0.15 of its norm from the
+# CPU's, 0.05 between two card runs with atomics, 0 without (f32: 8.6e-7)
+BF16_NORM_TOL, BF16_LOSS_RTOL, BF16_BATCHES = 2 ** -5, 2 ** -6, 2
+# lp_oocore_bf16's cuts of freebase86m_comet.yaml (all 86,054,151 nodes kept)
+OOC_BF16_TRAIN_EDGES, OOC_BF16_EPOCHS = 8_000_000, 1
+NC_BF16_EPOCHS = 2
+
+
+def set_corrupt_rel(raw) -> str:
+    raw["model"]["decoder"].setdefault("options", {})["edge_decoder_method"] = "CORRUPT_REL"
+    return "model.decoder.options.edge_decoder_method: CORRUPT_REL"
+
+
+def set_bf16(raw) -> str:
+    raw["storage"].setdefault("embeddings", {}).setdefault("options", {})["dtype"] = "bfloat16"
+    return "storage.embeddings.options.dtype: bfloat16"
+
+
+def lp_corrupt_rel(card: str) -> dict:
+    """fb15k_237.yaml with relation corruption through marius_train and
+    marius_eval (lp_manager's cut): the filtered relation MRR, which
+    marius_eval must reproduce; the row gather and Adagrad launch once per
+    training batch (the endpoints' rows), the gather twice per evaluation batch."""
+    out = lp_manager(card, "lp_corrupt_rel", set_corrupt_rel)
+    test = out["test"]
+    if not test["mean_rank"] <= NUM_RELS:
+        raise AssertionError(f"a relation rank above R = {NUM_RELS}: {test}")
+    print(f"lp_corrupt_rel: filtered relation MRR {test['mrr']:.6f} over "
+          f"{int(test['num_evaluated'])} ranks against all {NUM_RELS} relations (a uniform "
+          f"ranking gives {sum(1 / k for k in range(1, NUM_RELS + 1)) / NUM_RELS:.6f}), "
+          f"reproduced by marius_eval  [{card}]", flush=True)
+    return out
+
+
+def lp_bf16(card: str, f32: dict) -> dict:
+    """fb15k_237.yaml with a bf16 table through marius_train and marius_eval
+    (lp_manager's cut), beside the float32 lp_manager run of this call."""
+    out = lp_manager(card, "lp_bf16", set_bf16)
+    if out["table_dtype"] != "torch.bfloat16":
+        raise AssertionError(f"lp_bf16 trained a {out['table_dtype']} table")
+    print(f"lp_bf16: test filtered MRR {out['test']['mrr']:.6f} (float32 lp_manager "
+          f"{f32['test']['mrr']:.6f}); table and Adagrad state on the device "
+          f"{out['table_bytes'] / 1e6:.3f} MB (float32 {f32['table_bytes'] / 1e6:.3f} MB)  "
+          f"[{card}]", flush=True)
+    return out
+
+
+def nc_bf16(card: str, data, f32: dict) -> dict:
+    """ogbn_arxiv.yaml with bf16 features and parameters on nc_sampled's
+    dataset, 2 epochs, through marius_train and marius_eval: the sampled
+    layers' sums through the gather-sum's bf16 entry, beside the float32
+    nc_sampled accuracy of this call."""
+    out = nc_sampled(card, data, "nc_bf16", set_bf16, NC_BF16_EPOCHS)
+    trainer = out["trainer"]
+    if trainer.features.dtype != torch.bfloat16:
+        raise AssertionError("nc_bf16 must train on bf16 features")
+    print(f"nc_bf16: test accuracy {out['test']['accuracy']:.6f} after {NC_BF16_EPOCHS} epochs "
+          f"(float32 nc_sampled {f32['test']['accuracy']:.6f} after {NC_SAMPLED_EPOCHS}); "
+          f"features on the device {trainer.features.nbytes / 1e6:.3f} MB (float32 "
+          f"{trainer.features.numel() * 4 / 1e6:.3f} MB)  [{card}]", flush=True)
+    return out
+
+
+def lp_oocore_bf16(card: str, f32_swaps) -> dict:
+    """freebase86m_comet.yaml in bf16 at Freebase86m's 86,054,151 nodes (the
+    host table and its Adagrad state 2 x 17.2 GB of bf16), train edges cut to
+    8,000,000 and 1 epoch, through marius_train: the swap seconds and GB per
+    state beside the float32 lp_oocore's of this call."""
+    from marius_tpu_torch.manager import marius_train
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_freebase_shaped(f"{tmp}/dataset", FB86M_NODES, OOC_BF16_TRAIN_EDGES, OOC_EVAL_EDGES)
+        cfg = freebase_config(tmp, FB86M_NODES, save_model=False, epochs=OOC_BF16_EPOCHS,
+                              dtype="bfloat16")
+        print(f"lp_oocore_bf16: freebase86m_comet.yaml with dataset_dir and model_dir "
+              f"redirected and storage.embeddings.options.dtype bfloat16; cuts: nodes none "
+              f"({FB86M_NODES}), train edges 338,586,276 -> {OOC_BF16_TRAIN_EDGES}, valid and "
+              f"test {OOC_EVAL_EDGES} each, num_epochs 10 -> {OOC_BF16_EPOCHS}, save_model "
+              f"off; dataset written in {time.perf_counter() - t0:.2f} s", flush=True)
+        torch.cuda.empty_cache()
+        with EpochProbe() as probe:
+            t0 = time.perf_counter()
+            out = marius_train(cfg)   # device=None: the GPU
+            total = time.perf_counter() - t0
+        buf = out["runtime"].trainer.buffer
+        if buf.dtype != torch.bfloat16 or buf.host_values.dtype != np.uint16:
+            raise AssertionError("lp_oocore_bf16 must train a bf16 buffer")
+        print(f"lp_oocore_bf16: marius_train {total:.2f} s, set-up before the first epoch "
+              f"{probe.first_epoch_at - t0:.2f} s; buffer {buf.buffer_rows} x {buf.dim} bf16 "
+              f"rows ({2 * buf.buffer_rows * buf.dim * 2 / 1e9:.2f} GB with its state); host "
+              f"RSS peak {resource_peak_gib():.2f} GiB  [{card}]", flush=True)
+        counts = report_oocore_epochs("lp_oocore_bf16", out, probe, card, OOC_BF16_EPOCHS)
+        del out, buf
+    # against lp_oocore's first epoch, which also admits every partition with its Adagrad
+    # state still zero (zero-filled on the card, not copied); the evictions move the rows
+    # each state's edges made dirty, 4 times fewer here
+    (s16, h16, d16), (s32, h32, d32) = counts["swaps"][0], f32_swaps[0]
+    print(f"lp_oocore_bf16 swaps per state: {s16:.3f} s, {h16:.3f} GB to and {d16:.3f} GB from "
+          f"the device (float32 lp_oocore, its first epoch: {s32:.3f} s, {h32:.3f} GB and "
+          f"{d32:.3f} GB)  [{card}]", flush=True)
+    return counts
+
+
+def time_bf16_gather(gather, rows: int, dim: int, k: int, batches: int, rates, dev,
+                     distinct: bool) -> dict:
+    """The row gather's bf16 entry at one shape: ``batches`` batches of ``k``
+    ids into a (rows, dim) bf16 table (uniform, as the dense-accumulate
+    branch gathers them, or sorted distinct ids padded with the row count, as
+    the dedup branch does), bit for bit against the plain version, timed
+    beside index_select and the bf16 bytes' bound."""
+    from marius_tpu_torch.ops.unique import unique_padded
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    table = torch.empty((rows, dim), device=dev, dtype=torch.bfloat16).normal_(generator=g)
+    ids = [torch.randint(0, rows, (k,), device=dev, generator=g) for _ in range(batches)]
+    if distinct:
+        ids = [unique_padded(b, k, rows).ids for b in ids]
+    err = max(gather_max_err(gather, table, b.to(idt)) for b in ids[:1]
+              for idt in (torch.int64, torch.int32))
+    out = time_gather(gather, table, ids, rates)
+    out["max_abs_err"] = err
+    del table
+    torch.cuda.empty_cache()
+    return out
+
+
+def bf16_kernel_shapes(gather, adagrad, adj, nc_trainer, rates, card) -> dict:
+    """Each kernel's bf16 entry, bit for bit against its plain version and
+    timed beside its bound (the bf16 bytes at the card's rate) and its
+    one-call PyTorch equivalent: the row gather at every vector width (2-byte
+    vectors for odd widths; tables 2, 4 and 6 bytes into their storage), at
+    the flagship table (14,541 x 50) and at an out-of-core batch (30,000
+    distinct ids into 43,027,080 x 100); Adagrad at the flagship (every row,
+    as the dense-accumulate branch runs it) and on Freebase86m's bf16 buffer
+    pair; the gather-sum at nc_bf16's sampled layer 0 and over the whole
+    arxiv adjacency. Returns each kernel's bf16 shapes."""
+    from marius_tpu_torch.data.full_graph import nbr_sum_layout
+    from marius_tpu_torch.data.samplers.neighbor import sample_neighbor_batch
+    from marius_tpu_torch.ops.cuda import nbr_sum as ns
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(14)
+    n = 1009
+    for d in GATHER_DIMS:
+        base = torch.randn(n * d + 3, device=dev, generator=g).to(bf)
+        ids = torch.randint(-3, n + 3, (4099,), device=dev, generator=g)
+        for off in (0, 1, 2, 3):
+            table = base[off:off + n * d].view(n, d)
+            for k in (1, 33, 4099):
+                for idt in (torch.int64, torch.int32):
+                    gather_max_err(gather, table, ids[:k].to(idt))
+    rows = {"flagship": time_bf16_gather(gather, NUM_NODES, DIM, GATHER_IDS, 1, rates, dev,
+                                         distinct=False),
+            "out_of_core": time_bf16_gather(gather, OOC_ROWS, FB86M_DIM, OOC_IDS, OOC_BATCHES,
+                                            rates, dev, distinct=True)}
+
+    for d in ODD_DIMS:
+        vals = torch.randn(n, d, device=dev, generator=g).to(bf)
+        state = torch.rand(n, d, device=dev, generator=g).to(bf)
+        ids = torch.randperm(n + 50, device=dev, generator=g)[:777]
+        grads = (torch.randn(777, d, device=dev, generator=g) * 0.1).to(bf)
+        v1, s1, v2, s2 = vals.clone(), state.clone(), vals.clone(), state.clone()
+        adagrad.sparse_adagrad_update_(v1, s1, ids, grads, 0.1)
+        adagrad.sparse_adagrad_update_plain_(v2, s2, ids, grads, 0.1)
+        torch.cuda.synchronize()
+        if not (torch.equal(v1.view(torch.int16), v2.view(torch.int16))
+                and torch.equal(s1.view(torch.int16), s2.view(torch.int16))):
+            raise AssertionError(f"the bf16 Adagrad kernel differs from plain at d={d}")
+    vals = torch.randn(NUM_NODES, DIM, device=dev, generator=g).to(bf)
+    state = torch.rand(NUM_NODES, DIM, device=dev, generator=g).to(bf)
+    ids = torch.arange(NUM_NODES, device=dev)
+    grads = (torch.randn(NUM_NODES, DIM, device=dev, generator=g) * 0.1).to(bf)
+    grads[torch.rand(NUM_NODES, device=dev, generator=g) < 0.5] = 0
+    v1, s1, v2, s2 = vals.clone(), state.clone(), vals.clone(), state.clone()
+    adagrad.sparse_adagrad_update_(v1, s1, ids, grads, 0.1)
+    adagrad.sparse_adagrad_update_plain_(v2, s2, ids, grads, 0.1)
+    torch.cuda.synchronize()
+    if not (torch.equal(v1.view(torch.int16), v2.view(torch.int16))
+            and torch.equal(s1.view(torch.int16), s2.view(torch.int16))):
+        raise AssertionError("the bf16 Adagrad kernel differs from plain at the flagship")
+    from torch.optim.adagrad import adagrad as torch_adagrad
+
+    sparse = torch.sparse_coo_tensor(ids[None], grads, (NUM_NODES, DIM), is_coalesced=True,
+                                     check_invariants=False)
+    v3, s3, step = vals.clone(), state.clone(), torch.zeros((), device=dev)
+
+    def library():
+        torch_adagrad([v3], [sparse], [s3], [step], has_sparse_grad=True, lr=0.1,
+                      weight_decay=0.0, lr_decay=0.0, eps=1e-10, maximize=False)
+
+    b_ms, b_by = bound_ms(NUM_NODES * 8 + NUM_NODES * DIM * 2 * 5, NUM_NODES * DIM * 7, rates)
+    flag = {"max_abs_err": 0.0, "bound_ms": b_ms, "bound_by": b_by,
+            "ms": time_ms(lambda: adagrad.sparse_adagrad_update_(v1, s1, ids, grads, 0.1)),
+            "plain_ms": time_ms(lambda: adagrad.sparse_adagrad_update_plain_(v2, s2, ids, grads,
+                                                                             0.1)),
+            "library_ms": library_or_none(library, "torch.optim.adagrad (sparse)", bf),
+            "k": NUM_NODES, "d": DIM}
+    del vals, state, v1, s1, v2, s2, v3, s3, grads, sparse
+    torch.cuda.empty_cache()
+    adagrad_rows = {"flagship": flag, "out_of_core": adagrad_out_of_core(adagrad, dev, rates, bf)}
+
+    b = nc_trainer.batch_size
+    nb = sample_neighbor_batch(nc_trainer._batch_draws(), nc_trainer.graph,
+                               nc_trainer.train_nodes[:b], torch.ones(b, dtype=torch.bool,
+                                                                      device=dev),
+                               nc_trainer.nbr_configs, nc_trainer.hop_caps)
+    layer0 = time_layer_sum(nb.layers[0], nb.node_ids[0].shape[0], NC_DIM, rates, dev, bf)
+    whole = time_layout_sum(nbr_sum_layout(adj), ARXIV_NODES, NC_DIM, rates,
+                            "whole arxiv sum, bf16 x", card, bf)
+    sums = {"sampled_layer0": layer0, "whole_sum": whole}
+
+    def lib(r):
+        return "-" if r["library_ms"] is None else f"{r['library_ms'] * 1e3:.2f} us"
+
+    for name, shapes, yard in (("gather_rows", rows, "index_select"),
+                               ("sparse_adagrad_update_", adagrad_rows,
+                                "torch.optim.adagrad (sparse)"),
+                               ("gather_sum", sums, "embedding_bag / torch.sparse.mm")):
+        for shape, r in shapes.items():
+            print(f"{name} bf16, {shape}: max_abs_err {r['max_abs_err']}  kernel "
+                  f"{r['ms'] * 1e3:.2f} us  plain {r['plain_ms'] * 1e3:.2f} us  {yard} "
+                  f"{lib(r)}  bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})  [{card}]",
+                  flush=True)
+    for shapes in (rows, adagrad_rows, sums):
+        for r in shapes.values():
+            if r["max_abs_err"] != 0.0:
+                raise AssertionError(f"a bf16 kernel differs from its plain version: {r}")
+    return {"gather_rows": rows, "sparse_adagrad_update_": adagrad_rows, "gather_sum": sums}
+
+
+def _seq_relations(trainer, r: int, seed: int = 21):
+    """Relation negatives from a numpy stream, the same sequence on any device."""
+    rng = np.random.default_rng(seed)
+    c, n = trainer.neg_config.num_chunks, trainer.neg_config.negatives_per_positive
+    return lambda *_: torch.from_numpy(rng.integers(0, r, (c, n))).to(trainer.device)
+
+
+def _random_relations(params, seed: int = 5) -> None:
+    """Distinct relations: DistMult's start at ones, where every relation
+    negative scores as its positive and the table gradients cancel to noise."""
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for name in sorted(params["decoder"]):
+            p = params["decoder"][name]
+            p.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, tuple(p.shape)).astype(np.float32)))
+
+
+def _close_on_cpu(pairs, rtol, atol, what) -> float:
+    worst = 0.0
+    for a, b in pairs:
+        a = torch.as_tensor(a).detach().float().cpu()
+        b = torch.as_tensor(b).detach().float().cpu()
+        worst = max(worst, float((a - b).abs().max()))
+        torch.testing.assert_close(b, a, rtol=rtol, atol=atol, msg=lambda m: f"{what}: {m}")
+    return worst
+
+
+def _normwise_on_cpu(pairs, tol, what, joint: bool = False) -> tuple:
+    """(worst ||card - cpu|| / ||cpu||, worst elementwise difference) over the
+    leaves, or over all leaves as one vector (``joint``); raises beyond ``tol``."""
+    worst = elem = 0.0
+    pairs = [(torch.as_tensor(a).detach().float().cpu().reshape(-1),
+              torch.as_tensor(b).detach().float().cpu().reshape(-1)) for a, b in pairs]
+    if joint:
+        pairs = [(torch.cat([a for a, _ in pairs]), torch.cat([b for _, b in pairs]))]
+    for a, b in pairs:
+        rel = float((a - b).norm() / a.norm().clamp(min=1e-30))
+        worst, elem = max(worst, rel), max(elem, float((a - b).abs().max()))
+        if not rel <= tol:
+            raise AssertionError(f"{what}: a leaf of shape {tuple(a.shape)} differs by {rel:.3g} "
+                                 f"of its norm (tolerance {tol})")
+    return worst, elem
+
+
+def compare_rel_and_bf16_with_cpu():
+    """Small CORRUPT_REL runs on the card against the CPU, in memory (both
+    table-update branches) and over the partition buffer (BETA), with the same
+    relation negatives and draws and distinct relations, 2 epochs (rtol 1e-4,
+    atol 1e-5); then small bf16 runs (LP in memory, both branches; LP over the
+    buffer; full-graph NC on the general path, bf16 gather-sums) at the bf16
+    tolerance."""
+    from marius_tpu_torch.data.full_graph import build_full_graph_adjacency
+    from marius_tpu_torch.data.graph import build_device_graph
+    from marius_tpu_torch.data.samplers.negative import NegativeSamplingConfig
+    from marius_tpu_torch.nn.optimizers import tree_leaves
+    from marius_tpu_torch.storage import transfer
+    from marius_tpu_torch.train.buffer_trainer import PartitionBufferLPTrainer
+    from marius_tpu_torch.train.nc import NodeClassificationTrainer
+    from marius_tpu_torch.train.trainer import LinkPredictionTrainer
+
+    n, r, d, e = 600, 12, 32, 4000
+    edges = synthetic_edges(13, n, r, e)
+    cfg = NegativeSamplingConfig(num_chunks=4, negatives_per_positive=20, degree_fraction=0.25)
+
+    def mem_pair(method, dtype, dense, rows=edges):
+        cpu, gpu = ts = [LinkPredictionTrainer(lp_model(r, d, "DISTMULT", method), n, r, rows,
+                                               cfg, batch_size=200, seed=1, dtype=dtype,
+                                               device=dev) for dev in ("cpu", "cuda")]
+        for t in ts:
+            t.dense_accum = dense
+            t._sample_negatives = (lambda edges_b, inverse, _c=t.neg_config:
+                                   _batch_negatives(_c, edges_b, n, inverse))
+            t._sample_rel_negatives = _seq_relations(t, r)
+            _random_relations(t.state.params)
+        gpu._epoch_permutation = lambda s: cpu._epoch_permutation(s).to(gpu.device)
+        return cpu, gpu
+
+    def buffer_pair(method, dtype, rows=edges):
+        ts = [PartitionBufferLPTrainer(lp_model(r, d, "COMPLEX", method), n, r, rows, cfg,
+                                       batch_size=200, num_partitions=8, buffer_capacity=4,
+                                       ordering="BETA", seed=1, dtype=dtype, device=dev)
+              for dev in ("cpu", "cuda")]
+        for t in ts:
+            t._in_buffer_draws = lambda step, inverse, _t=t: injected_draws(_t, step, inverse)
+            t._rel_negatives = _seq_relations(t, r)
+            _random_relations(t.params)
+        return ts
+
+    def run(cpu, gpu, epochs, loss_rtol, what):
+        for _ in range(epochs):
+            lc, lg = cpu.train_epoch()["loss"], gpu.train_epoch()["loss"]
+            if not math.isclose(lc, lg, rel_tol=loss_rtol):
+                raise AssertionError(f"{what}: loss on the card {lg} != on the CPU {lc}")
+
+    worst = 0.0
+    for dense in (True, False):
+        cpu, gpu = mem_pair("CORRUPT_REL", torch.float32, dense)
+        if cpu.unique_cap != 2 * 200:
+            raise AssertionError("CORRUPT_REL must gather the endpoints only")
+        run(cpu, gpu, 2, 1e-4, f"CORRUPT_REL in memory, dense_accum={dense}")
+        worst = max(worst, _close_on_cpu(
+            [(cpu.state.table.values, gpu.state.table.values),
+             (cpu.state.table.state, gpu.state.table.state)]
+            + list(zip(tree_leaves(cpu.state.params), tree_leaves(gpu.state.params))),
+            1e-4, 1e-5, "CORRUPT_REL in memory"))
+    cpu, gpu = buffer_pair("CORRUPT_REL", torch.float32)
+    run(cpu, gpu, 2, 1e-4, "CORRUPT_REL over the buffer")
+    worst = max(worst, _close_on_cpu(
+        [(cpu.buffer.host_values, gpu.buffer.host_values),
+         (cpu.buffer.host_state, gpu.buffer.host_state)]
+        + list(zip(tree_leaves(cpu.params), tree_leaves(gpu.params))),
+        1e-4, 1e-5, "CORRUPT_REL over the buffer"))
+    print(f"small CORRUPT_REL runs, card against CPU (in memory, both update branches; "
+          f"over the buffer, BETA; 2 epochs): max abs difference {worst:.3g} (tolerance rtol "
+          f"1e-4, atol 1e-5)", flush=True)
+
+    worst = [(0.0, 0.0)]
+    bf = torch.bfloat16
+    short = edges[:BF16_BATCHES * 200]   # 2 batches of 200: an epoch of them
+    for dense in (True, False):
+        cpu, gpu = mem_pair("CORRUPT_NODE", bf, dense)
+        run(cpu, gpu, 2, BF16_LOSS_RTOL, f"bf16 in memory, dense_accum={dense}")
+        cpu, gpu = mem_pair("CORRUPT_NODE", bf, dense, short)
+        run(cpu, gpu, 1, BF16_LOSS_RTOL, f"bf16 in memory, 2 batches, dense_accum={dense}")
+        worst.append(_normwise_on_cpu(
+            [(cpu.state.table.values, gpu.state.table.values),
+             (cpu.state.table.state, gpu.state.table.state)]
+            + list(zip(tree_leaves(cpu.state.params), tree_leaves(gpu.state.params))),
+            BF16_NORM_TOL, "bf16 LP in memory, 2 batches"))
+    cpu, gpu = buffer_pair("CORRUPT_NODE", bf)
+    run(cpu, gpu, 1, BF16_LOSS_RTOL, "bf16 over the buffer")
+    cpu, gpu = buffer_pair("CORRUPT_NODE", bf, short)
+    run(cpu, gpu, 1, BF16_LOSS_RTOL, "bf16 over the buffer, 2 batches")
+    host = lambda t, a: transfer.as_tensor(getattr(t.buffer, a), bf)  # noqa: E731
+    worst.append(_normwise_on_cpu(
+        [(host(cpu, "host_values"), host(gpu, "host_values")),
+         (host(cpu, "host_state"), host(gpu, "host_state"))],
+        BF16_NORM_TOL, "bf16 LP over the buffer, 2 batches"))
+    nn_, ne, f = 300, 3000, 16
+    rng = np.random.default_rng(5)
+    w = (np.arange(nn_) + 1.0) ** -1.0
+    nc_edges = np.stack([rng.integers(0, nn_, ne), rng.choice(nn_, ne, p=w / w.sum())], 1)
+    _, features, labels, train_nodes = nc_data(6, nc_edges, nn_, f, 5, 200)
+    adj, graph = build_full_graph_adjacency(nc_edges, nn_), build_device_graph(nc_edges, nn_)
+    for nodes, epochs in ((train_nodes, 2), (train_nodes[:BF16_BATCHES * 50], 1)):
+        cpu, gpu = [NodeClassificationTrainer(nc_model(f, (16, 16, 5)), graph, features, labels,
+                                              nodes, batch_size=50, seed=1, full_graph=adj,
+                                              fg_linear_collapse=False, dtype=bf, device=dev)
+                    for dev in ("cpu", "cuda")]
+        gpu._epoch_permutation = lambda s, _c=cpu, _g=gpu: _c._epoch_permutation(s).to(_g.device)
+        run(cpu, gpu, epochs, BF16_LOSS_RTOL, f"bf16 full-graph NC, {len(nodes)} train nodes")
+    # the dense parameters as one vector: Adam's first steps move each element by about
+    # lr * sign(g), so a bias whose gradient is near 0 (the biases start at 0) flips
+    worst.append(_normwise_on_cpu(
+        zip(tree_leaves(cpu.state.params), tree_leaves(gpu.state.params)),
+        BF16_NORM_TOL, "bf16 full-graph NC, 2 batches", joint=True))
+    print(f"small bf16 runs, card against CPU (LP in memory, both update branches, 2 epochs; "
+          f"LP over the buffer, 1 epoch; full-graph NC, general path, 2 epochs): losses within "
+          f"rtol 2^-6; after 2 batches the worst leaf (NC: all parameters as one vector) "
+          f"{max(w for w, _ in worst):.3g} of its norm (tolerance 2^-5), the largest element "
+          f"difference "
+          f"{max(e for _, e in worst):.3g}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a GPU",
@@ -3817,6 +4308,14 @@ def main() -> int:
     kernels[0]["sampled_nc_outer"] = shapes["gather_rows"]
     kernels[2]["sampled_layer0"] = shapes["gather_sum"]
     torch.cuda.empty_cache()
+    nc16 = nc_bf16(card, nc, sampled)
+    shapes = bf16_kernel_shapes(gather, adagrad, adj.to("cuda"), nc16.pop("trainer"), rates,
+                                card)
+    for k in kernels:
+        k["bf16"] = shapes[k["name"]]
+        k["max_abs_err"] = max([k["max_abs_err"]]
+                               + [r["max_abs_err"] for r in k["bf16"].values()])
+    torch.cuda.empty_cache()
     compare_sampled_nc_with_cpu()
     gat = nc_gat(card, nc)
     gat_trainer = gat.pop("trainer")
@@ -3838,6 +4337,9 @@ def main() -> int:
     compare_fg_leftovers_with_cpu()
     torch.cuda.empty_cache()
     manager = lp_manager(card)
+    rel = lp_corrupt_rel(card)
+    lp16 = lp_bf16(card, manager)
+    compare_rel_and_bf16_with_cpu()
     gnn = lp_gnn(card)
     shapes = lp_gnn_shapes(gnn.pop("trainer"), rates, card)
     for k in kernels:
@@ -3850,6 +4352,10 @@ def main() -> int:
     reload = lp_oocore_reload(card)
     gnn_oocore = lp_gnn_oocore(card)
     oocore = lp_oocore(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    oocore16 = lp_oocore_bf16(card, oocore["swaps"])
+    gc.collect()
     torch.cuda.empty_cache()
     compare_nc_oocore_with_cpu()
     nc_reload = nc_oocore_reload(card)
@@ -3866,7 +4372,9 @@ def main() -> int:
                         **gnn["gather_rows"], **reload["gather_rows"],
                         **gnn_oocore["gather_rows"], **oocore["gather_rows"],
                         **locality["gather_rows"], **emb_full["gather_rows"],
-                        **nc_reload["gather_rows"], **nc_ooc["gather_rows"]},
+                        **nc_reload["gather_rows"], **nc_ooc["gather_rows"],
+                        **rel["gather_rows"], **lp16["gather_rows"], **nc16["gather_rows"],
+                        **oocore16["gather_rows"]},
         "sparse_adagrad_update_": {"lp flagship": flagship["sparse_adagrad_update_"],
                                    "lp_manager train": manager["sparse_adagrad_update_"],
                                    **sampled["sparse_adagrad_update_"],
@@ -3879,12 +4387,16 @@ def main() -> int:
                                    **oocore["sparse_adagrad_update_"],
                                    **emb_full["sparse_adagrad_update_"],
                                    **nc_reload["sparse_adagrad_update_"],
-                                   **nc_ooc["sparse_adagrad_update_"]},
+                                   **nc_ooc["sparse_adagrad_update_"],
+                                   "lp_corrupt_rel train": rel["sparse_adagrad_update_"],
+                                   "lp_bf16 train": lp16["sparse_adagrad_update_"],
+                                   **nc16["sparse_adagrad_update_"],
+                                   **oocore16["sparse_adagrad_update_"]},
         "gather_sum": {**nc_counts, **sampled["gather_sum"], **gat["gather_sum"],
                        **rgcn_full["gather_sum"], **gat_full["gather_sum"], **gnn["gather_sum"],
                        **gnn_oocore["gather_sum"], **locality["gather_sum"],
                        **emb_full["gather_sum"], **nc_reload["gather_sum"],
-                       **nc_ooc["gather_sum"]},
+                       **nc_ooc["gather_sum"], **nc16["gather_sum"]},
     }
     for k in kernels:
         k["launches"] = sum(by_part[k["name"]].values())

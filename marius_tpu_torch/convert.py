@@ -13,6 +13,8 @@ slots, matched leaf by leaf. ``copy_buffer_trainer_from_jax_`` carries a JAX
 ``PartitionBufferLPTrainer``'s padded host table and Adagrad state, dense
 parameters (a GNN's too) and optimizer state into the port's buffer
 trainer; a feature cache is data, rebuilt from the features, not state.
+bfloat16 leaves (``ml_dtypes`` arrays, which ``torch.from_numpy`` refuses)
+come across as their bits (``storage.checkpoint.from_numpy``).
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ import torch
 
 from marius_tpu_torch.nn.optimizers import OptState, tree_leaves, tree_map
 from marius_tpu_torch.parallel.embedding_table import EmbeddingTable
+from marius_tpu_torch.storage.checkpoint import from_numpy
+from marius_tpu_torch.storage.transfer import as_array
 from marius_tpu_torch.train.trainer import TrainState
 
 
@@ -32,8 +36,7 @@ def _field(obj: Any, name: str):
 
 
 def _tensor(a, device, requires_grad=False) -> torch.Tensor:
-    t = torch.from_numpy(np.array(a, copy=True)).to(device)
-    return t.requires_grad_(requires_grad)
+    return from_numpy(a).to(device).requires_grad_(requires_grad)
 
 
 def train_state_from_jax(np_state, device="cpu") -> TrainState:
@@ -86,5 +89,6 @@ def copy_buffer_trainer_from_jax_(trainer, host_values: np.ndarray, host_state: 
     trainer.state = train_state_from_jax({
         "table": {"values": host_values[:n], "state": host_state[:n]},
         "params": params, "opt_state": opt_state, "epoch": epoch})
-    buf.host_values[n:] = host_values[n:]    # the last partition's padding rows
-    buf.host_state[n:] = host_state[n:]
+    # the last partition's padding rows
+    buf.host_values[n:] = as_array(from_numpy(host_values[n:]).to(buf.dtype))
+    buf.host_state[n:] = as_array(from_numpy(host_state[n:]).to(buf.dtype))

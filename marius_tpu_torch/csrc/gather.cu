@@ -3,7 +3,9 @@
 // Replaces the TPU kernel marius_tpu/ops/pallas/gather.py:gather_rows_pallas
 // (_gather_kernel), which streams one row DMA per id with 4 DMAs in flight and
 // needs d % 128 == 0 and K % 1024 == 0. Here any K and any d are taken, with
-// int64 or int32 ids.
+// int64 or int32 ids, and f32 or bf16 rows (the TPU kernel's output takes the
+// table's dtype). The copy moves bytes: one kernel serves both element types,
+// and the entry points differ only in the element size they plan with.
 //
 // Bound: bytes; there is no arithmetic. The kernel reads each distinct row
 // once and the ids once, and writes K rows.
@@ -16,11 +18,13 @@
 //   which need many bytes in flight to hide HBM's latency.
 //
 // Design:
-// - A flat vector mapping. The output is K x (4d / V) vectors of V bytes,
-//   V = 16, 8 or 4: the widest that divides the row's 4d bytes and both base
-//   addresses (the wrapper picks it on the host; a table may be a view at an
-//   offset). Neighbouring threads take neighbouring output vectors, so loads
-//   and stores coalesce and no lane idles at d = 50 (V = 8, 25 per row).
+// - A flat vector mapping. The output is K x (row bytes / V) vectors of V
+//   bytes, V = 16, 8, 4 or 2: the widest that divides the row's bytes (4d in
+//   f32, 2d in bf16) and both base addresses (the wrapper picks it on the
+//   host; a table may be a view at an offset). Neighbouring threads take
+//   neighbouring output vectors, so loads and stores coalesce and no lane
+//   idles at d = 50 (f32: V = 8, 25 per row; bf16: 100-byte rows, V = 4).
+//   V = 2 serves bf16 rows of an odd width.
 // - 16 bytes per thread, every load before any store. A thread owns
 //   U = 16 / V vectors of a tile, strided by the block's width: it loads
 //   their ids, then all U row vectors, then stores them.
@@ -99,7 +103,7 @@ gather_rows_kernel(const Vec* __restrict__ table, const Id* __restrict__ ids,
 }
 
 template <typename Id, typename Vec>
-int launch_vec(const float* table, const Id* ids, float* out, int64_t n_rows, int64_t k,
+int launch_vec(const void* table, const Id* ids, void* out, int64_t n_rows, int64_t k,
                uint32_t vpr, int grid, cudaStream_t stream) {
   gather_rows_kernel<Id, Vec><<<grid, kThreads, 0, stream>>>(
       reinterpret_cast<const Vec*>(table), ids, reinterpret_cast<Vec*>(out), n_rows, k, vpr);
@@ -107,20 +111,22 @@ int launch_vec(const float* table, const Id* ids, float* out, int64_t n_rows, in
 }
 
 template <typename Id>
-int launch(const float* table, const Id* ids, float* out, int64_t n_rows, int64_t k, int64_t d,
-           int vec_bytes, int unroll, int grid, cudaStream_t stream) {
+int launch(const void* table, const Id* ids, void* out, int64_t n_rows, int64_t k, int64_t d,
+           int64_t elem_bytes, int vec_bytes, int unroll, int grid, cudaStream_t stream) {
   if (k == 0 || d == 0) return 0;
   // the plan must be one this file compiles, and the kernel counts a row's
   // vectors and a wave's in 32 bits
+  const int64_t row_bytes = elem_bytes * d;
   if (vec_bytes <= 0 || vec_bytes > kThreadBytes || unroll != kThreadBytes / vec_bytes ||
-      grid <= 0 || (4 * d) % vec_bytes != 0 || (4 * d) / vec_bytes > 0x7fffffffLL ||
+      grid <= 0 || row_bytes % vec_bytes != 0 || row_bytes / vec_bytes > 0x7fffffffLL ||
       static_cast<int64_t>(grid) * kThreads * unroll > 0xffffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  const uint32_t vpr = static_cast<uint32_t>(4 * d / vec_bytes);
+  const uint32_t vpr = static_cast<uint32_t>(row_bytes / vec_bytes);
   switch (vec_bytes) {
-    case 16: return launch_vec<Id, float4>(table, ids, out, n_rows, k, vpr, grid, stream);
-    case 8: return launch_vec<Id, float2>(table, ids, out, n_rows, k, vpr, grid, stream);
-    case 4: return launch_vec<Id, float>(table, ids, out, n_rows, k, vpr, grid, stream);
+    case 16: return launch_vec<Id, uint4>(table, ids, out, n_rows, k, vpr, grid, stream);
+    case 8: return launch_vec<Id, uint2>(table, ids, out, n_rows, k, vpr, grid, stream);
+    case 4: return launch_vec<Id, uint32_t>(table, ids, out, n_rows, k, vpr, grid, stream);
+    case 2: return launch_vec<Id, uint16_t>(table, ids, out, n_rows, k, vpr, grid, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -136,9 +142,10 @@ int fewer_resident(Kernel kernel, int* blocks) {
 
 template <typename Id>
 int resident_of(int* blocks) {
-  int rc = fewer_resident(gather_rows_kernel<Id, float4>, blocks);
-  if (rc == 0) rc = fewer_resident(gather_rows_kernel<Id, float2>, blocks);
-  if (rc == 0) rc = fewer_resident(gather_rows_kernel<Id, float>, blocks);
+  int rc = fewer_resident(gather_rows_kernel<Id, uint4>, blocks);
+  if (rc == 0) rc = fewer_resident(gather_rows_kernel<Id, uint2>, blocks);
+  if (rc == 0) rc = fewer_resident(gather_rows_kernel<Id, uint32_t>, blocks);
+  if (rc == 0) rc = fewer_resident(gather_rows_kernel<Id, uint16_t>, blocks);
   return rc;
 }
 
@@ -165,13 +172,28 @@ extern "C" int marius_gather_rows_config(int device, int* threads, int* sm_count
 extern "C" int marius_gather_rows_f32_i64(const float* table, const int64_t* ids, float* out,
                                           int64_t n_rows, int64_t k, int64_t d, int vec_bytes,
                                           int unroll, int grid, void* stream) {
-  return launch<int64_t>(table, ids, out, n_rows, k, d, vec_bytes, unroll, grid,
+  return launch<int64_t>(table, ids, out, n_rows, k, d, 4, vec_bytes, unroll, grid,
                          static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int marius_gather_rows_f32_i32(const float* table, const int32_t* ids, float* out,
                                           int64_t n_rows, int64_t k, int64_t d, int vec_bytes,
                                           int unroll, int grid, void* stream) {
-  return launch<int32_t>(table, ids, out, n_rows, k, d, vec_bytes, unroll, grid,
+  return launch<int32_t>(table, ids, out, n_rows, k, d, 4, vec_bytes, unroll, grid,
+                         static_cast<cudaStream_t>(stream));
+}
+
+// bf16 tables: 2-byte elements (the rows are copied as bytes).
+extern "C" int marius_gather_rows_bf16_i64(const uint16_t* table, const int64_t* ids,
+                                           uint16_t* out, int64_t n_rows, int64_t k, int64_t d,
+                                           int vec_bytes, int unroll, int grid, void* stream) {
+  return launch<int64_t>(table, ids, out, n_rows, k, d, 2, vec_bytes, unroll, grid,
+                         static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int marius_gather_rows_bf16_i32(const uint16_t* table, const int32_t* ids,
+                                           uint16_t* out, int64_t n_rows, int64_t k, int64_t d,
+                                           int vec_bytes, int unroll, int grid, void* stream) {
+  return launch<int32_t>(table, ids, out, n_rows, k, d, 2, vec_bytes, unroll, grid,
                          static_cast<cudaStream_t>(stream));
 }

@@ -34,9 +34,14 @@ model; ``encode_and_export`` (:570-598) writes every node's encoder output.
 Every entry point takes ``device``: None means the GPU (and raises without
 one), ``"cpu"`` runs the plain versions of the kernels. Per-layer and
 per-decoder ``optimizer:`` blocks build a ``GroupedOptimizerConfig``, which
-every trainer applies. What is not ported yet raises ``NotImplementedError``
-naming the slice that brings it: meshes and bf16 tables here, CORRUPT_REL
-in the LP trainers.
+every trainer applies. ``model.decoder.options.edge_decoder_method:
+CORRUPT_REL`` trains and ranks relations in both LP trainers.
+``storage.embeddings.options.dtype: bfloat16`` reaches the trainers the JAX
+manager passes ``dtype`` to (:179, :199, :409): ``LinkPredictionTrainer``
+(the table and the parameters), ``PartitionBufferLPTrainer`` (the buffer)
+and ``NodeClassificationTrainer`` (features, parameters and table); the
+out-of-core NC trainer takes no dtype, as in JAX, and trains in float32.
+Meshes raise ``NotImplementedError`` naming the slice that brings them.
 """
 
 from __future__ import annotations
@@ -131,8 +136,11 @@ def _refuse_unported(cfg: MariusConfig) -> None:
         raise ValueError(f"Unknown learning task: {cfg.learning_task}")
     if t.mesh_data not in (0, 1) or t.mesh_node not in (0, 1):
         raise _later_slice("mesh training", "the multi-GPU slice")
-    if resolve_dtype(s.embeddings_dtype) != torch.float32:
-        raise _later_slice(f"{s.embeddings_dtype} embeddings", "the bf16 slice")
+
+
+def _dtype(cfg: MariusConfig) -> torch.dtype:
+    """The compute dtype, ``storage.embeddings.options.dtype`` (JAX :58-60)."""
+    return resolve_dtype(cfg.storage.embeddings_dtype)
 
 
 class _HostStreamLPEval:
@@ -148,7 +156,10 @@ class _HostStreamLPEval:
         return getattr(self.ev, name)
 
     def evaluate(self, state):
-        host = None if state.table is None else state.table.values.detach().cpu().numpy()
+        # numpy has no bfloat16: a bf16 table is encoded from its float32
+        # copy (the same values) and scored in float32
+        host = (None if state.table is None
+                else state.table.values.detach().cpu().float().numpy())
         return self.ev.evaluate_from_host_table(host, state.params,
                                                 features_host=self.features_host)
 
@@ -269,8 +280,8 @@ def _init_nc(cfg: MariusConfig, dev, log):
     trainer = NodeClassificationTrainer(
         model, graph, features, labels, train_nodes, train_nbr,
         batch_size=batch_size, hop_caps=cfg.hop_caps or auto_caps, seed=cfg.training.seed,
-        full_graph=full_graph, epochs_per_shuffle=cfg.training.epochs_per_shuffle,
-        device=dev)
+        dtype=_dtype(cfg), full_graph=full_graph,
+        epochs_per_shuffle=cfg.training.epochs_per_shuffle, device=dev)
 
     def make_eval(split):
         try:
@@ -355,6 +366,7 @@ def _init_lp(cfg: MariusConfig, dev, log) -> MariusRuntime:
             sparse_writeback=s.sparse_writeback,
             nbr_configs=train_nbr,
             features=features,
+            dtype=_dtype(cfg),
             device=dev,
         )
     else:
@@ -369,6 +381,7 @@ def _init_lp(cfg: MariusConfig, dev, log) -> MariusRuntime:
             hop_caps=cfg.hop_caps or None,
             edges_backend=s.edges_backend,
             epochs_per_shuffle=cfg.training.epochs_per_shuffle,
+            dtype=_dtype(cfg),
             device=dev,
         )
 
@@ -576,7 +589,7 @@ def encode_and_export(rt: MariusRuntime, path: Optional[str] = None) -> np.ndarr
         # the host table goes through the device in tiles; the buffer trainer
         # holds no global graph, so a GNN encoder raises as in the JAX package
         encoded = encode_all_nodes_host(rt.config.model, state.params,
-                                        state.table.values.numpy(), tr.device,
+                                        state.table.values.float().numpy(), tr.device,
                                         nbr_configs=tr.nbr_configs,
                                         features_host=tr._features_host, batch_size=batch_size)
     else:
@@ -586,7 +599,7 @@ def encode_and_export(rt: MariusRuntime, path: Optional[str] = None) -> np.ndarr
             rt.config.model, state.params, table_values, graph=tr.graph,
             nbr_configs=tr.nbr_configs, features=tr.features, batch_size=batch_size,
             full_graph=getattr(tr, "full_graph", None),
-            fg_ops=getattr(tr, "_fg_ops", None)).detach().cpu().numpy()
+            fg_ops=getattr(tr, "_fg_ops", None)).detach().cpu().float().numpy()
     out = path or (os.path.join(rt.config.storage.model_dir, "encoded_nodes.bin")
                    if rt.config.storage.model_dir else None)
     if out:

@@ -2,7 +2,9 @@
 
 Port of ``marius_tpu/nn/decoders/edge.py`` (relation operators and
 comparators :33-126, ``EdgeDecoder.init_params`` :194-213 and
-``node_corrupt_forward`` :235-261; reference nn/decoders/edge/*.cpp). The
+``node_corrupt_forward`` :235-261, ``rel_corrupt_forward`` :263-308,
+``rel_all_scores`` :310-323, ``only_pos_forward`` :325-334; reference
+nn/decoders/edge/*.cpp). The
 decoder is an ``nn.Module`` whose relation tables are ``nn.Parameter``s
 ``relations`` and ``inverse_relations`` (the JAX version's params dict).
 
@@ -10,9 +12,14 @@ Chunked negative scoring is a batched matmul (``torch.bmm``) kept in full
 float32: the port leaves ``torch.backends.cuda.matmul.allow_tf32`` False and
 the float32 matmul precision at "highest", since TF32 would shift ranks.
 Decoders, comparators and relation operators registered in
-``nn/registry.py`` work as the built-in ones do (JAX :141-158, :183-193).
-``rel_corrupt_forward``, ``rel_all_scores`` and ``only_pos_forward`` wait for
-later slices; unknown names raise ``ValueError`` as in the JAX code.
+``nn/registry.py`` work as the built-in ones do (JAX :141-158, :183-193);
+unknown names raise ``ValueError`` as in the JAX code.
+
+bf16 tables: JAX's ``dot_general`` takes ``preferred_element_type=float32``,
+so the chunked matmul of bf16 rows returns float32 scores, products summed in
+float32. ``_bmm`` does the same by multiplying the float32 copies of the rows
+(every product of two bf16 numbers is exact in float32); float32 inputs go
+straight to ``torch.bmm``.
 """
 
 from __future__ import annotations
@@ -73,7 +80,15 @@ def dot_compare_neg(src: Tensor, neg: Tensor, num_chunks: int) -> Tensor:
         raise ValueError(f"src {tuple(src.shape)} and neg {tuple(neg.shape)} "
                          f"do not split into {num_chunks} chunks")
     src_c = src.reshape(num_chunks, b // num_chunks, d)
-    return torch.bmm(src_c, neg.transpose(1, 2)).reshape(b, n)
+    return _bmm(src_c, neg.transpose(1, 2)).reshape(b, n)
+
+
+def _bmm(a: Tensor, b: Tensor) -> Tensor:
+    """``torch.bmm`` with float32 output and accumulation for any input
+    float type (JAX's ``preferred_element_type=float32``)."""
+    if a.dtype != torch.float32 or b.dtype != torch.float32:
+        return torch.bmm(a.float(), b.float())
+    return torch.bmm(a, b)
 
 
 def l2_compare_pos(src: Tensor, dst: Tensor, eps: float = 1e-6) -> Tensor:
@@ -89,7 +104,7 @@ def l2_compare_neg(src: Tensor, neg: Tensor, num_chunks: int, tol: float = 1e-8)
     src_c = src.reshape(num_chunks, b // num_chunks, d)
     x2 = (src_c * src_c).sum(dim=2)[:, :, None]
     y2 = (neg * neg).sum(dim=2)[:, None, :]
-    xy = torch.bmm(src_c, neg.transpose(1, 2))
+    xy = _bmm(src_c, neg.transpose(1, 2))
     return torch.sqrt((x2 + y2 - 2.0 * xy).clamp(min=tol)).reshape(b, n)
 
 
@@ -242,3 +257,64 @@ class EdgeDecoder(nn.Module):
             inv_pos = self.pos_scores(adj_dst, src)
             inv_neg = self.neg_scores(adj_dst, src_neg_embs, num_chunks)
         return pos, neg, inv_pos, inv_neg
+
+    def rel_corrupt_forward(
+        self,
+        src: Tensor,            # (B, d)
+        dst: Tensor,            # (B, d)
+        rel_ids: Tensor,        # (B,)
+        neg_rel_ids: Tensor,    # (C, N) corrupting relation ids
+    ):
+        """Corrupt-relation scoring (decoder_methods.cpp:119-146): positives
+        score (src, r, dst); chunk i's positives are re-scored under chunk
+        i's sampled relations; with inverse relations the inverse direction
+        re-scores (dst, r'^-1, src) under the inverse table
+        (decoder_methods.cpp:137-142).
+
+        Returns (pos (B,), neg (B, N), inv_pos, inv_neg), inv_* None without
+        inverse relations, as node_corrupt_forward.
+        """
+        c, n = neg_rel_ids.shape
+        b, d = src.shape
+        pos = self.pos_scores(self.apply_relation(src, self.select_relations(rel_ids)), dst)
+
+        def corrupt(anchor, other, inverse):
+            # (C, N, d) relation rows; each (positive, sampled relation) pair
+            # of a chunk is scored like a positive: (C, B/C, N, d) operands
+            neg_rels = self.select_relations(neg_rel_ids.reshape(-1), inverse=inverse)
+            a_c = anchor.reshape(c, b // c, 1, d)
+            o_c = other.reshape(c, b // c, 1, d)
+            adj = self.apply_relation(a_c, neg_rels.reshape(c, 1, n, d))
+            return self.pos_scores(adj.reshape(-1, d),
+                                   o_c.expand(adj.shape).reshape(-1, d)).reshape(b, n)
+
+        neg = corrupt(src, dst, inverse=False)
+        inv_pos = inv_neg = None
+        if self.use_inverse_relations:
+            inv_rels = self.select_relations(rel_ids, inverse=True)
+            inv_pos = self.pos_scores(self.apply_relation(dst, inv_rels), src)
+            inv_neg = corrupt(dst, src, inverse=True)
+        return pos, neg, inv_pos, inv_neg
+
+    def rel_all_scores(self, src: Tensor, dst: Tensor, inverse: bool = False,
+                       table: Optional[Tensor] = None) -> Tensor:
+        """Every relation's score for each (src, dst) pair: (B, R), the
+        relation-ranking counterpart of all-node scoring. ``table`` defaults
+        to the module's own (inverse) relation table."""
+        b, d = src.shape
+        if table is None:
+            table = self.inverse_relations if inverse else self.relations
+        r = table.shape[0]
+        adj = self.apply_relation(src[:, None, :], table[None, :, :])   # (B, R, d)
+        return self.pos_scores(adj.reshape(-1, d),
+                               dst[:, None, :].expand(adj.shape).reshape(-1, d)).reshape(b, r)
+
+    def only_pos_forward(self, src: Tensor, dst: Tensor, rel_ids: Optional[Tensor]):
+        """Positive-edge scores only (decoder_methods.cpp:7-42): (pos, inv_pos),
+        inv_pos None without inverse relations or relation ids."""
+        pos = self.pos_scores(self.apply_relation(src, self.select_relations(rel_ids)), dst)
+        inv_pos = None
+        if self.use_inverse_relations and rel_ids is not None:
+            inv_rels = self.select_relations(rel_ids, inverse=True)
+            inv_pos = self.pos_scores(self.apply_relation(dst, inv_rels), src)
+        return pos, inv_pos

@@ -1,15 +1,16 @@
 """Model: encoder + decoder + loss + optimizers, and the per-batch LP and NC math.
 
 Port of ``marius_tpu/nn/model.py`` (Model :32-59, init_model_params :62-67,
-lp_batch_loss :70-98, lp_batch_loss_direct :101-134, nc_batch_loss
-:163-167; reference nn/model.cpp forward_nc :246-250, forward_lp :252-288
+lp_batch_loss :70-98, lp_batch_loss_direct :101-134, lp_batch_loss_rel
+:137-160, nc_batch_loss :163-167; reference nn/model.cpp forward_nc :246-250, forward_lp :252-288
 and train_batch :290-333). ``Model`` is a description that owns its
 ``EdgeDecoder`` module, whose relation tables are the decoder parameters; the
 encoder's parameters are plain tensors. The params structure is the JAX
 package's: ``{"encoder": [[{...}]], "decoder": {"relations": ...,
 "inverse_relations": ...}}``, where the decoder entries are the module's own
 ``nn.Parameter``s; a node-classification model has ``decoder=None`` and no
-"decoder" entry. CORRUPT_REL waits for a later slice.
+"decoder" entry. ``init_model_params(..., dtype)`` gives the encoder and
+the decoder's tables that dtype, as JAX's does (bf16 models).
 """
 
 from __future__ import annotations
@@ -59,7 +60,8 @@ class Model:
 def init_model_params(generator: torch.Generator, model: Model,
                       dtype=torch.float32) -> Dict[str, Any]:
     """Fresh encoder parameters (on the generator's device) and the decoder's
-    relation tables, reset to their initial values. Every leaf requires grad."""
+    relation tables, cast to ``dtype`` and reset to their initial values.
+    Every leaf requires grad."""
     encoder = init_encoder_params(generator, model.encoder, dtype)
     for stage in encoder:
         for layer in stage:
@@ -67,6 +69,7 @@ def init_model_params(generator: torch.Generator, model: Model,
                 p.requires_grad_(True)
     params: Dict[str, Any] = {"encoder": encoder}
     if model.decoder is not None:
+        model.decoder.to(dtype=dtype)
         model.decoder.init_params()
         params["decoder"] = dict(model.decoder.named_parameters())
     return params
@@ -130,6 +133,30 @@ def lp_batch_loss_direct(
     if inv_neg is not None:
         loss = loss + loss_fn(inv_pos, inv_neg, mask=edge_mask)
 
+    aux = {"pos": pos, "neg": neg, "inv_pos": inv_pos, "inv_neg": inv_neg}
+    return loss, aux
+
+
+def lp_batch_loss_rel(
+    model: Model,
+    src: Tensor,                      # (B, d) source embeddings
+    dst: Tensor,                      # (B, d)
+    rel_ids: Tensor,                  # (B,) true relation ids
+    neg_rel_ids: Tensor,              # (C, N) corrupting relation ids
+    edge_mask: Tensor,
+) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """CORRUPT_REL LP loss (EdgeDecoderMethod::CORRUPT_REL, model.cpp:271-273,
+    where the reference throws; here it trains): negatives re-score each
+    chunk's positives under sampled relations, both directions when inverse
+    relations are on (decoder_methods.cpp:119-146)."""
+    decoder = model.decoder
+    if decoder is None:
+        raise ValueError("link prediction needs an edge decoder")
+    pos, neg, inv_pos, inv_neg = decoder.rel_corrupt_forward(src, dst, rel_ids, neg_rel_ids)
+    loss_fn = model.loss_fn()
+    loss = loss_fn(pos, neg, mask=edge_mask)
+    if inv_neg is not None:
+        loss = loss + loss_fn(inv_pos, inv_neg, mask=edge_mask)
     aux = {"pos": pos, "neg": neg, "inv_pos": inv_pos, "inv_neg": inv_neg}
     return loss, aux
 

@@ -14,6 +14,18 @@ JAX package (so a JAX checkpoint of a grouped model loads leaf by leaf).
 Where the JAX version returns new arrays, ``apply_optimizer`` updates the
 parameters and slots in place (same formulas, same operation order) and
 returns them. Step scalars are Python floats; JAX rounds them to float32.
+
+Low-precision (bfloat16) parameters follow what JAX computes, not what its
+docstring says ("step math runs in f32"). JAX's Python scalars are weakly
+typed, so ``bf16 * 0.9`` stays bfloat16, the scalar rounded to bfloat16 first;
+XLA rounds after every operation. The step-dependent scalars (Adam's
+``lr / bc1`` and ``sqrt(bc2)``, Adagrad's decayed lr) are float32 arrays, so
+the expressions they enter are promoted to float32 and the result is rounded
+to the parameter's dtype once at the end. So, for a bfloat16 leaf: SGD and
+weight decay run in bfloat16; Adagrad's sum and Adam's moments are bfloat16,
+updated in bfloat16 with bfloat16 constants; the parameter's Adagrad and Adam
+update is computed in float32 from those and rounded. ``_const`` gives a
+Python scalar the leaf's dtype where JAX's weak typing does.
 """
 
 from __future__ import annotations
@@ -21,6 +33,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Dict, NamedTuple, Tuple, Union
 
+import numpy as np
 import torch
 
 
@@ -127,43 +140,68 @@ def init_optimizer(config: AnyOptimizerConfig, params) -> OptState:
     return OptState(step=0, slots=slots)
 
 
+def _const(x: float, p: torch.Tensor):
+    """A Python scalar as JAX's weak typing applies it to ``p``: as is for a
+    float32 leaf, rounded to ``p``'s dtype for a low-precision one."""
+    if p.dtype == torch.float32:
+        return x
+    return torch.tensor(x, dtype=p.dtype, device=p.device)
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    return t if t.dtype == torch.float32 else t.float()
+
+
 def _leaf_apply_(config: OptimizerConfig, p: torch.Tensor, g: torch.Tensor,
                  slots: Dict[str, torch.Tensor], step: int) -> None:
     """One leaf's optimizer step, in place on ``p`` and its ``slots``."""
     ot = config.optimizer_type.upper()
     if config.weight_decay:
-        g = g + config.weight_decay * p
+        g = g + _const(config.weight_decay, p) * p
     if ot == "SGD":
         if config.momentum:
             m = slots["momentum"]
-            m.copy_(config.momentum * m + g)
-            p.copy_(p - config.learning_rate * m)
+            m.copy_(_const(config.momentum, p) * m + g)
+            p.copy_(p - _const(config.learning_rate, p) * m)
         else:
-            p.copy_(p - config.learning_rate * g)
+            p.copy_(p - _const(config.learning_rate, p) * g)
         return
     if ot == "ADAGRAD":
         # lr / (1 + num_steps * lr_decay); sum += g²; p -= lr * g / (sqrt(sum)+eps)
         lr = config.learning_rate / (1.0 + step * config.lr_decay)
         s = slots["sum"]
         s.copy_(s + g * g)
-        p.copy_(p - lr * g / (torch.sqrt(s) + config.eps))
+        # lr is a float32 array in JAX: the update is float32, rounded once
+        p.copy_(_f32(p) - lr * _f32(g) / _f32(torch.sqrt(s) + _const(config.eps, p)))
         return
     if ot == "ADAM":
         b1, b2 = config.beta_1, config.beta_2
-        t = step + 1.0
-        bc1 = 1.0 - b1 ** t
-        bc2 = 1.0 - b2 ** t
-        step_size = config.learning_rate / bc1
-        sqrt_bc2 = bc2 ** 0.5
+        if p.dtype == torch.float32:
+            t = step + 1.0
+            bc1 = 1.0 - b1 ** t
+            bc2 = 1.0 - b2 ** t
+            step_size = config.learning_rate / bc1
+            sqrt_bc2 = bc2 ** 0.5
+        else:
+            # float32 scalars, each operation rounded, as JAX's arrays
+            f = np.float32
+            t = f(step) + f(1.0)
+            bc1 = f(1.0) - f(b1) ** t
+            bc2 = f(1.0) - f(b2) ** t
+            step_size = float(f(config.learning_rate) / bc1)
+            sqrt_bc2 = float(np.sqrt(bc2))
         m, v = slots["exp_avg"], slots["exp_avg_sq"]
-        m.copy_(b1 * m + (1.0 - b1) * g)
-        v.copy_(b2 * v + (1.0 - b2) * g * g)
+        m.copy_(_const(b1, p) * m + _const(1.0 - b1, p) * g)
+        v.copy_(_const(b2, p) * v + _const(1.0 - b2, p) * g * g)
         denom_src = v
         if config.amsgrad:
             vmax = slots["max_exp_avg_sq"]
             vmax.copy_(torch.maximum(vmax, v))
             denom_src = vmax
-        p.copy_(p - step_size * m / (torch.sqrt(denom_src) / sqrt_bc2 + config.adam_eps))
+        # lr / bc1 and sqrt(bc2) are float32 arrays in JAX: the update is
+        # float32, rounded once
+        p.copy_(_f32(p) - step_size * _f32(m)
+                / (_f32(torch.sqrt(denom_src)) / sqrt_bc2 + config.adam_eps))
         return
     raise ValueError(f"Unknown optimizer type: {config.optimizer_type}")
 

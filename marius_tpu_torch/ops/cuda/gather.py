@@ -2,8 +2,9 @@
 
 Port of the TPU kernel ``marius_tpu/ops/pallas/gather.py:gather_rows_pallas``
 as a CUDA C++ kernel (``marius_tpu_torch/csrc/gather.cu``): the output is cut
-into 16-, 8- or 4-byte vectors, each thread loads 16 bytes of rows before it
-stores any, and the grid is one wave of the card. The kernel is bound by the
+into 16-, 8-, 4- or 2-byte vectors, each thread loads 16 bytes of rows before
+it stores any, and the grid is one wave of the card. Tables are float32 or
+bfloat16 (the output takes the table's dtype); the copy moves bytes. The kernel is bound by the
 bytes it moves; see the source for the design.
 :func:`plan` makes the launch's choices on the host, from shapes, addresses
 and the card's size alone: no device operation and no synchronisation.
@@ -29,6 +30,9 @@ launches = 0
 #: id dtypes the kernels take, by the suffix of their C entry points
 ID_DTYPES = {torch.int64: "i64", torch.int32: "i32"}
 
+#: table dtypes the gather takes, by the infix of its C entry points
+TABLE_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
 #: threads per block and bytes each thread moves per tile (``kThreads`` and
 #: ``kThreadBytes`` in csrc/gather.cu)
 THREADS, THREAD_BYTES = 128, 16
@@ -38,21 +42,22 @@ _config: Dict[int, Tuple[int, int]] = {}
 
 
 class GatherPlan(NamedTuple):
-    vec_bytes: int        # V: bytes per vector, 16, 8 or 4
+    vec_bytes: int        # V: bytes per vector, 16, 8, 4 or 2
     unroll: int           # U: vectors per thread per tile
-    vectors_per_row: int  # 4d / V
+    vectors_per_row: int  # row bytes / V
     grid: int             # blocks; at most one wave, 0 when there is nothing to copy
 
 
 def plan(d: int, table_ptr: int, out_ptr: int, k: int, sm_count: int,
-         resident_blocks: int) -> GatherPlan:
-    """The launch of a (K, d) f32 gather: V is the widest of 16, 8 and 4
-    bytes that divides the row's 4d bytes and both base addresses (a table
-    may be a view at an offset); U = 16 / V vectors per thread; the grid
-    covers the K x 4d / V vectors in tiles of THREADS x U, but never with
-    more blocks than the card holds at once (the kernel loops over the rest)."""
-    row_bytes = 4 * d
-    vec = next(v for v in (16, 8, 4)
+         resident_blocks: int, elem_bytes: int = 4) -> GatherPlan:
+    """The launch of a (K, d) gather of ``elem_bytes``-byte elements (4:
+    f32, 2: bf16): V is the widest of 16, 8, 4 and 2 bytes that divides the
+    row's bytes and both base addresses (a table may be a view at an
+    offset); U = 16 / V vectors per thread; the grid covers the K x row
+    bytes / V vectors in tiles of THREADS x U, but never with more blocks
+    than the card holds at once (the kernel loops over the rest)."""
+    row_bytes = elem_bytes * d
+    vec = next(v for v in (16, 8, 4, 2)
                if row_bytes % v == 0 and table_ptr % v == 0 and out_ptr % v == 0)
     vpr = row_bytes // vec
     unroll = THREAD_BYTES // vec
@@ -78,8 +83,9 @@ def gather_rows_plain(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return table[ids.clamp(0, table.shape[0] - 1)]
 
 
-def _kernel(id_dtype: torch.dtype):
-    fn = getattr(build.library("gather"), f"marius_gather_rows_f32_{ID_DTYPES[id_dtype]}")
+def _kernel(dtype: torch.dtype, id_dtype: torch.dtype):
+    fn = getattr(build.library("gather"),
+                 f"marius_gather_rows_{TABLE_DTYPES[dtype]}_{ID_DTYPES[id_dtype]}")
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
@@ -110,12 +116,12 @@ def device_config(device: torch.device) -> Tuple[int, int]:
 
 
 def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """(K, d) rows of the (N, d) f32 ``table`` at the (K,) int64 or int32
-    ``ids``; ids outside [0, N) read the nearest end row."""
+    """(K, d) rows of the (N, d) f32 or bf16 ``table`` at the (K,) int64 or
+    int32 ``ids``; ids outside [0, N) read the nearest end row."""
     if table.device.type == "cpu":
         return gather_rows_plain(table, ids)
     global launches
-    check_cuda_tensor("table", table, (torch.float32,))
+    check_cuda_tensor("table", table, tuple(TABLE_DTYPES))
     check_cuda_tensor("ids", ids, tuple(ID_DTYPES), table.device)
     if table.dim() != 2 or ids.dim() != 1:
         raise ValueError(f"expected a 2-D table and 1-D ids, got {tuple(table.shape)} "
@@ -127,8 +133,9 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     out = torch.empty((k, d), dtype=table.dtype, device=table.device)
     if k == 0 or d == 0:
         return out
-    fn = _kernel(ids.dtype)
-    p = plan(d, table.data_ptr(), out.data_ptr(), k, *device_config(table.device))
+    fn = _kernel(table.dtype, ids.dtype)
+    p = plan(d, table.data_ptr(), out.data_ptr(), k, *device_config(table.device),
+             elem_bytes=table.element_size())
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(table.data_ptr(), ids.data_ptr(), out.data_ptr(), n, k, d, p.vec_bytes,

@@ -15,7 +15,11 @@ kernel (``ops/cuda/nbr_sum.py`` ``gather_sum``) on the (n, F_in + F_out)
 slot ids, masked slots given the padding id n_x, which adds zero: the
 (n, F, d) block the JAX layers gather is never materialised. Its backward
 adds each slot's output gradient into x's row with ``index_add_``, as JAX's
-autodiff scatters it outside any Pallas kernel.
+autodiff scatters it outside any Pallas kernel. The kernel accumulates in
+float32 whatever x's dtype; the sums come back in x's dtype (ROADMAP C9:
+JAX's default sampled path, ``masked_sum`` over the gathered block, returns
+x's dtype), so bfloat16 features take the kernel's bfloat16 entry and give
+bfloat16 sums.
 
 :func:`relational_nbr_sum` is the sampled RGCN layer's aggregation: per
 target and relation, the sum over its valid out-slots of that relation, one
@@ -105,7 +109,7 @@ class _SampledNbrSum(torch.autograd.Function):
     def forward(ctx, x: Tensor, ids: Tensor) -> Tensor:
         ctx.save_for_backward(ids)
         ctx.num_rows = x.shape[0]
-        return gather_sum(x, ids)
+        return gather_sum(x, ids).to(x.dtype)
 
     @staticmethod
     def backward(ctx, grad: Tensor):
@@ -139,9 +143,9 @@ def _own_rows(ids: Tensor, n_x: int) -> Tensor:
 
 def sampled_nbr_sum(x: Tensor, in_idx: Tensor, in_mask: Tensor, out_idx: Tensor,
                     out_mask: Tensor) -> Tensor:
-    """(n, d) f32 sums of ``x``'s rows over each target's valid in- and
-    out-neighbour slots, in that order. Slot indices past the end of ``x``
-    read its last row, as JAX's clamped gathers do."""
+    """(n, d) sums, in ``x``'s dtype, of ``x``'s rows over each target's
+    valid in- and out-neighbour slots, in that order. Slot indices past the
+    end of ``x`` read its last row, as JAX's clamped gathers do."""
     n_x = x.shape[0]
     ids = torch.cat([slot_ids(n_x, in_idx, in_mask), slot_ids(n_x, out_idx, out_mask)], dim=1)
     return _SampledNbrSum.apply(x.contiguous(), ids.to(torch.int32).contiguous())
@@ -161,7 +165,7 @@ class _RelNbrSum(torch.autograd.Function):
         kinds = torch.arange(num_rels, device=ids.device)[None, :, None]
         per_rel = torch.where(rel[:, None, :] == kinds, ids[:, None, :], n_x)
         out = gather_sum(x, per_rel.reshape(n * num_rels, width).to(torch.int32).contiguous())
-        return out.view(n, num_rels, x.shape[1])
+        return out.view(n, num_rels, x.shape[1]).to(x.dtype)
 
     @staticmethod
     def backward(ctx, grad: Tensor):
@@ -182,9 +186,9 @@ class _RelNbrSum(torch.autograd.Function):
 
 def relational_nbr_sum(x: Tensor, idx: Tensor, mask: Tensor, rel: Tensor,
                        num_rels: int) -> Tensor:
-    """(n, num_rels, d) f32: per target and relation, the sum of ``x``'s rows
-    over the target's valid slots of that relation (slots whose relation
-    lies outside [0, num_rels) add nothing)."""
+    """(n, num_rels, d) in ``x``'s dtype: per target and relation, the sum of
+    ``x``'s rows over the target's valid slots of that relation (slots whose
+    relation lies outside [0, num_rels) add nothing)."""
     rel = rel.long()
     valid = mask & (rel >= 0) & (rel < num_rels)
     ids = slot_ids(x.shape[0], idx, valid).to(torch.int32)

@@ -9,6 +9,13 @@ pytree-path name with "/" written as "__" (``table/values``, ``table/state``,
 meta.yaml lists them. So a checkpoint the JAX package wrote loads into the
 port; its ``key`` leaf (the PRNG key) has no counterpart and is ignored.
 ``step`` and ``epoch`` are int32 arrays on disk and ints in the port.
+
+bfloat16 leaves are written as the JAX package writes them: ``np.save`` of
+an ``ml_dtypes`` bfloat16 array records the raw 2-byte elements (descr
+``'<V2'``). The port writes the same bits with the same descr and reads any
+2-byte void array as bfloat16 bits, so it needs no ``ml_dtypes`` and reads
+and writes checkpoints the JAX package reads and writes. A leaf is cast to
+the template's dtype on load.
 """
 
 from __future__ import annotations
@@ -58,12 +65,31 @@ def _map_state(state: TrainState, fn: Callable[[str, Any], Any]) -> TrainState:
         epoch=fn("epoch", state.epoch))
 
 
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor's values as numpy; bfloat16 as its 2-byte elements (void
+    ``'<V2'``, what ``np.save`` records for ``ml_dtypes.bfloat16``)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view("V2")
+    return t.numpy()
+
+
+def from_numpy(a) -> torch.Tensor:
+    """A CPU tensor of a numpy array's values (a copy); 2-byte void arrays
+    (``ml_dtypes.bfloat16``, or such an array read back by ``np.load``) are
+    bfloat16 bits."""
+    a = np.asarray(a)
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True))
+
+
 def _flatten_with_names(state: TrainState) -> Dict[str, np.ndarray]:
     out: Dict[str, np.ndarray] = {}
 
     def put(name, leaf):
         if isinstance(leaf, torch.Tensor):
-            out[name] = leaf.detach().cpu().numpy()
+            out[name] = to_numpy(leaf)
         else:
             out[name] = np.asarray(leaf, np.int32)
 
@@ -136,7 +162,7 @@ def load_state(directory: str, template: TrainState) -> Tuple[TrainState, Dict[s
             return int(leaf if arr is None else arr)
         if arr is None:
             return leaf.detach().clone().requires_grad_(leaf.requires_grad)
-        t = torch.from_numpy(arr).to(device=leaf.device, dtype=leaf.dtype).reshape(leaf.shape)
+        t = from_numpy(arr).to(device=leaf.device, dtype=leaf.dtype).reshape(leaf.shape)
         return t.requires_grad_(leaf.requires_grad)
 
     state = _map_state(template, restore)

@@ -21,6 +21,12 @@ does not hold on PCIe. Here:
 - ``record_stream`` marks the tensors the copy stream uses, so that memory
   freed on the compute stream is not reused while a copy still reads it.
 
+Host arrays of bfloat16 rows are ``np.uint16`` arrays of their bits (numpy
+has no bfloat16, and the card's machine has no ``ml_dtypes``): every copy
+moves bytes, so a bf16 table's swaps move half a float32 table's.
+:func:`as_array` and :func:`as_tensor` convert between a CPU tensor and
+such an array without a copy.
+
 CPU tensors take plain copies (what the tests run). ``bytes_h2d`` and
 ``bytes_d2h`` count the bytes each direction moved since the last reset,
 ``seconds_h2d`` and ``seconds_d2h`` the host's wall time in those copies.
@@ -44,12 +50,33 @@ bytes_h2d = bytes_d2h = 0
 seconds_h2d = seconds_d2h = 0.0
 
 
-def torch_dtype(np_dtype) -> torch.dtype:
-    return torch.from_numpy(np.empty(0, np_dtype)).dtype
+def torch_dtype(dtype) -> torch.dtype:
+    """A torch dtype as is; a numpy dtype as torch's."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.empty(0, dtype)).dtype
 
 
 def numpy_dtype(dtype: torch.dtype) -> np.dtype:
+    """The host arrays' dtype for ``dtype`` rows: ``np.uint16`` for bfloat16."""
+    if dtype == torch.bfloat16:
+        return np.dtype(np.uint16)
     return torch.empty(0, dtype=dtype).numpy().dtype
+
+
+def as_array(t: torch.Tensor) -> np.ndarray:
+    """A numpy view of the CPU tensor ``t``; bfloat16 as its uint16 bits."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def as_tensor(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    """A CPU tensor of ``dtype`` over the host array ``a`` (no copy; a
+    bfloat16 tensor reads the uint16 bits of ``a``)."""
+    if dtype == torch.bfloat16:
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 class _Staging:
@@ -123,7 +150,7 @@ def write_rows(buf: torch.Tensor, host_block: np.ndarray, start: int,
     dst = buf[start:start + n]
     if buf.device.type == "cpu":
         # a read-only block (a mapped file) is copied: torch wraps only writable arrays
-        dst.copy_(torch.from_numpy(np.require(host_block, requirements=("C", "W"))))
+        dst.copy_(as_tensor(np.require(host_block, requirements=("C", "W")), dst.dtype))
         return None
     t0 = time.perf_counter()
     st = _stage(buf.device)
@@ -136,7 +163,7 @@ def write_rows(buf: torch.Tensor, host_block: np.ndarray, start: int,
         piece = host_block[lo:lo + cr]
         i, pinned = st.take()
         view = pinned[:piece.nbytes].view(dst.dtype).view(piece.shape)
-        np.copyto(view.numpy(), piece)            # pageable -> pinned, on the host
+        np.copyto(as_array(view), piece)          # pageable -> pinned, on the host
         with torch.cuda.stream(st.stream):
             dst[lo:lo + len(piece)].copy_(view, non_blocking=True)
         st.mark(i)
@@ -234,7 +261,7 @@ def drain_read(handle: ReadHandle, out: Optional[np.ndarray] = None) -> np.ndarr
         out = np.empty(tuple(snap.shape), numpy_dtype(snap.dtype))
     n = snap.shape[0]
     if snap.device.type == "cpu":
-        out[:n] = snap.numpy()
+        out[:n] = as_array(snap)
         return out
     t0 = time.perf_counter()
     st = _stage(snap.device)
@@ -246,7 +273,7 @@ def drain_read(handle: ReadHandle, out: Optional[np.ndarray] = None) -> np.ndarr
         i, lo, view = inflight.popleft()
         st.events[i].synchronize()
         st.events[i] = None
-        out[lo:lo + view.shape[0]] = view.numpy()
+        out[lo:lo + view.shape[0]] = as_array(view)
 
     for lo in range(0, n, cr):
         piece = snap[lo:lo + cr]

@@ -50,8 +50,19 @@ resident edges, from the slot layout that
 ``storage.partition_buffer.swap_layout`` gives that state before the swap,
 and uploads them, and the card sorts them once the state is swapped in.
 
-Meshes and CORRUPT_REL raise ``NotImplementedError`` naming the slice that
-brings them.
+CORRUPT_REL (JAX :308-316, :399, :420, :447) scores relation negatives,
+(C, N) ids uniform over [0, R) drawn after the node negatives
+(``_rel_negatives``, the seam); the node-negative machinery still runs, as
+in JAX, so the unique ids, the GNN sampler's seeds and the rows gathered
+are those of CORRUPT_NODE, and the negatives' rows take zero gradients
+(Adagrad leaves such a row's bits unchanged).
+
+``dtype`` is the buffer's (host table, device slots, swaps): the JAX
+package passes ``storage.embeddings.options.dtype`` here and nowhere else
+in this trainer, so the dense parameters stay float32. A bfloat16 table's
+host arrays are the uint16 bits of its rows, so every swap moves half the
+bytes. Meshes raise ``NotImplementedError`` naming the slice that brings
+them.
 """
 
 from __future__ import annotations
@@ -90,6 +101,7 @@ from marius_tpu_torch.nn.model import (
     init_model_params,
     lp_batch_loss,
     lp_batch_loss_direct,
+    lp_batch_loss_rel,
 )
 from marius_tpu_torch.nn.optimizers import (
     OptState,
@@ -226,6 +238,7 @@ class PartitionBufferLPTrainer:
         train_filter_keys=None,           # (dst, src) EdgeKeySets in GLOBAL ids
         sparse_writeback: bool = True,    # evictions move only updated rows
         profile_states: bool = False,     # per-state (prep, swap, compute) seconds
+        dtype=torch.float32,              # the table's type (host arrays, slots, swaps)
         device=None,
     ):
         if model.learning_task != LINK_PREDICTION:
@@ -235,11 +248,11 @@ class PartitionBufferLPTrainer:
         if batch_size % neg_config.num_chunks:
             raise ValueError("batch_size must be divisible by num_chunks (static chunking)")
         self.decoder_method = normalize_decoder_method(model.decoder.decoder_method)
-        if self.decoder_method == "CORRUPT_REL":
-            raise _later_slice("CORRUPT_REL training", "a later LP slice")
-        if self.decoder_method != "CORRUPT_NODE":
+        if self.decoder_method not in ("CORRUPT_NODE", "CORRUPT_REL"):
             raise ValueError(f"training supports CORRUPT_NODE/CORRUPT_REL, "
                              f"got {self.decoder_method}")
+        if self.decoder_method == "CORRUPT_REL" and train_edges.shape[1] != 3:
+            raise ValueError("CORRUPT_REL needs a 3-column (typed) edge list")
         if mesh is not None:
             raise _later_slice("mesh training", "the multi-GPU slice")
         if not model.has_embeddings:
@@ -275,7 +288,7 @@ class PartitionBufferLPTrainer:
         table_seed = int(np.random.SeedSequence((seed, 0)).generate_state(1)[0])
         self.buffer = PartitionBuffer.create(table_seed, num_nodes,
                                              model.encoder.embedding_dim, num_partitions,
-                                             self.capacity, device=self.device)
+                                             self.capacity, device=self.device, dtype=dtype)
         self.sparse_writeback = bool(sparse_writeback)
         if self.sparse_writeback:
             self.buffer.enable_dirty_tracking()
@@ -336,6 +349,14 @@ class PartitionBufferLPTrainer:
                 if num_deg else None)
         return slots, offs, rows
 
+    def _rel_negatives(self, step: int) -> Tensor:
+        """CORRUPT_REL's (C, N) relation ids for epoch step ``step``, uniform
+        over [0, max(R, 1)), drawn after the node negatives (JAX :313-317)."""
+        cfg = self.neg_config
+        return torch.randint(0, max(self.num_relations, 1),
+                             (cfg.num_chunks, cfg.negatives_per_positive),
+                             generator=self.generator, device=self.device)
+
     def _gnn_draws(self, step: int) -> Draws:
         """The neighbour sampler's numbers for epoch step ``step``."""
         return self._draws
@@ -385,8 +406,8 @@ class PartitionBufferLPTrainer:
     def _batch_step(self, edges_b: Tensor, mask_b: Tensor, step: int,
                     slot_valid: Tensor, slot_parts: Tensor,
                     graph: Optional[DeviceGraph]) -> Tensor:
-        """One CORRUPT_NODE batch against the buffer (JAX batch_step
-        :264-477); returns the detached loss."""
+        """One batch against the buffer (JAX batch_step :264-477); returns
+        the detached loss."""
         model, cfg, buf = self.model, self.neg_config, self.buffer
         b = self.batch_size
         c, nneg = cfg.num_chunks, cfg.negatives_per_positive
@@ -401,6 +422,8 @@ class PartitionBufferLPTrainer:
         dst = torch.where(mask_b, edges_b[:, -1], buffer_rows)
         rel = edges_b[:, 1] if self.has_rels else None
         inv_rel_on = model.decoder.use_inverse_relations and self.has_rels
+        corrupt_rel = self.decoder_method == "CORRUPT_REL"
+        neg_rel_ids = self._rel_negatives(step) if corrupt_rel else None
 
         dst_filter = src_filter = None
         if self.train_filter_keys is not None:
@@ -440,7 +463,11 @@ class PartitionBufferLPTrainer:
                               degrees=None if graph is None else graph.degrees, train=True,
                               dropout_key=self._dropout)
         cn = c * nneg
-        if self.dense_accum:
+        if corrupt_rel:
+            src_e, dst_e = ((enc[:b], enc[b:2 * b]) if self.dense_accum
+                            else (enc[pos[:b]], enc[pos[b:2 * b]]))
+            loss, _ = lp_batch_loss_rel(model, src_e, dst_e, rel, neg_rel_ids, mask_b)
+        elif self.dense_accum:
             d = enc.shape[-1]
             loss, _ = lp_batch_loss_direct(
                 model, enc[:b], enc[b:2 * b], rel, enc[2 * b:2 * b + cn].reshape(c, nneg, d),
@@ -627,8 +654,9 @@ class PartitionBufferLPTrainer:
         self.buffer.flush()
         n = self.num_nodes
         return TrainState(
-            table=EmbeddingTable(values=torch.from_numpy(self.buffer.host_values[:n]),
-                                 state=torch.from_numpy(self.buffer.host_state[:n])),
+            table=EmbeddingTable(
+                values=transfer.as_tensor(self.buffer.host_values[:n], self.buffer.dtype),
+                state=transfer.as_tensor(self.buffer.host_state[:n], self.buffer.dtype)),
             params=self.params, opt_state=self.opt_state, epoch=self.epoch)
 
     @state.setter
@@ -639,8 +667,9 @@ class PartitionBufferLPTrainer:
         self.buffer.flush()
         self.buffer.release()
         with torch.no_grad():
-            self.buffer.host_values[:n] = s.table.values.detach().cpu().numpy()
-            self.buffer.host_state[:n] = s.table.state.detach().cpu().numpy()
+            dt = self.buffer.dtype
+            self.buffer.host_values[:n] = transfer.as_array(s.table.values.detach().cpu().to(dt))
+            self.buffer.host_state[:n] = transfer.as_array(s.table.state.detach().cpu().to(dt))
             if len(tree_leaves(self.params)) != len(tree_leaves(s.params)):
                 raise ValueError("the two states' parameter structures differ")
             tree_map(lambda d, v: d.copy_(v), self.params, s.params)

@@ -2,7 +2,7 @@
 
 Port of ``LinkPredictionEvaluator`` from ``marius_tpu/train/evaluator.py``
 (:61-663; reference evaluator.cpp:22-96, model.cpp evaluate_batch :335-359,
-reporting.cpp computeRanks :55) for CORRUPT_NODE on one device. Where the JAX
+reporting.cpp computeRanks :55) on one device. Where the JAX
 version compiles one ``lax.scan``, this one runs an eager loop over batches
 and node chunks. Each batch gathers its source and destination rows with the
 row-gather kernel (``gather_rows``), scores them with the decoder, and ranks
@@ -30,9 +30,15 @@ through the neighbour sampler for a GNN encoder (``graph`` and
 ``nbr_configs``, the draws of a fixed per-tile seed, so every evaluation of
 one state gives the same ranks); one full-graph pass with ``full_graph``
 (exact ALL). FEATURE stages read ``features``, the (N + 1, F) block with a
-zero sentinel row. CORRUPT_REL ranking and ``compute_pos_scores``
-(only_pos_forward) raise ``NotImplementedError`` naming the slice that
-brings them.
+zero sentinel row.
+
+CORRUPT_REL ranks the true relation against ALL relations (``_rel_directions``,
+JAX :222-251; the relation table is small, so the (B, R) block is scored
+whole): filtered, every relation r' with (src, r', dst) a known triple is
+masked with -1e9, in both directions against the forward key set, the
+positive's own column included; unfiltered, only the positive's column.
+Host-tiled evaluation streams node corruption and refuses CORRUPT_REL, as
+JAX does. ``compute_pos_scores`` is ONLY_POS scoring (only_pos_forward).
 """
 
 from __future__ import annotations
@@ -62,7 +68,7 @@ from marius_tpu_torch.reporting.metrics import compute_ranks, rank_statistics
 from marius_tpu_torch.reporting.reporters import LinkPredictionReporter
 from marius_tpu_torch.storage import transfer
 from marius_tpu_torch.train.graph_encoder import encode_all_nodes, encode_all_nodes_host
-from marius_tpu_torch.train.trainer import TrainState, _later_slice, pad_edges, resolve_device
+from marius_tpu_torch.train.trainer import TrainState, pad_edges, resolve_device
 
 Tensor = torch.Tensor
 
@@ -115,9 +121,7 @@ class LinkPredictionEvaluator:
         # EdgeDecoderMethod (options.h:64); ONLY_POS is inference-only
         self.decoder_method = (normalize_decoder_method(model.decoder.decoder_method)
                                if model.decoder is not None else "CORRUPT_NODE")
-        if self.decoder_method == "CORRUPT_REL":
-            raise _later_slice("CORRUPT_REL evaluation (rel_all_scores)", "a later LP slice")
-        if self.decoder_method != "CORRUPT_NODE":
+        if self.decoder_method not in ("CORRUPT_NODE", "CORRUPT_REL"):
             raise ValueError(f"evaluation supports CORRUPT_NODE/CORRUPT_REL; "
                              f"{self.decoder_method} is inference-only "
                              f"(marius_predict --save_scores)")
@@ -136,6 +140,8 @@ class LinkPredictionEvaluator:
         padded, self.num_edges, self.num_batches = pad_edges(eval_edges, batch_size)
         self.edges = torch.as_tensor(padded, device=self.device)
         self.has_rels = padded.shape[1] == 3
+        if self.decoder_method == "CORRUPT_REL" and not self.has_rels:
+            raise ValueError("CORRUPT_REL needs a 3-column (typed) edge list")
         inverse_on = model.decoder.use_inverse_relations and self.has_rels
 
         self.dst_keys = self.src_keys = None
@@ -153,9 +159,10 @@ class LinkPredictionEvaluator:
             # each eval edge's [lo, hi) run of true candidates depends on the
             # edges alone: found once here for every batch
             rel = self.edges[:, 1] if self.has_rels else None
-            self._ranges[False] = anchor_ranges(self.dst_keys, self.edges[:, 0], rel)
-            if inverse_on:
-                self._ranges[True] = anchor_ranges(self.src_keys, self.edges[:, -1], rel)
+            if self.decoder_method == "CORRUPT_NODE":
+                self._ranges[False] = anchor_ranges(self.dst_keys, self.edges[:, 0], rel)
+                if inverse_on:
+                    self._ranges[True] = anchor_ranges(self.src_keys, self.edges[:, -1], rel)
 
         # all-node scoring streams over fixed node chunks so memory stays
         # (B, chunk) whatever the graph size; 32k chunks from 4M nodes up,
@@ -252,9 +259,35 @@ class LinkPredictionEvaluator:
             neg = neg.masked_fill(f, -1e9)
         return compute_ranks(pos, neg)
 
+    def _rel_directions(self, encoded: Tensor, params, edges_b: Tensor):
+        """CORRUPT_REL ranking (JAX :222-251): the true relation against
+        every relation, per direction."""
+        decoder = self.model.decoder
+        src = edges_b[:, 0].contiguous()
+        dst = edges_b[:, -1].contiguous()
+        rel = edges_b[:, 1]
+        src_e = gather_rows(encoded, src)
+        dst_e = gather_rows(encoded, dst)
+        cand = torch.arange(self.num_relations, dtype=rel.dtype, device=rel.device)
+        if self.filtered:
+            mask = isin_triples(self.dst_keys, src[:, None], cand[None, :], dst[:, None])
+        else:
+            mask = cand[None, :] == rel[:, None]
+        directions = []
+        for inverse in ((False, True) if decoder.use_inverse_relations else (False,)):
+            a_e, o_e = (dst_e, src_e) if inverse else (src_e, dst_e)
+            table = params["decoder"]["inverse_relations" if inverse else "relations"]
+            scores = decoder.rel_all_scores(a_e, o_e, inverse=inverse, table=table)
+            pos = torch.gather(scores, 1, rel[:, None].long())[:, 0]
+            neg = scores.masked_fill(mask, -1e9)
+            directions.append((compute_ranks(pos, neg), pos))
+        return directions
+
     def _batch_directions(self, encoded: Tensor, params, edges_b: Tensor, idx: int):
         """Per-direction (ranks, pos_scores) for one batch; shared by
         evaluate() and compute_all_ranks()."""
+        if self.decoder_method == "CORRUPT_REL":
+            return self._rel_directions(encoded, params, edges_b)
         decoder = self.model.decoder
         src = edges_b[:, 0].contiguous()
         dst = edges_b[:, -1].contiguous()
@@ -311,8 +344,28 @@ class LinkPredictionEvaluator:
         scores = torch.cat(scores, dim=1).cpu().numpy()
         return ranks[:, :self.num_edges], scores[:, :self.num_edges]
 
-    def compute_pos_scores(self, state: TrainState, encoded: Optional[Tensor] = None):
-        raise _later_slice("positive-only scoring (only_pos_forward)", "a later LP slice")
+    @torch.no_grad()
+    def compute_pos_scores(self, state: TrainState,
+                           encoded: Optional[Tensor] = None) -> np.ndarray:
+        """Positive-edge scores per direction, no corruption: ONLY_POS /
+        INFER (only_pos_forward, decoder_methods.cpp:7-42; JAX :623-647),
+        behind marius_predict's score export. Returns (num_directions, E)
+        float scores."""
+        if encoded is None:
+            encoded = self._encode(state)
+        decoder = self.model.decoder
+        outs = []
+        for _, edges_b in self._batches():
+            src_e = gather_rows(encoded, edges_b[:, 0].contiguous())
+            dst_e = gather_rows(encoded, edges_b[:, -1].contiguous())
+            rel = edges_b[:, 1] if self.has_rels else None
+            dirs = [decoder.pos_scores(decoder.apply_relation(
+                src_e, self._relations(state.params, rel, False)), dst_e)]
+            if decoder.use_inverse_relations and rel is not None:
+                dirs.append(decoder.pos_scores(decoder.apply_relation(
+                    dst_e, self._relations(state.params, rel, True)), src_e))
+            outs.append(torch.stack(dirs))
+        return torch.cat(outs, dim=1)[:, :self.num_edges].float().cpu().numpy()
 
     def _tile_counts(self, adj: Tensor, pos: Tensor, tile: Tensor, tile_start: int,
                      cand: Optional[Tensor], tvalid: Optional[Tensor], anchors: Tensor,
@@ -364,6 +417,9 @@ class LinkPredictionEvaluator:
         (N + 1, F)) defaults to the evaluator's features."""
         if not self.filtered:
             raise ValueError("host-tiled evaluation is for filtered evaluation")
+        if self.decoder_method != "CORRUPT_NODE":
+            raise ValueError("host-tiled evaluation streams node corruption; CORRUPT_REL "
+                             "ranks relations and never needs host streaming")
         t0 = time.perf_counter()
         decoder, num_nodes, dev = self.model.decoder, self.num_nodes, self.device
         if features_host is None and self.features is not None:

@@ -40,7 +40,13 @@ id (the JAX package's dense Adagrad over the table, the same function).
 Where the JAX version compiles the epoch into one ``lax.scan``, this one
 runs an eager Python loop over batches. The epoch's permutation
 (``_epoch_permutation``, a test seam) comes from a generator seeded from
-(54321, epoch // epochs_per_shuffle). Meshes and bf16 raise
+(54321, epoch // epochs_per_shuffle).
+
+``dtype`` (JAX :145-153, :227, :293-295) is the features', the parameters'
+and the table's: bfloat16 features are stored in bfloat16 with the zero
+sentinel row, and the sampled layer-0 sums and the full-graph sums feed the
+gather-sum kernel's bfloat16 entry (f32 accumulation; the sums rounded to
+bfloat16, as JAX's default paths return them, ROADMAP C9). Meshes raise
 ``NotImplementedError`` naming the slice that brings them.
 """
 
@@ -134,8 +140,6 @@ class NodeClassificationTrainer:
         if mesh is not None:
             raise _later_slice("mesh training (data-parallel or the sharded ring)",
                                "the multi-GPU slice")
-        if dtype != torch.float32:
-            raise _later_slice(f"{dtype} training", "the bf16 slice")
         if full_graph is not None:
             if features is None and not model.has_embeddings:
                 raise ValueError("full-graph training needs node features or an EMBEDDING "
@@ -151,12 +155,13 @@ class NodeClassificationTrainer:
         self.batch_size = batch_size
         self.nbr_configs = tuple(nbr_configs)
         self.epochs_per_shuffle = max(1, int(epochs_per_shuffle))
-        # sentinel row N, so clamped padded ids read zero features and label 0
+        # sentinel row N, so clamped padded ids read zero features and label 0;
+        # in the compute dtype (bf16 gathers move half the bytes)
         self.features = None
         if features is not None:
             f = np.zeros((n + 1, features.shape[1]), np.float32)
             f[:n] = features
-            self.features = torch.as_tensor(f, device=self.device)
+            self.features = torch.as_tensor(f, device=self.device).to(dtype)
         lab = np.zeros(n + 1, np.int64)
         lab[:n] = np.asarray(labels, np.int64)
         self.labels = torch.as_tensor(lab, device=self.device)
@@ -176,12 +181,13 @@ class NodeClassificationTrainer:
 
         # initial values are drawn on the CPU, so they do not depend on the device
         init_gen = torch.Generator().manual_seed(seed)
-        params = init_model_params(init_gen, model)
+        params = init_model_params(init_gen, model, dtype)
         params = tree_map(lambda t: t.detach().to(self.device).requires_grad_(True), params)
         table = None
         if model.has_embeddings:
             t = init_embedding_table(init_gen, n, model.encoder.embedding_dim)
-            table = EmbeddingTable(values=t.values.to(self.device), state=t.state.to(self.device))
+            table = EmbeddingTable(values=t.values.to(self.device, dtype),
+                                   state=t.state.to(self.device, dtype))
         # the full-graph table update runs the row-sparse Adagrad over every id
         self._all_ids = (torch.arange(n, device=self.device)
                          if table is not None and self.full_graph is not None else None)

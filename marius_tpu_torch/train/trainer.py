@@ -1,8 +1,8 @@
 """Link-prediction trainer: shallow, FEATURE and GNN encoders.
 
 Port of ``marius_tpu/train/trainer.py`` (TrainState :55-62, pad_edges :80-87,
-LinkPredictionTrainer :90-717) for one device, edges in device memory
-(``DEVICE_MEMORY``) and ``CORRUPT_NODE`` training. Where the JAX version
+LinkPredictionTrainer :90-717) for one device, CORRUPT_NODE and CORRUPT_REL
+training. Where the JAX version
 compiles the whole epoch into one ``lax.scan``, this one runs an eager Python
 loop over batches. Each batch:
 
@@ -41,8 +41,20 @@ chunk order and a permutation inside each chunk of a memmap. The JAX chunk
 function pads the last chunk with fully masked batches; the port runs only
 real batches and gives the dense optimizer the masked ones' zero-gradient
 steps (``apply_zero_grad_steps``), so both reach the same state.
-CORRUPT_REL, meshes and GAT/RGCN stages raise ``NotImplementedError`` naming
-the slice that brings them.
+
+CORRUPT_REL (``_batch_step_rel``, JAX :520-598) corrupts relations instead of
+nodes: each chunk's positives are re-scored under that chunk's (N,) relation
+ids, drawn uniformly from [0, R) (``_sample_rel_negatives``, the test seam);
+only the batch's endpoints enter the gather (``unique_cap`` 2B), and with a
+GNN encoder they alone seed the sampler.
+
+``dtype`` (``storage.embeddings.options.dtype``) is the table's and the
+model parameters' type, as in JAX: a bfloat16 table is drawn in float32 and
+rounded, the encoder and the decoder's relation tables are bfloat16, the
+dense optimizer keeps bfloat16 slots (``nn/optimizers.py``), and the row
+gather and the Adagrad kernel take their bfloat16 entries. FEATURE inputs
+stay float32, as in JAX. Meshes raise ``NotImplementedError`` naming the
+slice that brings them.
 """
 
 from __future__ import annotations
@@ -76,6 +88,7 @@ from marius_tpu_torch.nn.model import (
     init_model_params,
     lp_batch_loss,
     lp_batch_loss_direct,
+    lp_batch_loss_rel,
 )
 from marius_tpu_torch.nn.optimizers import (
     OptState,
@@ -153,6 +166,7 @@ class LinkPredictionTrainer:
         mesh=None,
         edges_backend: str = "DEVICE_MEMORY",
         epochs_per_shuffle: int = 1,
+        dtype=torch.float32,        # the table's and the parameters' type
         device=None,
     ):
         if model.learning_task != LINK_PREDICTION:
@@ -162,11 +176,11 @@ class LinkPredictionTrainer:
         if model.decoder is None:
             raise ValueError("link prediction needs an edge decoder")
         self.decoder_method = normalize_decoder_method(model.decoder.decoder_method)
-        if self.decoder_method == "CORRUPT_REL":
-            raise _later_slice("CORRUPT_REL training", "a later LP slice")
-        if self.decoder_method != "CORRUPT_NODE":
+        if self.decoder_method not in ("CORRUPT_NODE", "CORRUPT_REL"):
             raise ValueError(f"training supports CORRUPT_NODE/CORRUPT_REL, "
                              f"got {self.decoder_method}")
+        if self.decoder_method == "CORRUPT_REL" and train_edges.shape[1] != 3:
+            raise ValueError("CORRUPT_REL needs a 3-column (typed) edge list")
         self.edges_backend = edges_backend.upper()
         if self.edges_backend not in ("DEVICE_MEMORY", "HOST_MEMORY", "FLAT_FILE"):
             raise ValueError(f"unknown edges backend {edges_backend}")
@@ -207,13 +221,13 @@ class LinkPredictionTrainer:
         # initial values are drawn on the CPU, so they do not depend on the device
         init_gen = torch.Generator().manual_seed(seed)
         model.decoder.to(self.device)
-        params = init_model_params(init_gen, model)
+        params = init_model_params(init_gen, model, dtype)
         params = tree_map(self._to_device_leaf, params)
         table = None
         if model.has_embeddings:
             t = init_embedding_table(init_gen, num_nodes, model.encoder.embedding_dim)
-            table = EmbeddingTable(values=t.values.to(self.device),
-                                   state=t.state.to(self.device))
+            table = EmbeddingTable(values=t.values.to(self.device, dtype),
+                                   state=t.state.to(self.device, dtype))
         self.state = TrainState(table=table, params=params,
                                 opt_state=init_optimizer(model.dense_optimizer, params),
                                 epoch=0)
@@ -223,7 +237,10 @@ class LinkPredictionTrainer:
         self._overflow = torch.zeros((), dtype=torch.int64, device=self.device)
 
         c, n = neg_config.num_chunks, neg_config.negatives_per_positive
-        self.unique_cap = 2 * batch_size + 2 * c * n
+        # unique ids of a batch: its 2B endpoints and both negative blocks;
+        # CORRUPT_REL corrupts relations, so only the endpoints enter
+        self.unique_cap = (2 * batch_size if self.decoder_method == "CORRUPT_REL"
+                           else 2 * batch_size + 2 * c * n)
         # Small tables skip dedup: per-occurrence grads sum into a table-shaped
         # accumulator and Adagrad runs over every row (see
         # sparse_adagrad_update_dense_accum); large tables keep the unique path
@@ -255,6 +272,14 @@ class LinkPredictionTrainer:
         return sample_negatives(self.generator, self.neg_config, edges_b,
                                 self.num_nodes, inverse=inverse)
 
+    def _sample_rel_negatives(self) -> Tensor:
+        """The (C, N) corrupting relation ids of the next CORRUPT_REL batch,
+        uniform over [0, max(R, 1)) (JAX :531-532)."""
+        cfg = self.neg_config
+        return torch.randint(0, max(self.num_relations, 1),
+                             (cfg.num_chunks, cfg.negatives_per_positive),
+                             generator=self.generator, device=self.device)
+
     def _batch_draws(self) -> Draws:
         """The neighbour sampler's numbers for the next training batch."""
         return self._draws
@@ -276,6 +301,8 @@ class LinkPredictionTrainer:
         c, nneg = cfg.num_chunks, cfg.negatives_per_positive
         b = self.batch_size
         state = self.state
+        if self.decoder_method == "CORRUPT_REL":
+            return self._batch_step_rel(edges_b, mask_b)
 
         # Untyped graphs train only the dst-corruption direction
         # (decoder_methods.cpp:99-102).
@@ -339,6 +366,55 @@ class LinkPredictionTrainer:
                 pos[2 * b + c * nneg:].reshape(c, nneg) if inv_rel_on else None,
                 mask_b, dst_filter, src_filter)
 
+        self._apply_gradients(loss, x0, all_ids, row_ids)
+        return loss.detach()
+
+    def _batch_step_rel(self, edges_b: Tensor, mask_b: Tensor) -> Tensor:
+        """One CORRUPT_REL batch (JAX _batch_step_rel :520-598): relation
+        negatives, no node negatives; returns the detached loss."""
+        model, num_nodes, b = self.model, self.num_nodes, self.batch_size
+        state = self.state
+        neg_rel_ids = self._sample_rel_negatives()
+        src = torch.where(mask_b, edges_b[:, 0], num_nodes)
+        dst = torch.where(mask_b, edges_b[:, -1], num_nodes)
+        rel = edges_b[:, 1]
+        all_ids = torch.cat([src, dst])
+        if self.dense_accum:
+            gather_ids, pos = all_ids, None
+        else:
+            uniq = unique_padded(all_ids, size=self.unique_cap, fill_value=num_nodes)
+            gather_ids, pos = uniq.ids, uniq.inverse
+        nbr_batch = None
+        row_ids = gather_ids
+        if self.nbr_configs:
+            nbr_batch = sample_neighbor_batch(self._batch_draws(), self.graph, gather_ids,
+                                              gather_ids < num_nodes, self.nbr_configs,
+                                              self.hop_caps)
+            row_ids = nbr_batch.node_ids[0]
+            self._overflow += nbr_batch.overflow
+        x0 = feats = None
+        if state.table is not None:
+            x0 = gather_rows(state.table.values, row_ids)
+            x0.requires_grad_(True)
+        if self.features is not None:
+            feats = gather_rows(self.features, row_ids)
+        encoded = encoder_forward(model.encoder, state.params["encoder"], x0, feats, nbr_batch,
+                                  degrees=None if self.graph is None else self.graph.degrees,
+                                  train=True, dropout_key=self._dropout)
+        if self.dense_accum:
+            src_e, dst_e = encoded[:b], encoded[b:]
+        else:
+            src_e, dst_e = encoded[pos[:b]], encoded[pos[b:]]
+        loss, _ = lp_batch_loss_rel(model, src_e, dst_e, rel, neg_rel_ids, mask_b)
+        self._apply_gradients(loss, x0, all_ids, row_ids)
+        return loss.detach()
+
+    def _apply_gradients(self, loss: Tensor, x0: Optional[Tensor], all_ids: Tensor,
+                         row_ids: Tensor) -> None:
+        """Backward, then the table's Adagrad (per occurrence of ``all_ids``
+        under ``dense_accum``, else at the unique ``row_ids``) and the dense
+        optimizer."""
+        model, state = self.model, self.state
         leaves = tree_leaves(state.params)
         inputs = leaves + ([x0] if x0 is not None else [])
         grads = torch.autograd.grad(loss, inputs, allow_unused=True)
@@ -352,7 +428,6 @@ class LinkPredictionTrainer:
         _, state.opt_state = apply_optimizer(model.dense_optimizer, state.params,
                                              state.opt_state,
                                              tree_map(lambda _: next(it), state.params))
-        return loss.detach()
 
     def _host_chunks(self):
         """The epoch's chunks of host edges, shuffled as the JAX package

@@ -43,6 +43,7 @@ from marius_tpu_torch.nn.optimizers import OptimizerConfig as TOpt
 from marius_tpu_torch.ops.edge_keys import build_edge_key_set as t_keys
 from marius_tpu_torch.train.buffer_trainer import PartitionBufferLPTrainer as TTrainer
 from tests.test_torch_neighbor_sampler import jax_draws
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL, ATOL = 1e-4, 1e-5
 
@@ -378,10 +379,12 @@ def test_unported_options_raise():
         TEdgeDecoder("DISTMULT", 3, 8))
     rel = Model("LINK_PREDICTION", tmodel.encoder,
                 TEdgeDecoder("DISTMULT", 3, 8, decoder_method="CORRUPT_REL"))
-    cases = [(tmodel, {"mesh": object()}, "mesh"), (rel, {}, "CORRUPT_REL")]
-    for model, extra, what in cases:
-        with pytest.raises(NotImplementedError, match=what):
-            TTrainer(model, 40, 3, edges, neg, **kw, **extra)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        TTrainer(tmodel, 40, 3, edges, neg, **kw, mesh=object())
+    # CORRUPT_REL is ported (tests/test_torch_corrupt_rel.py); it needs typed edges
+    assert TTrainer(rel, 40, 3, edges, neg, **kw).decoder_method == "CORRUPT_REL"
+    with pytest.raises(ValueError, match="typed"):
+        TTrainer(rel, 40, 3, edges[:, [0, 2]], neg, **kw)
     # GNN and FEATURE encoders are ported (test_gnn_and_feature_encoders_match_jax);
     # each needs what it reads
     with pytest.raises(ValueError, match="neighbour config"):

@@ -24,6 +24,7 @@ from marius_tpu_torch.config import schema as tschema
 from marius_tpu_torch.config.validate import ConfigError as TConfigError
 from marius_tpu_torch.config.validate import check_compat_keys as t_check_compat_keys
 from tests.test_manager import GAT_ENCODER, GS_2_LAYER_ENCODER, GS_ENCODER, LP_BASE
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 EXAMPLES = sorted((Path(__file__).resolve().parents[1] / "examples" / "configuration")
                   .glob("*.yaml"))

@@ -29,6 +29,7 @@ from tests.test_torch_lp_trainer import (
     fake_negatives_torch,
 )
 from tests.test_torch_lp_eval import _models
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 N, R, D, B, E = 96, 4, 16, 40, 530   # 14 batches: 4 chunks of 3, the last of 2
 

@@ -36,6 +36,7 @@ from marius_tpu_torch.nn import linear_collapse as tlc
 from marius_tpu_torch.nn.encoder import EncoderConfig as TEncoderConfig
 from marius_tpu_torch.nn.layers import LayerConfig as TLayerConfig
 from marius_tpu_torch.ops.cuda import nbr_sum as tns
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL, ATOL = 1e-5, 1e-5
 N, N_LINKED, E, F = 220, 200, 2000, 8

@@ -51,6 +51,7 @@ from marius_tpu_torch.ops.cuda import nbr_sum as nbr_sum_kernel
 from marius_tpu_torch.train import nc as tnc
 from tests.test_torch_full_graph import power_law_edges
 from tests.test_torch_neighbor_sampler import jax_draws
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 LAYER_RTOL, LAYER_ATOL = 1e-5, 1e-6
 FG_RTOL, FG_ATOL = 1e-5, 1e-5

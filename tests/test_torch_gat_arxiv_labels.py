@@ -45,6 +45,7 @@ from marius_tpu_torch.nn.optimizers import OptimizerConfig as TOptimizerConfig
 from marius_tpu_torch.train import nc as tnc
 from tests.test_torch_gat import SampledKeyReplay
 from tests.test_torch_neighbor_sampler import jax_draws
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 N = 6000
 FEATS, DIM, HEADS, FANOUT, BATCH, EPOCHS = 128, 128, 8, 32, 1000, 6

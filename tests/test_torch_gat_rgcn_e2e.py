@@ -44,6 +44,7 @@ from tests.test_manager import GAT_ENCODER
 from tests.test_nc_e2e import NUM_NODES as COMMUNITY_NODES
 from tests.test_nc_e2e import community_graph
 from tests.test_torch_manager import METRICS, NC_CLASSES, _lp_config, _nc_raw
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 GNN_OPTIONS = {"GAT": {"type": "GAT", "num_heads": 2}, "RGCN": {"type": "RGCN"}}
 

@@ -24,6 +24,7 @@ import marius_tpu_torch.nn.optimizers as topt
 from marius_tpu.storage import checkpoint as jckpt
 from marius_tpu_torch.storage import checkpoint as tckpt
 from marius_tpu_torch.train.trainer import TrainState
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL, ATOL = 1e-5, 1e-7
 

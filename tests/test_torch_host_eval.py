@@ -29,6 +29,7 @@ from tests.test_torch_lp_eval import (  # noqa: F401  (fixture)
     _quantized_states,
     jax_search_clamped,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 METRICS = ("mrr", "mean_rank", "hits@1", "hits@3", "hits@10", "hits@50", "num_evaluated")
 CASES = [("DISTMULT", True), ("COMPLEX", True), ("DISTMULT", False)]

@@ -27,7 +27,9 @@ from marius_tpu_torch.ops.cuda import adagrad as tadagrad
 from marius_tpu_torch.ops.cuda import build
 from marius_tpu_torch.ops.cuda import gather as tgather
 from marius_tpu_torch.ops.cuda import nbr_sum as tns
+from marius_tpu_torch.ops import segment as tseg
 from marius_tpu_torch.parallel import embedding_table as tet
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL, ATOL = 1e-6, 1e-7
 
@@ -303,3 +305,73 @@ def test_cuda_gather_sum_rejects_bad_inputs(cuda_device):
         tns.gather_sum(x.t(), ids)
     with pytest.raises(ValueError):
         tns.nbr_sum(x, tns.bucket_layout([ids.cpu()], torch.arange(3), 3))
+
+
+# -- the bf16 entries (storage.embeddings.options.dtype: bfloat16) -------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,k", [(14541, 50, 12000), (3000, 100, 4099), (1000, 33, 1001),
+                                   (77, 1, 333), (500, 128, 2048), (3000, 7, 1)])
+@pytest.mark.parametrize("offset", [0, 1, 2, 4])
+def test_cuda_gather_bf16_matches_plain(cuda_device, n, d, k, offset):
+    """bf16 tables, also views 2, 4 or 8 bytes into their storage (2-byte
+    vectors where nothing wider divides)."""
+    g = torch.Generator(device=cuda_device).manual_seed(n + d + k)
+    big = torch.randn(n * d + offset, device=cuda_device, generator=g).to(torch.bfloat16)
+    table = big[offset:].view(n, d)
+    for id_dtype in (torch.int64, torch.int32):
+        ids = torch.randint(-3, n + 3, (k,), device=cuda_device, generator=g).to(id_dtype)
+        before = tgather.launches
+        out = tgather.gather_rows(table, ids)
+        torch.cuda.synchronize()
+        assert tgather.launches == before + 1 and out.dtype == torch.bfloat16
+        assert torch.equal(out.view(torch.int16),
+                           tgather.gather_rows_plain(table, ids).view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,k", [(14541, 50, 14541), (3000, 100, 2000), (77, 257, 60),
+                                   (100, 1, 37)])
+def test_cuda_adagrad_bf16_matches_plain(cuda_device, n, d, k):
+    g = torch.Generator(device=cuda_device).manual_seed(n + d + k)
+    vals = torch.randn(n, d, device=cuda_device, generator=g).to(torch.bfloat16)
+    state = torch.rand(n, d, device=cuda_device, generator=g).to(torch.bfloat16)
+    state[::5] = 0
+    ids = torch.randperm(n + 5, device=cuda_device, generator=g)[:min(k, n)]   # some >= n
+    grads = (torch.randn(ids.shape[0], d, device=cuda_device, generator=g) * 0.1).to(torch.bfloat16)
+    v1, s1, v2, s2 = vals.clone(), state.clone(), vals.clone(), state.clone()
+    before = tadagrad.launches
+    tadagrad.sparse_adagrad_update_(v1, s1, ids, grads, 0.1)
+    tadagrad.sparse_adagrad_update_plain_(v2, s2, ids, grads, 0.1)
+    torch.cuda.synchronize()
+    assert tadagrad.launches == before + 1
+    assert torch.equal(v1.view(torch.int16), v2.view(torch.int16))
+    assert torch.equal(s1.view(torch.int16), s2.view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_sampled_sum_and_wrappers(cuda_device):
+    """The sampled sum of bf16 rows launches the gather-sum's bf16 entry and
+    rounds its f32 sums to bf16; wrappers refuse a dtype they have no entry
+    for (no fallback)."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    x = torch.randn(5000, 128, device=cuda_device, generator=g).to(torch.bfloat16)
+    idx = torch.randint(0, 5000, (700, 10), device=cuda_device, generator=g)
+    mask = torch.rand(700, 10, device=cuda_device, generator=g) < 0.8
+    before = tns.launches
+    out = tseg.sampled_nbr_sum(x, idx, mask, idx[:, :3], mask[:, :3])
+    torch.cuda.synchronize()
+    assert tns.launches == before + 1 and out.dtype == torch.bfloat16
+    ids = torch.cat([tseg.slot_ids(5000, idx, mask), tseg.slot_ids(5000, idx[:, :3],
+                                                                  mask[:, :3])], 1)
+    ref = tns.gather_sum_plain(x, ids.to(torch.int32)).to(torch.bfloat16)
+    assert torch.equal(out.view(torch.int16), ref.view(torch.int16))
+    half = torch.randn(10, 4, device=cuda_device).half()
+    ids1 = torch.zeros(3, dtype=torch.long, device=cuda_device)
+    with pytest.raises(TypeError):
+        tgather.gather_rows(half, ids1)
+    with pytest.raises(TypeError):
+        tadagrad.sparse_adagrad_update_(half, half.clone(), ids1, half[:3].clone(), 0.1)
+    with pytest.raises(TypeError):   # mixed dtypes
+        bf = half.to(torch.bfloat16)
+        tadagrad.sparse_adagrad_update_(bf, bf.clone(), ids1, half[:3].float(), 0.1)

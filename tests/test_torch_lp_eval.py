@@ -63,6 +63,7 @@ from tests.test_torch_lp_trainer import (
     fake_negatives_jax,
     fake_negatives_torch,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 HITS = (1, 3, 5, 10, 50, 100)
 
@@ -438,9 +439,13 @@ def test_evaluator_rejects_later_slices(jax_search_clamped):
     _, tmodel = _models("DISTMULT", 32, ER)
     rel_model = dataclasses.replace(
         tmodel, decoder=TEdgeDecoder("DISTMULT", ER, 32, decoder_method="CORRUPT_REL"))
-    with pytest.raises(NotImplementedError, match="CORRUPT_REL"):
-        tevaluator.LinkPredictionEvaluator(rel_model, EN, ER, test, all_edges=edges,
-                                           device="cpu")
+    # CORRUPT_REL ranking is ported (tests/test_torch_corrupt_rel.py); host-tiled
+    # evaluation streams node corruption and refuses it, as JAX does
+    rel_ev = tevaluator.LinkPredictionEvaluator(rel_model, EN, ER, test, all_edges=edges,
+                                                device="cpu")
+    assert rel_ev.decoder_method == "CORRUPT_REL"
+    with pytest.raises(ValueError, match="CORRUPT_REL"):
+        rel_ev.evaluate_from_host_table(None, None)
     # FEATURE encoders are ported: a pure-FEATURE model ranks as JAX's does
     # (quantized features and relations: exact scores)
     jmodel, _ = _models("DISTMULT", 32, ER)
@@ -465,6 +470,7 @@ def test_evaluator_rejects_later_slices(jax_search_clamped):
     tranks, jranks = tev.compute_all_ranks(tstate)[0], jev.compute_all_ranks(jstate)[0]
     np.testing.assert_array_equal(tranks, jranks)
     assert (jranks > 1).any()
+    tev_feat = tev
     tev = tevaluator.LinkPredictionEvaluator(tmodel, EN, ER, test, all_edges=edges,
                                              device="cpu")
     # host-tiled evaluation is ported; it ranks against all nodes only
@@ -472,8 +478,9 @@ def test_evaluator_rejects_later_slices(jax_search_clamped):
                                                     batch_size=50, device="cpu")
     with pytest.raises(ValueError, match="filtered"):
         unfiltered.evaluate_from_host_table(None, None)
-    with pytest.raises(NotImplementedError):
-        tev.compute_pos_scores(None)
+    # ONLY_POS scoring is ported: the pure-FEATURE model's positive scores are JAX's
+    np.testing.assert_array_equal(tev_feat.compute_pos_scores(tstate),
+                                  jev.compute_pos_scores(jstate))
 
 
 @pytest.mark.slow

@@ -84,6 +84,7 @@ from tests.test_torch_lp_trainer import (
     fake_negatives_torch,
 )
 from tests.test_torch_neighbor_sampler import jax_draws
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 LAYER_RTOL, LAYER_ATOL = 1e-5, 1e-6
 N, R, E, F, B, C, NEG = 1000, 4, 3000, 6, 32, 2, 8

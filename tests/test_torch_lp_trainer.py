@@ -35,6 +35,7 @@ from marius_tpu_torch.nn.layers import LayerConfig as TLayerConfig
 from marius_tpu_torch.nn.model import Model as TModel
 from marius_tpu_torch.nn.optimizers import tree_leaves
 from marius_tpu_torch.train.trainer import LinkPredictionTrainer as TTrainer
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL, ATOL = 1e-4, 1e-5
 N, R, D, B, C, NEG, E = 64, 4, 16, 32, 4, 8, 200
@@ -182,5 +183,7 @@ def test_trainer_rejects_later_slices(monkeypatch):
     np.testing.assert_allclose(ttr.train_epoch()["loss"], jtr.train_epoch()["loss"], rtol=RTOL)
     rel_model = dataclasses.replace(
         model, decoder=TEdgeDecoder("DISTMULT", R, D, decoder_method="CORRUPT_REL"))
-    with pytest.raises(NotImplementedError):
-        TTrainer(rel_model, N, R, edges, cfg, batch_size=B, device="cpu")
+    # CORRUPT_REL is ported (tests/test_torch_corrupt_rel.py): only endpoints are gathered
+    assert TTrainer(rel_model, N, R, edges, cfg, batch_size=B, device="cpu").unique_cap == 2 * B
+    with pytest.raises(ValueError, match="typed"):
+        TTrainer(rel_model, N, R, edges[:, [0, 2]], cfg, batch_size=B, device="cpu")

@@ -46,6 +46,7 @@ from marius_tpu_torch.train.trainer import LinkPredictionTrainer
 from tests.test_manager import GS_ENCODER, LP_BASE
 from tests.test_torch_lp_eval import jax_search_clamped  # noqa: F401  (a fixture)
 from tests.test_torch_lp_trainer import _np_state
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _lp_config(tmp_path, name, num_nodes=50, num_edges=500, **overrides):
@@ -322,6 +323,9 @@ PORTED = {
     "buffer_gnn": {"storage.embeddings": PB, "model.encoder": copy.deepcopy(GS_ENCODER)},
     "buffer_feature": {"storage.embeddings": PB, "model.encoder": {"layers": [[
         {"type": "EMBEDDING", "output_dim": 8}, {"type": "FEATURE", "output_dim": 8}]]}},
+    "bf16": {"storage.embeddings": {"type": "DEVICE_MEMORY", "options": {"dtype": "bfloat16"}}},
+    "buffer_corrupt_rel": {"storage.embeddings": PB,
+                           "model.decoder.options.edge_decoder_method": "CORRUPT_REL"},
 }
 
 
@@ -358,6 +362,10 @@ def test_unported_paths_raise(tmp_path, what):
             what == "host_streaming")
         if what == "flat_file":
             assert isinstance(rt.trainer.edges_host, np.memmap)
+        if what == "bf16":
+            assert rt.trainer.state.table.values.dtype == torch.bfloat16
+        if what == "buffer_corrupt_rel":
+            assert rt.trainer.decoder_method == "CORRUPT_REL"
         return
     if what == "nc":
         # out-of-core NC is ported: PARTITION_BUFFER features route to
@@ -392,14 +400,10 @@ def test_unported_paths_raise(tmp_path, what):
         return
     overrides = {
         "mesh": {"training.mesh": {"data": 2, "node": 1}},
-        "bf16": {"storage.embeddings": {"type": "DEVICE_MEMORY",
-                                        "options": {"dtype": "bfloat16"}}},
-        "buffer_corrupt_rel": {"storage.embeddings": PB,
-                               "model.decoder.options.edge_decoder_method": "CORRUPT_REL"},
         "buffer_mesh": {"storage.embeddings": PB, "training.mesh": {"data": 1, "node": 2}},
     }[what]
     raw = _lp_config(tmp_path, what, **overrides)
-    match = {"buffer_corrupt_rel": "CORRUPT_REL", "buffer_mesh": "mesh"}.get(what, "comes with")
+    match = {"buffer_mesh": "mesh"}.get(what, "comes with")
     with pytest.raises(NotImplementedError, match=match):
         marius_init(load_config(raw), device="cpu")
 
@@ -705,9 +709,10 @@ def test_nc_config_variants_set_up_as_jax(tmp_path, variant):
 
 
 def test_nc_refuses_unported(tmp_path):
-    """Meshes and bf16 tables wait for later slices; GAT and RGCN stages are
-    ported (tests/test_torch_gat_rgcn_e2e.py trains them through the
-    managers) and set up as the JAX package sets them up."""
+    """Meshes wait for a later slice; GAT and RGCN stages are ported
+    (tests/test_torch_gat_rgcn_e2e.py trains them through the managers) and
+    set up as the JAX package sets them up, and so are bf16 features and
+    parameters (tests/test_torch_bf16.py)."""
     from marius_tpu.manager import marius_init as j_marius_init
 
     for gnn in ("GAT", "RGCN"):
@@ -717,11 +722,10 @@ def test_nc_refuses_unported(tmp_path):
         jtr = j_marius_init(j_load_config(raw)).trainer
         assert trainer.model.encoder.stages[1][0].gnn_type == gnn
         assert trainer.hop_caps == tuple(jtr.hop_caps)
-    cases = {
-        "mesh": _nc_raw(tmp_path, "gat", **{"training.mesh": {"data": 2, "node": 1}}),
-        "bf16": _nc_raw(tmp_path, "gat", **{"storage.embeddings": {
-            "type": "DEVICE_MEMORY", "options": {"dtype": "bfloat16"}}}),
-    }
-    for match, raw in cases.items():
-        with pytest.raises(NotImplementedError, match=match):
-            marius_init(load_config(raw), device="cpu")
+    with pytest.raises(NotImplementedError, match="mesh"):
+        marius_init(load_config(_nc_raw(tmp_path, "gat", **{
+            "training.mesh": {"data": 2, "node": 1}})), device="cpu")
+    raw = _nc_raw(tmp_path, "gat", **{"storage.embeddings": {
+        "type": "DEVICE_MEMORY", "options": {"dtype": "bfloat16"}}})
+    trainer = marius_init(load_config(raw), device="cpu").trainer
+    assert trainer.features.dtype == torch.bfloat16

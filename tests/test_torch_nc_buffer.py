@@ -50,6 +50,7 @@ from marius_tpu_torch.train.nc_buffer import PartitionBufferNCTrainer as TTraine
 from tests.test_nc_buffer import _community_graph
 from tests.test_torch_gat import JaxKey
 from tests.test_torch_neighbor_sampler import jax_draws
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL, ATOL = 1e-4, 1e-5
 N, CLASSES, FD, ED, B = 120, 4, 8, 6, 20

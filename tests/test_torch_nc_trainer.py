@@ -41,6 +41,7 @@ from marius_tpu_torch.nn.model import Model as TModel
 from marius_tpu_torch.nn.optimizers import OptimizerConfig as TOptimizerConfig
 from marius_tpu_torch.nn.optimizers import tree_map
 from marius_tpu_torch.train import nc as tnc
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL, ATOL = 1e-4, 1e-5
 N, N_LINKED, E, F, CLASSES, DIMS, B = 220, 200, 2000, 8, 5, (16, 16, 5), 32
@@ -144,12 +145,14 @@ def test_nc_trainer_rejects_later_slices():
     gat = dataclasses.replace(model, encoder=TEncoderConfig(
         model.encoder.stages[:1] + ((TLayerConfig("GNN", input_dim=F, output_dim=CLASSES,
                                                   gnn_type="GAT"),),)))
-    for m, kwargs in [(model, dict(full_graph=adj, mesh=object())),
-                      (model, dict(full_graph=adj, dtype=torch.bfloat16))]:
-        with pytest.raises(NotImplementedError):
-            tnc.NodeClassificationTrainer(m, graph, feats, labels, train,
-                                          [TNbr("UNIFORM", 4)],
-                                          batch_size=B, device="cpu", **kwargs)
+    with pytest.raises(NotImplementedError):
+        tnc.NodeClassificationTrainer(model, graph, feats, labels, train, [TNbr("UNIFORM", 4)],
+                                      batch_size=B, device="cpu", full_graph=adj, mesh=object())
+    # bf16 is ported (tests/test_torch_bf16.py): features, parameters and sums in bf16
+    bf16 = tnc.NodeClassificationTrainer(model, graph, feats, labels, train, [TNbr("UNIFORM", 4)],
+                                         batch_size=B, device="cpu", full_graph=adj,
+                                         dtype=torch.bfloat16)
+    assert bf16.features.dtype == bf16._fg_collapse.phi.dtype == torch.bfloat16
     # GAT stages train sampled and full-graph (held against JAX in
     # tests/test_torch_gat.py); an EMBEDDING table in full-graph mode waits
     sampled = tnc.NodeClassificationTrainer(gat, graph, feats, labels, train,

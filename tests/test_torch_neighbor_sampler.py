@@ -12,6 +12,8 @@ of the two NeighborBatches must then be equal, masked slots included. Last,
 the hop-cap estimators and the ALL-cap resolvers give the same numbers.
 """
 
+import logging
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +26,7 @@ import marius_tpu_torch.data.samplers.neighbor as tn
 import marius_tpu_torch.ops.unique as tu
 from marius_tpu.data.graph import build_device_graph as j_graph
 from marius_tpu_torch.data.graph import build_device_graph as t_graph
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 N = 300
 
@@ -198,7 +201,11 @@ def test_hop_cap_estimates_match_jax():
         jn.estimate_hop_caps_empirical(edges[:0], N, jcfg, 50)
 
 
-def test_resolve_all_caps_match_jax(caplog):
+def test_resolve_all_caps_match_jax(caplog, monkeypatch):
+    # a manager run earlier in the process sets up the packages' loggers, which
+    # stop propagating to the root logger that caplog reads
+    for name in ("marius_tpu", "marius_tpu_torch"):
+        monkeypatch.setattr(logging.getLogger(name), "propagate", True)
     edges, jg, tg = _graphs(True)
     spec = [("ALL", 10, 0.0, True, True), ("UNIFORM", 4, 0.0, True, True),
             ("ALL", 10, 0.0, False, True)]

@@ -34,6 +34,7 @@ from marius_tpu_torch.nn.decoders import edge as tedge
 from marius_tpu_torch.nn.layers import LayerConfig as TLayerConfig
 from marius_tpu_torch.ops.unique import unique_padded as t_unique_padded
 from marius_tpu_torch.parallel.embedding_table import init_embedding_table
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL, ATOL = 1e-5, 1e-6
 

@@ -13,6 +13,7 @@ from marius_tpu.tools.preprocess import partitioner as jpartitioner
 from marius_tpu_torch import native as tnative
 from marius_tpu_torch.data import ordering as tordering
 from marius_tpu_torch.tools.preprocess import partitioner as tpartitioner
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _same_states(a, b):

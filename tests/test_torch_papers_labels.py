@@ -27,6 +27,7 @@ from chip_smoke import NC_DIM, NC_LR, PAPERS_CLASSES, PAPERS_FEATS, nc_data, nc_
 from marius_tpu_torch.data.graph import build_device_graph
 from marius_tpu_torch.data.samplers.neighbor import NeighborSamplingConfig
 from marius_tpu_torch.train import nc
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 N, TRAIN, BATCH, EPOCHS, FANOUT = 20_000, 16_000, 1000, 2, 8
 OUT_DEGREE = 2.52   # chip_smoke's papers-shaped edges per node (161,568,587 over 64M nodes)

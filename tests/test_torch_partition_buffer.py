@@ -21,6 +21,7 @@ from marius_tpu.data.ordering import beta_ordering
 from marius_tpu.storage import partition_buffer as jpb
 from marius_tpu_torch.storage import partition_buffer as tpb
 from marius_tpu_torch.storage import transfer
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 # (new resident set, edits: (partition, rows within it as a fraction of psize))
 SEQUENCE = [

@@ -25,6 +25,7 @@ from marius_tpu_torch.config.validate import ConfigError
 from marius_tpu_torch.nn import registry as treg
 from tests.test_registry import _config
 from tests.test_torch_sampled_nc import _close, _jax_batch, to_torch_batch
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 NAMES = {"gnn": "T_MEAN_RESIDUAL", "stage": "T_DENSE", "loss": "T_DOUBLE_CE",

@@ -49,6 +49,7 @@ from tests.test_torch_gat import (
     trainer_pair,
 )
 from tests.test_torch_sampled_nc import to_torch_batch
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 N, E, F, R = 120, 900, 8, 4
 

@@ -54,6 +54,7 @@ from marius_tpu_torch.ops.cuda import gather as gather_kernel
 from marius_tpu_torch.ops.cuda import nbr_sum as nbr_sum_kernel
 from marius_tpu_torch.train import nc as tnc
 from tests.test_torch_neighbor_sampler import jax_draws
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 LAYER_RTOL, LAYER_ATOL = 1e-5, 1e-6
 RTOL, ATOL = 1e-4, 1e-5
@@ -354,7 +355,11 @@ def test_sampled_trainer_rejects_later_slices():
     graph = t_graph(edges, N)
     with pytest.raises(ValueError, match="neighbour config"):
         tnc.NodeClassificationTrainer(model, graph, feats, labels, train, device="cpu")
-    for kwargs in (dict(mesh=object()), dict(dtype=torch.bfloat16)):
-        with pytest.raises(NotImplementedError):
-            tnc.NodeClassificationTrainer(model, graph, feats, labels, train,
-                                          [TNbr("UNIFORM", 4)] * 2, device="cpu", **kwargs)
+    with pytest.raises(NotImplementedError):
+        tnc.NodeClassificationTrainer(model, graph, feats, labels, train,
+                                      [TNbr("UNIFORM", 4)] * 2, device="cpu", mesh=object())
+    # bf16 is ported (tests/test_torch_bf16.py)
+    bf16 = tnc.NodeClassificationTrainer(model, graph, feats, labels, train,
+                                         [TNbr("UNIFORM", 4)] * 2, device="cpu",
+                                         dtype=torch.bfloat16)
+    assert bf16.features.dtype == torch.bfloat16
