@@ -194,6 +194,27 @@ float32 run it varies):
   at all 86,054,151 nodes, train edges cut to 8,000,000 and 1 epoch
   (printed), its swap seconds and GB per state beside lp_oocore's.
 
+The command-line tools, last (``tools_cli``), each command run in this
+process through ``marius_tpu_torch.tools.cli.main(argv)`` as a shell runs it,
+the launch counters set to 0 before each and read after it: raw
+tab-separated FB15K-237-shaped files (272,115 / 17,535 / 20,466 lines,
+string ids, seed 0) through ``preprocess`` in memory and ``--chunked`` (every
+file byte-identical, seconds and rows/s each); ``config_generator`` against
+the card's memory (FB15K-237: no partition buffer; Freebase86m's 86,054,151
+nodes at d = 100: 16 partitions, capacity 8, COMET); ``train`` of
+``fb15k_237.yaml`` with dataset_dir and model_dir redirected and 1 epoch (the
+cut); ``eval`` reproducing its test metrics exactly; ``predict`` of the test
+split (metrics.txt equal to eval's, 20,466 ranks whose mean 1/rank is the
+MRR within 1e-6) and of 1,000 raw test lines through the mapping files;
+``postprocess`` to bin (the checkpoint's table, byte for byte) and csv (raw
+ids); ``verify_baselines --synthetic --dataset all`` at its 10 epochs (both
+twins must pass; all three kernels); ``reporting.profiling.trace()`` around
+20 batches of the trained model, whose ``op_breakdown`` must list
+``gather_rows_kernel`` and ``adagrad_kernel`` (top ten printed); and
+``env_info`` and ``db2graph`` (sqlite) as ``python -m
+marius_tpu_torch.tools.cli`` processes that import nothing of JAX or
+marius_tpu (``-X importtime``), the first naming the card.
+
 Small runs on the card are compared with the same runs on the CPU (plain
 versions, which tests/test_torch_*.py hold against the JAX package).
 
@@ -4236,6 +4257,341 @@ def compare_rel_and_bf16_with_cpu():
           f"{max(e for _, e in worst):.3g}", flush=True)
 
 
+# -- the command-line tools (tools_cli) --------------------------------------------
+
+TOOLS_PROFILE_BATCHES, TOOLS_PREDICT_LINES = 20, 1000
+# Freebase86m's published train edges (the config generator reads only the node count)
+FB86M_TRAIN_EDGES = 338_586_276
+TOOLS_METRIC_KEYS = ("mrr", "mean_rank", "hits@1", "hits@10", "num_evaluated")
+
+
+def write_fb15k_raw(directory: Path) -> list:
+    """Raw tab-separated string-id triples of FB15K-237's sizes: the uniform
+    edges of write_fb15k_shaped (seed 0) as ids like /m/00001 and /rel/7."""
+    edges = synthetic_edges(0, NUM_NODES, NUM_RELS, NUM_EDGES + FB_VALID + FB_TEST).tolist()
+    cuts = {"train.txt": (0, NUM_EDGES), "valid.txt": (NUM_EDGES, NUM_EDGES + FB_VALID),
+            "test.txt": (NUM_EDGES + FB_VALID, len(edges))}
+    directory.mkdir(parents=True)
+    paths = []
+    for name, (a, b) in cuts.items():
+        paths.append(directory / name)
+        paths[-1].write_text("".join(f"/m/{s:05d}\t/rel/{r}\t/m/{d:05d}\n"
+                                     for s, r, d in edges[a:b]))
+    return paths
+
+
+def dir_bytes(directory: Path) -> dict:
+    return {str(p.relative_to(directory)): p.read_bytes()
+            for p in sorted(directory.rglob("*")) if p.is_file()}
+
+
+def imported_modules(stderr: str) -> set:
+    """The modules a ``python -X importtime`` process imported."""
+    return {line.rsplit("|", 1)[-1].strip() for line in stderr.splitlines()
+            if line.startswith("import time:")}
+
+
+class ToolsRun:
+    """Runs the port's commands in this process as a shell runs them
+    (``marius_tpu_torch.tools.cli.main(argv)``; ``device`` None: the GPU),
+    each with the launch counters set to 0 just before it and read just
+    after; keeps each part's launches and echoes its standard output."""
+
+    def __init__(self, device=None):
+        from marius_tpu_torch.ops.cuda import adagrad, gather, nbr_sum
+
+        self.device = device
+        self.counters = {"gather_rows": gather, "sparse_adagrad_update_": adagrad,
+                         "gather_sum": nbr_sum}
+        self.launches = {name: {} for name in self.counters}
+
+    def __call__(self, part: str, argv: list, expect_rc: int = 0):
+        import contextlib
+        import io
+
+        from marius_tpu_torch.tools import cli
+
+        for c in self.counters.values():
+            c.launches = 0
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv, device=self.device)
+        dt = time.perf_counter() - t0
+        counts = {name: c.launches for name, c in self.counters.items()}
+        out = buf.getvalue().splitlines()
+        for line in out[-6:]:
+            print(f"  {part} | {line[:300]}", flush=True)
+        if rc != expect_rc:
+            raise AssertionError(f"tools_cli {part}: {argv[0]} returned {rc}")
+        for name, n in counts.items():
+            self.launches[name][f"tools_cli {part}"] = n
+        return out, dt, counts
+
+
+def tools_cli(card: str, device=None) -> dict:
+    """The port's commands end to end at fb15k_237.yaml's width on raw
+    FB15K-237-shaped files: preprocess (in memory and chunked, the same
+    bytes), config_generator (the card's memory; Freebase86m's stats), train,
+    eval, predict (a split and a raw input file), postprocess (bin and csv),
+    verify_baselines --synthetic, torch.profiler around 20 of the trained
+    model's batches, and env_info and db2graph in processes of their own.
+    Returns {kernel: {part: launches}}. ``device`` None is the GPU; "cpu"
+    rehearses the in-process steps on the CPU (the kernels' plain versions;
+    the subprocess checks, which read the card, are left out)."""
+    from marius_tpu_torch.reporting import profiling
+    from marius_tpu_torch.storage.dataset import DatasetStats, load_split, load_stats, save_stats
+    from marius_tpu_torch.tools import config_generator
+    from marius_tpu_torch.tools.predict import _load_input_edges
+    from marius_tpu_torch.train.trainer import LinkPredictionTrainer
+
+    here = Path(__file__).resolve().parent
+    run = ToolsRun(device)
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        # 1. preprocess, in memory and chunked
+        t0 = time.perf_counter()
+        raw_paths = write_fb15k_raw(tmp / "raw")
+        rows = NUM_EDGES + FB_VALID + FB_TEST
+        print(f"tools_cli: raw files of FB15K-237's sizes ({NUM_EDGES} / {FB_VALID} / {FB_TEST} "
+              f"lines, string ids, seed 0) written in {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        outputs = {}
+        for tag, extra in (("in memory", []), ("chunked", ["--chunked"])):
+            out_dir = tmp / f"ds_{tag.replace(' ', '_')}"
+            _, dt, counts = run(f"preprocess {tag}", ["preprocess", "--edges", *map(str, raw_paths),
+                                                       "--output_directory", str(out_dir), *extra])
+            if any(counts.values()):
+                raise AssertionError(f"preprocess launched kernels: {counts}")
+            outputs[tag] = dir_bytes(out_dir)
+            print(f"tools_cli preprocess {tag}: {dt:.3f} s, {rows / dt:.1f} rows/s", flush=True)
+        mem, chunked = outputs["in memory"], outputs["chunked"]
+        if sorted(mem) != sorted(chunked) or any(mem[k] != chunked[k] for k in mem):
+            raise AssertionError(f"preprocess in memory and --chunked wrote different files: "
+                                 f"{sorted(mem)} / {sorted(chunked)}")
+        ds = tmp / "ds_in_memory"
+        stats = load_stats(str(ds))
+        if (stats.num_nodes, stats.num_relations, stats.num_train, stats.num_valid,
+                stats.num_test) != (NUM_NODES, NUM_RELS, NUM_EDGES, FB_VALID, FB_TEST):
+            raise AssertionError(f"preprocessed stats {stats}")
+        print(f"tools_cli preprocess: {len(mem)} files ({sorted(mem)}), byte-identical in memory "
+              f"and chunked; {stats.num_nodes} nodes, {stats.num_relations} relations",
+              flush=True)
+
+        # 2. config generator against the card's memory
+        hbm = config_generator._device_hbm_bytes(device)
+        gen = tmp / "generated.yaml"
+        run("config_generator", ["config_generator", str(ds), "--output", str(gen)])
+        if "embeddings" in yaml.safe_load(gen.read_text())["storage"]:
+            raise AssertionError("config_generator sized a partition buffer for FB15K-237")
+        fb86 = tmp / "freebase86m_stats"
+        save_stats(str(fb86), DatasetStats(num_nodes=FB86M_NODES, num_edges=FB86M_TRAIN_EDGES,
+                                           num_relations=FB86M_RELS, num_edge_cols=3,
+                                           num_train=FB86M_TRAIN_EDGES))
+        run("config_generator", ["config_generator", str(fb86), "--embedding_dim", "100",
+                                 "--output", str(gen)])
+        emb = yaml.safe_load(gen.read_text())["storage"].get("embeddings")
+        want = {"type": "PARTITION_BUFFER", "options": {
+            "num_partitions": 16, "buffer_capacity": 8, "edge_bucket_ordering": "COMET"}}
+        if emb != want:
+            raise AssertionError(f"config_generator on Freebase86m's stats gave {emb}")
+        table = FB86M_NODES * 100 * 4 * 2
+        print(f"tools_cli config_generator: read {hbm:.0f} bytes of device memory; FB15K-237: "
+              f"no partition buffer; Freebase86m (d = 100): table and Adagrad state "
+              f"{table / 1e9:.2f} GB against 0.6 x {hbm / 1e9:.2f} GB -> {emb['options']}  "
+              f"[{card}]", flush=True)
+
+        # 3. train fb15k_237.yaml, 1 epoch
+        with open(here / "examples" / "configuration" / "fb15k_237.yaml") as f:
+            raw = yaml.safe_load(f)
+        epochs_in_yaml = raw["training"]["num_epochs"]
+        raw["storage"]["dataset"]["dataset_dir"] = str(ds)
+        raw["storage"]["model_dir"] = str(tmp / "model")
+        raw["training"]["num_epochs"] = 1
+        cfg = tmp / "fb15k_237.yaml"
+        cfg.write_text(yaml.safe_dump(raw))
+        epochs = []
+        train_epoch = LinkPredictionTrainer.train_epoch
+
+        def recorded(self):
+            stats = train_epoch(self)
+            epochs.append((self, stats))
+            return stats
+
+        LinkPredictionTrainer.train_epoch = recorded
+        try:
+            out, dt, counts = run("train", ["train", str(cfg)])
+        finally:
+            LinkPredictionTrainer.train_epoch = train_epoch
+        trained = json.loads(out[-1])
+        trainer, e = epochs[0]
+        if trainer.device.type != ("cuda" if device is None else torch.device(device).type):
+            raise AssertionError("train did not run on the GPU")
+        print(f"tools_cli train: examples/configuration/fb15k_237.yaml with dataset_dir and "
+              f"model_dir redirected; one cut: num_epochs {epochs_in_yaml} -> 1. Epoch: loss "
+              f"{e['loss']:.6f}  {e['epoch_time_s']:.4f} s  {e['edges_per_sec']:.1f} edges/s; "
+              f"command {dt:.2f} s; test MRR {trained['mrr']:.6f}  [{card}]", flush=True)
+        batches = trainer.num_batches
+        eval_batches = -(-FB_VALID // BATCH) + -(-FB_TEST // BATCH)
+        if counts != {"gather_rows": batches + 2 * eval_batches,
+                      "sparse_adagrad_update_": batches, "gather_sum": 0}:
+            raise AssertionError(f"train launched {counts}, expected {batches} training "
+                                 f"batches and {eval_batches} evaluation batches")
+
+        # 4. eval, predict, postprocess
+        out, dt, counts = run("eval", ["eval", str(cfg)])
+        evaluated = json.loads(out[-1])
+        test_batches = -(-FB_TEST // BATCH)
+        if any(evaluated[k] != trained[k] for k in TOOLS_METRIC_KEYS):
+            raise AssertionError(f"eval gave {evaluated}, train {trained}")
+        if counts != {"gather_rows": 2 * test_batches, "sparse_adagrad_update_": 0,
+                      "gather_sum": 0}:
+            raise AssertionError(f"eval launched {counts}")
+        print(f"tools_cli eval: {dt:.2f} s; reproduced train's test metrics exactly", flush=True)
+        pred = tmp / "predict"
+        _, dt, counts = run("predict", ["predict", "--config", str(cfg), "--output_dir",
+                                        str(pred), "--save_ranks", "--save_scores"])
+        metrics = {}
+        for line in (pred / "metrics.txt").read_text().splitlines():
+            k, v = line.split(": ")
+            metrics[k] = v
+        if any(float(metrics[k]) != evaluated[k] for k in TOOLS_METRIC_KEYS):
+            raise AssertionError(f"predict's metrics.txt {metrics} differ from eval's {evaluated}")
+        ranks = np.loadtxt(pred / "ranks.csv", delimiter=",", ndmin=2)
+        scores = np.loadtxt(pred / "scores.csv", delimiter=",", ndmin=2)
+        mrr_err = abs(float(np.mean(1.0 / ranks)) - evaluated["mrr"])
+        if ranks.shape[0] != FB_TEST or scores.shape != ranks.shape or mrr_err > 1e-6 or \
+                not np.isfinite(scores).all():
+            raise AssertionError(f"ranks {ranks.shape}, scores {scores.shape}, mean 1/rank off "
+                                 f"the MRR by {mrr_err}")
+        if counts["gather_rows"] != 4 * test_batches or counts["sparse_adagrad_update_"]:
+            raise AssertionError(f"predict launched {counts}")
+        print(f"tools_cli predict: {dt:.2f} s; metrics.txt equals eval's; ranks.csv "
+              f"{ranks.shape[0]} rows x {ranks.shape[1]} directions, mean 1/rank off the MRR "
+              f"by {mrr_err:.2e}", flush=True)
+        query = tmp / "query.tsv"
+        query.write_text("".join(raw_paths[2].read_text().splitlines(True)[:TOOLS_PREDICT_LINES]))
+        pred_raw = tmp / "predict_raw"
+        out, dt, counts = run("predict input_file", [
+            "predict", "--config", str(cfg), "--output_dir", str(pred_raw), "--save_ranks",
+            "--input_file", str(query)])
+        mapped = _load_input_edges(str(query), str(ds))
+        if not np.array_equal(mapped, load_split(str(ds), "test")[:TOOLS_PREDICT_LINES]):
+            raise AssertionError("the raw input's ids did not map to the preprocessed test edges")
+        res = json.loads(out[-1])
+        ranks = np.loadtxt(pred_raw / "ranks.csv", delimiter=",", ndmin=2)
+        if res["num_evaluated"] != 2 * TOOLS_PREDICT_LINES or ranks.shape[0] != TOOLS_PREDICT_LINES \
+                or not 0.0 < res["mrr"] <= 1.0 or counts["gather_rows"] == 0:
+            raise AssertionError(f"predict --input_file: {res}, ranks {ranks.shape}, {counts}")
+        print(f"tools_cli predict --input_file: {TOOLS_PREDICT_LINES} raw test lines through the "
+              f"mapping files in {dt:.2f} s, MRR {res['mrr']:.6f}", flush=True)
+        values = np.load(tmp / "model" / "table__values.npy")
+        _, dt_bin, _ = run("postprocess bin", ["postprocess", "--model_dir", str(tmp / "model"),
+                                               "--output_dir", str(tmp / "emb_bin"),
+                                               "--format", "bin"])
+        if (tmp / "emb_bin" / "embeddings.bin").read_bytes() != values.astype(np.float32).tobytes():
+            raise AssertionError("postprocess --format bin differs from the checkpoint's table")
+        _, dt_csv, _ = run("postprocess csv", ["postprocess", "--model_dir", str(tmp / "model"),
+                                               "--output_dir", str(tmp / "emb_csv"),
+                                               "--dataset_dir", str(ds)])
+        lines = (tmp / "emb_csv" / "embeddings.csv").read_text().splitlines()
+        mapping = np.genfromtxt(ds / "nodes" / "node_mapping.txt", delimiter=",", dtype=str)
+        rows_by_id = {line.split(",", 1)[0]: line for line in lines}
+        for raw_id, new_id in mapping[:: max(1, len(mapping) // 100)]:
+            want_line = raw_id + "," + ",".join(f"{x:.6f}" for x in values[int(new_id)])
+            if rows_by_id.get(raw_id) != want_line:
+                raise AssertionError(f"embeddings.csv row of {raw_id} is not table row {new_id}")
+        if len(lines) != len(values) or not set(mapping[:, 0]) <= set(rows_by_id):
+            raise AssertionError(f"embeddings.csv has {len(lines)} rows for {len(values)} table "
+                                 "rows, or misses raw ids")
+        print(f"tools_cli postprocess: bin ({dt_bin:.2f} s) equals the checkpoint's "
+              f"{values.shape} table; csv ({dt_csv:.2f} s) one row per table row, raw ids from "
+              f"node_mapping.txt ({len(mapping)} nodes)", flush=True)
+
+        # 5. verify_baselines on the synthetic twins, 10 epochs
+        out, dt, counts = run("verify_baselines", ["verify_baselines", "--synthetic", "--dataset",
+                                                   "all", "--data-root", str(tmp / "vb")])
+        reports = [json.loads(line) for line in out if line.startswith("{")]
+        if [r["dataset"] for r in reports] != ["fb15k_237", "ogbn_arxiv"] or not all(
+                r["passed"] for r in reports) or min(counts.values()) == 0:
+            raise AssertionError(f"verify_baselines: {reports}, launches {counts}")
+        print(f"tools_cli verify_baselines --synthetic: {dt:.2f} s, "
+              + "; ".join(f"{r['dataset']} {r['metric']} {r['value']} (>= {r['threshold']})"
+                          for r in reports) + f"  [{card}]", flush=True)
+
+        # 6. torch.profiler around 20 batches of the trained model
+        b = trainer.batch_size
+        perm = trainer._epoch_permutation(1)
+        shuffled, masks = trainer.edges[perm], perm < trainer.num_edges
+        for c in run.counters.values():
+            c.launches = 0
+        with profiling.trace(str(tmp / "trace"), device=device):
+            for i in range(TOOLS_PROFILE_BATCHES):
+                trainer._batch_step(shuffled[i * b:(i + 1) * b], masks[i * b:(i + 1) * b])
+            if trainer.device.type == "cuda":
+                torch.cuda.synchronize()
+        for name, c in run.counters.items():
+            run.launches[name]["tools_cli profiling"] = c.launches
+        kernels = profiling.op_breakdown(str(tmp / "trace"), top=100_000, category="kernel")
+        names = [k["op"] for k in kernels]
+        for want_kernel in ("gather_rows_kernel", "adagrad_kernel"):
+            if trainer.device.type == "cuda" and not any(want_kernel in n for n in names):
+                raise AssertionError(f"op_breakdown lists no {want_kernel}: {names[:20]}")
+        print(f"tools_cli profiling: {TOOLS_PROFILE_BATCHES} batches under "
+              f"profiling.trace(), op_breakdown's top ten device operations (us per batch):",
+              flush=True)
+        for k in kernels[:10]:
+            print(f"  {k['total_us'] / TOOLS_PROFILE_BATCHES:10.2f}  {k['op'][:100]}", flush=True)
+        total_us = sum(k["total_us"] for k in kernels)
+        print(f"tools_cli profiling: {total_us / TOOLS_PROFILE_BATCHES:.2f} us of device "
+              f"kernels per batch in {len(kernels)} kinds; the port's own (us per batch):",
+              flush=True)
+        for k in kernels:
+            if "gather_rows_kernel" in k["op"] or "adagrad_kernel" in k["op"]:
+                print(f"  {k['total_us'] / TOOLS_PROFILE_BATCHES:10.2f}  rank "
+                      f"{names.index(k['op']) + 1}  {k['op'][:100]}  [{card}]", flush=True)
+
+        # 7. env_info and db2graph in processes of their own, importing no JAX
+        if device is None:
+            proc = subprocess.run([sys.executable, "-X", "importtime", "-m",
+                                   "marius_tpu_torch.tools.cli", "env_info"], cwd=here,
+                                  capture_output=True, text=True, timeout=300, check=True)
+            info = yaml.safe_load(proc.stdout)
+            kind = torch.cuda.get_device_name(0)
+            if kind not in proc.stdout or info["devices"]["platform"] != "gpu" or \
+                    info["devices"]["count"] != torch.cuda.device_count():
+                raise AssertionError(f"env_info does not name the card {kind}: {info}")
+            modules = imported_modules(proc.stderr)
+            import sqlite3
+            db = tmp / "graph.db"
+            conn = sqlite3.connect(db)
+            conn.execute("CREATE TABLE follows (a TEXT, rel TEXT, b TEXT)")
+            conn.executemany("INSERT INTO follows VALUES (?,?,?)",
+                             [("u1", "follows", "u2"), ("u2", "follows", "u3"),
+                              ("u3", "likes", "u1")])
+            conn.commit()
+            conn.close()
+            db_cfg = tmp / "db.yaml"
+            db_cfg.write_text(yaml.safe_dump({"db_type": "sqlite", "connection": {
+                "database": str(db)}, "edge_queries": ["SELECT a, rel, b FROM follows"]}))
+            proc = subprocess.run([sys.executable, "-X", "importtime", "-m",
+                                   "marius_tpu_torch.tools.cli", "db2graph", "--config_path",
+                                   str(db_cfg), "--output_directory", str(tmp / "db_out")],
+                                  cwd=here, capture_output=True, text=True, timeout=300, check=True)
+            if (tmp / "db_out" / "edges.txt").read_text() != \
+                    "u1\tfollows\tu2\nu2\tfollows\tu3\nu3\tlikes\tu1\n":
+                raise AssertionError("db2graph wrote another edges.txt")
+            modules |= imported_modules(proc.stderr)
+            bad = sorted(m for m in modules if m.split(".")[0] in ("jax", "jaxlib", "marius_tpu"))
+            if bad or "marius_tpu_torch.tools.env_info" not in modules:
+                raise AssertionError(f"the command processes imported {bad}")
+            print(f"tools_cli subprocesses: env_info names {kind} "
+                  f"({info['devices']['count']} device); db2graph wrote the expected "
+                  f"edges.txt; {len(modules)} modules imported, none of JAX or marius_tpu",
+                  flush=True)
+    return run.launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a GPU",
@@ -4363,6 +4719,11 @@ def main() -> int:
     shapes = nc_ooc.pop("shapes")
     kernels[0]["nc_oocore_outer"] = shapes["gather_rows"]
     kernels[2]["nc_oocore_layer0"] = shapes["gather_sum"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tools = tools_cli(card)
+    print(f"tools_cli: {time.perf_counter() - t0:.1f} s in all", flush=True)
 
     # each row's launches: the sum over the paths it runs on, each part's beside it
     by_part = {
@@ -4374,7 +4735,7 @@ def main() -> int:
                         **locality["gather_rows"], **emb_full["gather_rows"],
                         **nc_reload["gather_rows"], **nc_ooc["gather_rows"],
                         **rel["gather_rows"], **lp16["gather_rows"], **nc16["gather_rows"],
-                        **oocore16["gather_rows"]},
+                        **oocore16["gather_rows"], **tools["gather_rows"]},
         "sparse_adagrad_update_": {"lp flagship": flagship["sparse_adagrad_update_"],
                                    "lp_manager train": manager["sparse_adagrad_update_"],
                                    **sampled["sparse_adagrad_update_"],
@@ -4391,12 +4752,13 @@ def main() -> int:
                                    "lp_corrupt_rel train": rel["sparse_adagrad_update_"],
                                    "lp_bf16 train": lp16["sparse_adagrad_update_"],
                                    **nc16["sparse_adagrad_update_"],
-                                   **oocore16["sparse_adagrad_update_"]},
+                                   **oocore16["sparse_adagrad_update_"],
+                                   **tools["sparse_adagrad_update_"]},
         "gather_sum": {**nc_counts, **sampled["gather_sum"], **gat["gather_sum"],
                        **rgcn_full["gather_sum"], **gat_full["gather_sum"], **gnn["gather_sum"],
                        **gnn_oocore["gather_sum"], **locality["gather_sum"],
                        **emb_full["gather_sum"], **nc_reload["gather_sum"],
-                       **nc_ooc["gather_sum"], **nc16["gather_sum"]},
+                       **nc_ooc["gather_sum"], **nc16["gather_sum"], **tools["gather_sum"]},
     }
     for k in kernels:
         k["launches"] = sum(by_part[k["name"]].values())

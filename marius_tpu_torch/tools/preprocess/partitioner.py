@@ -5,7 +5,7 @@ tools/preprocess/partitioners/torch_partitioner.py:12-46): nodes are divided
 into ``num_partitions`` contiguous ranges of ceil(num_nodes / num_partitions);
 edges are stably reordered by (src partition, dst partition) so that edge
 bucket (i, j) occupies a contiguous run; the n^2 bucket sizes come back in
-row-major order.
+row-major order and are written as ``<split>_partition_offsets.txt``.
 """
 
 from __future__ import annotations
@@ -39,3 +39,14 @@ def partition_edges(edges: np.ndarray, num_nodes: int, num_partitions: int
     num_partitions**2 bucket sizes), through the native stable counting sort:
     the same order as :func:`partition_order`, in O(n)."""
     return native.partition_rows(edges, num_nodes, num_partitions)
+
+
+def write_partition_offsets(path: str, bucket_sizes: np.ndarray) -> None:
+    """``<split>_partition_offsets.txt``: one bucket size per line, row-major."""
+    with open(path, "w") as f:
+        f.write("\n".join(str(int(s)) for s in bucket_sizes) + "\n")
+
+
+def read_partition_offsets(path: str) -> np.ndarray:
+    with open(path) as f:
+        return np.asarray([int(line) for line in f if line.strip()], np.int64)

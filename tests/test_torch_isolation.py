@@ -8,6 +8,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import yaml
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -26,7 +27,7 @@ print(len(names), bad)
 def test_port_imports_no_jax_and_no_marius_tpu():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, capture_output=True,
                          text=True, timeout=120, check=True).stdout.split()
-    assert int(out[0]) >= 59, out   # every module of the slices so far was imported
+    assert int(out[0]) >= 77, out   # every module of the slices so far was imported
     assert out[1:] == ["[]"], out
 
 
@@ -180,3 +181,39 @@ def test_manager_without_device_needs_cuda(monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             entry(load_config(raw))
     assert not (tmp_path / "model").exists()
+
+
+def test_cli_without_device_needs_cuda(monkeypatch, tmp_path):
+    from marius_tpu_torch.tools.cli import main
+    from marius_tpu_torch.tools.preprocess import generate_random_dataset_lp
+    from tests.test_manager import LP_BASE
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    raw = {**LP_BASE, "storage": {"dataset": {"dataset_dir": str(tmp_path / "ds")},
+                                  "model_dir": str(tmp_path / "model")}}
+    generate_random_dataset_lp(str(tmp_path / "ds"), num_nodes=20, num_edges=200,
+                               num_relations=3)
+    cfg = tmp_path / "config.yaml"
+    cfg.write_text(yaml.safe_dump(raw))
+    for cmd in (["train", str(cfg)], ["eval", str(cfg)],
+                ["predict", "--config", str(cfg), "--output_dir", str(tmp_path / "p")],
+                ["verify_baselines", "--synthetic", "--dataset", "fb15k_237",
+                 "--data-root", str(tmp_path / "vb")]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(cmd)
+    assert not (tmp_path / "model").exists()
+
+
+def test_cli_runs_as_a_module_without_jax(tmp_path):
+    """``python -m marius_tpu_torch.tools.cli``: every module the process
+    imports (``-X importtime`` lists them) is outside JAX and marius_tpu."""
+    out = subprocess.run([sys.executable, "-X", "importtime", "-m", "marius_tpu_torch.tools.cli",
+                          "env_info"], cwd=REPO, capture_output=True, text=True, timeout=120,
+                         check=True)
+    info = yaml.safe_load(out.stdout)
+    assert info["marius_tpu_torch"]["version"] and "torch" in info and "devices" in info
+    imported = {line.rsplit("|", 1)[-1].strip() for line in out.stderr.splitlines()
+                if line.startswith("import time:")}
+    assert "marius_tpu_torch.tools.env_info" in imported
+    assert not {m for m in imported
+                if m.split(".")[0] in ("jax", "jaxlib", "marius_tpu")}, imported
