@@ -10,7 +10,9 @@ version on the card (main-path shapes and odd shapes, bit for bit), times each
 (kernel, plain version, one-call PyTorch equivalent, bound; the row gather
 also at the out-of-core batch, 30,000 distinct ids into a 17.2 GB partition
 buffer, and at K = 1, the launch floor; the Adagrad kernel also on that
-buffer's pair of 17.2 GB tensors), then drives the
+buffer's pair of 17.2 GB tensors, and with values, state and grads as views
+1-3 elements into their storage and int32 ids, each timed shape printed with
+its launch plan), then drives the
 port's main paths through their public entry points, each with the launch
 counters set to 0 just before it and read just after:
 
@@ -245,7 +247,10 @@ import yaml
 NUM_NODES, NUM_RELS, NUM_EDGES, DIM, BATCH = 14_541, 237, 272_115, 50, 1000
 CHUNKS, NEGATIVES = 10, 500
 GATHER_IDS = 2 * BATCH + 2 * CHUNKS * NEGATIVES   # ids per batch on the dense branch
-ODD_DIMS = (1, 33, 50, 128, 257)
+# the Adagrad checks' widths (odd ones, the flagship's 50, the buffer's 100, 200-element
+# rows), and the (values, state, grads) element offsets into their storage each is checked at
+ADAGRAD_DIMS = (1, 33, 50, 100, 128, 200, 257)
+ADAGRAD_VIEW_OFFSETS = ((0, 0, 0), (1, 0, 0), (0, 2, 0), (0, 0, 3), (1, 2, 3), (3, 1, 2))
 # the row gather's widths: 4-, 8- and 16-byte vectors, d = 100 (the out-of-core width)
 GATHER_DIMS = (1, 2, 3, 5, 33, 50, 100, 128, 257)
 # the out-of-core batch: Freebase86m's resident partition buffer, 8 of 16 partitions of
@@ -466,25 +471,60 @@ def check_gather(gather, dev, rates):
     }
 
 
+def plan_text(p: dict) -> str:
+    """An Adagrad launch plan (``AdagradPlan._asdict()``) as printed beside its time."""
+    return (f"V={p['vec_bytes']} G={p['lanes']} U={p['unroll']} grid={p['grid']} "
+            f"stores={'evict-first' if p['stream_stores'] else 'default'}")
+
+
+def check_adagrad_views(adagrad, dev, g, dtype) -> float:
+    """The Adagrad kernel bit for bit against its plain version at every
+    ADAGRAD_DIMS width, with values, state and grads each a contiguous view
+    0-3 elements into its storage (ADAGRAD_VIEW_OFFSETS), with int64 and
+    int32 ids, some below 0 and some at or above N (skipped); rows that no id
+    names must not move. Returns the largest |kernel - plain| seen (0)."""
+    n, k = 1009, 777
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    scale = 0.1 if dtype == torch.bfloat16 else 1.0   # bf16 steps kept small
+    err = 0.0
+
+    def view(rows, d, off, fill):
+        return fill(torch.empty(rows * d + off, device=dev)).to(dtype)[off:].view(rows, d)
+
+    for d in ADAGRAD_DIMS:
+        for offs in ADAGRAD_VIEW_OFFSETS:
+            vals = view(n, d, offs[0], lambda t: t.normal_(generator=g))
+            state = view(n, d, offs[1], lambda t: t.uniform_(generator=g))
+            grads = view(k, d, offs[2], lambda t: t.normal_(generator=g).mul_(scale))
+            ids = torch.randperm(n + 50, device=dev, generator=g)[:k] - 20
+            untouched = torch.ones(n, dtype=torch.bool, device=dev)
+            untouched[ids[(ids >= 0) & (ids < n)]] = False
+            before = (vals[untouched].clone(), state[untouched].clone())
+            for idt in (torch.int64, torch.int32):
+                v_ref, s_ref = vals.clone(), state.clone()
+                adagrad.sparse_adagrad_update_plain_(v_ref, s_ref, ids, grads, 0.1)
+                adagrad.sparse_adagrad_update_(vals, state, ids.to(idt), grads, 0.1)
+                torch.cuda.synchronize()
+                where = f"{dtype} d={d}, offsets {offs}, {idt} ids"
+                err = max(err, float((vals.float() - v_ref.float()).abs().max()),
+                          float((state.float() - s_ref.float()).abs().max()))
+                if not (torch.equal(vals.view(bits), v_ref.view(bits))
+                        and torch.equal(state.view(bits), s_ref.view(bits))):
+                    raise AssertionError(f"sparse_adagrad_update_ differs from plain at {where}")
+            if not (torch.equal(vals[untouched].view(bits), before[0].view(bits))
+                    and torch.equal(state[untouched].view(bits), before[1].view(bits))):
+                raise AssertionError(f"sparse_adagrad_update_ wrote an untouched row at {dtype} "
+                                     f"d={d}, offsets {offs}")
+    return err
+
+
 def check_adagrad(adagrad, dev, rates):
+    """Bit for bit against the plain version at every ADAGRAD_DIMS width and
+    view offset with both id types (check_adagrad_views), at the flagship's
+    dense-accumulate branch (every row, half with zero gradients) and on
+    Freebase86m's buffer pair; timed at both, each with its plan."""
     g = torch.Generator(device=dev).manual_seed(2)
-    for d in ODD_DIMS:
-        n = 1009
-        vals = torch.randn(n, d, device=dev, generator=g)
-        state = torch.rand(n, d, device=dev, generator=g)
-        ids = torch.randperm(n + 50, device=dev, generator=g)[:777]   # ids >= n: padding
-        grads = torch.randn(777, d, device=dev, generator=g)
-        v1, s1, v2, s2 = vals.clone(), state.clone(), vals.clone(), state.clone()
-        adagrad.sparse_adagrad_update_(v1, s1, ids, grads, 0.1)
-        adagrad.sparse_adagrad_update_plain_(v2, s2, ids, grads, 0.1)
-        torch.cuda.synchronize()
-        if not (torch.equal(v1, v2) and torch.equal(s1, s2)):
-            raise AssertionError(f"sparse_adagrad_update_ differs from plain at d={d}")
-        untouched = torch.ones(n, dtype=torch.bool, device=dev)
-        untouched[ids[ids < n]] = False
-        if not (torch.equal(v1[untouched], vals[untouched])
-                and torch.equal(s1[untouched], state[untouched])):
-            raise AssertionError(f"sparse_adagrad_update_ wrote an untouched row at d={d}")
+    views_err = check_adagrad_views(adagrad, dev, g, torch.float32)
     # the trainer's dense-accumulate branch: every row, about half with G == 0
     vals = torch.randn(NUM_NODES, DIM, device=dev, generator=g)
     state = torch.rand(NUM_NODES, DIM, device=dev, generator=g)
@@ -496,7 +536,7 @@ def check_adagrad(adagrad, dev, rates):
     adagrad.sparse_adagrad_update_(v1, s1, ids, grads, 0.1)
     adagrad.sparse_adagrad_update_plain_(v2, s2, ids, grads, 0.1)
     torch.cuda.synchronize()
-    err = max(float((v1 - v2).abs().max()), float((s1 - s2).abs().max()))
+    err = max(float((v1 - v2).abs().max()), float((s1 - s2).abs().max()), views_err)
     if err != 0.0:
         raise AssertionError(f"sparse_adagrad_update_ differs from plain by {err}")
     if not (torch.equal(v1[zero_rows], vals[zero_rows])
@@ -527,11 +567,29 @@ def check_adagrad(adagrad, dev, rates):
                                                                          0.1)),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": time_ms(library),
+        "plan": adagrad.tensor_plan(v1, s1, ids, grads)._asdict(),
     }
     del vals, state, v1, s1, v2, s2, v3, s3, grads, sparse_grads
     out["out_of_core"] = adagrad_out_of_core(adagrad, dev, rates)
     out["max_abs_err"] = max(out["max_abs_err"], out["out_of_core"]["max_abs_err"])
     return out
+
+
+def buffer_id_batches(dev, g) -> list:
+    """OOC_BATCHES batches of the out-of-core Adagrad update's ids: 30,000
+    sorted distinct ids into the buffer pair, then 1,000 padding ids equal to
+    buffer_rows at the tail, as unique_padded leaves them."""
+    from marius_tpu_torch.ops.unique import unique_padded
+
+    batches = []
+    for _ in range(OOC_BATCHES):
+        draw = torch.randint(0, OOC_ROWS, (OOC_IDS + 1000,), device=dev, generator=g)
+        ids = unique_padded(draw, OOC_IDS + 1000, OOC_ROWS).ids
+        if int((ids < OOC_ROWS).sum()) < OOC_IDS:
+            raise AssertionError("fewer than 30,000 distinct ids drawn")
+        ids[OOC_IDS:] = OOC_ROWS
+        batches.append(ids)
+    return batches
 
 
 def adagrad_out_of_core(adagrad, dev, rates, dtype=torch.float32) -> dict:
@@ -545,21 +603,10 @@ def adagrad_out_of_core(adagrad, dev, rates, dtype=torch.float32) -> dict:
     torch.optim.adagrad's sparse call."""
     from torch.optim.adagrad import adagrad as torch_adagrad
 
-    from marius_tpu_torch.ops.unique import unique_padded
-
     g = torch.Generator(device=dev).manual_seed(6)
     values = torch.empty((OOC_ROWS, FB86M_DIM), device=dev, dtype=dtype).normal_(generator=g)
     state = torch.empty((OOC_ROWS, FB86M_DIM), device=dev, dtype=dtype).uniform_(generator=g)
-    batches = []
-    for _ in range(OOC_BATCHES):
-        # 30,000 sorted distinct ids, then 1,000 padding ids == buffer_rows at the tail,
-        # as unique_padded leaves them
-        draw = torch.randint(0, OOC_ROWS, (OOC_IDS + 1000,), device=dev, generator=g)
-        ids = unique_padded(draw, OOC_IDS + 1000, OOC_ROWS).ids
-        if int((ids < OOC_ROWS).sum()) < OOC_IDS:
-            raise AssertionError("fewer than 30,000 distinct ids drawn")
-        ids[OOC_IDS:] = OOC_ROWS
-        batches.append(ids)
+    batches = buffer_id_batches(dev, g)
     ids = batches[0]
     valid = ids[ids < OOC_ROWS]
     if int(valid.max()) * FB86M_DIM < 2 ** 31:
@@ -601,9 +648,151 @@ def adagrad_out_of_core(adagrad, dev, rates, dtype=torch.float32) -> dict:
                                       reps=10, samples=5),
         "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err, "k": k, "rows": OOC_ROWS,
         "d": FB86M_DIM, "bound_bytes": nbytes,
+        "plan": adagrad.tensor_plan(values, state, ids, grads)._asdict(),
     }
     del values, state, batches, sparse, grads
     torch.cuda.empty_cache()
+    return out
+
+
+# The six shapes the main paths launch the Adagrad kernel at: name, dtype, table rows,
+# d, ids that update a row, padding ids, id dtype, share of rows whose gradient is 0.
+# The buffer pairs are lp_oocore's and lp_oocore_bf16's (one batch's distinct ids, cycled
+# over OOC_BATCHES); the others update every row in order: the flagship's and lp_bf16's
+# dense-accumulate branch (rows no id of the batch names have a zero gradient, about
+# half, as check_adagrad draws them), lp_gnn's outer hop (int32, with the padding id),
+# nc_embedding_full's table.
+ADAGRAD_SHAPES = (
+    ("buffer_pair_f32", torch.float32, OOC_ROWS, FB86M_DIM, OOC_IDS, 1000, torch.int64, 0.0),
+    ("buffer_pair_bf16", torch.bfloat16, OOC_ROWS, FB86M_DIM, OOC_IDS, 1000, torch.int64, 0.0),
+    ("flagship_bf16", torch.bfloat16, NUM_NODES, DIM, NUM_NODES, 0, torch.int64, 0.5),
+    ("flagship_f32", torch.float32, NUM_NODES, DIM, NUM_NODES, 0, torch.int64, 0.5),
+    ("lp_gnn_outer", torch.float32, NUM_NODES, DIM, NUM_NODES, 1, torch.int32, 0.0),
+    ("embedding_all_rows", torch.float32, ARXIV_NODES, NC_DIM, ARXIV_NODES, 0, torch.int64,
+     0.0),
+)
+
+
+def parent_adagrad(path: str):
+    """The Adagrad entry points of a library built from an earlier adagrad.cu
+    (values, state, ids, grads, n_rows, k, d, lr, stream), by (dtype, id dtype)."""
+    import ctypes
+
+    lib = ctypes.CDLL(path)
+    fns = {}
+    for dt, dn in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for it, iname in ((torch.int64, "i64"), (torch.int32, "i32")):
+            fn = getattr(lib, f"marius_sparse_adagrad_{dn}_{iname}")
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 3 + [ctypes.c_float,
+                                                                           ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            fns[dt, it] = fn
+    return fns
+
+
+def adagrad_turns(adagrad, rates, card, parent=None) -> dict:
+    """The Adagrad kernel at each of ADAGRAD_SHAPES, timed in turns within
+    one process: the parent commit's kernel (``parent``, from
+    parent_adagrad, when given), the kernel with its plan, and the kernel
+    with the other store policy, in the order parent, kernel, other,
+    other, kernel, parent. Each runs once bit for bit against the plain
+    version on the rows it touches before it is timed. Beside them: the
+    plain version, torch.optim.adagrad's sparse call and the bound (each
+    input read once, each output written once, at the card's rate). A
+    measurement run on its own, by a script that builds the parent's
+    adagrad.cu with nvcc; the smoke run does not call it."""
+    from torch.optim.adagrad import adagrad as torch_adagrad
+
+    dev = torch.device("cuda")
+    out = {}
+    for name, dtype, n, d, k_valid, pad, idt, zero in ADAGRAD_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(31)
+        values = torch.empty((n, d), device=dev, dtype=dtype).normal_(generator=g)
+        state = torch.empty((n, d), device=dev, dtype=dtype).uniform_(generator=g)
+        if n == OOC_ROWS:
+            batches = [b.to(idt) for b in buffer_id_batches(dev, g)]
+        else:
+            batches = [torch.arange(n + pad, device=dev, dtype=idt)]
+        k = batches[0].numel()
+        grads = (torch.randn(k, d, device=dev, generator=g) * 0.1).to(dtype)
+        grads[torch.rand(k, device=dev, generator=g) < zero] = 0
+        p = adagrad.tensor_plan(values, state, batches[0], grads)
+        plans = {"kernel": p, "other_stores": p._replace(stream_stores=not p.stream_stores)}
+
+        def run_plan(q, ids):
+            adagrad.launch(values, state, ids, grads, 0.1, q)
+
+        def run_parent(ids):
+            with torch.cuda.device(dev):
+                rc = parent[dtype, idt](values.data_ptr(), state.data_ptr(), ids.data_ptr(),
+                                        grads.data_ptr(), n, k, d, 0.1,
+                                        torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"the parent's Adagrad kernel failed: CUDA error {rc}")
+
+        runs = {v: (lambda ids, q=q: run_plan(q, ids)) for v, q in plans.items()}
+        if parent is not None:
+            runs["parent"] = run_parent
+        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        ids = batches[0]
+        keep = (ids >= 0) & (ids < n)
+        valid = ids[keep].long()
+        err = 0.0
+        for v, run in runs.items():
+            v_ref, s_ref = values[valid].clone(), state[valid].clone()
+            adagrad.sparse_adagrad_update_plain_(v_ref, s_ref, torch.arange(valid.numel(),
+                                                                            device=dev),
+                                                 grads[keep], 0.1)
+            run(ids)
+            torch.cuda.synchronize()
+            if not (torch.equal(values[valid].view(bits), v_ref.view(bits))
+                    and torch.equal(state[valid].view(bits), s_ref.view(bits))):
+                raise AssertionError(f"Adagrad {v} differs from plain at {name}")
+            err = max(err, float((values[valid].float() - v_ref.float()).abs().max()))
+
+        def cycled(run):
+            it = itertools.cycle(batches)
+            return lambda: run(next(it))
+
+        order = ["kernel", "other_stores", "other_stores", "kernel"]
+        if parent is not None:
+            order = ["parent", *order, "parent"]
+        ms = {v: [] for v in runs}
+        for v in order:
+            ms[v].append(time_ms(cycled(runs[v])))
+        big = n == OOC_ROWS or n == ARXIV_NODES
+        plain_ms = time_ms(cycled(lambda ids: adagrad.sparse_adagrad_update_plain_(
+            values, state, ids, grads, 0.1)), **({"reps": 10, "samples": 5} if big else {}))
+        sparse = [torch.sparse_coo_tensor(b[(b >= 0) & (b < n)].long()[None],
+                                          grads[(b >= 0) & (b < n)], (n, d), is_coalesced=True,
+                                          check_invariants=False) for b in batches]
+        it_sparse = itertools.cycle(sparse)
+        step = torch.zeros((), device=dev)
+
+        def library():
+            torch_adagrad([values], [next(it_sparse)], [state], [step], has_sparse_grad=True,
+                          lr=0.1, weight_decay=0.0, lr_decay=0.0, eps=1e-10, maximize=False)
+
+        library_ms = library_or_none(library, "torch.optim.adagrad (sparse)", dtype,
+                                     **({"reps": 10, "samples": 5} if big else {}))
+        nbytes = 5 * k_valid * d * values.element_size() + k * batches[0].element_size()
+        b_ms, b_by = bound_ms(nbytes, 7 * k_valid * d, rates)
+        out[name] = {"ms": ms, "plans": {v: q._asdict() for v, q in plans.items()},
+                     "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "bound_bytes": nbytes, "max_abs_err": err,
+                     "k": k, "padding": pad, "rows": n, "d": d, "dtype": str(dtype),
+                     "ids": str(idt), "zero_gradient_share": zero}
+        times = "  ".join(f"{v} " + ", ".join(f"{t * 1e3:.2f}" for t in ts) + " us"
+                          + (f" ({plan_text(plans[v]._asdict())})" if v in plans else "")
+                          for v, ts in ms.items())
+        lib = "-" if library_ms is None else f"{library_ms * 1e3:.2f} us"
+        print(f"adagrad turns, {name} ({k} {idt} ids, {pad} padding, {n} x {d} {dtype}, "
+              f"{zero:.0%} of the rows with zero gradient, "
+              f"{nbytes / 1e6:.4f} MB): {times}  plain {plain_ms * 1e3:.2f} us  "
+              f"torch.optim.adagrad (sparse) {lib}  bound {b_ms * 1e3:.2f} us ({b_by})  "
+              f"max_abs_err {err}  [{card}]", flush=True)
+        del values, state, grads, batches, sparse
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2797,12 +2986,12 @@ def lp_gnn_shapes(trainer, rates, card) -> dict:
            "plain_ms": time_ms(lambda: adagrad.sparse_adagrad_update_plain_(
                v2, s2, outer, grads, 0.1)),
            "library_ms": time_ms(library), "bound_ms": b_ms, "bound_by": b_by,
-           "bound_bytes": nbytes}
-    print(f"sparse_adagrad_update_, lp_gnn_outer ({k} ids + {ada['padding_ids']} padding, "
-          f"d={d}, {nbytes / 1e6:.4f} MB): max_abs_err {err}  kernel {ada['ms'] * 1e3:.2f} us  "
-          f"plain {ada['plain_ms'] * 1e3:.2f} us  torch.optim.adagrad (sparse) "
-          f"{ada['library_ms'] * 1e3:.2f} us  bound {b_ms * 1e3:.2f} us ({b_by})  [{card}]",
-          flush=True)
+           "bound_bytes": nbytes, "plan": adagrad.tensor_plan(v1, s1, outer, grads)._asdict()}
+    print(f"sparse_adagrad_update_, lp_gnn_outer ({k} {outer.dtype} ids + {ada['padding_ids']} "
+          f"padding, d={d}, {nbytes / 1e6:.4f} MB): max_abs_err {err}  kernel "
+          f"{ada['ms'] * 1e3:.2f} us  plain {ada['plain_ms'] * 1e3:.2f} us  torch.optim.adagrad "
+          f"(sparse) {ada['library_ms'] * 1e3:.2f} us  bound {b_ms * 1e3:.2f} us ({b_by})  plan "
+          f"{plan_text(ada['plan'])}  [{card}]", flush=True)
     return {"gather_rows": rows, "gather_sum": sums, "sparse_adagrad_update_": ada}
 
 
@@ -3795,11 +3984,12 @@ def nc_embedding_full(card: str, data, rates) -> dict:
                  v2, s2, ids, grads, 0.1)),
              "library_ms": time_ms(lambda: torch_adagrad(
                  [v3], [sparse], [s3], [step], has_sparse_grad=True, lr=0.1, weight_decay=0.0,
-                 lr_decay=0.0, eps=1e-10, maximize=False))}
+                 lr_decay=0.0, eps=1e-10, maximize=False)),
+             "plan": adagrad.tensor_plan(v1, s1, ids, grads)._asdict()}
     print(f"sparse_adagrad_update_, nc_embedding_full all rows ({n} x {d}): max_abs_err {err}  "
           f"kernel {shape['ms'] * 1e3:.2f} us  plain {shape['plain_ms'] * 1e3:.2f} us  "
           f"torch.optim.adagrad (sparse) {shape['library_ms'] * 1e3:.2f} us  bound "
-          f"{b_ms * 1e3:.2f} us ({b_by})  [{card}]", flush=True)
+          f"{b_ms * 1e3:.2f} us ({b_by})  plan {plan_text(shape['plan'])}  [{card}]", flush=True)
     return {"gather_rows": {"nc_embedding_full train": train[0],
                             "nc_embedding_full eval": evals[0]},
             "gather_sum": {"nc_embedding_full train": train[1],
@@ -4019,18 +4209,7 @@ def bf16_kernel_shapes(gather, adagrad, adj, nc_trainer, rates, card) -> dict:
             "out_of_core": time_bf16_gather(gather, OOC_ROWS, FB86M_DIM, OOC_IDS, OOC_BATCHES,
                                             rates, dev, distinct=True)}
 
-    for d in ODD_DIMS:
-        vals = torch.randn(n, d, device=dev, generator=g).to(bf)
-        state = torch.rand(n, d, device=dev, generator=g).to(bf)
-        ids = torch.randperm(n + 50, device=dev, generator=g)[:777]
-        grads = (torch.randn(777, d, device=dev, generator=g) * 0.1).to(bf)
-        v1, s1, v2, s2 = vals.clone(), state.clone(), vals.clone(), state.clone()
-        adagrad.sparse_adagrad_update_(v1, s1, ids, grads, 0.1)
-        adagrad.sparse_adagrad_update_plain_(v2, s2, ids, grads, 0.1)
-        torch.cuda.synchronize()
-        if not (torch.equal(v1.view(torch.int16), v2.view(torch.int16))
-                and torch.equal(s1.view(torch.int16), s2.view(torch.int16))):
-            raise AssertionError(f"the bf16 Adagrad kernel differs from plain at d={d}")
+    views_err = check_adagrad_views(adagrad, dev, g, bf)
     vals = torch.randn(NUM_NODES, DIM, device=dev, generator=g).to(bf)
     state = torch.rand(NUM_NODES, DIM, device=dev, generator=g).to(bf)
     ids = torch.arange(NUM_NODES, device=dev)
@@ -4054,7 +4233,10 @@ def bf16_kernel_shapes(gather, adagrad, adj, nc_trainer, rates, card) -> dict:
                       weight_decay=0.0, lr_decay=0.0, eps=1e-10, maximize=False)
 
     b_ms, b_by = bound_ms(NUM_NODES * 8 + NUM_NODES * DIM * 2 * 5, NUM_NODES * DIM * 7, rates)
-    flag = {"max_abs_err": 0.0, "bound_ms": b_ms, "bound_by": b_by,
+    err = max(float((v1.float() - v2.float()).abs().max()),
+              float((s1.float() - s2.float()).abs().max()), views_err)
+    flag = {"max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+            "plan": adagrad.tensor_plan(v1, s1, ids, grads)._asdict(),
             "ms": time_ms(lambda: adagrad.sparse_adagrad_update_(v1, s1, ids, grads, 0.1)),
             "plain_ms": time_ms(lambda: adagrad.sparse_adagrad_update_plain_(v2, s2, ids, grads,
                                                                              0.1)),
@@ -4082,10 +4264,11 @@ def bf16_kernel_shapes(gather, adagrad, adj, nc_trainer, rates, card) -> dict:
                                 "torch.optim.adagrad (sparse)"),
                                ("gather_sum", sums, "embedding_bag / torch.sparse.mm")):
         for shape, r in shapes.items():
+            plan = f"  plan {plan_text(r['plan'])}" if "plan" in r else ""
             print(f"{name} bf16, {shape}: max_abs_err {r['max_abs_err']}  kernel "
                   f"{r['ms'] * 1e3:.2f} us  plain {r['plain_ms'] * 1e3:.2f} us  {yard} "
-                  f"{lib(r)}  bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})  [{card}]",
-                  flush=True)
+                  f"{lib(r)}  bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}){plan}  "
+                  f"[{card}]", flush=True)
     for shapes in (rows, adagrad_rows, sums):
         for r in shapes.values():
             if r["max_abs_err"] != 0.0:
@@ -4646,13 +4829,14 @@ def main() -> int:
               f"library {lib}  bound {k['bound_ms'] * 1e3:.2f} us ({k['bound_by']})  [{card}]",
               flush=True)
     print_gather_shapes(kernels[0], card)
+    print(f"sparse_adagrad_update_, flagship plan: {plan_text(kernels[1]['plan'])}", flush=True)
     a = kernels[1]["out_of_core"]
     print(f"sparse_adagrad_update_, out_of_core ({a['rows']} x {a['d']} f32 values and state, "
           f"{a['k']} ids + 1000 padding, {a['bound_bytes'] / 1e6:.4f} MB): "
           f"max_abs_err {a['max_abs_err']} on the touched rows  kernel {a['ms'] * 1e3:.2f} us  "
           f"plain {a['plain_ms'] * 1e3:.2f} us  torch.optim.adagrad (sparse) "
           f"{a['library_ms'] * 1e3:.2f} us  bound {a['bound_ms'] * 1e3:.2f} us ({a['bound_by']})"
-          f"  [{card}]", flush=True)
+          f"  plan {plan_text(a['plan'])}  [{card}]", flush=True)
 
     flagship = train_flagship(card)
     compare_lp_with_cpu()

@@ -19,7 +19,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Tuple
 
 CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -28,6 +28,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SOURCES = ("gather", "adagrad", "nbr_sum")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+#: per (source, device index): (SM count, blocks of its kernels one SM keeps resident)
+_configs: Dict[Tuple[str, int], Tuple[int, int]] = {}
 
 
 def nvcc_path() -> str:
@@ -99,3 +101,28 @@ def library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_target(name, nvcc_path())))
         _loaded[name] = lib
     return lib
+
+
+def device_config(name: str, entry: str, threads: int, index: int) -> Tuple[int, int]:
+    """(SM count, resident blocks per SM) of device ``index`` for the kernels
+    of ``csrc/<name>.cu``, from its ``entry(device, &threads, &sms, &blocks)``
+    at the first call and cached. Raises unless the source's block size is
+    ``threads`` and at least one block fits on an SM."""
+    key = (name, index)
+    if key not in _configs:
+        import torch
+
+        fn = getattr(library(name), entry)
+        fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
+        fn.restype = ctypes.c_int
+        got, sms, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        with torch.cuda.device(index):
+            rc = fn(index, ctypes.byref(got), ctypes.byref(sms), ctypes.byref(blocks))
+        if rc != 0:
+            raise RuntimeError(f"{name}: reading the device's size failed: CUDA error {rc}")
+        if got.value != threads or blocks.value < 1:
+            raise RuntimeError(f"{name}: the kernel has {got.value} threads per block and "
+                               f"{blocks.value} resident blocks per SM; expected {threads} "
+                               "and at least 1")
+        _configs[key] = (sms.value, blocks.value)
+    return _configs[key]

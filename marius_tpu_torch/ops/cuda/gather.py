@@ -18,7 +18,7 @@ kernel with.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, NamedTuple, Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -36,9 +36,6 @@ TABLE_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 #: threads per block and bytes each thread moves per tile (``kThreads`` and
 #: ``kThreadBytes`` in csrc/gather.cu)
 THREADS, THREAD_BYTES = 128, 16
-
-#: per device index: (SM count, blocks of the kernel one SM keeps resident)
-_config: Dict[int, Tuple[int, int]] = {}
 
 
 class GatherPlan(NamedTuple):
@@ -97,22 +94,7 @@ def _kernel(dtype: torch.dtype, id_dtype: torch.dtype):
 def device_config(device: torch.device) -> Tuple[int, int]:
     """(SM count, resident blocks per SM) of ``device``, read from the CUDA
     runtime at the first call and cached."""
-    index = device.index
-    if index not in _config:
-        fn = build.library("gather").marius_gather_rows_config
-        fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
-        fn.restype = ctypes.c_int
-        threads, sms, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-        with torch.cuda.device(index):
-            rc = fn(index, ctypes.byref(threads), ctypes.byref(sms), ctypes.byref(blocks))
-        if rc != 0:
-            raise RuntimeError(f"gather_rows: reading the device's size failed: CUDA error {rc}")
-        if threads.value != THREADS or blocks.value < 1:
-            raise RuntimeError(f"gather_rows: the kernel has {threads.value} threads per block "
-                               f"and {blocks.value} resident blocks per SM; expected "
-                               f"{THREADS} and at least 1")
-        _config[index] = (sms.value, blocks.value)
-    return _config[index]
+    return build.device_config("gather", "marius_gather_rows_config", THREADS, device.index)
 
 
 def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

@@ -15,6 +15,8 @@ kernel in tests/test_torch_full_graph.py. The CUDA kernels round every
 operation on its own and must match the plain versions bit for bit.
 """
 
+import itertools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -168,6 +170,60 @@ def test_gather_plan(d, offset, k):
         assert p.vectors_per_row == 25 and p.grid * tile >= total
 
 
+PLAN_L2 = 50 << 20   # an H100's 50 MB of L2
+
+
+@pytest.mark.parametrize("k", [0, 1, 31, 33, 14541, 31000])
+@pytest.mark.parametrize("elem_bytes", [4, 2])
+@pytest.mark.parametrize("d", [1, 2, 3, 33, 50, 100, 128, 257])
+def test_adagrad_plan(d, elem_bytes, k):
+    """The Adagrad kernel's launch plan, made on the host, with each of
+    values, state and grads 0, 2, 4 or 8 bytes past a 512-byte boundary: the
+    widest whole-element vector that the row and all three addresses allow
+    (an address off its element boundary is refused), 8 bytes or more per
+    lane, G lanes x U vectors covering a row with most slots busy, at most
+    one wave, no block without work; evict-first stores only for a table
+    pair larger than L2."""
+    row_bytes = elem_bytes * d
+    n_rows = max(k, 1)
+    for offsets in itertools.product((0, 2, 4, 8), repeat=3):
+        ptrs = [PLAN_BASE + i * (1 << 30) + off for i, off in enumerate(offsets)]
+        if any(off % elem_bytes for off in offsets):
+            with pytest.raises(ValueError, match="element boundary"):
+                tadagrad.plan(d, *ptrs, k, PLAN_SMS, PLAN_RESIDENT, elem_bytes=elem_bytes,
+                              n_rows=n_rows, l2_bytes=PLAN_L2)
+            continue
+        p = tadagrad.plan(d, *ptrs, k, PLAN_SMS, PLAN_RESIDENT, elem_bytes=elem_bytes,
+                          n_rows=n_rows, l2_bytes=PLAN_L2)
+        fits = [v for v in (16, 8, 4, 2) if v >= elem_bytes and row_bytes % v == 0
+                and all(q % v == 0 for q in ptrs)]
+        assert p.vec_bytes == fits[0]                        # the widest that fits
+        assert p.vectors_per_row * p.vec_bytes == row_bytes
+        assert p.unroll * p.vec_bytes >= 8 and p.unroll in (1, 2, 4)
+        assert p.lanes in (1, 2, 4, 8, 16, 32)
+        chunk = p.lanes * p.unroll
+        chunks = -(-p.vectors_per_row // chunk)
+        assert chunks == 1 or p.lanes == 32                   # only rows wider than a warp loop
+        assert 2 * p.vectors_per_row > chunks * chunk or p.vectors_per_row < p.unroll
+        rows_per_block = (32 // p.lanes) * (tadagrad.THREADS // 32)
+        wave = PLAN_SMS * PLAN_RESIDENT
+        assert (p.grid == 0) == (k == 0)
+        assert 0 <= p.grid <= wave
+        assert (p.grid - 1) * rows_per_block < k or k == 0       # every block has work
+        assert p.grid * rows_per_block >= k or p.grid == wave    # one pass, or a full wave looping
+        assert p.stream_stores == (2 * n_rows * row_bytes > PLAN_L2)
+    # the buffer pair (43,027,080 rows) stores evict-first; nothing else changes
+    big = tadagrad.plan(d, PLAN_BASE, PLAN_BASE, PLAN_BASE, k, PLAN_SMS, PLAN_RESIDENT,
+                        elem_bytes=elem_bytes, n_rows=43_027_080, l2_bytes=PLAN_L2)
+    assert big.stream_stores and big._replace(stream_stores=False) == tadagrad.plan(
+        d, PLAN_BASE, PLAN_BASE, PLAN_BASE, k, PLAN_SMS, PLAN_RESIDENT, elem_bytes=elem_bytes,
+        n_rows=1, l2_bytes=PLAN_L2)
+    main = {(50, 4): (8, 32, 1), (100, 4): (16, 32, 1), (100, 2): (8, 32, 1), (50, 2): (4, 16, 2),
+            (128, 4): (16, 32, 1)}
+    if (d, elem_bytes) in main:   # the main paths' rows: 25 or 32 vectors
+        assert (big.vec_bytes, big.lanes, big.unroll) == main[d, elem_bytes]
+
+
 def test_build_without_nvcc_raises(monkeypatch):
     import torch.utils.cpp_extension as cpp
 
@@ -203,19 +259,58 @@ def test_cuda_gather_matches_plain(cuda_device, n, d, k, id_dtype, offset):
     assert torch.equal(out, tgather.gather_rows_plain(table, ids))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n,d,k", SHAPES)
-def test_cuda_adagrad_matches_plain(cuda_device, n, d, k):
-    g = torch.Generator(device=cuda_device).manual_seed(n + d + k)
-    vals = torch.randn(n, d, device=cuda_device, generator=g)
-    state = torch.rand(n, d, device=cuda_device, generator=g)
-    ids = torch.randperm(n + 5, device=cuda_device, generator=g)[:min(k, n)]  # some >= n
-    grads = torch.randn(ids.shape[0], d, device=cuda_device, generator=g)
-    v1, s1, v2, s2 = vals.clone(), state.clone(), vals.clone(), state.clone()
-    tadagrad.sparse_adagrad_update_(v1, s1, ids, grads, 0.1)
+def _cuda_adagrad_inputs(dev, n, d, k, dtype, id_dtype, offsets):
+    """values, state, ids, grads: each of the three tensors a contiguous view
+    ``offsets`` elements into its storage; ids unique, some below 0 and some
+    at or above N (padding); bf16 grads scaled to keep its steps small."""
+    g = torch.Generator(device=dev).manual_seed(n + d + k + sum(offsets))
+
+    def view(rows, fill, off):
+        base = torch.empty(rows * d + off, device=dev)
+        fill(base, g)
+        return base.to(dtype)[off:].view(rows, d)
+
+    vals = view(n, lambda t, g: t.normal_(generator=g), offsets[0])
+    state = view(n, lambda t, g: t.uniform_(generator=g), offsets[1])
+    state[::5] = 0
+    ids = (torch.randperm(n + 10, device=dev, generator=g)[:min(k, n)] - 5).to(id_dtype)
+    scale = 0.1 if dtype == torch.bfloat16 else 1.0
+    grads = view(ids.shape[0], lambda t, g: t.normal_(generator=g).mul_(scale), offsets[2])
+    return vals, state, ids, grads
+
+
+def _check_cuda_adagrad(vals, state, ids, grads):
+    """The kernel, in place on the views, against the plain version on
+    clones, bit for bit, with one launch counted; rows no id names unchanged."""
+    v1, s1 = vals.clone(), state.clone()
+    v2, s2 = vals.clone(), state.clone()
+    before = tadagrad.launches
+    tadagrad.sparse_adagrad_update_(vals, state, ids, grads, 0.1)
     tadagrad.sparse_adagrad_update_plain_(v2, s2, ids, grads, 0.1)
     torch.cuda.synchronize()
-    assert torch.equal(v1, v2) and torch.equal(s1, s2)
+    assert tadagrad.launches == before + 1
+    bits = torch.int16 if vals.dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(vals.view(bits), v2.view(bits)) and torch.equal(state.view(bits),
+                                                                       s2.view(bits))
+    untouched = torch.ones(vals.shape[0], dtype=torch.bool, device=vals.device)
+    named = ids[(ids >= 0) & (ids < vals.shape[0])].long()
+    untouched[named] = False
+    assert torch.equal(vals[untouched].view(bits), v1[untouched].view(bits))
+    assert torch.equal(state[untouched].view(bits), s1[untouched].view(bits))
+
+
+# (values, state, grads) element offsets into their storage: aligned, each
+# tensor 1-3 elements in, all three at once
+ADAGRAD_OFFSETS = [(0, 0, 0), (1, 0, 0), (0, 2, 0), (0, 0, 3), (1, 2, 3), (3, 1, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,k", SHAPES)
+@pytest.mark.parametrize("id_dtype", [torch.int64, torch.int32])
+@pytest.mark.parametrize("offsets", ADAGRAD_OFFSETS)
+def test_cuda_adagrad_matches_plain(cuda_device, n, d, k, id_dtype, offsets):
+    _check_cuda_adagrad(*_cuda_adagrad_inputs(cuda_device, n, d, k, torch.float32, id_dtype,
+                                                offsets))
 
 
 @pytest.mark.cuda
@@ -331,22 +426,12 @@ def test_cuda_gather_bf16_matches_plain(cuda_device, n, d, k, offset):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,d,k", [(14541, 50, 14541), (3000, 100, 2000), (77, 257, 60),
-                                   (100, 1, 37)])
-def test_cuda_adagrad_bf16_matches_plain(cuda_device, n, d, k):
-    g = torch.Generator(device=cuda_device).manual_seed(n + d + k)
-    vals = torch.randn(n, d, device=cuda_device, generator=g).to(torch.bfloat16)
-    state = torch.rand(n, d, device=cuda_device, generator=g).to(torch.bfloat16)
-    state[::5] = 0
-    ids = torch.randperm(n + 5, device=cuda_device, generator=g)[:min(k, n)]   # some >= n
-    grads = (torch.randn(ids.shape[0], d, device=cuda_device, generator=g) * 0.1).to(torch.bfloat16)
-    v1, s1, v2, s2 = vals.clone(), state.clone(), vals.clone(), state.clone()
-    before = tadagrad.launches
-    tadagrad.sparse_adagrad_update_(v1, s1, ids, grads, 0.1)
-    tadagrad.sparse_adagrad_update_plain_(v2, s2, ids, grads, 0.1)
-    torch.cuda.synchronize()
-    assert tadagrad.launches == before + 1
-    assert torch.equal(v1.view(torch.int16), v2.view(torch.int16))
-    assert torch.equal(s1.view(torch.int16), s2.view(torch.int16))
+                                   (100, 1, 37), (500, 200, 333), (1000, 3, 999)])
+@pytest.mark.parametrize("id_dtype", [torch.int64, torch.int32])
+@pytest.mark.parametrize("offsets", ADAGRAD_OFFSETS)
+def test_cuda_adagrad_bf16_matches_plain(cuda_device, n, d, k, id_dtype, offsets):
+    _check_cuda_adagrad(*_cuda_adagrad_inputs(cuda_device, n, d, k, torch.bfloat16, id_dtype,
+                                                offsets))
 
 
 @pytest.mark.cuda
