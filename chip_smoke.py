@@ -217,6 +217,34 @@ twins must pass; all three kernels); ``reporting.profiling.trace()`` around
 marius_tpu_torch.tools.cli`` processes that import nothing of JAX or
 marius_tpu (``-X importtime``), the first naming the card.
 
+Then the mesh (``marius_tpu_torch/parallel/``), last: ``lp_mesh`` joins a
+one-rank NCCL process group and trains ``fb15k_237.yaml``'s model at
+FB15K-237's shape on a 1 x 1 mesh through the explicit sharded step (the
+real process group and every collective, on trivial groups), held against
+the single-device trainer from the same seed (2 batches: tables and
+relations to rtol 1e-4 / atol 1e-5; 3 epochs: losses to rtol 5e-3), with
+s/epoch, edges/s, collectives per batch and launches; ``lp_mesh_ranks``
+starts four ``python -c`` rank processes of ``mesh_rank`` with
+``MARIUS_COORDINATOR`` (gloo: they share the one card, and NCCL refuses two
+ranks on one device) that run the command line's ``train`` of the YAML with
+``training.mesh: {data: 2, node: 2}`` for 2 epochs (the cut): every rank's
+losses equal, held to one process's run of the same YAML (rtol 5e-3) and its
+test MRR (within 20%), rank 0 alone printing the metrics, ``marius_eval`` in
+this process reproducing them from rank 0's checkpoint, then gs_1_layer on the
+same mesh over a learnable 1,000-node KG (``make_realizable_kg``: the loss
+falls, the MRR passes twice chance), then gs_1_layer under ALL sampling (it
+draws nothing) at FB15K-237's shape on the same mesh, each rank holding 2
+batches against its own single-card trainer from the same seed (tables,
+Adagrad states and dense parameters after the first batch to rtol 1e-4 /
+atol 1e-5 but for elements whose gradient was nonzero and below 1e-8, the
+losses of
+both batches to rtol 1e-4, at ROADMAP C5's rates: dense Adagrad 0.1, the
+table 0.02); each rank
+prints its backend, device,
+collectives per batch (<= 3) and launches. ``lp_mesh_shapes`` holds the three
+kernels at the mesh's shapes (the owner-local gather, the shard's Adagrad,
+the GNN layer's gather-sum at the local caps) bit for bit, timed.
+
 Small runs on the card are compared with the same runs on the CPU (plain
 versions, which tests/test_torch_*.py hold against the JAX package).
 
@@ -229,10 +257,13 @@ result. It imports nothing of JAX or marius_tpu.
 from __future__ import annotations
 
 import concurrent.futures
+import copy
+import datetime
 import gc
 import itertools
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -303,6 +334,16 @@ NC_RELOAD_NODES = 1_000_000
 # the most nc_oocore writes to disk for its features file: with the rest of the run's
 # datasets and checkpoints, the whole run writes well under 45 GiB
 PAPERS_DISK_BYTES = 32 << 30
+# the mesh phases: lp_mesh's one-rank NCCL mesh and its epochs; lp_mesh_ranks' ranks on
+# the one card (gloo) as a data x node mesh, its cut of fb15k_237.yaml's 10 epochs, and
+# the gs_1_layer run on a learnable KG (make_realizable_kg at 1,000 nodes; its epochs); the
+# process groups' timeout and the ranks' own time limit (seconds)
+LP_MESH_EPOCHS, MESH_DATA, MESH_NODE, MESH_EPOCHS = 3, 2, 2, 2
+MESH_KG_NODES, MESH_KG_EPOCHS = 1000, 4
+# an Adagrad accumulator below this (a gradient below 1e-8) makes the step's
+# size a function of its rounding (ROADMAP C5)
+ACC_FLOOR = 1e-16
+MESH_TIMEOUT_S, MESH_RANKS_LIMIT_S = 300, 600
 # the edges of the gather-sum kernel's 128-byte column slabs (32 f32 or 64 bf16 columns)
 SLAB_EDGE_DIMS = (15, 16, 17, 31, 32, 63, 64, 65)
 # single buckets: caps from one slot to the 13k-slot hub, with the hub split's edges
@@ -4775,6 +4816,570 @@ def tools_cli(card: str, device=None) -> dict:
     return run.launches
 
 
+# -- the mesh: ranks of a torch.distributed process group -----------------------
+
+def free_port() -> int:
+    """A free TCP port on localhost for a process group's rendezvous."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _assert_close(got, want, what, rtol=1e-4, atol=1e-5) -> float:
+    """The largest |got - want| beyond rtol, as a share of atol; raises past the tolerance."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol, msg=lambda m: f"{what}: {m}")
+    return float(((got - want).abs() - rtol * want.abs()).max()) / atol
+
+
+def lp_mesh(card: str, device=None) -> dict:
+    """fb15k_237.yaml's model at FB15K-237's shape on a 1 x 1 mesh over a
+    one-rank process group (NCCL on the card: the real process group and
+    the whole sharded step on trivial groups), held against the
+    single-device trainer from the same seed: two batches of the first
+    epoch's permutation (tables and relations to rtol 1e-4 / atol 1e-5),
+    then 3 epochs each (losses to rtol 5e-3). Returns the mesh run's
+    launches and its s/epoch."""
+    from marius_tpu_torch.data.samplers.negative import NegativeSamplingConfig
+    from marius_tpu_torch.ops.cuda import adagrad, gather
+    from marius_tpu_torch.parallel import multihost
+    from marius_tpu_torch.parallel.mesh import make_mesh
+    from marius_tpu_torch.train.trainer import LinkPredictionTrainer
+
+    timeout = datetime.timedelta(seconds=MESH_TIMEOUT_S)
+    dev = multihost.initialize(f"localhost:{free_port()}", 1, 0, device=device, timeout=timeout)
+    try:
+        mesh = make_mesh(1, 1, device=dev, timeout=timeout)
+        edges = synthetic_edges(0, NUM_NODES, NUM_RELS, NUM_EDGES)
+        neg = NegativeSamplingConfig(num_chunks=CHUNKS, negatives_per_positive=NEGATIVES)
+
+        def trainer(m):
+            return LinkPredictionTrainer(lp_model(NUM_RELS, DIM), NUM_NODES, NUM_RELS, edges, neg,
+                                         batch_size=BATCH, seed=0, mesh=m, device=dev)
+
+        meshed, single = trainer(mesh), trainer(None)
+        for t in (meshed, single):
+            perm = t._epoch_permutation(0)
+            for i in range(2):
+                rows = perm[i * BATCH:(i + 1) * BATCH]
+                t._batch_step(t.edges[rows], rows < t.num_edges)
+        full = meshed.gathered_state()
+        worst = max(_assert_close(full.table.values, single.state.table.values, "values"),
+                    _assert_close(full.table.state, single.state.table.state, "Adagrad state"),
+                    *(_assert_close(full.params["decoder"][k], single.state.params["decoder"][k],
+                                    k) for k in ("relations", "inverse_relations")))
+        print(f"lp_mesh: process group backend {mesh.backend}, 1 rank on {dev}, mesh "
+              f"{mesh.shape}; after 2 batches the mesh trainer's table, Adagrad state and "
+              f"relations equal the single-device trainer's within rtol 1e-4 / atol 1e-5 "
+              f"(largest difference {worst:.3f} of atol past rtol)  [{card}]", flush=True)
+
+        meshed, single = trainer(mesh), trainer(None)
+        gather.launches = adagrad.launches = 0
+        res = [meshed.train_epoch() for _ in range(LP_MESH_EPOCHS)]
+        launches = {"gather_rows": gather.launches, "sparse_adagrad_update_": adagrad.launches}
+        ref = [single.train_epoch() for _ in range(LP_MESH_EPOCHS)]
+    finally:
+        multihost.shutdown()
+    losses, ref_losses = [r["loss"] for r in res], [r["loss"] for r in ref]
+    for i, (r, f) in enumerate(zip(res, ref)):
+        print(f"lp_mesh epoch {i}: loss {r['loss']:.6f} (single device {f['loss']:.6f})  "
+              f"{r['epoch_time_s']:.4f} s ({f['epoch_time_s']:.4f} s)  "
+              f"{r['edges_per_sec']:.1f} edges/s ({f['edges_per_sec']:.1f})  collectives per "
+              f"batch {r['collectives_per_batch']}  [{card}]", flush=True)
+    if not np.allclose(losses, ref_losses, rtol=5e-3, atol=0.0):
+        raise AssertionError(f"lp_mesh losses {losses} differ from the single-device "
+                             f"trainer's {ref_losses} beyond rtol 5e-3")
+    if any(r["collectives_per_batch"] > 3 for r in res):
+        raise AssertionError("lp_mesh makes more than 3 collectives per batch")
+    batches = LP_MESH_EPOCHS * meshed.num_batches
+    if launches != {"gather_rows": batches, "sparse_adagrad_update_": batches}:
+        raise AssertionError(f"lp_mesh launched {launches} in {batches} batches (1 each per "
+                             f"batch: the owner-local gather and the shard's Adagrad)")
+    print(f"lp_mesh launches: {launches} ({batches} batches)  [{card}]", flush=True)
+    return {"gather_rows": {"lp_mesh train": launches["gather_rows"]},
+            "sparse_adagrad_update_": {"lp_mesh train": launches["sparse_adagrad_update_"]},
+            "s_per_epoch": [r["epoch_time_s"] for r in res]}
+
+
+def mesh_rank(config_path: str, device=None) -> int:
+    """One rank of lp_mesh_ranks, in a process of its own: the command
+    line's ``train`` (it joins the process group from MARIUS_COORDINATOR,
+    MARIUS_NUM_PROCESSES and MARIUS_PROCESS_ID; rank 0 prints the test
+    metrics), then a line ``MESH_RANK {...}``: this rank's backend, device,
+    mesh coordinates, losses, seconds and collectives per epoch, and the
+    three kernels' launches in training and in all."""
+    from marius_tpu_torch import manager
+    from marius_tpu_torch.ops.cuda import adagrad, gather, nbr_sum
+    from marius_tpu_torch.tools import cli
+    from marius_tpu_torch.train.trainer import LinkPredictionTrainer
+
+    kernels = {"gather_rows": gather, "sparse_adagrad_update_": adagrad, "gather_sum": nbr_sum}
+    train = dict.fromkeys(kernels, 0)
+    seen = {}
+    train_epoch, run = LinkPredictionTrainer.train_epoch, manager.marius_train
+
+    def counted(self):
+        before = {k: m.launches for k, m in kernels.items()}
+        out = train_epoch(self)
+        for k, m in kernels.items():
+            train[k] += m.launches - before[k]
+        return out
+
+    def captured(*args, **kwargs):
+        seen["result"] = run(*args, **kwargs)
+        return seen["result"]
+
+    for m in kernels.values():
+        m.launches = 0
+    LinkPredictionTrainer.train_epoch, manager.marius_train = counted, captured
+    try:
+        cli.main(["train", config_path], device=device)
+    finally:
+        LinkPredictionTrainer.train_epoch, manager.marius_train = train_epoch, run
+    result = seen["result"]
+    tr = result["runtime"].trainer
+    epochs = result["epochs"]
+    print("MESH_RANK " + json.dumps({
+        "rank": tr.mesh.rank, "coords": tr.mesh.coords, "backend": tr.mesh.backend,
+        "device": str(tr.device), "shape": tr.mesh.shape, "mode": tr.sharding_mode,
+        "shard_rows": tr.state.table.values.shape[0], "batches": tr.num_batches,
+        "hop_caps": getattr(tr, "mesh_hop_caps", None),
+        "losses": [e["loss"] for e in epochs], "seconds": [e["epoch_time_s"] for e in epochs],
+        "edges_per_sec": [e["edges_per_sec"] for e in epochs],
+        "collectives_per_batch": [e["collectives_per_batch"] for e in epochs],
+        "train_launches": train, "launches": {k: m.launches for k, m in kernels.items()},
+        "test": {k: v for k, v in result["test"].items() if isinstance(v, (int, float))}}),
+        flush=True)
+    return 0
+
+
+def mesh_gnn_all_rank(config_path: str, device=None) -> int:
+    """One rank of lp_mesh_ranks' gs_1_layer check at FB15K-237's shape, in
+    a process of its own: the config's model (fb15k_237.yaml with gs_1_layer's
+    encoder under ALL sampling, which draws nothing, so every data index's
+    samples are one device's, and ROADMAP C5's rates) on the MESH_DATA x
+    MESH_NODE mesh (per-data-index dedup, generators and local hop caps;
+    14,541 rows in two shards of 7,271, the last with the padding row) and on
+    this rank's card alone, from the same seed, two batches of the first
+    epoch's permutation each. After the first batch the table, the dense
+    parameters and every Adagrad accumulator must agree to rtol 1e-4 / atol
+    1e-5, but for the elements whose gradient was nonzero and below 1e-8
+    (accumulator below ACC_FLOOR), which are counted; the losses of both batches to rtol
+    1e-4 / atol 1e-5. Past the first batch C5 amplifies the data axis's other
+    summation order in leaves, so the largest difference after two is
+    reported, not held. Prints ``MESH_RANK {...}``."""
+    from marius_tpu_torch.config import load_config
+    from marius_tpu_torch.data.graph import build_device_graph
+    from marius_tpu_torch.data.samplers.neighbor import resolve_all_caps
+    from marius_tpu_torch.nn.optimizers import tree_leaves
+    from marius_tpu_torch.ops.cuda import adagrad, gather, nbr_sum
+    from marius_tpu_torch.parallel import multihost
+    from marius_tpu_torch.parallel.mesh import make_mesh
+    from marius_tpu_torch.storage.dataset import load_split, load_stats
+    from marius_tpu_torch.train.trainer import LinkPredictionTrainer
+
+    cfg = load_config(config_path)
+    ds = cfg.storage.dataset.dataset_dir
+    stats = load_stats(ds)
+    edges = load_split(ds, "train", stats)
+    n, r = stats.num_nodes, stats.num_relations
+    timeout = datetime.timedelta(seconds=MESH_TIMEOUT_S)
+    dev = multihost.initialize(os.environ["MARIUS_COORDINATOR"],
+                               int(os.environ["MARIUS_NUM_PROCESSES"]),
+                               int(os.environ["MARIUS_PROCESS_ID"]), device=device,
+                               timeout=timeout)
+    kernels = {"gather_rows": gather, "sparse_adagrad_update_": adagrad, "gather_sum": nbr_sum}
+    try:
+        mesh = make_mesh(MESH_DATA, MESH_NODE, device=dev, timeout=timeout)
+        graph = build_device_graph(edges, n, r, device=dev)
+        nbr = resolve_all_caps(cfg.train_neighbor_sampling, graph.in_offsets,
+                               graph.out_offsets, cap_limit=cfg.all_cap_limit)
+
+        def trainer(m):
+            # a model of its own: the decoder's relations are its module's parameters
+            return LinkPredictionTrainer(load_config(config_path).model, n, r, edges,
+                                         cfg.training.negative_sampling,
+                                         batch_size=cfg.training.batch_size,
+                                         seed=cfg.training.seed, graph=graph, nbr_configs=nbr,
+                                         mesh=m, device=dev)
+
+        # the card's peak while the mesh trainer starts: its shard, not the whole table
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        meshed = trainer(mesh)
+        init_peak = (torch.cuda.max_memory_allocated(dev) - base if dev.type == "cuda"
+                     else None)
+        single = trainer(None)
+        pairs = (("mesh", meshed), ("single", single))
+        losses = {name: [] for name, _ in pairs}
+        launches = {name: dict.fromkeys(kernels, 0) for name, _ in pairs}
+        perms = {name: t._epoch_permutation(0) for name, t in pairs}
+        for i in range(2):
+            for name, t in pairs:
+                before = {k: m.launches for k, m in kernels.items()}
+                rows = perms[name][i * t.batch_size:(i + 1) * t.batch_size]
+                losses[name].append(float(t._batch_step(t.edges[rows], rows < t.num_edges)))
+                for k, m in kernels.items():
+                    launches[name][k] += m.launches - before[k]
+            full, ref = meshed.gathered_state(), single.state
+            if i == 0:
+                # every leaf after the first batch; an element whose gradient is
+                # nonzero but below 1e-8 (its accumulator below 1e-16) is counted,
+                # not held: lr * g / (|g| + 1e-10) turns its rounding into the
+                # step's size
+                if set(ref.opt_state.slots) != {"sum"}:
+                    raise ValueError("the check reads Adagrad's dense accumulators")
+                acc = [ref.table.state] + tree_leaves(ref.opt_state.slots)
+                got = [full.table.values] + tree_leaves(full.params)
+                want = [ref.table.values] + tree_leaves(ref.params)
+                held = [(a == 0) | (a >= ACC_FLOOR) for a in acc]
+                worst = max(
+                    _assert_close(full.table.state, ref.table.state, "Adagrad state"),
+                    *(_assert_close(g, w, f"dense accumulator {j}") for j, (g, w) in enumerate(
+                        zip(tree_leaves(full.opt_state.slots), acc[1:]))),
+                    *(_assert_close(g[k], w[k], f"leaf {j} after one batch")
+                      for j, (g, w, k) in enumerate(zip(got, want, held))))
+                unheld = sum(int((~k).sum()) for k in held)
+        _assert_close(torch.tensor(losses["mesh"]), torch.tensor(losses["single"]), "losses")
+        after_two = max(float((g - w).abs().max()) for g, w in zip(
+            [full.table.values] + tree_leaves(full.params),
+            [ref.table.values] + tree_leaves(ref.params)))
+        print("MESH_RANK " + json.dumps({
+            "rank": mesh.rank, "coords": mesh.coords, "backend": mesh.backend,
+            "device": str(dev), "shard_rows": meshed.state.table.values.shape[0],
+            "hop_caps": list(meshed.mesh_hop_caps), "single_hop_caps": list(single.hop_caps),
+            "overflow": [int(meshed._overflow), int(single._overflow)],
+            "elements": sum(int(k.numel()) for k in held), "unheld": unheld,
+            "after_two": after_two,
+            "losses": losses, "worst": worst, "launches": launches,
+            "init_peak_bytes": init_peak,
+            "table_bytes": 2 * single.state.table.values.nbytes,
+            "shard_bytes": 2 * meshed.state.table.values.nbytes}), flush=True)
+    finally:
+        multihost.shutdown()
+    return 0
+
+
+# what each rank process of run_mesh_ranks runs (the config's path is its argument)
+MESH_RANK_CODE = "import sys, chip_smoke; sys.exit(chip_smoke.{fn}(sys.argv[1], {device!r}))"
+
+
+def run_mesh_ranks(tag: str, raw: dict, tmp: str, card: str, device=None,
+                   fn: str = "mesh_rank") -> list:
+    """``raw`` through MESH_DATA x MESH_NODE rank processes of ``fn``
+    (``mesh_rank`` or ``mesh_gnn_all_rank``), rank i on card i % cards.
+    Returns each rank's MESH_RANK record, with the metrics it printed; a rank
+    that fails fails the phase."""
+    here = Path(__file__).resolve().parent
+    world = MESH_DATA * MESH_NODE
+    cfg = Path(tmp) / f"{tag.replace(' ', '_')}.yaml"
+    cfg.write_text(yaml.safe_dump(raw))
+    env = {**os.environ, "MARIUS_COORDINATOR": f"localhost:{free_port()}",
+           "MARIUS_NUM_PROCESSES": str(world)}
+    code = MESH_RANK_CODE.format(fn=fn, device=device)
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(cfg)], cwd=here,
+                              env={**env, "MARIUS_PROCESS_ID": str(i)}, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for i in range(world)]
+    t0 = time.perf_counter()
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MESH_RANKS_LIMIT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            for j, o in enumerate(outs):
+                print(f"--- {tag} rank {j} (exit {procs[j].returncode}) ---\n{o[-6000:]}",
+                      flush=True)
+            raise AssertionError(f"{tag}: rank {i} exited {p.returncode}")
+    records = []
+    for out in outs:
+        rec = json.loads([ln for ln in out.splitlines() if ln.startswith("MESH_RANK ")][-1][10:])
+        rec["printed"] = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+        records.append(rec)
+    print(f"{tag}: {world} rank processes, {wall:.1f} s from start to the last exit", flush=True)
+    return records
+
+
+def _check_mesh_records(tag: str, records: list, card: str) -> dict:
+    """Every rank on the mesh, the same losses everywhere, <= 3 collectives
+    per batch, one gather and one Adagrad per training batch (one gather-sum
+    per GNN layer); rank 0 alone prints the metrics. Returns the launches per
+    part."""
+    counts = {"gather_rows": {}, "sparse_adagrad_update_": {}, "gather_sum": {}}
+    for rec in records:
+        shape = {"data": MESH_DATA, "node": MESH_NODE}
+        if rec["shape"] != shape or rec["mode"] != "explicit" or rec["coords"] != [
+                rec["rank"] // MESH_NODE, rec["rank"] % MESH_NODE]:
+            raise AssertionError(f"{tag}: rank {rec['rank']} is not on the {shape} mesh: {rec}")
+        if rec["losses"] != records[0]["losses"]:
+            raise AssertionError(f"{tag}: rank {rec['rank']}'s losses {rec['losses']} differ "
+                                 f"from rank 0's {records[0]['losses']}")
+        if max(rec["collectives_per_batch"]) > 3:
+            raise AssertionError(f"{tag}: {rec['collectives_per_batch']} collectives per batch")
+        if (len(rec["printed"]) == 1) != (rec["rank"] == 0):
+            raise AssertionError(f"{tag}: rank {rec['rank']} printed {rec['printed']}")
+        batches = len(rec["losses"]) * rec["batches"]
+        layers = 1 if rec["hop_caps"] else 0
+        want = {"gather_rows": batches, "sparse_adagrad_update_": batches,
+                "gather_sum": layers * batches}
+        if rec["train_launches"] != want:
+            raise AssertionError(f"{tag}: rank {rec['rank']} launched {rec['train_launches']} "
+                                 f"in training, expected {want}")
+        for k, n in rec["train_launches"].items():
+            if n:
+                counts[k][f"{tag} rank {rec['rank']} train"] = n
+        print(f"{tag} rank {rec['rank']}: backend {rec['backend']} on {rec['device']} at "
+              f"{rec['coords']}, shard rows {rec['shard_rows']}, hop caps {rec['hop_caps']}; "
+              f"losses {rec['losses']}; s/epoch {rec['seconds']}; edges/s "
+              f"{[round(x, 1) for x in rec['edges_per_sec']]}; collectives per batch "
+              f"{rec['collectives_per_batch']}; launches in training {rec['train_launches']}, "
+              f"in all {rec['launches']}  [{card}]", flush=True)
+    return counts
+
+
+def write_kg_dataset(directory: str, edges: np.ndarray, num_nodes: int, num_rels: int) -> None:
+    """A learnable KG (shuffled) in the dataset layout, split 90 / 5 / 5."""
+    from marius_tpu_torch.storage.dataset import DatasetStats, save_split, save_stats
+
+    tr, va = int(0.9 * len(edges)), int(0.95 * len(edges))
+    for name, part in (("train", edges[:tr]), ("valid", edges[tr:va]), ("test", edges[va:])):
+        save_split(directory, name, part)
+    save_stats(directory, DatasetStats(
+        num_nodes=num_nodes, num_edges=len(edges), num_relations=num_rels, num_edge_cols=3,
+        num_train=tr, num_valid=va - tr, num_test=len(edges) - va))
+
+
+def lp_mesh_ranks(card: str, device=None) -> dict:
+    """fb15k_237.yaml on a MESH_DATA x MESH_NODE mesh of rank processes
+    through the command line (rank i on card i % cards: on one card they
+    share it over gloo, with CUDA tensors), MESH_EPOCHS epochs at full
+    width: each rank's losses held to the single-device run's (rtol 5e-3)
+    and the test MRR to its band, then ``marius_eval`` in this one process
+    reloads rank 0's checkpoint and must reproduce rank 0's test metrics
+    exactly. Then gs_1_layer on the same mesh over a learnable KG: the loss
+    falls and the MRR is above chance; and gs_1_layer under ALL sampling at
+    FB15K-237's shape on each rank, held to one card's trainer over 2
+    batches (``mesh_gnn_all_rank``)."""
+    from marius_tpu_torch.config import load_config
+    from marius_tpu_torch.manager import marius_eval, marius_train
+
+    config = Path(__file__).resolve().parent / "examples" / "configuration" / "fb15k_237.yaml"
+    metric_keys = ("mrr", "mean_rank", "hits@1", "hits@10", "num_evaluated")
+    with open(config) as f:
+        yaml_raw = yaml.safe_load(f)
+    mesh = {"data": MESH_DATA, "node": MESH_NODE}
+    with tempfile.TemporaryDirectory() as tmp:
+        write_fb15k_shaped(f"{tmp}/dataset")
+        raw = copy.deepcopy(yaml_raw)
+        raw["storage"]["dataset"]["dataset_dir"] = f"{tmp}/dataset"
+        raw["storage"]["model_dir"] = f"{tmp}/model_mesh"
+        raw["training"]["num_epochs"] = MESH_EPOCHS
+        single_raw = copy.deepcopy(raw)
+        single_raw["storage"]["model_dir"] = f"{tmp}/model_single"
+        raw["training"]["mesh"] = mesh
+        print(f"lp_mesh_ranks: {config.relative_to(config.parents[2])} with dataset_dir and "
+              f"model_dir redirected and training.mesh {mesh}; one cut: num_epochs "
+              f"{yaml_raw['training']['num_epochs']} -> {MESH_EPOCHS}", flush=True)
+        records = run_mesh_ranks("lp_mesh_ranks", raw, tmp, card, device)
+        single = marius_train(load_config(single_raw), device=device)
+        again = marius_eval(load_config(raw), device=device)
+
+        kg = make_realizable_kg(n=MESH_KG_NODES, d=8, r=10, per=4, seed=0)
+        write_kg_dataset(f"{tmp}/kg", kg, MESH_KG_NODES, 10)
+        gnn_raw = copy.deepcopy(yaml_raw)
+        gnn_raw["model"]["encoder"] = gnn_encoder(DIM)
+        gnn_raw["storage"]["dataset"]["dataset_dir"] = f"{tmp}/kg"
+        gnn_raw["storage"]["model_dir"] = f"{tmp}/model_gnn"
+        gnn_raw["training"]["num_epochs"] = MESH_KG_EPOCHS
+        gnn_raw["training"]["mesh"] = mesh
+        print(f"lp_mesh_ranks gs_1_layer: the same YAML with gs_1_layer's encoder (EMBEDDING "
+              f"{DIM}, GraphSAGE MEAN, UNIFORM 10) on make_realizable_kg's {len(kg)} edges over "
+              f"{MESH_KG_NODES} nodes and 10 relations, {MESH_KG_EPOCHS} epochs", flush=True)
+        gnn_records = run_mesh_ranks("lp_mesh_ranks gs_1_layer", gnn_raw, tmp, card, device)
+
+        all_raw = copy.deepcopy(raw)
+        all_raw["model"]["encoder"] = dict(gnn_encoder(DIM),
+                                           train_neighbor_sampling=[{"type": "ALL"}])
+        all_raw["storage"]["model_dir"] = f"{tmp}/model_gnn_all"
+        # ROADMAP C5's rates: Adam's first step, lr * g / (|g| + 1e-8), turns the
+        # rounding of a near-zero dense gradient (the data axis sums it in
+        # another order) into a leaf difference past the tolerance
+        all_raw["model"]["dense_optimizer"] = {"type": "ADAGRAD",
+                                               "options": {"learning_rate": 0.1}}
+        all_raw["model"]["sparse_optimizer"] = {"type": "ADAGRAD",
+                                                "options": {"learning_rate": 0.02}}
+        print(f"lp_mesh_ranks gs_1_layer ALL: the YAML with gs_1_layer's encoder under ALL "
+              f"sampling at FB15K-237's shape, dense Adagrad at lr 0.1 and the table at 0.02 "
+              f"(ROADMAP C5), 2 batches on the mesh and on one card from the same seed, on "
+              f"each rank", flush=True)
+        all_records = run_mesh_ranks("lp_mesh_ranks gs_1_layer ALL", all_raw, tmp, card, device,
+                                     fn="mesh_gnn_all_rank")
+
+    counts = _check_mesh_records("lp_mesh_ranks", records, card)
+    losses = records[0]["losses"]
+    ref = [e["loss"] for e in single["epochs"]]
+    if not np.allclose(losses, ref, rtol=5e-3, atol=0.0):
+        raise AssertionError(f"lp_mesh_ranks losses {losses} differ from the single-device "
+                             f"run's {ref} beyond rtol 5e-3")
+    test, ref_test = records[0]["printed"][0], single["test"]
+    if not 0.0 < test["mrr"] <= 1.0 or abs(test["mrr"] - ref_test["mrr"]) > 0.2 * ref_test["mrr"]:
+        raise AssertionError(f"lp_mesh_ranks test MRR {test['mrr']} is outside 20% of the "
+                             f"single-device run's {ref_test['mrr']}")
+    print(f"lp_mesh_ranks against one process on the card: losses {losses} vs {ref} (rtol "
+          f"5e-3); test filtered MRR {test['mrr']:.6f} vs {ref_test['mrr']:.6f}, Hits@10 "
+          f"{test['hits@10']:.6f} vs {ref_test['hits@10']:.6f}; single-device s/epoch "
+          f"{[round(e['epoch_time_s'], 4) for e in single['epochs']]}  [{card}]", flush=True)
+    if any(test[k] != again["test"][k] for k in metric_keys):
+        raise AssertionError(f"marius_eval of rank 0's checkpoint gave {again['test']}, rank 0 "
+                             f"printed {test}")
+    print("lp_mesh_ranks: marius_eval on one rank reloaded rank 0's checkpoint and reproduced "
+          "its test metrics exactly", flush=True)
+
+    gcounts = _check_mesh_records("lp_mesh_ranks gs_1_layer", gnn_records, card)
+    glosses = gnn_records[0]["losses"]
+    gtest = gnn_records[0]["printed"][0]
+    chance = sum(1.0 / k for k in range(1, MESH_KG_NODES + 1)) / MESH_KG_NODES
+    if not all(b < a for a, b in zip(glosses, glosses[1:])) or not gtest["mrr"] > 2 * chance:
+        raise AssertionError(f"lp_mesh_ranks gs_1_layer: losses {glosses} must fall and the "
+                             f"test MRR {gtest['mrr']} pass twice chance ({chance:.5f})")
+    print(f"lp_mesh_ranks gs_1_layer: losses {glosses} fall; test filtered MRR "
+          f"{gtest['mrr']:.6f}, Hits@10 {gtest['hits@10']:.6f} (chance MRR {chance:.6f})  "
+          f"[{card}]", flush=True)
+    for rec in all_records:
+        want = {"gather_rows": 2, "sparse_adagrad_update_": 2, "gather_sum": 2}
+        if rec["launches"]["mesh"] != want:
+            raise AssertionError(f"lp_mesh_ranks gs_1_layer ALL: rank {rec['rank']} launched "
+                                 f"{rec['launches']['mesh']} in 2 mesh batches, expected {want}")
+        print(f"lp_mesh_ranks gs_1_layer ALL rank {rec['rank']}: backend {rec['backend']} on "
+              f"{rec['device']} at {rec['coords']}, shard rows {rec['shard_rows']}, local hop "
+              f"caps {rec['hop_caps']} (one card: {rec['single_hop_caps']}); losses "
+              f"{rec['losses']['mesh']} vs one card {rec['losses']['single']} (rtol 1e-4); "
+              f"after 1 batch the table, dense parameters and accumulators equal one card's "
+              f"within rtol 1e-4 / atol 1e-5 (largest difference {rec['worst']:.3f} of atol "
+              f"past rtol; {rec['unheld']} of {rec['elements']} elements with a nonzero "
+              f"gradient below 1e-8 not held, ROADMAP C5); after 2 batches the largest leaf "
+              f"difference {rec['after_two']:.3g}; hop overflow {rec['overflow']}; "
+              f"launches {rec['launches']}; the card's peak while the mesh trainer started "
+              f"{rec['init_peak_bytes']} bytes above its base (the table and its Adagrad "
+              f"state {rec['table_bytes']} bytes whole, {rec['shard_bytes']} this shard)  "
+              f"[{card}]", flush=True)
+        for k, n in rec["launches"]["mesh"].items():
+            gcounts[k][f"lp_mesh_ranks gs_1_layer ALL rank {rec['rank']} train"] = n
+    for k in counts:
+        counts[k].update(gcounts[k])
+    counts["s_per_epoch"] = {"fb15k": records[0]["seconds"],
+                             "gs_1_layer": gnn_records[0]["seconds"]}
+    return counts
+
+
+def lp_mesh_shapes(rates, card) -> dict:
+    """The three kernels at lp_mesh_ranks' shapes on the card, each bit for
+    bit against its plain version and timed beside its bound and its
+    one-call PyTorch equivalent: the owner-local row gather of data index
+    0's part of a batch (500 positives and 5 chunks of 500 negatives each
+    way: K = 6,000) into node index 1's 7,271 x 50 shard (ids it does not
+    own clamp to a row of the shard and are zeroed after); the shard's
+    Adagrad over all its rows with a summed gradient G that is zero on the
+    rows no data index touched; and the GNN layer's gather-sum at the local
+    caps (that part's unique ids as seeds, UNIFORM 10 over the train graph)."""
+    from torch.optim.adagrad import adagrad as torch_adagrad
+
+    from marius_tpu_torch.data.graph import build_device_graph
+    from marius_tpu_torch.data.samplers.neighbor import (
+        NeighborSamplingConfig,
+        estimate_hop_caps,
+        generator_draws,
+        sample_neighbor_batch,
+    )
+    from marius_tpu_torch.ops.cuda import adagrad, gather
+    from marius_tpu_torch.ops.unique import unique_padded
+
+    dev = torch.device("cuda")
+    rows = -(-NUM_NODES // MESH_NODE)
+    g = torch.Generator(device=dev).manual_seed(11)
+    edges_np = synthetic_edges(0, NUM_NODES, NUM_RELS, NUM_EDGES)
+    edges = torch.as_tensor(edges_np[:BATCH], device=dev).long()
+    b, c = BATCH // MESH_DATA, CHUNKS // MESH_DATA
+    negs = torch.randint(0, NUM_NODES, (2, c * NEGATIVES), generator=g, device=dev)
+    ids = torch.cat([edges[:b, 0], edges[:b, 2], negs[0], negs[1]])
+    shard = torch.randn(rows, DIM, device=dev, generator=g)
+    local = ids - rows   # node index 1: ids below its rows are negative
+    gat = time_gather(gather, shard, [local], rates)
+    gat["max_abs_err"] = gather_max_err(gather, shard, local)
+    print(f"gather_rows, lp_mesh_ranks owner-local (K={gat['k']} int64 ids into the "
+          f"{rows} x {DIM} shard, {gat['distinct_rows']:.0f} distinct rows after the clamp, "
+          f"{gat['bound_bytes'] / 1e6:.4f} MB): max_abs_err {gat['max_abs_err']}  kernel "
+          f"{gat['ms'] * 1e3:.2f} us  plain {gat['plain_ms'] * 1e3:.2f} us  index_select "
+          f"{gat['library_ms'] * 1e3:.2f} us  bound {gat['bound_ms'] * 1e3:.2f} us "
+          f"({gat['bound_by']})  [{card}]", flush=True)
+
+    # G: the rows of node index 1 that the whole batch (both data indices) touches
+    whole = torch.cat([edges[:, 0], edges[:, 2],
+                       torch.randint(0, NUM_NODES, (2 * CHUNKS * NEGATIVES,), generator=g,
+                                     device=dev)]) - rows
+    touched = torch.zeros(rows, dtype=torch.bool, device=dev)
+    touched[whole[(whole >= 0) & (whole < rows)]] = True
+    G = torch.randn(rows, DIM, device=dev, generator=g) * touched[:, None]
+    values, state = torch.randn(rows, DIM, device=dev, generator=g), torch.rand(
+        rows, DIM, device=dev, generator=g)
+    all_rows = torch.arange(rows, device=dev)
+    v1, s1, v2, s2 = values.clone(), state.clone(), values.clone(), state.clone()
+    adagrad.sparse_adagrad_update_(v1, s1, all_rows, G, 0.1)
+    adagrad.sparse_adagrad_update_plain_(v2, s2, all_rows, G, 0.1)
+    torch.cuda.synchronize()
+    err = max(float((v1 - v2).abs().max()), float((s1 - s2).abs().max()))
+    if err != 0.0:
+        raise AssertionError(f"sparse_adagrad_update_ differs from plain on the shard: {err}")
+    nbytes = 5 * rows * DIM * 4 + rows * 8
+    b_ms, b_by = bound_ms(nbytes, 7 * rows * DIM, rates)
+    sparse = torch.sparse_coo_tensor(all_rows[None], G, (rows, DIM), is_coalesced=True,
+                                     check_invariants=False)
+    v3, s3, step = values.clone(), state.clone(), torch.zeros((), device=dev)
+
+    def library():
+        torch_adagrad([v3], [sparse], [s3], [step], has_sparse_grad=True, lr=0.1,
+                      weight_decay=0.0, lr_decay=0.0, eps=1e-10, maximize=False)
+
+    ada = {"k": rows, "touched_rows": int(touched.sum()), "d": DIM, "max_abs_err": err,
+           "ms": time_ms(lambda: adagrad.sparse_adagrad_update_(v1, s1, all_rows, G, 0.1)),
+           "plain_ms": time_ms(lambda: adagrad.sparse_adagrad_update_plain_(
+               v2, s2, all_rows, G, 0.1)),
+           "library_ms": time_ms(library), "bound_ms": b_ms, "bound_by": b_by,
+           "bound_bytes": nbytes, "plan": adagrad.tensor_plan(v1, s1, all_rows, G)._asdict()}
+    print(f"sparse_adagrad_update_, lp_mesh_ranks shard (all {rows} rows x {DIM}, "
+          f"{ada['touched_rows']} with a nonzero G, {nbytes / 1e6:.4f} MB): max_abs_err {err}  "
+          f"kernel {ada['ms'] * 1e3:.2f} us  plain {ada['plain_ms'] * 1e3:.2f} us  "
+          f"torch.optim.adagrad (sparse) {ada['library_ms'] * 1e3:.2f} us  bound "
+          f"{b_ms * 1e3:.2f} us ({b_by})  plan {plan_text(ada['plan'])}  [{card}]", flush=True)
+
+    graph = build_device_graph(edges_np, NUM_NODES, NUM_RELS, device=dev)
+    configs = (NeighborSamplingConfig("UNIFORM", max_neighbors=10),)
+    cap = 2 * b + 2 * c * NEGATIVES
+    uniq = unique_padded(ids, size=cap, fill_value=NUM_NODES).ids
+    nb = sample_neighbor_batch(generator_draws(g), graph, uniq, uniq < NUM_NODES, configs,
+                               estimate_hop_caps(cap, configs, NUM_NODES))
+    sums = time_layer_sum(nb.layers[0], nb.node_ids[0].shape[0], DIM, rates, dev)
+    print(f"gather_sum, lp_mesh_ranks gs_1_layer layer ({sums['targets']} seeds x "
+          f"{sums['width']} slots, {sums['valid_slots']} real, {sums['distinct_rows']} distinct "
+          f"rows of {nb.node_ids[0].shape[0]}, d={DIM}, {sums['bound_bytes'] / 1e6:.4f} MB): "
+          f"max_abs_err {sums['max_abs_err']}  kernel {sums['ms'] * 1e3:.2f} us (with the "
+          f"layout built: {sums['with_layout_ms'] * 1e3:.2f} us)  plain "
+          f"{sums['plain_ms'] * 1e3:.2f} us  embedding_bag {sums['library_ms'] * 1e3:.2f} us  "
+          f"bound {sums['bound_ms'] * 1e3:.2f} us ({sums['bound_by']})  [{card}]", flush=True)
+    return {"gather_rows": gat, "sparse_adagrad_update_": ada, "gather_sum": sums}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a GPU",
@@ -4908,6 +5513,13 @@ def main() -> int:
     t0 = time.perf_counter()
     tools = tools_cli(card)
     print(f"tools_cli: {time.perf_counter() - t0:.1f} s in all", flush=True)
+    t0 = time.perf_counter()
+    mesh1 = lp_mesh(card)
+    ranks = lp_mesh_ranks(card)
+    shapes = lp_mesh_shapes(rates, card)
+    for k in kernels:
+        k["lp_mesh_ranks"] = shapes[k["name"]]
+    print(f"mesh phases: {time.perf_counter() - t0:.1f} s in all", flush=True)
 
     # each row's launches: the sum over the paths it runs on, each part's beside it
     by_part = {
@@ -4919,7 +5531,8 @@ def main() -> int:
                         **locality["gather_rows"], **emb_full["gather_rows"],
                         **nc_reload["gather_rows"], **nc_ooc["gather_rows"],
                         **rel["gather_rows"], **lp16["gather_rows"], **nc16["gather_rows"],
-                        **oocore16["gather_rows"], **tools["gather_rows"]},
+                        **oocore16["gather_rows"], **tools["gather_rows"],
+                        **mesh1["gather_rows"], **ranks["gather_rows"]},
         "sparse_adagrad_update_": {"lp flagship": flagship["sparse_adagrad_update_"],
                                    "lp_manager train": manager["sparse_adagrad_update_"],
                                    **sampled["sparse_adagrad_update_"],
@@ -4937,12 +5550,15 @@ def main() -> int:
                                    "lp_bf16 train": lp16["sparse_adagrad_update_"],
                                    **nc16["sparse_adagrad_update_"],
                                    **oocore16["sparse_adagrad_update_"],
-                                   **tools["sparse_adagrad_update_"]},
+                                   **tools["sparse_adagrad_update_"],
+                                   **mesh1["sparse_adagrad_update_"],
+                                   **ranks["sparse_adagrad_update_"]},
         "gather_sum": {**nc_counts, **sampled["gather_sum"], **gat["gather_sum"],
                        **rgcn_full["gather_sum"], **gat_full["gather_sum"], **gnn["gather_sum"],
                        **gnn_oocore["gather_sum"], **locality["gather_sum"],
                        **emb_full["gather_sum"], **nc_reload["gather_sum"],
-                       **nc_ooc["gather_sum"], **nc16["gather_sum"], **tools["gather_sum"]},
+                       **nc_ooc["gather_sum"], **nc16["gather_sum"], **tools["gather_sum"],
+                       **ranks["gather_sum"]},
     }
     for k in kernels:
         k["launches"] = sum(by_part[k["name"]].values())

@@ -24,7 +24,7 @@ runs for every node at once:
   anchor sum's backward is a plain gather (each slot feeds one anchor), and
   the only scatter is the W rows' backward, over relations.
 
-The ring-sharded twins (:294-531) wait for the multi-GPU slice.
+The ring-sharded twins (:294-531) wait for ROADMAP A4, item 5.
 """
 
 from __future__ import annotations

@@ -41,7 +41,15 @@ manager passes ``dtype`` to (:179, :199, :409): ``LinkPredictionTrainer``
 (the table and the parameters), ``PartitionBufferLPTrainer`` (the buffer)
 and ``NodeClassificationTrainer`` (features, parameters and table); the
 out-of-core NC trainer takes no dtype, as in JAX, and trains in float32.
-Meshes raise ``NotImplementedError`` naming the slice that brings them.
+
+``training.mesh`` (``_build_mesh``, JAX :84-96) lays the ranks of the
+process group (``parallel/multihost.py``; the commands join it from
+``MARIUS_COORDINATOR``) out as a (data x node) mesh for in-memory link
+prediction: the trainer runs the explicit sharded step, the evaluators see
+the whole table, and rank 0 writes checkpoints in the single-device layout.
+A model is evaluated (``marius_eval``, ``train=False``) on one device,
+whatever mesh trained it. Meshes for the partition buffer and for node
+classification raise ``NotImplementedError`` naming the slice that brings them.
 """
 
 from __future__ import annotations
@@ -53,6 +61,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import yaml
 
 from marius_tpu_torch.config.schema import MariusConfig, load_config, resolve_dtype
@@ -72,6 +81,7 @@ from marius_tpu_torch.nn.full_graph_encoder import (
 from marius_tpu_torch.nn.model import LINK_PREDICTION, NODE_CLASSIFICATION
 from marius_tpu_torch.ops.edge_keys import build_edge_key_set
 from marius_tpu_torch.ops.unique import PREFIX_BITMAP_LIMIT
+from marius_tpu_torch.parallel.mesh import make_mesh
 from marius_tpu_torch.reporting.logger import get_logger
 from marius_tpu_torch.storage import checkpoint as ckpt
 from marius_tpu_torch.storage.dataset import (
@@ -129,13 +139,40 @@ def _load_lp_data(cfg: MariusConfig):
     return train, valid, test
 
 
+def _wants_mesh(cfg: MariusConfig) -> bool:
+    t = cfg.training
+    return t.mesh_data not in (0, 1) or t.mesh_node not in (0, 1)
+
+
 def _refuse_unported(cfg: MariusConfig) -> None:
     """Raise for every part of ``cfg`` the port does not run yet."""
-    s, t = cfg.storage, cfg.training
+    s = cfg.storage
     if cfg.learning_task not in (LINK_PREDICTION, NODE_CLASSIFICATION):
         raise ValueError(f"Unknown learning task: {cfg.learning_task}")
-    if t.mesh_data not in (0, 1) or t.mesh_node not in (0, 1):
-        raise _later_slice("mesh training", "the multi-GPU slice")
+    if not _wants_mesh(cfg):
+        return
+    if cfg.learning_task == NODE_CLASSIFICATION:
+        raise _later_slice("mesh training of node classification",
+                           "the multi-GPU slices of ROADMAP A4, items 3-6")
+    if s.embeddings_backend == "PARTITION_BUFFER":
+        raise _later_slice("mesh training of the partition buffer",
+                           "the multi-GPU slice of ROADMAP A4, item 2")
+
+
+def _build_mesh(cfg: MariusConfig, dev):
+    """training.mesh -> a Mesh over the process group's ranks (None when
+    single-device); 0 means the rest of the world size (JAX :84-96)."""
+    t = cfg.training
+    if not _wants_mesh(cfg):
+        return None
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    node = t.mesh_node if t.mesh_node > 0 else max(1, world // max(t.mesh_data, 1))
+    data = t.mesh_data if t.mesh_data > 0 else max(1, world // node)
+    if not dist.is_initialized():
+        raise ValueError(f"training.mesh {data} x {node} needs {data * node} ranks; this "
+                         f"process has joined no process group (set MARIUS_COORDINATOR, "
+                         f"MARIUS_NUM_PROCESSES and MARIUS_PROCESS_ID)")
+    return make_mesh(num_data=data, num_node=node, device=dev)
 
 
 def _dtype(cfg: MariusConfig) -> torch.dtype:
@@ -158,8 +195,8 @@ class _HostStreamLPEval:
     def evaluate(self, state):
         # numpy has no bfloat16: a bf16 table is encoded from its float32
         # copy (the same values) and scored in float32
-        host = (None if state.table is None
-                else state.table.values.detach().cpu().float().numpy())
+        values = self.ev.table_values(state, on_device=False)
+        host = None if values is None else values.detach().float().numpy()
         return self.ev.evaluate_from_host_table(host, state.params,
                                                 features_host=self.features_host)
 
@@ -302,12 +339,12 @@ def marius_init(cfg: MariusConfig, train: bool = True, device=None) -> MariusRun
     if cfg.learning_task == NODE_CLASSIFICATION:
         rt = MariusRuntime(cfg, *_init_nc(cfg, dev, log))
     else:
-        rt = _init_lp(cfg, dev, log)
+        rt = _init_lp(cfg, dev, log, _build_mesh(cfg, dev) if train else None)
     _load_trained(rt, train, log)
     return rt
 
 
-def _init_lp(cfg: MariusConfig, dev, log) -> MariusRuntime:
+def _init_lp(cfg: MariusConfig, dev, log, mesh=None) -> MariusRuntime:
     ds = cfg.storage.dataset
     model = cfg.model
 
@@ -379,11 +416,18 @@ def _init_lp(cfg: MariusConfig, dev, log) -> MariusRuntime:
             nbr_configs=train_nbr,
             features=features,
             hop_caps=cfg.hop_caps or None,
+            mesh=mesh,
             edges_backend=s.edges_backend,
             epochs_per_shuffle=cfg.training.epochs_per_shuffle,
             dtype=_dtype(cfg),
             device=dev,
         )
+
+    if mesh is not None:
+        log.info("Mesh: %s over %d ranks, backend %s; this rank %d at %s on %s; the %s step "
+                 "(training.mesh.mode %s)", mesh.shape, dist.get_world_size(), mesh.backend,
+                 mesh.rank, mesh.coords, mesh.device, trainer.sharding_mode,
+                 cfg.training.mesh_mode)
 
     all_edges = np.concatenate(
         [train_edges] + [e for e in (valid_edges, test_edges) if e is not None], axis=0)
@@ -420,6 +464,7 @@ def _init_lp(cfg: MariusConfig, dev, log) -> MariusRuntime:
             features=eval_features,
             full_graph=eval_full_graph,
             fg_ops=eval_fg_ops,
+            mesh=mesh,
             device=dev,
         )
         return _HostStreamLPEval(ev, features) if host_streaming else ev
@@ -475,13 +520,28 @@ def _restore(rt: MariusRuntime, path: str) -> Dict[str, Any]:
     """Load the checkpoint at ``path`` into the trainer's own tensors (the
     decoder's relation tables are its module's parameters); a partition-buffer
     trainer takes it through its ``state`` setter (the LP one into its host
-    table; the NC one's co-buffer is not in a checkpoint, ROADMAP C7)."""
-    state, meta = ckpt.load_state(path, rt.trainer.state)
-    if isinstance(rt.trainer, (PartitionBufferLPTrainer, PartitionBufferNCTrainer)):
-        rt.trainer.state = state
+    table; the NC one's co-buffer is not in a checkpoint, ROADMAP C7); a mesh
+    trainer shards it."""
+    trainer = rt.trainer
+    if _mesh_of(rt) is not None:
+        state, meta = ckpt.load_state(path, trainer.gathered_state())
+        trainer.load_gathered_state(state)
+        return meta
+    state, meta = ckpt.load_state(path, trainer.state)
+    if isinstance(trainer, (PartitionBufferLPTrainer, PartitionBufferNCTrainer)):
+        trainer.state = state
     else:
-        copy_train_state_(rt.trainer.state, state)
+        copy_train_state_(trainer.state, state)
     return meta
+
+
+def _mesh_of(rt: MariusRuntime):
+    return getattr(rt.trainer, "mesh", None)
+
+
+def _saved_state(rt: MariusRuntime):
+    """The state a checkpoint holds: the single-device layout."""
+    return rt.trainer.gathered_state() if _mesh_of(rt) is not None else rt.trainer.state
 
 
 def marius_train(config, model_dir: Optional[str] = None, device=None) -> Dict[str, Any]:
@@ -525,16 +585,18 @@ def marius_train(config, model_dir: Optional[str] = None, device=None) -> Dict[s
             if (t.save_best and cfg.storage.model_dir and metric is not None
                     and (best_metric is None or metric > best_metric)):
                 best_metric = float(metric)
-                ckpt.save_state(cfg.storage.model_dir, rt.trainer.state,
-                                metadata={**_meta(rt), "best_valid_metric": best_metric})
+                ckpt.save_state(cfg.storage.model_dir, _saved_state(rt),
+                                metadata={**_meta(rt), "best_valid_metric": best_metric},
+                                mesh=_mesh_of(rt))
                 log.info("New best valid metric %.5f at epoch %d — saved",
                          best_metric, epoch + 1)
 
         if t.checkpoint_interval > 0 and (epoch + 1) % t.checkpoint_interval == 0 \
                 and cfg.storage.model_dir:
-            ckpt.create_checkpoint(cfg.storage.model_dir, rt.trainer.state, epoch + 1,
+            ckpt.create_checkpoint(cfg.storage.model_dir, _saved_state(rt), epoch + 1,
                                    metadata=_meta(rt),
-                                   save_optim_state=t.checkpoint_save_state)
+                                   save_optim_state=t.checkpoint_save_state,
+                                   mesh=_mesh_of(rt))
             log.info("Checkpoint at epoch %d", epoch + 1)
 
     # with save_best, final metrics come from the best saved model, not the
@@ -552,7 +614,8 @@ def marius_train(config, model_dir: Optional[str] = None, device=None) -> Dict[s
 
     if cfg.storage.save_model and cfg.storage.model_dir and best_metric is None:
         os.makedirs(cfg.storage.model_dir, exist_ok=True)
-        ckpt.save_state(cfg.storage.model_dir, rt.trainer.state, metadata=_meta(rt))
+        ckpt.save_state(cfg.storage.model_dir, _saved_state(rt), metadata=_meta(rt),
+                        mesh=_mesh_of(rt))
         log.info("Saved model to %s", cfg.storage.model_dir)
     if cfg.storage.export_encoded_nodes:
         # encode_and_export (marius.cpp:159-162)
@@ -582,7 +645,7 @@ def encode_and_export(rt: MariusRuntime, path: Optional[str] = None) -> np.ndarr
     if isinstance(tr, PartitionBufferNCTrainer):
         raise ValueError("export_encoded_nodes needs the whole graph on the device; an "
                          "out-of-core NC model keeps it on the host (as in the JAX package)")
-    state = tr.state
+    state = _saved_state(rt)
     table_values = state.table.values if state.table is not None else None
     batch_size = rt.config.evaluation.batch_size
     if isinstance(tr, PartitionBufferLPTrainer):
@@ -602,7 +665,8 @@ def encode_and_export(rt: MariusRuntime, path: Optional[str] = None) -> np.ndarr
             fg_ops=getattr(tr, "_fg_ops", None)).detach().cpu().float().numpy()
     out = path or (os.path.join(rt.config.storage.model_dir, "encoded_nodes.bin")
                    if rt.config.storage.model_dir else None)
-    if out:
+    mesh = _mesh_of(rt)
+    if out and (mesh is None or mesh.rank == 0):
         os.makedirs(os.path.dirname(out), exist_ok=True)
         encoded.astype(np.float32).tofile(out)
     return encoded

@@ -16,6 +16,11 @@ an ``ml_dtypes`` bfloat16 array records the raw 2-byte elements (descr
 2-byte void array as bfloat16 bits, so it needs no ``ml_dtypes`` and reads
 and writes checkpoints the JAX package reads and writes. A leaf is cast to
 the template's dtype on load.
+
+A mesh trainer's checkpoint is written in the single-device layout (the
+table's rows [0, N), from ``LinkPredictionTrainer.gathered_state``), so one
+card reads it: with ``mesh``, rank 0 writes and the other ranks write
+nothing and wait at a barrier until it has.
 """
 
 from __future__ import annotations
@@ -98,8 +103,21 @@ def _flatten_with_names(state: TrainState) -> Dict[str, np.ndarray]:
 
 
 def save_state(directory: str, state: TrainState, metadata: Optional[Dict[str, Any]] = None,
-               exclude_prefixes: Tuple[str, ...] = ()) -> None:
-    """Write a TrainState to ``directory`` atomically."""
+               exclude_prefixes: Tuple[str, ...] = (), mesh=None) -> None:
+    """Write a TrainState to ``directory`` atomically; with ``mesh``, only
+    from rank 0, every rank returning once it is written."""
+    if mesh is not None:
+        try:
+            if mesh.rank == 0:
+                _write_state(directory, state, metadata, exclude_prefixes)
+        finally:
+            mesh.barrier()
+        return
+    _write_state(directory, state, metadata, exclude_prefixes)
+
+
+def _write_state(directory: str, state: TrainState, metadata: Optional[Dict[str, Any]],
+                 exclude_prefixes: Tuple[str, ...]) -> None:
     parent = os.path.dirname(os.path.abspath(directory)) or "."
     os.makedirs(parent, exist_ok=True)
     tmp = tempfile.mkdtemp(dir=parent, prefix=".ckpt_tmp_")
@@ -174,7 +192,7 @@ def load_state(directory: str, template: TrainState) -> Tuple[TrainState, Dict[s
 
 def create_checkpoint(model_dir: str, state: TrainState, epoch: int,
                       metadata: Optional[Dict[str, Any]] = None,
-                      save_optim_state: bool = True) -> str:
+                      save_optim_state: bool = True, mesh=None) -> str:
     """Interval checkpoint: <model_dir>/checkpoint_<epoch>/ (checkpointer.cpp:18-37).
 
     With ``save_optim_state=False`` the optimizer/Adagrad leaves are omitted
@@ -184,5 +202,5 @@ def create_checkpoint(model_dir: str, state: TrainState, epoch: int,
     meta["epochs_processed"] = int(epoch)
     target = os.path.join(model_dir, f"checkpoint_{epoch}")
     save_state(target, state, meta,
-               exclude_prefixes=() if save_optim_state else OPTIM_STATE_PREFIXES)
+               exclude_prefixes=() if save_optim_state else OPTIM_STATE_PREFIXES, mesh=mesh)
     return target

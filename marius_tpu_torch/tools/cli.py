@@ -8,6 +8,16 @@ on, or run as ``python -m marius_tpu_torch.tools.cli <command> ...``. Each
 command function takes ``argv`` and a keyword ``device``: None (every
 command run from the shell) means the GPU, and the commands that train,
 evaluate or size a config raise without one; tests pass ``"cpu"``.
+
+``train`` and ``eval`` join a process group when ``MARIUS_COORDINATOR``
+(``host:port``, or a ``tcp://`` / ``file://`` URL), ``MARIUS_NUM_PROCESSES``
+and ``MARIUS_PROCESS_ID`` are set, as the JAX commands join
+``jax.distributed`` (``marius_tpu/tools/cli.py:12-28``); every process runs
+the same command, ``training.mesh`` lays the ranks out, only rank 0 prints
+the metrics, and every rank leaves the group at the end:
+
+    MARIUS_COORDINATOR=localhost:29500 MARIUS_NUM_PROCESSES=4 \
+    MARIUS_PROCESS_ID=<i> python -m marius_tpu_torch.tools.cli train config.yaml
 """
 
 from __future__ import annotations
@@ -17,14 +27,31 @@ import json
 import sys
 
 
-def _maybe_init_multihost():
-    """The JAX package joins a multi-process run when MARIUS_COORDINATOR is
-    set; the port has no multi-process training yet, so it refuses the
-    variable rather than train one process alone."""
+def _maybe_init_multihost(device=None):
+    """Join the process group when the multi-process variables are set;
+    returns (whether it joined, this rank's device or ``device``)."""
     import os
-    if os.environ.get("MARIUS_COORDINATOR"):
-        from marius_tpu_torch.train.trainer import _later_slice
-        raise _later_slice("multi-process training", "the multi-GPU slice")
+    coord = os.environ.get("MARIUS_COORDINATOR")
+    if not coord:
+        return False, device
+    from marius_tpu_torch.parallel import multihost
+    dev = multihost.initialize(coord, num_processes=int(os.environ["MARIUS_NUM_PROCESSES"]),
+                               process_id=int(os.environ["MARIUS_PROCESS_ID"]), device=device)
+    return True, dev
+
+
+def _run_in_group(run, args, device):
+    """``run(config, model_dir, device)``, inside the process group when the
+    variables ask for one; (result, whether this process prints)."""
+    joined, device = _maybe_init_multihost(device)
+    if not joined:
+        return run(args.config, model_dir=args.model_dir, device=device), True
+    import torch.distributed as dist
+    from marius_tpu_torch.parallel import multihost
+    try:
+        return run(args.config, model_dir=args.model_dir, device=device), dist.get_rank() == 0
+    finally:
+        multihost.shutdown()
 
 
 def marius_train(argv=None, device=None):
@@ -32,10 +59,9 @@ def marius_train(argv=None, device=None):
     p.add_argument("config", help="path to YAML config")
     p.add_argument("--model_dir", default=None)
     args = p.parse_args(argv)
-    _maybe_init_multihost()
     from marius_tpu_torch.manager import marius_train as run
-    result = run(args.config, model_dir=args.model_dir, device=device)
-    if "test" in result:
+    result, prints = _run_in_group(run, args, device)
+    if "test" in result and prints:
         print(json.dumps({k: v for k, v in result["test"].items()
                           if isinstance(v, (int, float, str))}))
     return 0
@@ -46,11 +72,10 @@ def marius_eval(argv=None, device=None):
     p.add_argument("config", help="path to YAML config")
     p.add_argument("--model_dir", default=None)
     args = p.parse_args(argv)
-    _maybe_init_multihost()
     from marius_tpu_torch.manager import marius_eval as run
-    result = run(args.config, model_dir=args.model_dir, device=device)
+    result, prints = _run_in_group(run, args, device)
     for split in ("test", "valid"):
-        if split in result:
+        if split in result and prints:
             print(json.dumps({k: v for k, v in result[split].items()
                               if isinstance(v, (int, float, str))}))
     return 0

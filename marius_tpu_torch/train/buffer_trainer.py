@@ -254,7 +254,8 @@ class PartitionBufferLPTrainer:
         if self.decoder_method == "CORRUPT_REL" and train_edges.shape[1] != 3:
             raise ValueError("CORRUPT_REL needs a 3-column (typed) edge list")
         if mesh is not None:
-            raise _later_slice("mesh training", "the multi-GPU slice")
+            raise _later_slice("mesh training of the partition buffer",
+                               "the multi-GPU slice of ROADMAP A4, item 2")
         if not model.has_embeddings:
             raise ValueError("partition-buffer LP needs an embedding table")
         if model.encoder.num_gnn_stages and not nbr_configs:

@@ -39,6 +39,12 @@ masked with -1e9, in both directions against the forward key set, the
 positive's own column included; unfiltered, only the positive's column.
 Host-tiled evaluation streams node corruption and refuses CORRUPT_REL, as
 JAX does. ``compute_pos_scores`` is ONLY_POS scoring (only_pos_forward).
+
+With ``mesh``, the state is a mesh trainer's: its table is this rank's rows,
+and every rank assembles the whole table with one all_gather over the node
+axis before encoding (what XLA does when the JAX evaluator reads a
+row-sharded global array), then evaluates it whole; host-streamed
+evaluation assembles it on the host instead, one shard at a time.
 """
 
 from __future__ import annotations
@@ -64,6 +70,7 @@ from marius_tpu_torch.ops.edge_keys import (
     max_anchor_tail,
 )
 from marius_tpu_torch.parallel.embedding_table import gather_rows
+from marius_tpu_torch.parallel.mesh import gather_table, gather_table_to_host
 from marius_tpu_torch.reporting.metrics import compute_ranks, rank_statistics
 from marius_tpu_torch.reporting.reporters import LinkPredictionReporter
 from marius_tpu_torch.storage import transfer
@@ -111,6 +118,7 @@ class LinkPredictionEvaluator:
         full_graph=None,            # FullGraphAdjacency: exact-ALL one-pass encoding
         fg_ops=None,                # its prepared ops (prepare_full_graph), else per call
         node_chunk: Optional[int] = None,   # streamed-scan chunk override
+        mesh=None,                  # the mesh whose trainer's states it evaluates
         device=None,
     ):
         self.model = model
@@ -125,7 +133,9 @@ class LinkPredictionEvaluator:
             raise ValueError(f"evaluation supports CORRUPT_NODE/CORRUPT_REL; "
                              f"{self.decoder_method} is inference-only "
                              f"(marius_predict --save_scores)")
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if device is not None or mesh is None
+                                     else mesh.device)
+        self.mesh = mesh
         self.neg_config = neg_config or NegativeSamplingConfig()
         self.seed = seed
         self.graph = None if graph is None else graph.to(self.device)
@@ -312,12 +322,26 @@ class LinkPredictionEvaluator:
         for idx in range(self.num_batches):
             yield idx, self.edges[idx * b:(idx + 1) * b]
 
+    def table_values(self, state: TrainState, on_device: bool = True) -> Optional[Tensor]:
+        """The whole table's values, assembled over the mesh's node axis for
+        a mesh trainer's state (every rank calls it): on the evaluator's
+        device (a table elsewhere, such as a partition-buffer trainer's host
+        table, is moved there), or with ``on_device=False`` on the host,
+        never whole on the device (host-streamed evaluation)."""
+        if state.table is None:
+            return None
+        values = state.table.values
+        if not on_device:
+            if self.mesh is not None:
+                return gather_table_to_host(values, self.mesh)[:self.num_nodes]
+            return values.cpu()
+        if self.mesh is not None:
+            values = gather_table(values, self.mesh)[:self.num_nodes]
+        return values.to(self.device)
+
     def _encode(self, state: TrainState) -> Tensor:
-        """All-node encoder outputs, shared by evaluate() and compute_all_ranks().
-        A table elsewhere (a partition-buffer trainer's host table) is moved
-        to the evaluator's device first."""
-        table_values = (state.table.values.to(self.device) if state.table is not None
-                        else None)
+        """All-node encoder outputs, shared by evaluate() and compute_all_ranks()."""
+        table_values = self.table_values(state)
         return encode_all_nodes(
             self.model, state.params, table_values, graph=self.graph,
             nbr_configs=self.nbr_configs, features=self.features,

@@ -139,7 +139,7 @@ class NodeClassificationTrainer:
             raise ValueError(f"NodeClassificationTrainer needs a {NODE_CLASSIFICATION} model")
         if mesh is not None:
             raise _later_slice("mesh training (data-parallel or the sharded ring)",
-                               "the multi-GPU slice")
+                               "the multi-GPU slices of ROADMAP A4, items 3-5")
         if full_graph is not None:
             if features is None and not model.has_embeddings:
                 raise ValueError("full-graph training needs node features or an EMBEDDING "

@@ -115,7 +115,7 @@ class PartitionBufferNCTrainer:
             raise ValueError(f"PartitionBufferNCTrainer needs a {NODE_CLASSIFICATION} model")
         if mesh is not None:
             raise _later_slice("mesh training of out-of-core node classification",
-                               "the multi-GPU slice")
+                               "the multi-GPU slice of ROADMAP A4, item 6")
         if model.encoder.num_gnn_stages and len(nbr_configs) != model.encoder.num_gnn_stages:
             raise ValueError("a GNN encoder needs one neighbour config per GNN stage")
         self.device = resolve_device(device)

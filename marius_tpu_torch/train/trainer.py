@@ -1,8 +1,8 @@
 """Link-prediction trainer: shallow, FEATURE and GNN encoders.
 
 Port of ``marius_tpu/train/trainer.py`` (TrainState :55-62, pad_edges :80-87,
-LinkPredictionTrainer :90-717) for one device, CORRUPT_NODE and CORRUPT_REL
-training. Where the JAX version
+LinkPredictionTrainer :90-717) on one device or a mesh (below), CORRUPT_NODE
+and CORRUPT_REL training. Where the JAX version
 compiles the whole epoch into one ``lax.scan``, this one runs an eager Python
 loop over batches. Each batch:
 
@@ -53,8 +53,25 @@ model parameters' type, as in JAX: a bfloat16 table is drawn in float32 and
 rounded, the encoder and the decoder's relation tables are bfloat16, the
 dense optimizer keeps bfloat16 slots (``nn/optimizers.py``), and the row
 gather and the Adagrad kernel take their bfloat16 entries. FEATURE inputs
-stay float32, as in JAX. Meshes raise ``NotImplementedError`` naming the
-slice that brings them.
+stay float32, as in JAX.
+
+With ``mesh`` (``parallel/mesh.py``), every rank of a (data x node) mesh
+runs the explicit sharded step (``parallel/collectives.py``; JAX :180-313,
+:393-430): the table and its Adagrad state are row-sharded over the node
+axis (rounded up to a multiple of its size with zero rows that only ever
+see zero gradients), the dense parameters replicated. Every rank draws the
+whole batch's negatives and permutation from the same seeded generator,
+computes the filters, and trains its data index's part, so the shallow mesh
+trajectory is the single-device one. GNN stages sample with a generator
+seeded from (seed, data index), as JAX folds the shard index into its keys.
+The port has no compiler that infers collectives: whatever
+``training.mesh.mode`` says (auto, gspmd or explicit), a mesh trainer runs
+the explicit step, and its ``sharding_mode`` reads "explicit".
+The cases JAX leaves to GSPMD (CORRUPT_REL, a FEATURE-only encoder, a batch
+or chunk count the data axis does not divide) raise ``NotImplementedError``
+naming the slice that brings them. ``gathered_state`` assembles the
+single-device layout (evaluation, checkpoints) and ``load_gathered_state``
+shards one back.
 """
 
 from __future__ import annotations
@@ -106,6 +123,13 @@ from marius_tpu_torch.parallel.embedding_table import (
     sparse_adagrad_update,
     sparse_adagrad_update_dense_accum,
 )
+from marius_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    NODE_AXIS,
+    gather_table,
+    local_rows,
+    shard_train_state,
+)
 
 Tensor = torch.Tensor
 
@@ -146,6 +170,24 @@ def _later_slice(what: str, where: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet; it comes with {where}")
 
 
+# the mesh cases JAX trains only through GSPMD (ROADMAP A4, item 1)
+GSPMD_SLICE = "the multi-GPU slice of the GSPMD-only LP cases (ROADMAP A4, item 1)"
+
+
+def _refuse_gspmd_only(mesh, model: Model, decoder_method: str, batch_size: int,
+                       num_chunks: int) -> None:
+    """Raise for the mesh cases JAX trains only through GSPMD; the explicit
+    step (JAX's auto resolves to it for every other case) runs the rest."""
+    if decoder_method == "CORRUPT_REL":
+        raise _later_slice("CORRUPT_REL training on a mesh", GSPMD_SLICE)
+    if not model.has_embeddings:
+        raise _later_slice("mesh training of a FEATURE-only encoder", GSPMD_SLICE)
+    n_data = mesh.shape[DATA_AXIS]
+    if batch_size % n_data or num_chunks % n_data:
+        raise _later_slice(f"mesh training with batch_size {batch_size} or num_chunks "
+                           f"{num_chunks} not divisible by the data axis {n_data}", GSPMD_SLICE)
+
+
 class LinkPredictionTrainer:
     """Shallow-encoder (embedding table) link-prediction training."""
 
@@ -163,7 +205,8 @@ class LinkPredictionTrainer:
         nbr_configs=(),             # train-time NeighborSamplingConfigs, outermost first
         features: Optional[np.ndarray] = None,   # (N, F) for FEATURE layers
         hop_caps=None,              # per-hop unique-node caps (default: worst case)
-        mesh=None,
+        mesh=None,                  # parallel.mesh.Mesh: table rows over NODE_AXIS,
+                                    # batches over DATA_AXIS
         edges_backend: str = "DEVICE_MEMORY",
         epochs_per_shuffle: int = 1,
         dtype=torch.float32,        # the table's and the parameters' type
@@ -184,8 +227,14 @@ class LinkPredictionTrainer:
         self.edges_backend = edges_backend.upper()
         if self.edges_backend not in ("DEVICE_MEMORY", "HOST_MEMORY", "FLAT_FILE"):
             raise ValueError(f"unknown edges backend {edges_backend}")
+        self.mesh = mesh
+        self.sharding_mode = None
         if mesh is not None:
-            raise _later_slice("mesh training", "the multi-GPU slice")
+            _refuse_gspmd_only(mesh, model, self.decoder_method, batch_size,
+                               neg_config.num_chunks)
+            self.sharding_mode = "explicit"
+            if device is None:
+                device = mesh.device
         if model.encoder.num_gnn_stages and not nbr_configs:
             raise ValueError("a GNN encoder needs one neighbour config per GNN stage")
         if nbr_configs and graph is None:
@@ -224,16 +273,30 @@ class LinkPredictionTrainer:
         params = init_model_params(init_gen, model, dtype)
         params = tree_map(self._to_device_leaf, params)
         table = None
+        # a mesh rounds the table up to a multiple of the node axis with zero rows
+        self.num_table_rows = (num_nodes if mesh is None else
+                               -(-num_nodes // mesh.shape[NODE_AXIS]) * mesh.shape[NODE_AXIS])
         if model.has_embeddings:
-            t = init_embedding_table(init_gen, num_nodes, model.encoder.embedding_dim)
-            table = EmbeddingTable(values=t.values.to(self.device, dtype),
-                                   state=t.state.to(self.device, dtype))
+            table = init_embedding_table(init_gen, num_nodes, model.encoder.embedding_dim)
+            if mesh is None:
+                table = EmbeddingTable(values=table.values.to(self.device, dtype),
+                                       state=table.state.to(self.device, dtype))
         self.state = TrainState(table=table, params=params,
                                 opt_state=init_optimizer(model.dense_optimizer, params),
                                 epoch=0)
+        if mesh is not None:
+            # the table stays on the host; each rank's card receives its shard only
+            self.state = shard_train_state(self.state, mesh, self.num_table_rows,
+                                           self.device, dtype)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
-        self._draws = generator_draws(self.generator)
-        self._dropout = DropoutKey(self.generator)
+        # neighbour draws and dropout masks: on a mesh, one generator per data index
+        draw_gen = self.generator
+        if mesh is not None:
+            data_seed = np.random.SeedSequence((seed, mesh.axis_index(DATA_AXIS)))
+            draw_gen = torch.Generator(device=self.device).manual_seed(
+                int(data_seed.generate_state(1)[0]))
+        self._draws = generator_draws(draw_gen)
+        self._dropout = DropoutKey(draw_gen)
         self._overflow = torch.zeros((), dtype=torch.int64, device=self.device)
 
         c, n = neg_config.num_chunks, neg_config.negatives_per_positive
@@ -260,6 +323,64 @@ class LinkPredictionTrainer:
             f = np.zeros((num_nodes + 1, features.shape[1]), np.float32)
             f[:num_nodes] = features
             self.features = torch.as_tensor(f, device=self.device)
+        self._mesh_update = None
+        self._mesh_gnn = False
+        if mesh is not None:
+            self._build_mesh_update(hop_caps)
+
+    def _build_mesh_update(self, hop_caps) -> None:
+        """The explicit step for this encoder (JAX :262-313): the deep-encoder
+        one for GNN or FEATURE stages, with per-data-index caps."""
+        from marius_tpu_torch.parallel.collectives import (
+            make_sharded_gnn_lp_update,
+            make_sharded_lp_update,
+        )
+
+        mesh, model, cfg = self.mesh, self.model, self.neg_config
+        if not (self.nbr_configs or self.features is not None):
+            self._mesh_update = make_sharded_lp_update(model, mesh, self.num_table_rows)
+            return
+        n_data = mesh.shape[DATA_AXIS]
+        cap_local = (2 * self.batch_size // n_data
+                     + 2 * cfg.num_chunks // n_data * cfg.negatives_per_positive)
+        caps_local = (cap_local,)
+        if self.nbr_configs:
+            est = estimate_hop_caps(cap_local, self.nbr_configs, self.num_nodes)
+            if hop_caps:
+                # configured caps bound the hops above the seeds, which are
+                # never truncated
+                est = [est[0]] + [min(int(u), int(e)) for u, e in zip(hop_caps[1:], est[1:])]
+            caps_local = tuple(est)
+        self.mesh_hop_caps = caps_local
+        self._mesh_update = make_sharded_gnn_lp_update(
+            model, mesh, self.num_table_rows, self.nbr_configs, caps_local, cap_local,
+            self.num_nodes, has_features=self.features is not None)
+        self._mesh_gnn = True
+
+    def gathered_state(self) -> TrainState:
+        """The state in the single-device layout: on a mesh the table's rows
+        [0, N), values and Adagrad state, assembled over the node axis (every
+        rank calls it); otherwise the state itself."""
+        st = self.state
+        if self.mesh is None or st.table is None:
+            return st
+        n = self.num_nodes
+        table = EmbeddingTable(values=gather_table(st.table.values, self.mesh)[:n],
+                               state=gather_table(st.table.state, self.mesh)[:n])
+        return dataclasses.replace(st, table=table)
+
+    def load_gathered_state(self, full: TrainState) -> None:
+        """Copy a state in the single-device layout into this trainer's own
+        tensors (on a mesh, this rank's rows of the table)."""
+        from marius_tpu_torch.convert import copy_train_state_
+
+        if self.mesh is not None and full.table is not None:
+            def mine(t):
+                return local_rows(t, self.num_table_rows, self.mesh, t.device)
+
+            full = dataclasses.replace(full, table=EmbeddingTable(
+                values=mine(full.table.values), state=mine(full.table.state)))
+        copy_train_state_(self.state, full)
 
     def _to_device_leaf(self, t: Tensor) -> Tensor:
         if t.device == self.device:
@@ -321,6 +442,11 @@ class LinkPredictionTrainer:
         else:
             # local (in-batch) false-negative filters (negative.cpp:328-366)
             dst_filter, src_filter = local_filter_masks(cfg, edges_b, mask_b, dst_ns, src_ns)
+        if self._mesh_update is not None:
+            return self._mesh_batch_step({
+                "src": src, "dst": dst, "mask": mask_b, "dst_negs": dst_ns.ids, "rel": rel,
+                "src_negs": src_ns.ids if inv_rel_on else None,
+                "dst_filter": dst_filter, "src_filter": src_filter})
 
         parts = [src, dst, dst_ns.ids.reshape(-1)]
         if inv_rel_on:
@@ -368,6 +494,21 @@ class LinkPredictionTrainer:
 
         self._apply_gradients(loss, x0, all_ids, row_ids)
         return loss.detach()
+
+    def _mesh_batch_step(self, batch: Dict[str, Optional[Tensor]]) -> Tensor:
+        """The explicit sharded step on the whole batch (JAX :393-430); returns
+        the whole batch's loss."""
+        st = self.state
+        args = (st.table.values, st.table.state, st.params, st.opt_state, batch)
+        if self._mesh_gnn:
+            degrees = None if self.graph is None else self.graph.degrees
+            st.opt_state, loss, overflow = self._mesh_update(
+                *args, self.graph, self.features, degrees, self._batch_draws(), self._dropout)
+            if overflow is not None:
+                self._overflow += overflow
+        else:
+            st.opt_state, loss = self._mesh_update(*args)
+        return loss
 
     def _batch_step_rel(self, edges_b: Tensor, mask_b: Tensor) -> Tensor:
         """One CORRUPT_REL batch (JAX _batch_step_rel :520-598): relation
@@ -462,6 +603,7 @@ class LinkPredictionTrainer:
     def train_epoch(self) -> Dict[str, float]:
         t0 = time.perf_counter()
         nb, b = self.num_batches, self.batch_size
+        collectives = 0 if self.mesh is None else self.mesh.collectives
         # frontier ids that tight hop caps dropped (none under the default caps)
         self._overflow = torch.zeros((), dtype=torch.int64, device=self.device)
         if self.edges_backend == "DEVICE_MEMORY":
@@ -494,6 +636,8 @@ class LinkPredictionTrainer:
         }
         if self.nbr_configs:
             out["truncated_frontier_ids"] = int(truncated)
+        if self.mesh is not None:
+            out["collectives_per_batch"] = (self.mesh.collectives - collectives) / nb
         return out
 
     def train(self, num_epochs: int):

@@ -12,6 +12,7 @@ carry those differences forward.
 """
 
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -149,8 +150,19 @@ def test_trainer_rejects_later_slices(monkeypatch):
                    TEncoderConfig(((TLayerConfig("EMBEDDING", output_dim=D),),)),
                    TEdgeDecoder("DISTMULT", R, D))
     edges, cfg = _edges(True), TNegConfig(C, NEG)
-    with pytest.raises(NotImplementedError):
-        TTrainer(model, N, R, edges, cfg, batch_size=B, device="cpu", mesh=object())
+    # meshes are ported (tests/test_torch_mesh.py) but for the cases JAX trains
+    # only through GSPMD, here a batch the data axis does not divide
+    mesh = types.SimpleNamespace(shape={"data": 3, "node": 1})
+    with pytest.raises(NotImplementedError, match="GSPMD-only"):
+        TTrainer(model, N, R, edges, cfg, batch_size=B, device="cpu", mesh=mesh)
+    mesh.shape["data"] = 1
+    rel = dataclasses.replace(model, decoder=TEdgeDecoder("DISTMULT", R, D,
+                                                          decoder_method="CORRUPT_REL"))
+    feature_only = dataclasses.replace(model, encoder=TEncoderConfig(
+        ((TLayerConfig("FEATURE", output_dim=D),),)))
+    for unported in (rel, feature_only):
+        with pytest.raises(NotImplementedError, match="GSPMD-only"):
+            TTrainer(unported, N, R, edges, cfg, batch_size=B, device="cpu", mesh=mesh)
     # GNN encoders are ported (tests/test_torch_lp_gnn.py); they sample a graph
     with pytest.raises(ValueError, match="DeviceGraph"):
         TTrainer(model, N, R, edges, cfg, batch_size=B, device="cpu", nbr_configs=(object(),))

@@ -403,9 +403,31 @@ def test_unported_paths_raise(tmp_path, what):
         "buffer_mesh": {"storage.embeddings": PB, "training.mesh": {"data": 1, "node": 2}},
     }[what]
     raw = _lp_config(tmp_path, what, **overrides)
-    match = {"buffer_mesh": "mesh"}.get(what, "comes with")
-    with pytest.raises(NotImplementedError, match=match):
+    if what == "mesh":
+        # an in-memory LP mesh is ported (tests/test_torch_mesh.py): it needs
+        # the ranks of a process group, which this process has not joined
+        with pytest.raises(ValueError, match="process group"):
+            marius_init(load_config(raw), device="cpu")
+        return
+    with pytest.raises(NotImplementedError, match="mesh"):
         marius_init(load_config(raw), device="cpu")
+
+
+def test_host_streamed_evaluation_reads_the_host_table_in_place(tmp_path, monkeypatch):
+    """evaluation.host_streaming over the partition buffer: the host table
+    reaches the tiled evaluation as it lies, never moved to the device."""
+    raw = _lp_config(tmp_path, "host_table", **{"storage.embeddings": PB,
+                                                 "evaluation.host_streaming": True})
+    rt = marius_init(load_config(raw), device="cpu")
+    ev = rt.test_evaluator
+    assert type(ev).__name__ == "_HostStreamLPEval"
+    seen = []
+    monkeypatch.setattr(ev.ev, "evaluate_from_host_table",
+                        lambda host, params, features_host=None: seen.append(host) or {})
+    # a device nothing can be read back from: a move there would fail below
+    monkeypatch.setattr(ev.ev, "device", torch.device("meta"))
+    ev.evaluate(rt.trainer.state)
+    assert np.shares_memory(seen[0], rt.trainer.state.table.values.numpy())
 
 
 # -- GNN and FEATURE encoders for link prediction -------------------------------

@@ -194,9 +194,17 @@ def test_train_eval_predict_postprocess_commands(jax_model, tmp_path, capsys, mo
     mapping = np.genfromtxt(d / "ds" / "nodes" / "node_mapping.txt", delimiter=",", dtype=str)
     assert {line.split(",")[0] for line in lines} >= set(mapping[:, 0])
 
-    monkeypatch.setenv("MARIUS_COORDINATOR", "localhost:1234")
-    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
-        cli.main(["train", str(cfg)], device="cpu")
+    # the commands join a process group under MARIUS_COORDINATOR (two
+    # processes: tests/test_torch_mesh.py): here one rank, then it leaves
+    import torch.distributed as dist
+
+    monkeypatch.setenv("MARIUS_COORDINATOR", f"file://{tmp_path / 'rendezvous'}")
+    monkeypatch.setenv("MARIUS_NUM_PROCESSES", "1")
+    monkeypatch.setenv("MARIUS_PROCESS_ID", "0")
+    assert cli.main(["eval", str(cfg)], device="cpu") == 0
+    in_group = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert {k: in_group[k] for k in METRIC_KEYS} == {k: evaluated[k] for k in METRIC_KEYS}
+    assert not dist.is_initialized()
 
 
 # -- config generator ----------------------------------------------------------
