@@ -126,7 +126,7 @@ Then out-of-core link prediction:
 8. ``lp_oocore``: the same YAML at Freebase86m's published shape (86,054,151
    nodes, 14,824 relations, d = 100, 16 partitions, buffer capacity 8, COMET)
    on a synthetic dataset written with the port's ``storage/dataset.py``, with
-   the cuts it prints (train edges, epochs, no saved model; nodes only if the
+   the cuts it prints (train edges, 1 epoch, no saved model; nodes only if the
    host's memory cannot hold the table and its Adagrad state), through
    ``marius_train``: per epoch edges/s, loss, states, per-state prep, swap
    and compute seconds, bytes copied each way, the padded-batch share, peak
@@ -245,6 +245,29 @@ collectives per batch (<= 3) and launches. ``lp_mesh_shapes`` holds the three
 kernels at the mesh's shapes (the owner-local gather, the shard's Adagrad,
 the GNN layer's gather-sum at the local caps) bit for bit, timed.
 
+Then the data-parallel meshes, each on gloo rank processes that share the
+card, each rank checked against one process's run in the same call:
+``lp_mesh_gspmd`` (the cases the JAX package leaves to GSPMD, on the
+explicit step): fb15k_237.yaml with CORRUPT_REL on {data: 2, node: 2} and
+fb15k_237.yaml on {data: 3, node: 1} (batch 1000 and 10 chunks split 4, 3,
+3 chunks), 1 epoch each (losses to rtol 5e-3, ``marius_eval`` of rank 0's
+checkpoint reproducing its relation or node metrics), and a FEATURE-only
+encoder at FB15K-237's shape, 2 batches against one card at rtol 1e-4 /
+atol 1e-5, every rank's parameters equal; ``lp_oocore_mesh``:
+freebase86m_comet.yaml at lp_oocore_reload's 1,000,000-node cut on {data:
+2, node: 2}, 1 epoch (each rank's card holds half the buffer pair; peak
+device bytes, the eviction all_gathers' bytes and the collectives per batch
+printed; ``marius_eval`` reproducing rank 0's metrics), then its first 2
+buffer states with injected draws against one card at rtol 1e-4 / atol
+1e-5; ``nc_mesh``: ogbn_arxiv.yaml at the arxiv shape on {data: 2, node: 1},
+1 epoch (test accuracy beside one process's, above 4x chance), one sampled
+batch against one card's computation of it with each index's draws, and
+train_nc's LINEAR collapse model, every batch of 1 epoch against one card's
+at rtol 1e-4 / atol 1e-5. ``mesh_dp_shapes`` holds the kernels at these
+paths' new shapes (the owner-local gather into a buffer shard, the
+unique-row Adagrad on it, the gather-sum of one data index's arxiv batch)
+bit for bit, timed.
+
 Small runs on the card are compared with the same runs on the CPU (plain
 versions, which tests/test_torch_*.py hold against the JAX package).
 
@@ -294,10 +317,11 @@ OOC_IDS = 2 * 10_000 + 2 * 10 * 500
 OOC_BATCHES = 16
 # lp_oocore's cuts of Freebase86m (338,586,276 published train edges, 10 epochs), its
 # valid and test splits, and the host memory kept free beside the table and its state
-OOC_TRAIN_EDGES, OOC_EVAL_EDGES, OOC_EPOCHS, FB86M_RELS = 32_000_000, 100_000, 2, 14_824
+OOC_TRAIN_EDGES, OOC_EVAL_EDGES, OOC_EPOCHS, FB86M_RELS = 32_000_000, 100_000, 1, 14_824
 OOC_HOST_SPARE = 16 << 30
-# lp_oocore_reload's cut
-RELOAD_NODES, RELOAD_TRAIN_EDGES, RELOAD_EVAL_EDGES = 1_000_000, 2_000_000, 20_000
+# lp_oocore_reload's cut (its 2 epochs cover the epoch-to-epoch reload)
+RELOAD_NODES, RELOAD_TRAIN_EDGES, RELOAD_EVAL_EDGES, RELOAD_EPOCHS = (1_000_000, 2_000_000,
+                                                                      20_000, 2)
 # FB15K-237's published split sizes, and the one cut of fb15k_237.yaml (10 epochs)
 FB_VALID, FB_TEST, LP_MANAGER_EPOCHS = 17_535, 20_466, 3
 # lp_gnn's and lp_gnn_oocore's cuts of the two YAMLs' 10 epochs
@@ -344,6 +368,13 @@ MESH_KG_NODES, MESH_KG_EPOCHS = 1000, 4
 # size a function of its rounding (ROADMAP C5)
 ACC_FLOOR = 1e-16
 MESH_TIMEOUT_S, MESH_RANKS_LIMIT_S = 300, 600
+# the data-parallel mesh phases: lp_mesh_gspmd's cut of fb15k_237.yaml's 10 epochs and its
+# uneven mesh (neither batch 1000 nor 10 chunks divides by 3); lp_oocore_mesh's cut of
+# freebase86m_comet.yaml's (lp_oocore_reload's 1,000,000 nodes) and the buffer states it
+# holds against one process; nc_mesh's mesh and its cut of ogbn_arxiv.yaml's 10 epochs
+GSPMD_EPOCHS, GSPMD_UNEVEN = 1, (3, 1)
+OOC_MESH_EPOCHS, OOC_MESH_STATES = 1, 2
+NC_MESH, NC_MESH_EPOCHS = (2, 1), 1
 # the edges of the gather-sum kernel's 128-byte column slabs (32 f32 or 64 bf16 columns)
 SLAB_EDGE_DIMS = (15, 16, 17, 31, 32, 63, 64, 65)
 # single buckets: caps from one slot to the 13k-slot hub, with the hub split's edges
@@ -1263,14 +1294,12 @@ def write_freebase_shaped(directory: str, num_nodes: int, train: int, held_out: 
         num_train=train, num_valid=held_out, num_test=held_out))
 
 
-def freebase_config(tmp: str, num_nodes: int, save_model: bool, encoder=None,
-                    epochs: int = OOC_EPOCHS, dtype=None):
-    """freebase86m_comet.yaml with only dataset_dir and model_dir redirected,
+def freebase_raw(tmp: str, save_model: bool, encoder=None, epochs: int = OOC_EPOCHS,
+                 dtype=None) -> dict:
+    """freebase86m_comet.yaml as a dict with only dataset_dir redirected,
     num_epochs cut to ``epochs`` and save_model set; ``encoder``, a raw
     encoder section, replaces the YAML's; ``dtype`` sets
     storage.embeddings.options.dtype."""
-    from marius_tpu_torch.config import load_config
-
     path = Path(__file__).resolve().parent / "examples" / "configuration" / "freebase86m_comet.yaml"
     with open(path) as f:
         raw = yaml.safe_load(f)
@@ -1281,7 +1310,16 @@ def freebase_config(tmp: str, num_nodes: int, save_model: bool, encoder=None,
         raw["model"]["encoder"] = encoder
     if dtype is not None:
         raw["storage"]["embeddings"]["options"]["dtype"] = dtype
-    cfg = load_config(raw, model_dir=f"{tmp}/model")
+    return raw
+
+
+def freebase_config(tmp: str, num_nodes: int, save_model: bool, encoder=None,
+                    epochs: int = OOC_EPOCHS, dtype=None):
+    """:func:`freebase_raw` loaded, its model_dir redirected too."""
+    from marius_tpu_torch.config import load_config
+
+    cfg = load_config(freebase_raw(tmp, save_model, encoder, epochs, dtype),
+                      model_dir=f"{tmp}/model")
     s = cfg.storage
     if (s.embeddings_backend, s.num_partitions, s.buffer_capacity, s.edge_bucket_ordering,
             cfg.model.encoder.embedding_dim) != ("PARTITION_BUFFER", 16, 8, "COMET", 100):
@@ -1424,14 +1462,14 @@ def lp_oocore_reload(card: str) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         write_freebase_shaped(f"{tmp}/dataset", RELOAD_NODES, RELOAD_TRAIN_EDGES,
                               RELOAD_EVAL_EDGES)
-        cfg = freebase_config(tmp, RELOAD_NODES, save_model=True)
+        cfg = freebase_config(tmp, RELOAD_NODES, save_model=True, epochs=RELOAD_EPOCHS)
         print(f"lp_oocore_reload: freebase86m_comet.yaml with dataset_dir and model_dir "
               f"redirected; cuts: {RELOAD_NODES} nodes (published 86,054,151), "
               f"{RELOAD_TRAIN_EDGES} train and {RELOAD_EVAL_EDGES} valid and test edges, "
-              f"num_epochs 10 -> {OOC_EPOCHS}", flush=True)
+              f"num_epochs 10 -> {RELOAD_EPOCHS}", flush=True)
         with EpochProbe() as probe:
             out = marius_train(cfg)   # device=None: the GPU
-            counts = report_oocore_epochs("lp_oocore_reload", out, probe, card)
+            counts = report_oocore_epochs("lp_oocore_reload", out, probe, card, RELOAD_EPOCHS)
             again = marius_eval(cfg)
         if not Path(f"{tmp}/model/meta.yaml").exists():
             raise AssertionError("marius_train did not save the model")
@@ -3405,7 +3443,8 @@ def lp_gnn_oocore(card: str) -> dict:
             print(f"lp_gnn_oocore: marius_train {total:.2f} s; hop caps {trainer.hop_caps} over "
                   f"{trainer.buffer.buffer_rows} buffer rows; batch {trainer.batch_size}",
                   flush=True)
-            counts = report_oocore_epochs("lp_gnn_oocore", out, probe, card)
+            counts = report_oocore_epochs("lp_gnn_oocore", out, probe, card,
+                                          GNN_OOCORE_EPOCHS)
             again = marius_eval(cfg)
         if not Path(f"{tmp}/model/meta.yaml").exists():
             raise AssertionError("marius_train did not save the model")
@@ -4903,28 +4942,31 @@ def lp_mesh(card: str, device=None) -> dict:
             "s_per_epoch": [r["epoch_time_s"] for r in res]}
 
 
-def mesh_rank(config_path: str, device=None) -> int:
-    """One rank of lp_mesh_ranks, in a process of its own: the command
-    line's ``train`` (it joins the process group from MARIUS_COORDINATOR,
-    MARIUS_NUM_PROCESSES and MARIUS_PROCESS_ID; rank 0 prints the test
-    metrics), then a line ``MESH_RANK {...}``: this rank's backend, device,
-    mesh coordinates, losses, seconds and collectives per epoch, and the
-    three kernels' launches in training and in all."""
+def _train_in_group(config_path: str, device, trainer_cls):
+    """The command line's ``train`` of ``config_path`` in this rank process
+    (it joins the process group from MARIUS_COORDINATOR, MARIUS_NUM_PROCESSES
+    and MARIUS_PROCESS_ID; rank 0 prints the test metrics), the three
+    kernels' launches counted in ``trainer_cls.train_epoch`` (set to 0 before
+    it, read after) and in all. Returns (marius_train's result, training
+    launches, all launches, the card's peak bytes per epoch)."""
     from marius_tpu_torch import manager
     from marius_tpu_torch.ops.cuda import adagrad, gather, nbr_sum
     from marius_tpu_torch.tools import cli
-    from marius_tpu_torch.train.trainer import LinkPredictionTrainer
 
     kernels = {"gather_rows": gather, "sparse_adagrad_update_": adagrad, "gather_sum": nbr_sum}
     train = dict.fromkeys(kernels, 0)
-    seen = {}
-    train_epoch, run = LinkPredictionTrainer.train_epoch, manager.marius_train
+    seen, peaks = {}, []
+    train_epoch, run = trainer_cls.train_epoch, manager.marius_train
 
-    def counted(self):
+    def counted(self, *args, **kwargs):
+        cuda = self.device.type == "cuda"
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(self.device)
         before = {k: m.launches for k, m in kernels.items()}
-        out = train_epoch(self)
+        out = train_epoch(self, *args, **kwargs)
         for k, m in kernels.items():
             train[k] += m.launches - before[k]
+        peaks.append(torch.cuda.max_memory_allocated(self.device) if cuda else None)
         return out
 
     def captured(*args, **kwargs):
@@ -4933,25 +4975,42 @@ def mesh_rank(config_path: str, device=None) -> int:
 
     for m in kernels.values():
         m.launches = 0
-    LinkPredictionTrainer.train_epoch, manager.marius_train = counted, captured
+    trainer_cls.train_epoch, manager.marius_train = counted, captured
     try:
         cli.main(["train", config_path], device=device)
     finally:
-        LinkPredictionTrainer.train_epoch, manager.marius_train = train_epoch, run
-    result = seen["result"]
+        trainer_cls.train_epoch, manager.marius_train = train_epoch, run
+    return seen["result"], train, {k: m.launches for k, m in kernels.items()}, peaks
+
+
+def _rank_record(result, train, launches, rate_key: str = "edges_per_sec") -> dict:
+    """The fields of a MESH_RANK line every rank function prints."""
     tr = result["runtime"].trainer
     epochs = result["epochs"]
+    return {"rank": tr.mesh.rank, "coords": tr.mesh.coords, "backend": tr.mesh.backend,
+            "device": str(tr.device), "shape": tr.mesh.shape,
+            "losses": [e["loss"] for e in epochs], "seconds": [e["epoch_time_s"] for e in epochs],
+            "rates": [e[rate_key] for e in epochs],
+            "collectives_per_batch": [e["collectives_per_batch"] for e in epochs],
+            "train_launches": train, "launches": launches,
+            "test": {k: v for k, v in result["test"].items() if isinstance(v, (int, float))}}
+
+
+def mesh_rank(config_path: str, device=None) -> int:
+    """One rank of lp_mesh_ranks (and of lp_mesh_gspmd's uneven mesh), in a
+    process of its own: the command line's ``train``, then a line
+    ``MESH_RANK {...}``: this rank's backend, device, mesh coordinates,
+    losses, seconds and collectives per epoch, and the three kernels'
+    launches in training and in all."""
+    from marius_tpu_torch.train.trainer import LinkPredictionTrainer
+
+    result, train, launches, _ = _train_in_group(config_path, device, LinkPredictionTrainer)
+    tr = result["runtime"].trainer
     print("MESH_RANK " + json.dumps({
-        "rank": tr.mesh.rank, "coords": tr.mesh.coords, "backend": tr.mesh.backend,
-        "device": str(tr.device), "shape": tr.mesh.shape, "mode": tr.sharding_mode,
+        **_rank_record(result, train, launches), "mode": tr.sharding_mode,
         "shard_rows": tr.state.table.values.shape[0], "batches": tr.num_batches,
         "hop_caps": getattr(tr, "mesh_hop_caps", None),
-        "losses": [e["loss"] for e in epochs], "seconds": [e["epoch_time_s"] for e in epochs],
-        "edges_per_sec": [e["edges_per_sec"] for e in epochs],
-        "collectives_per_batch": [e["collectives_per_batch"] for e in epochs],
-        "train_launches": train, "launches": {k: m.launches for k, m in kernels.items()},
-        "test": {k: v for k, v in result["test"].items() if isinstance(v, (int, float))}}),
-        flush=True)
+        "edges_per_sec": [e["edges_per_sec"] for e in result["epochs"]]}), flush=True)
     return 0
 
 
@@ -5069,16 +5128,20 @@ MESH_RANK_CODE = "import sys, chip_smoke; sys.exit(chip_smoke.{fn}(sys.argv[1], 
 
 
 def run_mesh_ranks(tag: str, raw: dict, tmp: str, card: str, device=None,
-                   fn: str = "mesh_rank") -> list:
-    """``raw`` through MESH_DATA x MESH_NODE rank processes of ``fn``
-    (``mesh_rank`` or ``mesh_gnn_all_rank``), rank i on card i % cards.
-    Returns each rank's MESH_RANK record, with the metrics it printed; a rank
-    that fails fails the phase."""
+                   fn: str = "mesh_rank", shape=(MESH_DATA, MESH_NODE)) -> list:
+    """``raw`` through data x node (``shape``) rank processes of ``fn``
+    (``mesh_rank``, ``mesh_gnn_all_rank``, ``gspmd_rank``, ``oocore_mesh_rank``
+    or ``nc_mesh_rank``), rank i on card i % cards. Each gets two rendezvous
+    addresses: MARIUS_COORDINATOR for the command line's process group and
+    MESH_CHECK_COORDINATOR for a second one after it. Returns each rank's
+    MESH_RANK record, with the metrics it printed; a rank that fails fails
+    the phase."""
     here = Path(__file__).resolve().parent
-    world = MESH_DATA * MESH_NODE
+    world = shape[0] * shape[1]
     cfg = Path(tmp) / f"{tag.replace(' ', '_')}.yaml"
     cfg.write_text(yaml.safe_dump(raw))
     env = {**os.environ, "MARIUS_COORDINATOR": f"localhost:{free_port()}",
+           "MESH_CHECK_COORDINATOR": f"localhost:{free_port()}",
            "MARIUS_NUM_PROCESSES": str(world)}
     code = MESH_RANK_CODE.format(fn=fn, device=device)
     procs = [subprocess.Popen([sys.executable, "-c", code, str(cfg)], cwd=here,
@@ -5111,16 +5174,17 @@ def run_mesh_ranks(tag: str, raw: dict, tmp: str, card: str, device=None,
     return records
 
 
-def _check_mesh_records(tag: str, records: list, card: str) -> dict:
-    """Every rank on the mesh, the same losses everywhere, <= 3 collectives
-    per batch, one gather and one Adagrad per training batch (one gather-sum
-    per GNN layer); rank 0 alone prints the metrics. Returns the launches per
-    part."""
+def _check_mesh_records(tag: str, records: list, card: str,
+                        mesh=(MESH_DATA, MESH_NODE)) -> dict:
+    """Every rank on the data x node ``mesh``, the same losses everywhere,
+    <= 3 collectives per batch, one gather and one Adagrad per training
+    batch (one gather-sum per GNN layer); rank 0 alone prints the metrics.
+    Returns the launches per part."""
     counts = {"gather_rows": {}, "sparse_adagrad_update_": {}, "gather_sum": {}}
     for rec in records:
-        shape = {"data": MESH_DATA, "node": MESH_NODE}
+        shape = {"data": mesh[0], "node": mesh[1]}
         if rec["shape"] != shape or rec["mode"] != "explicit" or rec["coords"] != [
-                rec["rank"] // MESH_NODE, rec["rank"] % MESH_NODE]:
+                rec["rank"] // mesh[1], rec["rank"] % mesh[1]]:
             raise AssertionError(f"{tag}: rank {rec['rank']} is not on the {shape} mesh: {rec}")
         if rec["losses"] != records[0]["losses"]:
             raise AssertionError(f"{tag}: rank {rec['rank']}'s losses {rec['losses']} differ "
@@ -5380,6 +5444,757 @@ def lp_mesh_shapes(rates, card) -> dict:
     return {"gather_rows": gat, "sparse_adagrad_update_": ada, "gather_sum": sums}
 
 
+# -- the data-parallel meshes: the GSPMD-only LP cases, the buffer, NC -----------------
+
+def _check_group(device):
+    """This rank's second process group (MESH_CHECK_COORDINATOR): the
+    checks after the command line's run, which left its own."""
+    from marius_tpu_torch.parallel import multihost
+
+    return multihost.initialize(os.environ["MESH_CHECK_COORDINATOR"],
+                                int(os.environ["MARIUS_NUM_PROCESSES"]),
+                                int(os.environ["MARIUS_PROCESS_ID"]), device=device,
+                                timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+
+
+def _held_close(got, want, grad, what: str) -> tuple:
+    """``got`` against ``want`` at rtol 1e-4 / atol 1e-5 where the reference
+    gradient ``grad`` is at least 1e-6 (an Adam or Adagrad first step
+    lr * g / (|g| + eps) turns a smaller one's rounding into the step's size,
+    ROADMAP C5); returns (largest difference past rtol as a share of atol,
+    elements not held)."""
+    keep = grad.abs() >= 1e-6
+    worst = _assert_close(got[keep], want[keep], what) if bool(keep.any()) else 0.0
+    return worst, int((~keep).sum())
+
+
+def gspmd_rank(config_path: str, device=None) -> int:
+    """One rank of lp_mesh_gspmd's 2 x 2 mesh: the command line's ``train``
+    of fb15k_237.yaml with CORRUPT_REL, then, in a second process group, a
+    FEATURE-only encoder at FB15K-237's shape (FEATURE 50 with a bias, then
+    the config's DistMult corrupting relations; random features from seed 0) on the mesh and on this
+    rank's card alone from the same seed, 2 batches of the first epoch's
+    permutation each: the losses, the relations and the FEATURE bias to rtol
+    1e-4 / atol 1e-5. Prints ``MESH_RANK {...}``."""
+    import dataclasses
+
+    from marius_tpu_torch.config import load_config
+    from marius_tpu_torch.nn.encoder import EncoderConfig
+    from marius_tpu_torch.nn.layers import LayerConfig
+    from marius_tpu_torch.nn.optimizers import tree_leaves
+    from marius_tpu_torch.ops.cuda import adagrad, gather, nbr_sum
+    from marius_tpu_torch.parallel import multihost
+    from marius_tpu_torch.parallel.mesh import make_mesh
+    from marius_tpu_torch.storage.dataset import load_split, load_stats
+    from marius_tpu_torch.train.trainer import LinkPredictionTrainer
+
+    result, train, launches, _ = _train_in_group(config_path, device, LinkPredictionTrainer)
+    tr = result["runtime"].trainer
+    record = {**_rank_record(result, train, launches), "mode": tr.sharding_mode,
+              "decoder_method": tr.decoder_method, "batches": tr.num_batches,
+              "shard_rows": tr.state.table.values.shape[0], "hop_caps": None,
+              "edges_per_sec": [e["edges_per_sec"] for e in result["epochs"]]}
+
+    cfg = load_config(config_path)
+    ds = cfg.storage.dataset.dataset_dir
+    stats = load_stats(ds)
+    edges = load_split(ds, "train", stats)
+    n, r, d = stats.num_nodes, stats.num_relations, DIM
+    features = np.random.default_rng(0).standard_normal((n, d)).astype(np.float32)
+    dev = _check_group(device)
+    kernels = {"gather_rows": gather, "sparse_adagrad_update_": adagrad, "gather_sum": nbr_sum}
+    try:
+        mesh = make_mesh(MESH_DATA, MESH_NODE, device=dev)
+
+        def trainer(m):
+            # the config's decoder (relation corruption) over a FEATURE-only encoder
+            model = dataclasses.replace(load_config(config_path).model, encoder=EncoderConfig(
+                ((LayerConfig("FEATURE", output_dim=d, bias=True),),)))
+            return LinkPredictionTrainer(model, n, r, edges, cfg.training.negative_sampling,
+                                         batch_size=cfg.training.batch_size,
+                                         seed=cfg.training.seed, features=features, mesh=m,
+                                         device=dev)
+
+        pairs = (("mesh", trainer(mesh)), ("single", trainer(None)))
+        losses = {name: [] for name, _ in pairs}
+        counts = {name: dict.fromkeys(kernels, 0) for name, _ in pairs}
+        collectives = pairs[0][1].mesh.collectives
+        for i in range(2):
+            for name, t in pairs:
+                before = {k: m.launches for k, m in kernels.items()}
+                rows = t._epoch_permutation(0)[i * t.batch_size:(i + 1) * t.batch_size]
+                losses[name].append(float(t._batch_step(t.edges[rows], rows < t.num_edges)))
+                for k, m in kernels.items():
+                    counts[name][k] += m.launches - before[k]
+        meshed, single = pairs[0][1], pairs[1][1]
+        if meshed.state.table is not None:
+            raise AssertionError("a FEATURE-only encoder has no table")
+        _assert_close(torch.tensor(losses["mesh"]), torch.tensor(losses["single"]), "losses")
+        worst = max(_assert_close(g, w, f"leaf {j}") for j, (g, w) in enumerate(
+            zip(tree_leaves(meshed.state.params), tree_leaves(single.state.params))))
+        record["feature_only"] = {
+            "losses": losses, "worst": worst, "launches": counts,
+            "collectives_per_batch": (meshed.mesh.collectives - collectives) / 2,
+            "leaves": [float(t.detach().double().sum()) for t in
+                       tree_leaves(meshed.state.params)]}
+    finally:
+        multihost.shutdown()
+    print("MESH_RANK " + json.dumps(record), flush=True)
+    return 0
+
+
+def lp_mesh_gspmd(card: str, device=None) -> dict:
+    """The LP cases the JAX package leaves to GSPMD, on the explicit step:
+    fb15k_237.yaml with CORRUPT_REL on a 2 x 2 mesh of four rank processes
+    (the command line, GSPMD_EPOCHS epochs: each rank's loss held to one
+    process's run in this call at rtol 5e-3, and marius_eval in this process
+    reproduces rank 0's relation metrics from its checkpoint); fb15k_237.yaml
+    on a 3 x 1 mesh (batch 1000 and 10 chunks split 4, 3, 3 chunks: the same
+    checks); and, in the 2 x 2 ranks, a FEATURE-only encoder at FB15K-237's
+    shape held to one card's trainer over 2 batches (``gspmd_rank``)."""
+    from marius_tpu_torch.config import load_config
+    from marius_tpu_torch.manager import marius_eval, marius_train
+
+    config = Path(__file__).resolve().parent / "examples" / "configuration" / "fb15k_237.yaml"
+    metric_keys = ("mrr", "mean_rank", "hits@1", "hits@10", "num_evaluated")
+    with open(config) as f:
+        yaml_raw = yaml.safe_load(f)
+    counts = {"gather_rows": {}, "sparse_adagrad_update_": {}, "gather_sum": {}}
+    seconds = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        write_fb15k_shaped(f"{tmp}/dataset")
+        for tag, shape, fn, edit in (("lp_mesh_gspmd corrupt_rel", (MESH_DATA, MESH_NODE),
+                                      "gspmd_rank", set_corrupt_rel),
+                                     ("lp_mesh_gspmd uneven", GSPMD_UNEVEN, "mesh_rank", None)):
+            raw = copy.deepcopy(yaml_raw)
+            changed = "" if edit is None else f", {edit(raw)}"
+            raw["storage"]["dataset"]["dataset_dir"] = f"{tmp}/dataset"
+            raw["storage"]["model_dir"] = f"{tmp}/model_{fn}"
+            raw["training"]["num_epochs"] = GSPMD_EPOCHS
+            single_raw = copy.deepcopy(raw)
+            single_raw["storage"]["model_dir"] = f"{tmp}/single_{fn}"
+            raw["training"]["mesh"] = {"data": shape[0], "node": shape[1]}
+            print(f"{tag}: {config.relative_to(config.parents[2])} with dataset_dir and "
+                  f"model_dir redirected{changed} and training.mesh {raw['training']['mesh']}; "
+                  f"one cut: num_epochs {yaml_raw['training']['num_epochs']} -> {GSPMD_EPOCHS}",
+                  flush=True)
+            records = run_mesh_ranks(tag, raw, tmp, card, device, fn=fn, shape=shape)
+            t0 = time.perf_counter()
+            single = marius_train(load_config(single_raw), device=device)
+            single_s = time.perf_counter() - t0
+            again = marius_eval(load_config(raw), device=device)
+            part = _check_mesh_records(tag, records, card, shape)
+            for k in counts:
+                counts[k].update(part[k])
+            losses, ref = records[0]["losses"], [e["loss"] for e in single["epochs"]]
+            if not np.allclose(losses, ref, rtol=5e-3, atol=0.0):
+                raise AssertionError(f"{tag} losses {losses} differ from one process's {ref}")
+            test = records[0]["printed"][0]
+            if any(test[k] != again["test"][k] for k in metric_keys):
+                raise AssertionError(f"{tag}: marius_eval of rank 0's checkpoint gave "
+                                     f"{again['test']}, rank 0 printed {test}")
+            seconds[tag] = records[0]["seconds"]
+            print(f"{tag} against one process in this call: losses {losses} vs {ref} (rtol "
+                  f"5e-3); s/epoch per rank {records[0]['seconds']} vs one process "
+                  f"{[round(e['epoch_time_s'], 4) for e in single['epochs']]} ({single_s:.1f} s "
+                  f"with its evaluations); edges/s per rank {records[0]['edges_per_sec']} vs "
+                  f"{[round(e['edges_per_sec'], 1) for e in single['epochs']]}; test filtered "
+                  f"MRR {test['mrr']:.6f} (one process {single['test']['mrr']:.6f}), reproduced "
+                  f"exactly by marius_eval of rank 0's checkpoint  [{card}]", flush=True)
+            if edit is not None:
+                if any(rec["decoder_method"] != "CORRUPT_REL" for rec in records) or \
+                        not test["mean_rank"] <= NUM_RELS:
+                    raise AssertionError(f"{tag} must rank relations: {test}")
+                for rec in records:
+                    fo = rec["feature_only"]
+                    want = {"gather_rows": 2, "sparse_adagrad_update_": 0, "gather_sum": 0}
+                    if fo["launches"]["mesh"] != want or fo["collectives_per_batch"] != 1.0:
+                        raise AssertionError(f"lp_mesh_gspmd feature_only rank {rec['rank']}: "
+                                             f"launches {fo['launches']}, collectives "
+                                             f"{fo['collectives_per_batch']} per batch")
+                    if fo["leaves"] != records[0]["feature_only"]["leaves"]:
+                        raise AssertionError(
+                            f"lp_mesh_gspmd feature_only: rank {rec['rank']}'s parameters "
+                            f"{fo['leaves']} differ from rank 0's "
+                            f"{records[0]['feature_only']['leaves']} (the node axis holds "
+                            f"replicas)")
+                    counts["gather_rows"][f"lp_mesh_gspmd feature_only rank {rec['rank']}"] = \
+                        fo["launches"]["mesh"]["gather_rows"]
+                    print(f"lp_mesh_gspmd feature_only rank {rec['rank']} (FEATURE {DIM} with a "
+                          f"bias at FB15K-237's shape, 2 batches on the 2 x 2 mesh and on one "
+                          f"card): losses {fo['losses']['mesh']} vs {fo['losses']['single']}; "
+                          f"leaves within rtol 1e-4 / atol 1e-5 (largest difference "
+                          f"{fo['worst']:.3f} of atol past rtol); every rank's parameters "
+                          f"equal; collectives per batch {fo['collectives_per_batch']}; "
+                          f"launches {fo['launches']}  [{card}]", flush=True)
+    return {**counts, "s_per_epoch": seconds}
+
+
+def _buffer_trainer(config_path: str, mesh, dev):
+    """The PartitionBufferLPTrainer marius_train builds for the config, with
+    a model of its own (the decoder's relations are its module's)."""
+    from marius_tpu_torch.config import load_config
+    from marius_tpu_torch.storage.dataset import load_split, load_stats
+    from marius_tpu_torch.train.buffer_trainer import PartitionBufferLPTrainer
+
+    cfg = load_config(config_path)
+    ds, s, t = cfg.storage.dataset.dataset_dir, cfg.storage, cfg.training
+    stats = load_stats(ds)
+    return PartitionBufferLPTrainer(
+        cfg.model, stats.num_nodes,
+        stats.num_relations, load_split(ds, "train", stats), t.negative_sampling,
+        batch_size=t.batch_size, num_partitions=s.num_partitions,
+        buffer_capacity=s.buffer_capacity, seed=t.seed, ordering=s.edge_bucket_ordering,
+        fine_to_coarse_ratio=s.fine_to_coarse_ratio,
+        num_cache_partitions=s.num_cache_partitions,
+        randomly_assign_edge_buckets=s.randomly_assign_edge_buckets,
+        sparse_writeback=s.sparse_writeback, mesh=mesh, device=dev)
+
+
+def _buffer_leaves(trainer, mesh) -> dict:
+    """The buffer trainer's leaves now, on the device in the single-device
+    layout: the buffer's values and Adagrad state (assembled over the node
+    axis on a mesh), the dense parameters; and each one's Adagrad
+    accumulator (the table's state, the dense optimizer's sums)."""
+    from marius_tpu_torch.nn.optimizers import tree_leaves
+    from marius_tpu_torch.parallel.mesh import NODE_AXIS
+
+    buf = trainer.buffer
+    values, state = buf.device_values, buf.device_state
+    if mesh is not None:
+        values = mesh.all_gather_rows(values.contiguous(), NODE_AXIS)
+        state = mesh.all_gather_rows(state.contiguous(), NODE_AXIS)
+    rows = buf.buffer_rows
+    params = [p.detach().clone() for p in tree_leaves(trainer.params)]
+    if set(trainer.opt_state.slots) != {"sum"}:
+        raise ValueError("the check reads Adagrad's dense accumulators")
+    sums = [t.detach().clone() for t in tree_leaves(trainer.opt_state.slots)]
+    return {"leaves": [values[:rows].clone(), state[:rows].clone()] + params,
+            "accumulators": [state[:rows].clone(), state[:rows].clone()] + sums}
+
+
+def oocore_mesh_rank(config_path: str, device=None) -> int:
+    """One rank of lp_oocore_mesh: the command line's ``train`` of
+    freebase86m_comet.yaml on the 2 x 2 mesh (this rank's shard of the
+    buffer, its peak device bytes and the bytes its evictions' all_gathers
+    received), then, in a second process group, the first OOC_MESH_STATES
+    buffer states on the mesh and on this rank's card alone from the same
+    seed with the same injected in-buffer draws: every batch's loss to rtol
+    1e-4 / atol 1e-5; after the first batch the buffer (values and Adagrad
+    state), the relations and their accumulators to the same tolerance but
+    for elements whose accumulator is nonzero and below ACC_FLOOR, which are
+    counted (ROADMAP C5); after the states the flushed host table's and the
+    relations' largest differences, reported beside those between two
+    one-card trainers that sum the table's gradients in another order.
+    Prints ``MESH_RANK {...}``."""
+    from marius_tpu_torch.nn.optimizers import tree_leaves
+    from marius_tpu_torch.ops.cuda import adagrad, gather, nbr_sum
+    from marius_tpu_torch.parallel import multihost
+    from marius_tpu_torch.parallel.mesh import make_mesh
+    from marius_tpu_torch.train.buffer_trainer import PartitionBufferLPTrainer
+
+    result, train, launches, peaks = _train_in_group(config_path, device,
+                                                     PartitionBufferLPTrainer)
+    tr = result["runtime"].trainer
+    buf = tr.buffer
+    epochs = result["epochs"]
+    record = {**_rank_record(result, train, launches), "mode": "explicit", "hop_caps": None,
+              "batches_run": [e["batches_run"] for e in epochs],
+              "gathered_bytes": [e["gathered_bytes"] for e in epochs],
+              "states": [e["states_run"] for e in epochs], "peak_bytes": peaks,
+              "shard_rows": buf.shard_size, "buffer_rows": buf.buffer_rows,
+              "pair_bytes": 2 * buf.buffer_rows * buf.dim * 4,
+              "shard_bytes": 2 * buf.shard_size * buf.dim * 4}
+    del result, tr, buf
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    kernels = {"gather_rows": gather, "sparse_adagrad_update_": adagrad, "gather_sum": nbr_sum}
+    dev = _check_group(device)
+    try:
+        mesh = make_mesh(MESH_DATA, MESH_NODE, device=dev)
+        out = {}
+        # a second one-card trainer that sums the table's gradients per
+        # occurrence (dense_accum) instead of per unique row: how far apart
+        # the summation order alone puts two one-card runs
+        for name, m, occurrence in (("mesh", mesh, False), ("single", None, False),
+                                    ("occurrence", None, True)):
+            t = _buffer_trainer(config_path, m, dev)
+            t.dense_accum = occurrence
+            t._in_buffer_draws = lambda step, inverse, _t=t: injected_draws(_t, step, inverse)
+            losses, first = [], {}
+            step = t._batch_step
+
+            def recorded(*args, _t=t, _m=m, _step=step, _losses=losses, _first=first, **kwargs):
+                loss = _step(*args, **kwargs)
+                _losses.append(float(loss))
+                if len(_losses) == 1:
+                    _first.update(_buffer_leaves(_t, _m))
+                return loss
+
+            t._batch_step = recorded
+            before = {k: km.launches for k, km in kernels.items()}
+            res = t.train_epoch(max_states=OOC_MESH_STATES, final_flush=False)
+            launched = {k: km.launches - before[k] for k, km in kernels.items()}
+            device_rows = t.buffer.device_values.shape[0]
+            t.buffer.flush()
+            out[name] = {"losses": losses, "first": first, "batches": res["batches_run"],
+                         "device_rows": device_rows, "launches": launched,
+                         "host": [torch.from_numpy(t.buffer.host_values),
+                                  torch.from_numpy(t.buffer.host_state)]
+                         + [p.detach() for p in tree_leaves(t.params)]}
+        got, want = out["mesh"], out["single"]
+        _assert_close(torch.tensor(got["losses"]), torch.tensor(want["losses"]), "batch losses")
+        # after the first batch every leaf, but for elements whose Adagrad
+        # accumulator is nonzero and below ACC_FLOOR (ROADMAP C5)
+        worst = unheld = elements = 0
+        for j, (g, w, acc) in enumerate(zip(got["first"]["leaves"], want["first"]["leaves"],
+                                            want["first"]["accumulators"])):
+            held = (acc == 0) | (acc >= ACC_FLOOR)
+            worst = max(worst, _assert_close(g[held], w[held], f"leaf {j} after one batch"))
+            unheld += int((~held).sum())
+            elements += int(held.numel())
+        # after the states: reported, not held (C5 amplifies the other summation order)
+        def apart(a, b):
+            return [(float((g - w).abs().max()), int((~torch.isclose(g, w, rtol=1e-4,
+                                                                       atol=1e-5)).sum()))
+                    for g, w in zip(a, b)]
+
+        after = apart(got["host"], want["host"])
+        record["states_check"] = {
+            "losses": [sum(got["losses"]), sum(want["losses"])], "worst": worst,
+            "unheld": unheld, "elements": elements, "after": after,
+            "order": apart(out["occurrence"]["host"], want["host"]),
+            "sizes": [int(t.numel()) for t in want["host"]],
+            "device_rows": [got["device_rows"], want["device_rows"]],
+            "batches": got["batches"], "launches": got["launches"]}
+    finally:
+        multihost.shutdown()
+    print("MESH_RANK " + json.dumps(record), flush=True)
+    return 0
+
+
+def lp_oocore_mesh(card: str, device=None) -> dict:
+    """freebase86m_comet.yaml's model and layout (ComplEx d = 100, 16
+    partitions, capacity 8, COMET) at lp_oocore_reload's 1,000,000-node cut
+    on a 2 x 2 mesh of four rank processes (the command line,
+    OOC_MESH_EPOCHS epoch, the model saved): each rank's card holds half the
+    buffer pair; each rank's loss held to one process's run in this call
+    (rtol 5e-3); marius_eval in this process reproduces rank 0's metrics from
+    its checkpoint; and each rank's first OOC_MESH_STATES states held to one
+    card's (``oocore_mesh_rank``)."""
+    from marius_tpu_torch.config import load_config
+    from marius_tpu_torch.manager import marius_eval, marius_train
+
+    keys = ("mrr", "mean_rank", "hits@1", "hits@10", "num_evaluated")
+    tag = "lp_oocore_mesh"
+    with tempfile.TemporaryDirectory() as tmp:
+        write_freebase_shaped(f"{tmp}/dataset", RELOAD_NODES, RELOAD_TRAIN_EDGES,
+                              RELOAD_EVAL_EDGES)
+        raw = freebase_raw(tmp, save_model=True, epochs=OOC_MESH_EPOCHS)
+        cfg = freebase_config(tmp, RELOAD_NODES, save_model=True, epochs=OOC_MESH_EPOCHS)
+        raw["training"]["mesh"] = {"data": MESH_DATA, "node": MESH_NODE}
+        raw["storage"]["model_dir"] = f"{tmp}/model_mesh"
+        print(f"{tag}: freebase86m_comet.yaml with dataset_dir and model_dir redirected and "
+              f"training.mesh {raw['training']['mesh']}; cuts: {RELOAD_NODES} nodes (published "
+              f"86,054,151), {RELOAD_TRAIN_EDGES} train and {RELOAD_EVAL_EDGES} valid and test "
+              f"edges, num_epochs 10 -> {OOC_MESH_EPOCHS}", flush=True)
+        records = run_mesh_ranks(tag, raw, tmp, card, device, fn="oocore_mesh_rank")
+        t0 = time.perf_counter()
+        single = marius_train(cfg, device=device)
+        single_s = time.perf_counter() - t0
+        again = marius_eval(load_config(raw), device=device)
+    counts = {"gather_rows": {}, "sparse_adagrad_update_": {}, "gather_sum": {}}
+    test = records[0]["printed"][0]
+    for rec in records:
+        if rec["shape"] != {"data": MESH_DATA, "node": MESH_NODE} or \
+                rec["losses"] != records[0]["losses"]:
+            raise AssertionError(f"{tag}: rank {rec['rank']} is off the mesh or its losses "
+                                 f"{rec['losses']} differ from rank 0's")
+        if (len(rec["printed"]) == 1) != (rec["rank"] == 0):
+            raise AssertionError(f"{tag}: rank {rec['rank']} printed {rec['printed']}")
+        batches = sum(rec["batches_run"])
+        want = {"gather_rows": batches, "sparse_adagrad_update_": batches, "gather_sum": 0}
+        if rec["train_launches"] != want:
+            raise AssertionError(f"{tag}: rank {rec['rank']} launched {rec['train_launches']} "
+                                 f"in training, expected {want}")
+        check = rec["states_check"]
+        share = -(-rec["buffer_rows"] // MESH_NODE)
+        if rec["shard_rows"] != share or check["device_rows"] != [share, rec["buffer_rows"]]:
+            raise AssertionError(f"{tag}: rank {rec['rank']}'s card held {check['device_rows']} "
+                                 f"buffer rows (mesh, one card) of {rec['buffer_rows']}, not its "
+                                 f"node index's share {share}")
+        for k, n in rec["train_launches"].items():
+            if n:
+                counts[k][f"{tag} rank {rec['rank']} train"] = n
+        for k, n in check["launches"].items():
+            if n:
+                counts[k][f"{tag} rank {rec['rank']} states check"] = n
+        print(f"{tag} rank {rec['rank']}: backend {rec['backend']} on {rec['device']} at "
+              f"{rec['coords']}; shard {rec['shard_rows']} of {rec['buffer_rows']} buffer rows "
+              f"({rec['shard_bytes']} bytes with its Adagrad state, the whole pair "
+              f"{rec['pair_bytes']}); peak device bytes per epoch {rec['peak_bytes']}; losses "
+              f"{rec['losses']}; s/epoch {rec['seconds']}; edges/s "
+              f"{[round(x, 1) for x in rec['rates']]}; {rec['batches_run']} batches over "
+              f"{rec['states']} states; collectives per batch {rec['collectives_per_batch']}; "
+              f"eviction all_gathers received {rec['gathered_bytes']} bytes "
+              f"({[round(b / max(1, s), 1) for b, s in zip(rec['gathered_bytes'], rec['states'])]}"
+              f" per state); launches in training {rec['train_launches']}  [{card}]", flush=True)
+        print(f"{tag} rank {rec['rank']} first {OOC_MESH_STATES} states against one card "
+              f"({check['batches']} batches): every batch's loss within rtol 1e-4 / atol 1e-5 "
+              f"(sums {check['losses']}); after the first batch the buffer, its Adagrad state, "
+              f"the relations and their accumulators within rtol 1e-4 / atol 1e-5 (largest "
+              f"difference {check['worst']:.3f} of atol past rtol; {check['unheld']} of "
+              f"{check['elements']} elements with a nonzero accumulator below {ACC_FLOOR} not "
+              f"held, ROADMAP C5); after the states (largest difference, elements past the "
+              f"tolerance) host table {check['after'][0]}, Adagrad state {check['after'][1]}, "
+              f"relations {check['after'][2:]} of {check['sizes']} elements (reported, C5); "
+              f"two one-card trainers that differ only in summing the table gradients per "
+              f"unique row or per occurrence: {check['order'][0]}, {check['order'][1]}, "
+              f"{check['order'][2:]}  [{card}]", flush=True)
+    losses, ref = records[0]["losses"], [e["loss"] for e in single["epochs"]]
+    if not np.allclose(losses, ref, rtol=5e-3, atol=0.0):
+        raise AssertionError(f"{tag} losses {losses} differ from one process's {ref}")
+    if any(test[k] != again["test"][k] for k in keys):
+        raise AssertionError(f"{tag}: marius_eval of rank 0's checkpoint gave {again['test']}, "
+                             f"rank 0 printed {test}")
+    print(f"{tag} against one process in this call: losses {losses} vs {ref} (rtol 5e-3); "
+          f"s/epoch per rank {records[0]['seconds']} vs one process "
+          f"{[round(e['epoch_time_s'], 4) for e in single['epochs']]} ({single_s:.1f} s with "
+          f"its evaluations); test MRR {test['mrr']:.6f} (one process "
+          f"{single['test']['mrr']:.6f}), reproduced exactly by marius_eval of rank 0's "
+          f"checkpoint  [{card}]", flush=True)
+    return {**counts, "s_per_epoch": records[0]["seconds"]}
+
+
+def _nc_dp_reference(single, seeds, mask, draws, caps):
+    """One data-parallel NC batch computed on one card: each data index's
+    part sampled with its own ``draws`` under ``caps`` and scored, the parts'
+    SUM losses added, one backward, one Adam step. Returns (loss, dense
+    gradients)."""
+    from marius_tpu_torch.nn.model import nc_batch_loss
+    from marius_tpu_torch.nn.optimizers import apply_optimizer, tree_leaves, tree_map
+
+    st, model = single.state, single.model
+    parts = len(draws)
+    bl = seeds.shape[0] // parts
+    total = 0.0
+    for i, draw in enumerate(draws):
+        s, m = seeds[i * bl:(i + 1) * bl], mask[i * bl:(i + 1) * bl]
+        nb, feats, emb = single._encode_batch(None, draw, s, m, caps)
+        logits = single._sampled_logits(st.params, nb, feats, emb, True)
+        total = total + nc_batch_loss(model, logits, single.labels[s.clamp(max=single.num_nodes)],
+                                      m & nb.seed_mask)
+    leaves = tree_leaves(st.params)
+    grads = torch.autograd.grad(total, leaves)
+    it = iter(grads)
+    _, st.opt_state = apply_optimizer(model.dense_optimizer, st.params, st.opt_state,
+                                      tree_map(lambda _: next(it), st.params))
+    return float(total), grads
+
+
+def nc_mesh_rank(config_path: str, device=None) -> int:
+    """One rank of nc_mesh: the command line's ``train`` of ogbn_arxiv.yaml
+    on the data-parallel mesh, then, in a second process group, one sampled
+    batch on the mesh against one card's computation of the same (each data
+    index's seeds with its own injected draws, ``_nc_dp_reference``), and
+    train_nc's LINEAR collapse model (every hop ALL) for one epoch on the
+    mesh and on one card, every batch's loss held at rtol 1e-4 / atol 1e-5.
+    Prints ``MESH_RANK {...}``."""
+    from marius_tpu_torch.config import load_config
+    from marius_tpu_torch.data.full_graph import build_full_graph_adjacency
+    from marius_tpu_torch.data.graph import build_device_graph
+    from marius_tpu_torch.data.samplers.neighbor import NeighborSamplingConfig, seeded_draws
+    from marius_tpu_torch.nn.optimizers import tree_leaves
+    from marius_tpu_torch.ops.cuda import adagrad, gather, nbr_sum
+    from marius_tpu_torch.parallel import multihost
+    from marius_tpu_torch.parallel.mesh import make_mesh
+    from marius_tpu_torch.storage.dataset import (
+        load_features,
+        load_labels,
+        load_node_split,
+        load_split,
+        load_stats,
+    )
+    from marius_tpu_torch.train.nc import NodeClassificationTrainer
+
+    result, train, launches, peaks = _train_in_group(config_path, device,
+                                                     NodeClassificationTrainer)
+    tr = result["runtime"].trainer
+    record = {**_rank_record(result, train, launches, "nodes_per_sec"), "mode": "explicit",
+              "batches": tr.num_batches, "hop_caps": list(tr.hop_caps), "peak_bytes": peaks,
+              "valid": [e["accuracy"] for e in result["evals"]]}
+    del result, tr
+    gc.collect()
+
+    cfg = load_config(config_path)
+    ds = cfg.storage.dataset.dataset_dir
+    stats = load_stats(ds)
+    edges = load_split(ds, "train", stats)
+    feats, labels = load_features(ds), load_labels(ds)
+    train_nodes = load_node_split(ds, "train")
+    n = stats.num_nodes
+    kernels = {"gather_rows": gather, "sparse_adagrad_update_": adagrad, "gather_sum": nbr_sum}
+    dev = _check_group(device)
+    try:
+        mesh = make_mesh(NC_MESH[0], NC_MESH[1], device=dev)
+        graph = build_device_graph(edges, n, device=dev)
+        nbr = cfg.train_neighbor_sampling
+        caps = tuple(cfg.hop_caps)
+
+        def sampled(m):
+            return NodeClassificationTrainer(load_config(config_path).model, graph, feats, labels,
+                                             train_nodes, nbr, batch_size=cfg.training.batch_size,
+                                             hop_caps=caps, seed=cfg.training.seed, mesh=m,
+                                             device=dev)
+
+        meshed, single = sampled(mesh), sampled(None)
+        draws = [seeded_draws(77, i, dev) for i in range(NC_MESH[0])]
+        meshed._batch_draws = lambda data_index=0: draws[data_index]
+        perm = meshed._epoch_permutation(0)
+        seeds, mask = meshed.train_nodes[perm[:meshed.batch_size]], \
+            perm[:meshed.batch_size] < meshed.num_train
+        before = {k: km.launches for k, km in kernels.items()}
+        loss, _ = meshed._mesh_sampled_batch_step(seeds, mask)
+        batch_launches = {k: km.launches - before[k] for k, km in kernels.items()}
+        ref_loss, grads = _nc_dp_reference(single, seeds, mask,
+                                           [seeded_draws(77, i, dev) for i in range(NC_MESH[0])],
+                                           caps)
+        _assert_close(loss.reshape(1), torch.tensor([ref_loss]), "the batch's loss")
+        worst = unheld = 0
+        for j, (g, w, grad) in enumerate(zip(tree_leaves(meshed.state.params),
+                                             tree_leaves(single.state.params), grads)):
+            wj, uj = _held_close(g, w, grad, f"leaf {j}")
+            worst, unheld = max(worst, wj), unheld + uj
+        record["sampled_check"] = {"loss": [float(loss), ref_loss], "worst": worst,
+                                   "unheld": unheld, "launches": batch_launches,
+                                   "elements": sum(int(g.numel()) for g in grads)}
+        del meshed, single
+
+        adj = build_full_graph_adjacency(edges, n).to(dev)
+
+        def collapse(m):
+            return NodeClassificationTrainer(
+                nc_model(ARXIV_FEATS, (NC_DIM, NC_DIM, ARXIV_CLASSES)),
+                graph, feats, labels, train_nodes, [NeighborSamplingConfig("ALL")] * NC_GNN_STAGES,
+                batch_size=cfg.training.batch_size, seed=0, mesh=m, full_graph=adj, device=dev)
+
+        pairs = (("mesh", collapse(mesh)), ("single", collapse(None)))
+        if any(t._fg_collapse is None for _, t in pairs):
+            raise AssertionError("train_nc's model must train through the linear collapse")
+        losses = {name: [] for name, _ in pairs}
+        counts = {name: dict.fromkeys(kernels, 0) for name, _ in pairs}
+        seconds = {}
+        for name, t in pairs:
+            perm = t._epoch_permutation(0)
+            shuffled = t.train_nodes[perm].reshape(t.num_batches, t.batch_size)
+            masks = (perm < t.num_train).reshape(t.num_batches, t.batch_size)
+            before = {k: km.launches for k, km in kernels.items()}
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            batch_losses = [t._batch_step(shuffled[i], masks[i], None)
+                            for i in range(t.num_batches)]
+            losses[name] = torch.stack(batch_losses).cpu()
+            seconds[name] = time.perf_counter() - t0
+            counts[name] = {k: km.launches - before[k] for k, km in kernels.items()}
+        worst_c = _assert_close(losses["mesh"], losses["single"], "collapse batch losses")
+        record["collapse_check"] = {"batches": len(losses["mesh"]), "worst": worst_c,
+                                    "launches": counts, "seconds": seconds,
+                                    "loss": [float(losses["mesh"].sum()),
+                                             float(losses["single"].sum())]}
+    finally:
+        multihost.shutdown()
+    print("MESH_RANK " + json.dumps(record), flush=True)
+    return 0
+
+
+def nc_mesh(card: str, data, device=None) -> dict:
+    """ogbn_arxiv.yaml at the arxiv shape on a data-parallel {data: 2, node:
+    1} mesh of two rank processes (the command line, NC_MESH_EPOCHS epoch):
+    the same losses on both ranks, the test accuracy beside one process's
+    run in this call and above 4x chance; then each rank's sampled batch and
+    collapse epoch against one card (``nc_mesh_rank``)."""
+    from marius_tpu_torch.config import load_config
+    from marius_tpu_torch.manager import marius_train
+
+    config = Path(__file__).resolve().parent / "examples" / "configuration" / "ogbn_arxiv.yaml"
+    with open(config) as f:
+        yaml_raw = yaml.safe_load(f)
+    tag = "nc_mesh"
+    with tempfile.TemporaryDirectory() as tmp:
+        write_arxiv_shaped(f"{tmp}/dataset", data)
+        raw = copy.deepcopy(yaml_raw)
+        raw["storage"]["dataset"]["dataset_dir"] = f"{tmp}/dataset"
+        raw["storage"]["model_dir"] = f"{tmp}/model"
+        raw["training"]["num_epochs"] = NC_MESH_EPOCHS
+        single_raw = copy.deepcopy(raw)
+        raw["training"]["mesh"] = {"data": NC_MESH[0], "node": NC_MESH[1]}
+        print(f"{tag}: {config.relative_to(config.parents[2])} with dataset_dir and model_dir "
+              f"redirected and training.mesh {raw['training']['mesh']}; one cut: num_epochs "
+              f"{yaml_raw['training']['num_epochs']} -> {NC_MESH_EPOCHS}", flush=True)
+        records = run_mesh_ranks(tag, raw, tmp, card, device, fn="nc_mesh_rank", shape=NC_MESH)
+        t0 = time.perf_counter()
+        single = marius_train(load_config(single_raw), device=device)
+        single_s = time.perf_counter() - t0
+    counts = {"gather_rows": {}, "sparse_adagrad_update_": {}, "gather_sum": {}}
+    test = records[0]["printed"][0]
+    for rec in records:
+        if rec["shape"] != {"data": NC_MESH[0], "node": NC_MESH[1]} or \
+                rec["losses"] != records[0]["losses"] or rec["test"] != records[0]["test"]:
+            raise AssertionError(f"{tag}: rank {rec['rank']} is off the mesh or differs from "
+                                 f"rank 0: {rec}")
+        if (len(rec["printed"]) == 1) != (rec["rank"] == 0):
+            raise AssertionError(f"{tag}: rank {rec['rank']} printed {rec['printed']}")
+        batches = NC_MESH_EPOCHS * rec["batches"]
+        want = {"gather_rows": batches, "sparse_adagrad_update_": 0, "gather_sum": 3 * batches}
+        if rec["train_launches"] != want:
+            raise AssertionError(f"{tag}: rank {rec['rank']} launched {rec['train_launches']} "
+                                 f"in training, expected {want}")
+        sc, cc = rec["sampled_check"], rec["collapse_check"]
+        if sc["launches"] != {"gather_rows": 1, "sparse_adagrad_update_": 0, "gather_sum": 3}:
+            raise AssertionError(f"{tag}: the checked batch launched {sc['launches']}")
+        for k, n in rec["train_launches"].items():
+            if n:
+                counts[k][f"{tag} rank {rec['rank']} train"] = n
+        for k, n in sc["launches"].items():
+            if n:
+                counts[k][f"{tag} rank {rec['rank']} sampled check"] = n
+        for k, n in cc["launches"]["mesh"].items():
+            if n:
+                counts[k][f"{tag} rank {rec['rank']} collapse"] = n
+        print(f"{tag} rank {rec['rank']}: backend {rec['backend']} on {rec['device']} at "
+              f"{rec['coords']}; local hop caps {rec['hop_caps']}; losses {rec['losses']}; "
+              f"s/epoch {rec['seconds']}; train nodes/s {[round(x, 1) for x in rec['rates']]}; "
+              f"collectives per batch {rec['collectives_per_batch']}; peak device bytes "
+              f"{rec['peak_bytes']}; valid accuracy {rec['valid']}; launches in training "
+              f"{rec['train_launches']}  [{card}]", flush=True)
+        print(f"{tag} rank {rec['rank']} sampled batch against one card (each index's seeds "
+              f"with its own draws): loss {sc['loss'][0]:.6f} vs {sc['loss'][1]:.6f}; "
+              f"parameters within rtol 1e-4 / atol 1e-5 (largest difference {sc['worst']:.3f} "
+              f"of atol past rtol; {sc['unheld']} of {sc['elements']} elements with a gradient "
+              f"below 1e-6 not held, ROADMAP C5); launches {sc['launches']}  [{card}]",
+              flush=True)
+        print(f"{tag} rank {rec['rank']} collapse (train_nc's LINEAR model, every hop ALL): "
+              f"{cc['batches']} batch losses on the mesh equal one card's within rtol 1e-4 / "
+              f"atol 1e-5 (largest difference {cc['worst']:.3f} of atol past rtol), epoch loss "
+              f"{cc['loss'][0]:.6f} vs {cc['loss'][1]:.6f}; s/epoch {cc['seconds']['mesh']:.4f} "
+              f"vs one card {cc['seconds']['single']:.4f}; launches {cc['launches']}  [{card}]",
+              flush=True)
+    ref = single["test"]["accuracy"]
+    if not test["accuracy"] > 4.0 / ARXIV_CLASSES:
+        raise AssertionError(f"{tag} test accuracy {test['accuracy']} is not above 4x chance")
+    print(f"{tag} against one process in this call: losses {records[0]['losses']} vs "
+          f"{[e['loss'] for e in single['epochs']]}; s/epoch per rank {records[0]['seconds']} "
+          f"vs one process {[round(e['epoch_time_s'], 4) for e in single['epochs']]} "
+          f"({single_s:.1f} s with its evaluations); train nodes/s per rank "
+          f"{[round(x, 1) for x in records[0]['rates']]} vs "
+          f"{[round(e['nodes_per_sec'], 1) for e in single['epochs']]}; test accuracy "
+          f"{test['accuracy']:.6f} vs one process {ref:.6f} (chance {1 / ARXIV_CLASSES})  "
+          f"[{card}]", flush=True)
+    return {**counts, "s_per_epoch": records[0]["seconds"]}
+
+
+def mesh_dp_shapes(rates, card, data) -> dict:
+    """The three kernels at this slice's new shapes on the card, each bit for
+    bit against its plain version and timed beside its bound and its
+    one-call PyTorch equivalent: the owner-local row gather of one
+    freebase86m_comet.yaml batch's 30,000 unique ids into node index 1's half
+    (250,000 x 100) of lp_oocore_mesh's 1,000,000-node buffer (the ids it
+    does not own clamp to a row of the shard and are zeroed after); the
+    unique-row Adagrad on that shard at those ids (the others skipped by the
+    kernel's id >= N rule); and the gather-sum at ogbn_arxiv.yaml's layer 0
+    for one data index's 500 seeds (UNIFORM 32, the YAML's hop caps)."""
+    from torch.optim.adagrad import adagrad as torch_adagrad
+
+    from marius_tpu_torch.data.graph import build_device_graph
+    from marius_tpu_torch.data.samplers.neighbor import (
+        NeighborSamplingConfig,
+        generator_draws,
+        sample_neighbor_batch,
+    )
+    from marius_tpu_torch.ops.cuda import adagrad, gather
+    from marius_tpu_torch.parallel.collectives import owner_rows
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(13)
+    psize = -(-RELOAD_NODES // FB86M_PARTITIONS)
+    buffer_rows = FB86M_BUFFER * psize
+    rows = -(-buffer_rows // MESH_NODE)
+    ids = torch.randperm(buffer_rows, generator=g, device=dev)[:OOC_IDS]
+    shard = torch.randn(rows, FB86M_DIM, device=dev, generator=g)
+    local = ids - rows
+    gat = time_gather(gather, shard, [local], rates)
+    gat["max_abs_err"] = gather_max_err(gather, shard, local)
+    print(f"gather_rows, lp_oocore_mesh owner-local (K={gat['k']} int64 ids into node index "
+          f"1's {rows} x {FB86M_DIM} shard of the {buffer_rows}-row buffer, "
+          f"{gat['distinct_rows']:.0f} distinct rows after the clamp, "
+          f"{gat['bound_bytes'] / 1e6:.4f} MB): max_abs_err {gat['max_abs_err']}  kernel "
+          f"{gat['ms'] * 1e3:.2f} us  plain {gat['plain_ms'] * 1e3:.2f} us  index_select "
+          f"{gat['library_ms'] * 1e3:.2f} us  bound {gat['bound_ms'] * 1e3:.2f} us "
+          f"({gat['bound_by']})  [{card}]", flush=True)
+
+    class NodeOne:
+        shape = {"node": MESH_NODE}
+
+        def axis_index(self, axis):
+            return 1
+
+    owned = owner_rows(ids, rows, NodeOne(), buffer_rows)
+    mine = int((owned < rows).sum())
+    G = torch.randn(OOC_IDS, FB86M_DIM, device=dev, generator=g)
+    values, state = torch.randn(rows, FB86M_DIM, device=dev, generator=g), torch.rand(
+        rows, FB86M_DIM, device=dev, generator=g)
+    v1, s1, v2, s2 = values.clone(), state.clone(), values.clone(), state.clone()
+    adagrad.sparse_adagrad_update_(v1, s1, owned, G, 0.1)
+    adagrad.sparse_adagrad_update_plain_(v2, s2, owned, G, 0.1)
+    torch.cuda.synchronize()
+    err = max(float((v1 - v2).abs().max()), float((s1 - s2).abs().max()))
+    if err != 0.0:
+        raise AssertionError(f"sparse_adagrad_update_ differs from plain on the buffer shard: "
+                             f"{err}")
+    # this node index's rows: values and state read and written, its G rows read, all ids read
+    nbytes = 5 * mine * FB86M_DIM * 4 + OOC_IDS * 8
+    b_ms, b_by = bound_ms(nbytes, 7 * mine * FB86M_DIM, rates)
+    keep = owned < rows
+    sparse = torch.sparse_coo_tensor(owned[keep][None], G[keep], (rows, FB86M_DIM),
+                                     is_coalesced=True, check_invariants=False)
+    v3, s3, step = values.clone(), state.clone(), torch.zeros((), device=dev)
+
+    def library():
+        torch_adagrad([v3], [sparse], [s3], [step], has_sparse_grad=True, lr=0.1,
+                      weight_decay=0.0, lr_decay=0.0, eps=1e-10, maximize=False)
+
+    ada = {"k": OOC_IDS, "owned_rows": mine, "d": FB86M_DIM, "max_abs_err": err,
+           "ms": time_ms(lambda: adagrad.sparse_adagrad_update_(v1, s1, owned, G, 0.1)),
+           "plain_ms": time_ms(lambda: adagrad.sparse_adagrad_update_plain_(
+               v2, s2, owned, G, 0.1)),
+           "library_ms": time_ms(library), "bound_ms": b_ms, "bound_by": b_by,
+           "bound_bytes": nbytes, "plan": adagrad.tensor_plan(v1, s1, owned, G)._asdict()}
+    print(f"sparse_adagrad_update_, lp_oocore_mesh unique rows on the shard ({OOC_IDS} ids, "
+          f"{mine} owned by node index 1, x {FB86M_DIM}, {nbytes / 1e6:.4f} MB): max_abs_err "
+          f"{err}  kernel {ada['ms'] * 1e3:.2f} us  plain {ada['plain_ms'] * 1e3:.2f} us  "
+          f"torch.optim.adagrad (sparse) {ada['library_ms'] * 1e3:.2f} us  bound "
+          f"{b_ms * 1e3:.2f} us ({b_by})  plan {plan_text(ada['plan'])}  [{card}]", flush=True)
+
+    edges, features, _, train_nodes = data
+    graph = build_device_graph(edges, ARXIV_NODES, device=dev)
+    configs = (NeighborSamplingConfig("UNIFORM", max_neighbors=32),) * NC_GNN_STAGES
+    seeds = torch.as_tensor(train_nodes[:1000 // NC_MESH[0]], device=dev).long()
+    nb = sample_neighbor_batch(generator_draws(g), graph, seeds,
+                               torch.ones_like(seeds, dtype=torch.bool), configs,
+                               (1000, 16384, 65536, 169344))
+    sums = time_layer_sum(nb.layers[0], nb.node_ids[0].shape[0], NC_DIM, rates, dev)
+    print(f"gather_sum, nc_mesh layer 0 of one data index ({sums['targets']} targets x "
+          f"{sums['width']} slots, {sums['valid_slots']} real, {sums['distinct_rows']} distinct "
+          f"rows of {nb.node_ids[0].shape[0]}, d={NC_DIM}, {sums['bound_bytes'] / 1e6:.4f} MB): "
+          f"max_abs_err {sums['max_abs_err']}  kernel {sums['ms'] * 1e3:.2f} us (with the "
+          f"layout built: {sums['with_layout_ms'] * 1e3:.2f} us)  plain "
+          f"{sums['plain_ms'] * 1e3:.2f} us  embedding_bag {sums['library_ms'] * 1e3:.2f} us  "
+          f"bound {sums['bound_ms'] * 1e3:.2f} us ({sums['bound_by']})  [{card}]", flush=True)
+    return {"gather_rows": gat, "sparse_adagrad_update_": ada, "gather_sum": sums}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a GPU",
@@ -5520,6 +6335,14 @@ def main() -> int:
     for k in kernels:
         k["lp_mesh_ranks"] = shapes[k["name"]]
     print(f"mesh phases: {time.perf_counter() - t0:.1f} s in all", flush=True)
+    t0 = time.perf_counter()
+    gspmd = lp_mesh_gspmd(card)
+    oocore_mesh = lp_oocore_mesh(card)
+    ncm = nc_mesh(card, nc)
+    shapes = mesh_dp_shapes(rates, card, nc)
+    for k in kernels:
+        k["mesh_dp"] = shapes[k["name"]]
+    print(f"data-parallel mesh phases: {time.perf_counter() - t0:.1f} s in all", flush=True)
 
     # each row's launches: the sum over the paths it runs on, each part's beside it
     by_part = {
@@ -5532,7 +6355,9 @@ def main() -> int:
                         **nc_reload["gather_rows"], **nc_ooc["gather_rows"],
                         **rel["gather_rows"], **lp16["gather_rows"], **nc16["gather_rows"],
                         **oocore16["gather_rows"], **tools["gather_rows"],
-                        **mesh1["gather_rows"], **ranks["gather_rows"]},
+                        **mesh1["gather_rows"], **ranks["gather_rows"],
+                        **gspmd["gather_rows"], **oocore_mesh["gather_rows"],
+                        **ncm["gather_rows"]},
         "sparse_adagrad_update_": {"lp flagship": flagship["sparse_adagrad_update_"],
                                    "lp_manager train": manager["sparse_adagrad_update_"],
                                    **sampled["sparse_adagrad_update_"],
@@ -5552,13 +6377,17 @@ def main() -> int:
                                    **oocore16["sparse_adagrad_update_"],
                                    **tools["sparse_adagrad_update_"],
                                    **mesh1["sparse_adagrad_update_"],
-                                   **ranks["sparse_adagrad_update_"]},
+                                   **ranks["sparse_adagrad_update_"],
+                                   **gspmd["sparse_adagrad_update_"],
+                                   **oocore_mesh["sparse_adagrad_update_"],
+                                   **ncm["sparse_adagrad_update_"]},
         "gather_sum": {**nc_counts, **sampled["gather_sum"], **gat["gather_sum"],
                        **rgcn_full["gather_sum"], **gat_full["gather_sum"], **gnn["gather_sum"],
                        **gnn_oocore["gather_sum"], **locality["gather_sum"],
                        **emb_full["gather_sum"], **nc_reload["gather_sum"],
                        **nc_ooc["gather_sum"], **nc16["gather_sum"], **tools["gather_sum"],
-                       **ranks["gather_sum"]},
+                       **ranks["gather_sum"], **gspmd["gather_sum"],
+                       **oocore_mesh["gather_sum"], **ncm["gather_sum"]},
     }
     for k in kernels:
         k["launches"] = sum(by_part[k["name"]].values())

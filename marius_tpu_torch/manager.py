@@ -44,12 +44,19 @@ out-of-core NC trainer takes no dtype, as in JAX, and trains in float32.
 
 ``training.mesh`` (``_build_mesh``, JAX :84-96) lays the ranks of the
 process group (``parallel/multihost.py``; the commands join it from
-``MARIUS_COORDINATOR``) out as a (data x node) mesh for in-memory link
-prediction: the trainer runs the explicit sharded step, the evaluators see
-the whole table, and rank 0 writes checkpoints in the single-device layout.
-A model is evaluated (``marius_eval``, ``train=False``) on one device,
-whatever mesh trained it. Meshes for the partition buffer and for node
-classification raise ``NotImplementedError`` naming the slice that brings them.
+``MARIUS_COORDINATOR``) out as a (data x node) mesh: in-memory link
+prediction runs the explicit sharded step (every case, CORRUPT_REL,
+FEATURE-only encoders and batches the data axis does not divide among
+them), the partition buffer its node-sharded device buffer, and node
+classification data parallelism (JAX :293-300: a mesh with more than one
+non-trivial axis, or an EMBEDDING stage, never takes the full-graph route;
+ALL fanouts with a LINEAR-collapsible encoder take the collapse; sampled
+configs the sampled step). The evaluators see the whole model, and rank 0
+writes checkpoints in the single-device layout. A model is evaluated
+(``marius_eval``, ``train=False``) on one device, whatever mesh trained it.
+The node-sharded full-graph ring (a non-LINEAR full-graph encoder on one
+mesh axis) and out-of-core node classification on a mesh raise
+``NotImplementedError`` naming the slice that brings them.
 """
 
 from __future__ import annotations
@@ -94,7 +101,11 @@ from marius_tpu_torch.storage.dataset import (
 from marius_tpu_torch.train.buffer_trainer import PartitionBufferLPTrainer
 from marius_tpu_torch.train.evaluator import LinkPredictionEvaluator
 from marius_tpu_torch.train.graph_encoder import encode_all_nodes, encode_all_nodes_host
-from marius_tpu_torch.train.nc import NodeClassificationEvaluator, NodeClassificationTrainer
+from marius_tpu_torch.train.nc import (
+    NC_RING_SLICE,
+    NodeClassificationEvaluator,
+    NodeClassificationTrainer,
+)
 from marius_tpu_torch.train.nc_buffer import PartitionBufferNCTrainer
 from marius_tpu_torch.train.trainer import LinkPredictionTrainer, _later_slice, resolve_device
 
@@ -149,14 +160,10 @@ def _refuse_unported(cfg: MariusConfig) -> None:
     s = cfg.storage
     if cfg.learning_task not in (LINK_PREDICTION, NODE_CLASSIFICATION):
         raise ValueError(f"Unknown learning task: {cfg.learning_task}")
-    if not _wants_mesh(cfg):
-        return
-    if cfg.learning_task == NODE_CLASSIFICATION:
-        raise _later_slice("mesh training of node classification",
-                           "the multi-GPU slices of ROADMAP A4, items 3-6")
-    if s.embeddings_backend == "PARTITION_BUFFER":
-        raise _later_slice("mesh training of the partition buffer",
-                           "the multi-GPU slice of ROADMAP A4, item 2")
+    if _wants_mesh(cfg) and cfg.learning_task == NODE_CLASSIFICATION and (
+            s.features_backend == "PARTITION_BUFFER"
+            or (cfg.model.has_embeddings and s.embeddings_backend == "PARTITION_BUFFER")):
+        raise _later_slice("mesh training of out-of-core node classification", NC_RING_SLICE)
 
 
 def _build_mesh(cfg: MariusConfig, dev):
@@ -261,9 +268,9 @@ def _init_nc_buffer(cfg: MariusConfig, dev, log):
     return trainer, make_eval("valid"), make_eval("test")
 
 
-def _init_nc(cfg: MariusConfig, dev, log):
+def _init_nc(cfg: MariusConfig, dev, log, mesh=None):
     """(trainer, valid evaluator, test evaluator) of a node-classification
-    config (JAX :261-425)."""
+    config (JAX :261-425), data parallel on ``mesh``."""
     ds, s, model = cfg.storage.dataset, cfg.storage, cfg.model
     # out-of-core NC engages when either node tier is buffered: the features,
     # or the optional learnable embedding table (io.cpp:347-433)
@@ -283,7 +290,12 @@ def _init_nc(cfg: MariusConfig, dev, log):
     # full adjacency instead of per-batch frontiers (data/full_graph.py)
     full_graph = None
     fg_mode = cfg.full_graph.upper()
-    if (fg_mode != "OFF" and train_nbr
+    # on a mesh the full-graph route needs feature inputs and one non-trivial
+    # axis (JAX :293-300): the collapse, or the node-sharded ring
+    fg_mesh_ok = mesh is None or (
+        features is not None and not model.has_embeddings
+        and sum(1 for v in mesh.shape.values() if v > 1) == 1)
+    if (fg_mode != "OFF" and fg_mesh_ok and train_nbr
             and all(c.sampling_type.upper() == "ALL" for c in train_nbr)
             and supports_full_graph(model.encoder)):
         avg_deg = 2.0 * len(edges) / max(num_nodes, 1)
@@ -317,7 +329,7 @@ def _init_nc(cfg: MariusConfig, dev, log):
     trainer = NodeClassificationTrainer(
         model, graph, features, labels, train_nodes, train_nbr,
         batch_size=batch_size, hop_caps=cfg.hop_caps or auto_caps, seed=cfg.training.seed,
-        dtype=_dtype(cfg), full_graph=full_graph,
+        dtype=_dtype(cfg), full_graph=full_graph, mesh=mesh,
         epochs_per_shuffle=cfg.training.epochs_per_shuffle, device=dev)
 
     def make_eval(split):
@@ -336,10 +348,16 @@ def marius_init(cfg: MariusConfig, train: bool = True, device=None) -> MariusRun
     _refuse_unported(cfg)
     dev = resolve_device(device)
     log = get_logger(cfg.storage.model_dir or None, console_level=cfg.storage.log_level)
+    mesh = _build_mesh(cfg, dev) if train else None
     if cfg.learning_task == NODE_CLASSIFICATION:
-        rt = MariusRuntime(cfg, *_init_nc(cfg, dev, log))
+        rt = MariusRuntime(cfg, *_init_nc(cfg, dev, log, mesh))
     else:
-        rt = _init_lp(cfg, dev, log, _build_mesh(cfg, dev) if train else None)
+        rt = _init_lp(cfg, dev, log, mesh)
+    if mesh is not None:
+        log.info("Mesh: %s over %d ranks, backend %s; this rank %d at %s on %s (%s, "
+                 "training.mesh.mode %s)", mesh.shape, dist.get_world_size(), mesh.backend,
+                 mesh.rank, mesh.coords, mesh.device, type(rt.trainer).__name__,
+                 cfg.training.mesh_mode)
     _load_trained(rt, train, log)
     return rt
 
@@ -403,9 +421,12 @@ def _init_lp(cfg: MariusConfig, dev, log, mesh=None) -> MariusRuntime:
             sparse_writeback=s.sparse_writeback,
             nbr_configs=train_nbr,
             features=features,
+            mesh=mesh,
             dtype=_dtype(cfg),
             device=dev,
         )
+        # the buffer trainer's host table is whole on every rank
+        eval_mesh = None
     else:
         trainer = LinkPredictionTrainer(
             model, num_nodes, num_rels, train_edges, neg,
@@ -422,12 +443,7 @@ def _init_lp(cfg: MariusConfig, dev, log, mesh=None) -> MariusRuntime:
             dtype=_dtype(cfg),
             device=dev,
         )
-
-    if mesh is not None:
-        log.info("Mesh: %s over %d ranks, backend %s; this rank %d at %s on %s; the %s step "
-                 "(training.mesh.mode %s)", mesh.shape, dist.get_world_size(), mesh.backend,
-                 mesh.rank, mesh.coords, mesh.device, trainer.sharding_mode,
-                 cfg.training.mesh_mode)
+        eval_mesh = mesh
 
     all_edges = np.concatenate(
         [train_edges] + [e for e in (valid_edges, test_edges) if e is not None], axis=0)
@@ -464,7 +480,7 @@ def _init_lp(cfg: MariusConfig, dev, log, mesh=None) -> MariusRuntime:
             features=eval_features,
             full_graph=eval_full_graph,
             fg_ops=eval_fg_ops,
-            mesh=mesh,
+            mesh=eval_mesh,
             device=dev,
         )
         return _HostStreamLPEval(ev, features) if host_streaming else ev

@@ -40,6 +40,8 @@ from marius_tpu_torch.nn.optimizers import tree_leaves
 
 DATA_AXIS = "data"
 NODE_AXIS = "node"
+# every rank of the mesh: the default process group
+WORLD_AXIS = "world"
 
 # how long a collective may wait for its peers before it fails
 DEFAULT_TIMEOUT = datetime.timedelta(minutes=10)
@@ -65,10 +67,12 @@ class Mesh:
                 for d in range(num_data)]
         cols = [dist.new_group([d * num_node + s for d in range(num_data)], timeout=timeout)
                 for s in range(num_node)]
-        self._groups = {NODE_AXIS: rows[self.coords[0]], DATA_AXIS: cols[self.coords[1]]}
+        self._groups = {NODE_AXIS: rows[self.coords[0]], DATA_AXIS: cols[self.coords[1]],
+                        WORLD_AXIS: None}
 
     def group(self, axis: str):
-        """The process group of this rank's ranks along ``axis``."""
+        """The process group of this rank's ranks along ``axis`` (None, the
+        default group, for ``WORLD_AXIS``)."""
         return self._groups[axis]
 
     def axis_index(self, axis: str) -> int:

@@ -26,6 +26,17 @@ Which slot a partition takes is :func:`swap_layout`'s pure function of the
 resident set and the next state, so a trainer can know a state's layout
 before the swap (and build that state's local graph ahead of it).
 
+On a (data x node) mesh (``mesh``; JAX :50-58, buffer_trainer.py:152-167)
+the device buffer is row-sharded over the node axis: node index i holds
+buffer rows ``[i * S, (i + 1) * S)``, S = buffer_rows / num_node rounded up
+(the rows past buffer_rows are padding), values and Adagrad state alike, so
+no rank's card ever holds the whole pair. Every rank keeps the whole host
+table and runs the same swaps. A swap admits only the rank's rows of each
+admitted slot; an eviction moves the whole slot (dirty tracking is off, as
+in JAX under a mesh): one ``all_gather`` over the node axis assembles the
+slot's rows on every rank, whose host tables so stay identical.
+``gathered_bytes`` counts what those all_gathers received.
+
 ``ReadOnlyPartitionCache`` (JAX :433-510) is the read-only tier beside it:
 partitions of a host array (node features, in RAM or a memory-mapped file,
 never copied on the host) in device slots, loaded through the same copy
@@ -44,6 +55,7 @@ import torch
 from marius_tpu_torch.nn.initialization import InitConfig, initialize_tensor
 from marius_tpu_torch.ops.cuda import adagrad as adagrad_kernel
 from marius_tpu_torch.ops.cuda import gather as gather_kernel
+from marius_tpu_torch.parallel.mesh import NODE_AXIS
 from marius_tpu_torch.storage import transfer
 
 # host initialization goes chunk by chunk above this many elements
@@ -160,6 +172,10 @@ class PartitionBuffer:
     dirty: Optional[torch.Tensor] = None
     # evictions that gathered their dirty rows (two row-gather launches each)
     sparse_evictions: int = 0
+    # a (data x node) Mesh: the device rows are sharded over its node axis
+    mesh: Optional[object] = None
+    # bytes the evictions' all_gathers received on this rank
+    gathered_bytes: int = 0
 
     @property
     def psize(self) -> int:
@@ -169,10 +185,40 @@ class PartitionBuffer:
     def buffer_rows(self) -> int:
         return self.capacity * self.psize
 
+    @property
+    def shard_size(self) -> int:
+        """Device rows on this rank: the whole buffer, or its node index's
+        share on a mesh (rounded up)."""
+        if self.mesh is None:
+            return self.buffer_rows
+        return -(-self.buffer_rows // self.mesh.shape[NODE_AXIS])
+
+    def _span(self, start: int, rows: int, node: Optional[int] = None):
+        """Buffer rows ``[start, start + rows)`` that node index ``node``
+        (default: this rank's) holds: (first row in its shard, offset into
+        the span, count); count 0 when it holds none."""
+        if self.mesh is None:
+            return start, 0, rows
+        s = self.shard_size
+        lo = (self.mesh.axis_index(NODE_AXIS) if node is None else node) * s
+        a, b = max(start, lo), min(start + rows, lo + s)
+        return a - lo, a - start, max(0, b - a)
+
+    def _write_slot_rows(self, dev: torch.Tensor, host_block: np.ndarray, start: int) -> None:
+        """This rank's rows of a slot's ``host_block`` into ``dev``."""
+        at, off, n = self._span(start, len(host_block))
+        if n:
+            transfer.write_rows(dev, host_block[off:off + n], at)
+
+    def _zero_slot_rows(self, dev: torch.Tensor, start: int, rows: int) -> None:
+        at, _, n = self._span(start, rows)
+        if n:
+            transfer.zero_rows(dev, at, n)
+
     @staticmethod
     def create(seed: int, num_nodes: int, dim: int, num_partitions: int, capacity: int,
                device="cpu", init_config: Optional[InitConfig] = None,
-               dtype: torch.dtype = torch.float32) -> "PartitionBuffer":
+               dtype: torch.dtype = torch.float32, mesh=None) -> "PartitionBuffer":
         psize = -(-num_nodes // num_partitions)
         padded = num_partitions * psize
         return PartitionBuffer(
@@ -180,7 +226,7 @@ class PartitionBuffer:
             host_values=init_host_table(seed, num_nodes, padded, dim, init_config, dtype),
             # np.zeros maps zero pages lazily: 34 GB cost nothing until written
             host_state=np.zeros((padded, dim), transfer.numpy_dtype(dtype)),
-            device=torch.device(device), dtype=dtype)
+            device=torch.device(device), dtype=dtype, mesh=mesh)
 
     def part_rows(self, p: int) -> slice:
         return slice(p * self.psize, (p + 1) * self.psize)
@@ -196,17 +242,17 @@ class PartitionBuffer:
         # double the device footprint
         self.device_values = self.device_state = None
         parts = [int(p) for p in initial_layout(partitions, self.capacity)]
-        dv = transfer.alloc_rows(self.buffer_rows, self.dim, self.dtype, self.device)
+        dv = transfer.alloc_rows(self.shard_size, self.dim, self.dtype, self.device)
         for slot, p in enumerate(parts):
             if p >= 0:
-                transfer.write_rows(dv, self.host_values[self.part_rows(p)], slot * self.psize)
-        ds = transfer.alloc_rows(self.buffer_rows, self.dim, self.dtype, self.device)
+                self._write_slot_rows(dv, self.host_values[self.part_rows(p)], slot * self.psize)
+        ds = transfer.alloc_rows(self.shard_size, self.dim, self.dtype, self.device)
         for slot, p in enumerate(parts):
             block = self.host_state[self.part_rows(p)] if p >= 0 else None
             # state is all zero until a partition has trained; the allocation
             # already is: a host scan is far cheaper than the copy
             if block is not None and block.any():
-                transfer.write_rows(ds, block, slot * self.psize)
+                self._write_slot_rows(ds, block, slot * self.psize)
         self.device_values, self.device_state = dv, ds
         if self.dirty is not None:
             self.dirty = torch.zeros(self.buffer_rows + 1, dtype=torch.bool, device=self.device)
@@ -216,7 +262,10 @@ class PartitionBuffer:
     def enable_dirty_tracking(self) -> None:
         """Opt in to dirty-row (sparse) writeback: the trainer marks updated
         rows with :func:`mark_dirty`; evictions and flushes then move only
-        those rows device->host."""
+        those rows device->host. Not on a mesh, whose evictions move whole
+        slots."""
+        if self.mesh is not None:
+            raise ValueError("a mesh-sharded buffer evicts whole slots")
         self.dirty = torch.zeros(self.buffer_rows + 1, dtype=torch.bool, device=self.device)
 
     def release(self) -> None:
@@ -256,16 +305,21 @@ class PartitionBuffer:
         self.part_to_slot = _part_to_slot(layout, self.num_partitions)
         for slot, p in admitted:
             start = slot * self.psize
-            transfer.write_rows(self.device_values, self.host_values[self.part_rows(p)], start)
+            self._write_slot_rows(self.device_values, self.host_values[self.part_rows(p)], start)
             block = self.host_state[self.part_rows(p)]
             if block.any():
-                transfer.write_rows(self.device_state, block, start)
+                self._write_slot_rows(self.device_state, block, start)
             else:
-                transfer.zero_rows(self.device_state, start, self.psize)
+                self._zero_slot_rows(self.device_state, start, self.psize)
 
     def _evict_one(self, p: int) -> None:
         """Queue the device->host writeback of partition ``p``'s slot."""
         start = int(self.part_to_slot[p]) * self.psize
+        if self.mesh is not None:
+            values, state = self._gather_slot(start)
+            self.pending_writebacks.append(("full", p, transfer.ReadHandle(values),
+                                            transfer.ReadHandle(state)))
+            return
         if self.dirty is None:
             self.pending_writebacks.append((
                 "full", p, transfer.read_rows_async(self.device_values, start, self.psize),
@@ -287,6 +341,24 @@ class PartitionBuffer:
                 "full", p, transfer.read_rows_async(self.device_values, start, self.psize),
                 transfer.read_rows_async(self.device_state, start, self.psize)))
         self.dirty[start:start + self.psize] = False
+
+    def _gather_slot(self, start: int):
+        """The whole slot at buffer row ``start`` on every rank of the node
+        axis: each sends its rows of it (values and state side by side),
+        padded to the largest share, in one all_gather. Returns new (psize,
+        dim) values and state tensors."""
+        n, d = self.mesh.shape[NODE_AXIS], self.dim
+        spans = [self._span(start, self.psize, j) for j in range(n)]
+        width = max(c for _, _, c in spans)
+        at, _, count = self._span(start, self.psize)
+        block = torch.zeros((width, 2 * d), dtype=self.device_values.dtype, device=self.device)
+        if count:
+            block[:count, :d] = self.device_values[at:at + count]
+            block[:count, d:] = self.device_state[at:at + count]
+        gathered = self.mesh.all_gather_rows(block, NODE_AXIS)
+        self.gathered_bytes += gathered.numel() * gathered.element_size()
+        slot = torch.cat([gathered[j * width:j * width + c] for j, (_, _, c) in enumerate(spans)])
+        return slot[:, :d].contiguous(), slot[:, d:].contiguous()
 
     def flush(self) -> None:
         """Write every resident partition back to host RAM."""

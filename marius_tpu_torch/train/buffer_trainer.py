@@ -61,8 +61,21 @@ are those of CORRUPT_NODE, and the negatives' rows take zero gradients
 package passes ``storage.embeddings.options.dtype`` here and nowhere else
 in this trainer, so the dense parameters stay float32. A bfloat16 table's
 host arrays are the uint16 bits of its rows, so every swap moves half the
-bytes. Meshes raise ``NotImplementedError`` naming the slice that brings
-them.
+bytes.
+
+With ``mesh`` (a (data x node) ``parallel.mesh.Mesh``; JAX :146-167,
+:264-276, where GSPMD keeps one device's semantics) the device buffer is
+row-sharded over the node axis (``storage.partition_buffer``: each rank
+admits its rows of a slot; an eviction all_gathers the whole slot, so every
+rank's host table stays identical; sparse writeback is off, as in JAX).
+Every rank runs the same host plan, prep and draws from the same seeds, so
+each holds the whole batch; the batch step is
+``collectives.make_sharded_buffer_update``: the batch's unique rows gathered
+over the node axis, its data index's part scored, one all_reduce over the
+data axis of the (U, d) row gradients, the dense gradients and the loss,
+then the owner-local Adagrad kernel. The trajectory is one device's (the
+unique-row rule, sums in another order). Evaluation and checkpoints read the
+host table, whole on every rank (``gathered_state``).
 """
 
 from __future__ import annotations
@@ -129,7 +142,7 @@ from marius_tpu_torch.storage.partition_buffer import (
 )
 from marius_tpu_torch.storage import transfer
 from marius_tpu_torch.tools.preprocess.partitioner import partition_edges
-from marius_tpu_torch.train.trainer import TrainState, _later_slice, resolve_device
+from marius_tpu_torch.train.trainer import TrainState, resolve_device
 
 Tensor = torch.Tensor
 
@@ -253,9 +266,6 @@ class PartitionBufferLPTrainer:
                              f"got {self.decoder_method}")
         if self.decoder_method == "CORRUPT_REL" and train_edges.shape[1] != 3:
             raise ValueError("CORRUPT_REL needs a 3-column (typed) edge list")
-        if mesh is not None:
-            raise _later_slice("mesh training of the partition buffer",
-                               "the multi-GPU slice of ROADMAP A4, item 2")
         if not model.has_embeddings:
             raise ValueError("partition-buffer LP needs an embedding table")
         if model.encoder.num_gnn_stages and not nbr_configs:
@@ -263,7 +273,9 @@ class PartitionBufferLPTrainer:
         if model.encoder.has_features and features is None:
             raise ValueError("FEATURE layers need a feature matrix")
 
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device if device is not None or mesh is None
+                                     else mesh.device)
         self.model = model
         self.num_nodes = num_nodes
         self.num_relations = num_relations
@@ -289,8 +301,9 @@ class PartitionBufferLPTrainer:
         table_seed = int(np.random.SeedSequence((seed, 0)).generate_state(1)[0])
         self.buffer = PartitionBuffer.create(table_seed, num_nodes,
                                              model.encoder.embedding_dim, num_partitions,
-                                             self.capacity, device=self.device, dtype=dtype)
-        self.sparse_writeback = bool(sparse_writeback)
+                                             self.capacity, device=self.device, dtype=dtype,
+                                             mesh=mesh)
+        self.sparse_writeback = bool(sparse_writeback) and mesh is None
         if self.sparse_writeback:
             self.buffer.enable_dirty_tracking()
 
@@ -320,6 +333,14 @@ class PartitionBufferLPTrainer:
         self.hop_caps = (tuple(estimate_hop_caps(self.unique_cap, self.nbr_configs,
                                                  self.buffer.buffer_rows))
                          if self.nbr_configs else ())
+        self._mesh_update = None
+        if mesh is not None:
+            from marius_tpu_torch.parallel.collectives import make_sharded_buffer_update
+
+            self.dense_accum = False
+            self._mesh_update = make_sharded_buffer_update(
+                model, mesh, self.buffer.shard_size, self.buffer.buffer_rows, self.nbr_configs,
+                self.hop_caps, self.unique_cap)
         self.feature_cache = None
         self._features_host = self._features_dev = None
         if features is not None and model.encoder.has_features:
@@ -444,6 +465,13 @@ class PartitionBufferLPTrainer:
             src_filter = None
 
         all_ids = torch.cat([src, dst, dst_negs.reshape(-1), src_negs.reshape(-1)])
+        if self._mesh_update is not None:
+            return self._mesh_batch_step(all_ids, {
+                "src": src, "dst": dst, "mask": mask_b, "rel": rel, "neg_rels": neg_rel_ids,
+                "dst_negs": None if corrupt_rel else dst_negs,
+                "src_negs": None if corrupt_rel or not inv_rel_on else src_negs,
+                "dst_filter": None if corrupt_rel else dst_filter,
+                "src_filter": None if corrupt_rel else src_filter}, step, graph)
         if self.dense_accum:
             update_ids, pos = all_ids, None
         else:
@@ -498,6 +526,16 @@ class PartitionBufferLPTrainer:
                                             self.opt_state,
                                             tree_map(lambda _: next(it), self.params))
         return loss.detach()
+
+    def _mesh_batch_step(self, all_ids: Tensor, batch: Dict[str, Optional[Tensor]],
+                         step: int, graph: Optional[DeviceGraph]) -> Tensor:
+        """The explicit sharded step on the whole batch; returns its loss."""
+        buf, cache = self.buffer, self.feature_cache
+        draws = self._gnn_draws(step) if self.nbr_configs else None
+        self.opt_state, loss = self._mesh_update(
+            buf.device_values, buf.device_state, self.params, self.opt_state, batch, all_ids,
+            None if cache is None else cache.device_rows, graph, draws, self._dropout)
+        return loss
 
     def _device_graph(self, upload: transfer.Upload, max_edges: int) -> DeviceGraph:
         """A state's local CSR (:func:`local_csr`) from its resident edges,
@@ -579,6 +617,8 @@ class PartitionBufferLPTrainer:
 
         losses = []
         edges_trained = states_run = batches_run = 0
+        collectives = 0 if self.mesh is None else self.mesh.collectives
+        gathered = self.buffer.gathered_bytes
         self.last_state_timings = []
         self.last_graph_seconds = []
         sync = (lambda: torch.cuda.synchronize(self.device)) if self.device.type == "cuda" \
@@ -628,7 +668,7 @@ class PartitionBufferLPTrainer:
             self.buffer._drain_writebacks()
         self.epoch += 1
         dt = time.perf_counter() - t0
-        return {
+        out = {
             "loss": total_loss,
             "epoch_time_s": dt,
             "edges_per_sec": edges_trained / dt,
@@ -641,6 +681,12 @@ class PartitionBufferLPTrainer:
             "batches_run": batches_run,
             "masked_batches": states_run * max_batches - batches_run,
         }
+        if self.mesh is not None:
+            # the swaps' and the flush's all_gathers included
+            out["collectives_per_batch"] = (self.mesh.collectives - collectives) / max(
+                1, batches_run)
+            out["gathered_bytes"] = self.buffer.gathered_bytes - gathered
+        return out
 
     def train(self, num_epochs: int):
         return [self.train_epoch() for _ in range(num_epochs)]
@@ -677,6 +723,15 @@ class PartitionBufferLPTrainer:
             tree_map(lambda d, v: d.copy_(v), self.opt_state.slots, s.opt_state.slots)
         self.opt_state = OptState(s.opt_state.step, self.opt_state.slots)
         self.epoch = int(s.epoch)
+
+    def gathered_state(self) -> TrainState:
+        """The state in the single-device layout: the host table is whole
+        on every rank, mesh or not (every rank calls it: the flush's
+        evictions are collective)."""
+        return self.state
+
+    def load_gathered_state(self, s: TrainState) -> None:
+        self.state = s
 
     @property
     def features(self) -> Optional[Tensor]:

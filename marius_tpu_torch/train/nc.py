@@ -46,8 +46,30 @@ runs an eager Python loop over batches. The epoch's permutation
 and the table's: bfloat16 features are stored in bfloat16 with the zero
 sentinel row, and the sampled layer-0 sums and the full-graph sums feed the
 gather-sum kernel's bfloat16 entry (f32 accumulation; the sums rounded to
-bfloat16, as JAX's default paths return them, ROADMAP C9). Meshes raise
-``NotImplementedError`` naming the slice that brings them.
+bfloat16, as JAX's default paths return them, ROADMAP C9).
+
+With ``mesh`` (a (data x node) ``parallel.mesh.Mesh``) training is data
+parallel over the data axis; the ranks of a node row are replicas. Features,
+labels, the graph, the parameters and an EMBEDDING table are replicated,
+and every rank draws the same permutation:
+
+- **sampled** (JAX ``_batch_step_local`` / ``_sharded_batch_step``,
+  :466-557): each data index takes ``batch_size / n_data`` of the batch's
+  seeds, samples them with its own numbers (``_batch_draws(data_index)``,
+  a generator seeded from (seed, data index), as JAX folds the index into
+  its key) under hop caps sized for that local batch, and encodes and
+  scores them; MEAN losses are weighted by local over total valid seeds (an
+  all_reduce of the count). An EMBEDDING table's row gradients combine
+  into JAX's accumulator G through one of its two routes
+  (``collectives.nc_table_grad``), and the Adagrad kernel updates the rows
+  G touches. One all_reduce over the data axis sums the dense gradients,
+  the loss and the overflow count;
+- **the linear collapse** (JAX :108-115, :403-417): each data index scores
+  its seeds through the collapsed form, one all_reduce sums the gradients
+  and the loss; the trajectory is one device's.
+
+A non-LINEAR full-graph encoder on a mesh needs the node-sharded ring,
+which raises ``NotImplementedError`` naming the slice that brings it.
 """
 
 from __future__ import annotations
@@ -90,17 +112,24 @@ from marius_tpu_torch.nn.layers import DropoutKey
 from marius_tpu_torch.nn.linear_collapse import build_linear_collapse, linear_collapse_eligible
 from marius_tpu_torch.nn.model import NODE_CLASSIFICATION, Model, init_model_params, nc_batch_loss
 from marius_tpu_torch.nn.optimizers import apply_optimizer, init_optimizer, tree_leaves, tree_map
+from marius_tpu_torch.ops.cuda import adagrad as adagrad_kernel
+from marius_tpu_torch.parallel.collectives import nc_table_grad, sum_over_data
 from marius_tpu_torch.parallel.embedding_table import (
     EmbeddingTable,
     gather_rows,
     init_embedding_table,
     sparse_adagrad_update,
 )
+from marius_tpu_torch.parallel.mesh import DATA_AXIS
 from marius_tpu_torch.reporting.metrics import categorical_accuracy_statistics
 from marius_tpu_torch.reporting.reporters import NodeClassificationReporter
 from marius_tpu_torch.train.trainer import TrainState, _later_slice, resolve_device
 
 Tensor = torch.Tensor
+
+# the mesh paths of node classification still to come (ROADMAP A4, items 4-6)
+NC_RING_SLICE = ("the next node-classification mesh slice (ROADMAP A4, items 4-6: the "
+                 "node-sharded ring, its GAT and RGCN forms, out-of-core NC on a mesh)")
 
 
 def _pad_ids(ids: np.ndarray, batch_size: int):
@@ -137,9 +166,14 @@ class NodeClassificationTrainer:
     ):
         if model.learning_task != NODE_CLASSIFICATION:
             raise ValueError(f"NodeClassificationTrainer needs a {NODE_CLASSIFICATION} model")
+        self.mesh = mesh
+        self._n_data = 1
         if mesh is not None:
-            raise _later_slice("mesh training (data-parallel or the sharded ring)",
-                               "the multi-GPU slices of ROADMAP A4, items 3-5")
+            self._n_data = mesh.shape[DATA_AXIS]
+            if batch_size % self._n_data:
+                raise ValueError(f"batch_size {batch_size} % data axis {self._n_data} != 0")
+            if device is None:
+                device = mesh.device
         if full_graph is not None:
             if features is None and not model.has_embeddings:
                 raise ValueError("full-graph training needs node features or an EMBEDDING "
@@ -174,7 +208,9 @@ class NodeClassificationTrainer:
             self._init_full_graph(full_graph.to(self.device), fg_seed_restrict,
                                   fg_linear_collapse)
         else:
-            self.hop_caps = tuple(hop_caps or estimate_hop_caps(batch_size, self.nbr_configs, n))
+            # a data index samples its own share of the batch
+            self.hop_caps = tuple(hop_caps or estimate_hop_caps(batch_size // self._n_data,
+                                                                self.nbr_configs, n))
 
         padded, self.num_train, self.num_batches = _pad_ids(train_nodes, batch_size)
         self.train_nodes = torch.as_tensor(padded, device=self.device)
@@ -193,6 +229,10 @@ class NodeClassificationTrainer:
                          if table is not None and self.full_graph is not None else None)
         self.state = TrainState(table=table, params=params,
                                 opt_state=init_optimizer(model.dense_optimizer, params), epoch=0)
+        if mesh is not None:
+            # a data index's own numbers, as JAX folds the index into its key
+            seed = int(np.random.SeedSequence((seed, mesh.axis_index(DATA_AXIS)))
+                       .generate_state(1)[0])
         generator = torch.Generator(device=self.device).manual_seed(seed)
         self._draws = generator_draws(generator)
         self._dropout = DropoutKey(generator)
@@ -202,6 +242,9 @@ class NodeClassificationTrainer:
         want_collapse = ((fg_linear_collapse if fg_linear_collapse is not None
                           else fg_seed_restrict is None)
                          and linear_collapse_eligible(model.encoder, feats is not None))
+        if self.mesh is not None and not want_collapse:
+            raise _later_slice("full-graph training of a non-LINEAR encoder on a mesh",
+                               NC_RING_SLICE)
         self.full_graph = adj
         if want_collapse:
             self._fg_collapse = build_linear_collapse(adj, model.encoder, feats)
@@ -234,8 +277,9 @@ class NodeClassificationTrainer:
         return torch.randperm(self.num_batches * self.batch_size, generator=gen,
                               device=self.device)
 
-    def _batch_draws(self) -> Draws:
-        """The sampler's numbers for the next training batch."""
+    def _batch_draws(self, data_index: int = 0) -> Draws:
+        """The sampler's numbers for the next training batch (on a mesh,
+        for this rank's ``data_index``)."""
         return self._draws
 
     def _dropout_key(self):
@@ -287,6 +331,78 @@ class NodeClassificationTrainer:
                                              tree_map(lambda _: next(dense), state.params))
         return loss.detach(), nb.overflow
 
+    def _data_part(self, seeds: Tensor, mask_b: Tensor):
+        """This data index's seeds of the batch and their mask."""
+        bl = self.batch_size // self._n_data
+        i = self.mesh.axis_index(DATA_AXIS)
+        return seeds[i * bl:(i + 1) * bl], mask_b[i * bl:(i + 1) * bl]
+
+    def _mesh_weight(self, local_mask: Tensor) -> Tensor:
+        """MEAN's weight of a data index's loss, local over total valid
+        seeds (one all_reduce of the count; JAX psums it)."""
+        local = local_mask.float().sum()
+        total = self.mesh.all_reduce(local.clone(), DATA_AXIS)
+        return local / total.clamp_min(1.0)
+
+    def _mesh_sampled_batch_step(self, seeds: Tensor, mask_b: Tensor):
+        """One sampled batch, data parallel (JAX _batch_step_local with its
+        data axis :466-544); returns the whole batch's (loss, overflow)."""
+        model, state, mesh = self.model, self.state, self.mesh
+        table = state.table
+        seeds, mask = self._data_part(seeds, mask_b)
+        nb, feats, emb = self._encode_batch(None if table is None else table.values,
+                                            self._batch_draws(mesh.axis_index(DATA_AXIS)),
+                                            seeds, mask, self.hop_caps)
+        labels_b = self.labels[seeds.clamp(max=self.num_nodes)]
+        loss_mask = mask & nb.seed_mask
+        w = self._mesh_weight(loss_mask) if model.loss_reduction.upper() == "MEAN" else 1.0
+        if emb is not None:
+            emb.requires_grad_(True)
+        logits = self._sampled_logits(state.params, nb, feats, emb, True)
+        loss = nc_batch_loss(model, logits, labels_b, loss_mask) * w
+        leaves = tree_leaves(state.params)
+        grads = torch.autograd.grad(loss, leaves + ([emb] if emb is not None else []),
+                                    allow_unused=True)
+        if emb is not None:
+            g_emb = grads[-1] if grads[-1] is not None else torch.zeros_like(emb)
+            rows, G = nc_table_grad(self.num_nodes, nb.node_ids[0], g_emb, mesh)
+            adagrad_kernel.sparse_adagrad_update_(table.values, table.state, rows, G,
+                                                  model.sparse_lr)
+        overflow = (torch.zeros((), device=self.device) if nb.overflow is None
+                    else nb.overflow).float()
+        loss, overflow = self._mesh_step_end(grads[:len(leaves)], loss, overflow)
+        return loss, overflow.long()
+
+    def _mesh_collapse_batch_step(self, seeds: Tensor, mask_b: Tensor) -> Tensor:
+        """One batch of the linear collapse, data parallel (JAX :403-417);
+        returns the whole batch's loss."""
+        model, state = self.model, self.state
+        seeds_l, mask = self._data_part(seeds, mask_b)
+        seeds_c = seeds_l.clamp(max=self.num_nodes - 1)
+        w = 1.0
+        if model.loss_reduction.upper() == "MEAN":
+            # every rank holds the whole batch's mask: no collective
+            w = mask.float().sum() / mask_b.float().sum().clamp_min(1.0)
+        logits = self._fg_collapse.logits(state.params["encoder"], seeds_c)
+        loss = nc_batch_loss(model, logits, self.labels[seeds_c], mask) * w
+        grads = torch.autograd.grad(loss, tree_leaves(state.params), allow_unused=True)
+        return self._mesh_step_end(grads, loss)[0]
+
+    def _mesh_step_end(self, grads, *scalars):
+        """The data-parallel steps' epilogue: the dense gradients (None
+        where unused) and ``scalars`` summed over the data axis in one
+        all_reduce, then the dense optimizer. Returns the summed scalars."""
+        state = self.state
+        leaves = tree_leaves(state.params)
+        dense = [torch.zeros_like(t) if g is None else g for g, t in zip(grads, leaves)]
+        sums = [t.detach().reshape(1).clone() for t in scalars]
+        sum_over_data(sums + dense, self.mesh, DATA_AXIS)
+        it = iter(dense)
+        _, state.opt_state = apply_optimizer(self.model.dense_optimizer, state.params,
+                                             state.opt_state,
+                                             tree_map(lambda _: next(it), state.params))
+        return [t[0] for t in sums]
+
     # -- full graph -------------------------------------------------------------
 
     def _batch_step(self, seeds: Tensor, mask_b: Tensor, num_slots) -> Tensor:
@@ -297,6 +413,8 @@ class NodeClassificationTrainer:
         table-shaped: the JAX package applies Adagrad densely over it, which
         is the row-sparse Adagrad kernel over every id (rows with a zero
         gradient do not move)."""
+        if self.mesh is not None:
+            return self._mesh_collapse_batch_step(seeds, mask_b)
         model, state = self.model, self.state
         seeds_c = seeds.clamp(max=self.num_nodes - 1)
         labels_b = self.labels[seeds_c]
@@ -358,9 +476,12 @@ class NodeClassificationTrainer:
         masks = (perm < self.num_train).reshape(nb, b)
         total = torch.zeros((), dtype=torch.float32, device=self.device)
         overflow = torch.zeros((), dtype=torch.int64, device=self.device)
+        collectives = 0 if self.mesh is None else self.mesh.collectives
         if self.full_graph is None:
+            step = (self._sampled_batch_step if self.mesh is None
+                    else self._mesh_sampled_batch_step)
             for i in range(nb):
-                loss, ov = self._sampled_batch_step(shuffled[i], masks[i])
+                loss, ov = step(shuffled[i], masks[i])
                 total += loss
                 overflow += ov
         else:
@@ -378,12 +499,25 @@ class NodeClassificationTrainer:
                 "neighbors — id-correlated, not uniform, under sequential id remaps; raise "
                 "hop_caps or the empirical margin for exact frontiers)", truncated)
         dt = time.perf_counter() - t0
-        return {"loss": total_loss, "epoch_time_s": dt,
-                "nodes_per_sec": self.num_train / dt, "num_nodes": self.num_train,
-                "truncated_frontier_ids": truncated}
+        out = {"loss": total_loss, "epoch_time_s": dt,
+               "nodes_per_sec": self.num_train / dt, "num_nodes": self.num_train,
+               "truncated_frontier_ids": truncated}
+        if self.mesh is not None:
+            out["collectives_per_batch"] = (self.mesh.collectives - collectives) / nb
+        return out
 
     def train(self, num_epochs: int):
         return [self.train_epoch() for _ in range(num_epochs)]
+
+    def gathered_state(self) -> TrainState:
+        """The state in the single-device layout: every rank of a mesh holds
+        it whole (replicated)."""
+        return self.state
+
+    def load_gathered_state(self, full: TrainState) -> None:
+        from marius_tpu_torch.convert import copy_train_state_
+
+        copy_train_state_(self.state, full)
 
 
 class NodeClassificationEvaluator:

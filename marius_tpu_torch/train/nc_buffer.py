@@ -79,6 +79,7 @@ from marius_tpu_torch.storage.partition_buffer import (
 )
 from marius_tpu_torch.tools.preprocess.partitioner import partition_edges
 from marius_tpu_torch.train.buffer_trainer import state_graph
+from marius_tpu_torch.train.nc import NC_RING_SLICE
 from marius_tpu_torch.train.trainer import TrainState, _later_slice, resolve_device
 
 Tensor = torch.Tensor
@@ -115,7 +116,7 @@ class PartitionBufferNCTrainer:
             raise ValueError(f"PartitionBufferNCTrainer needs a {NODE_CLASSIFICATION} model")
         if mesh is not None:
             raise _later_slice("mesh training of out-of-core node classification",
-                               "the multi-GPU slice of ROADMAP A4, item 6")
+                               NC_RING_SLICE)
         if model.encoder.num_gnn_stages and len(nbr_configs) != model.encoder.num_gnn_stages:
             raise ValueError("a GNN encoder needs one neighbour config per GNN stage")
         self.device = resolve_device(device)

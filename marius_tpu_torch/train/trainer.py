@@ -66,10 +66,13 @@ trajectory is the single-device one. GNN stages sample with a generator
 seeded from (seed, data index), as JAX folds the shard index into its keys.
 The port has no compiler that infers collectives: whatever
 ``training.mesh.mode`` says (auto, gspmd or explicit), a mesh trainer runs
-the explicit step, and its ``sharding_mode`` reads "explicit".
-The cases JAX leaves to GSPMD (CORRUPT_REL, a FEATURE-only encoder, a batch
-or chunk count the data axis does not divide) raise ``NotImplementedError``
-naming the slice that brings them. ``gathered_state`` assembles the
+the explicit step, and its ``sharding_mode`` reads "explicit". That covers
+the cases JAX leaves to GSPMD too, whose trajectory is one device's:
+CORRUPT_REL (the endpoints gathered, the decoder's relations summed with
+the dense gradients), a FEATURE-only encoder (no table: the ranks of a node
+row are replicas) and a batch or chunk count the data axis does not divide
+(the batch splits at chunk boundaries into unequal parts,
+``collectives.data_part``). ``gathered_state`` assembles the
 single-device layout (evaluation, checkpoints) and ``load_gathered_state``
 shards one back.
 """
@@ -170,24 +173,6 @@ def _later_slice(what: str, where: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet; it comes with {where}")
 
 
-# the mesh cases JAX trains only through GSPMD (ROADMAP A4, item 1)
-GSPMD_SLICE = "the multi-GPU slice of the GSPMD-only LP cases (ROADMAP A4, item 1)"
-
-
-def _refuse_gspmd_only(mesh, model: Model, decoder_method: str, batch_size: int,
-                       num_chunks: int) -> None:
-    """Raise for the mesh cases JAX trains only through GSPMD; the explicit
-    step (JAX's auto resolves to it for every other case) runs the rest."""
-    if decoder_method == "CORRUPT_REL":
-        raise _later_slice("CORRUPT_REL training on a mesh", GSPMD_SLICE)
-    if not model.has_embeddings:
-        raise _later_slice("mesh training of a FEATURE-only encoder", GSPMD_SLICE)
-    n_data = mesh.shape[DATA_AXIS]
-    if batch_size % n_data or num_chunks % n_data:
-        raise _later_slice(f"mesh training with batch_size {batch_size} or num_chunks "
-                           f"{num_chunks} not divisible by the data axis {n_data}", GSPMD_SLICE)
-
-
 class LinkPredictionTrainer:
     """Shallow-encoder (embedding table) link-prediction training."""
 
@@ -230,8 +215,6 @@ class LinkPredictionTrainer:
         self.mesh = mesh
         self.sharding_mode = None
         if mesh is not None:
-            _refuse_gspmd_only(mesh, model, self.decoder_method, batch_size,
-                               neg_config.num_chunks)
             self.sharding_mode = "explicit"
             if device is None:
                 device = mesh.device
@@ -330,8 +313,10 @@ class LinkPredictionTrainer:
 
     def _build_mesh_update(self, hop_caps) -> None:
         """The explicit step for this encoder (JAX :262-313): the deep-encoder
-        one for GNN or FEATURE stages, with per-data-index caps."""
+        one for GNN or FEATURE stages (and a table-less encoder), with caps
+        for the largest data part."""
         from marius_tpu_torch.parallel.collectives import (
+            largest_part,
             make_sharded_gnn_lp_update,
             make_sharded_lp_update,
         )
@@ -340,9 +325,10 @@ class LinkPredictionTrainer:
         if not (self.nbr_configs or self.features is not None):
             self._mesh_update = make_sharded_lp_update(model, mesh, self.num_table_rows)
             return
-        n_data = mesh.shape[DATA_AXIS]
-        cap_local = (2 * self.batch_size // n_data
-                     + 2 * cfg.num_chunks // n_data * cfg.negatives_per_positive)
+        b_loc, c_loc = largest_part(self.batch_size, cfg.num_chunks, mesh.shape[DATA_AXIS])
+        cap_local = 2 * b_loc
+        if self.decoder_method != "CORRUPT_REL":
+            cap_local += 2 * c_loc * cfg.negatives_per_positive
         caps_local = (cap_local,)
         if self.nbr_configs:
             est = estimate_hop_caps(cap_local, self.nbr_configs, self.num_nodes)
@@ -499,7 +485,9 @@ class LinkPredictionTrainer:
         """The explicit sharded step on the whole batch (JAX :393-430); returns
         the whole batch's loss."""
         st = self.state
-        args = (st.table.values, st.table.state, st.params, st.opt_state, batch)
+        table = st.table
+        args = (None if table is None else table.values, None if table is None else table.state,
+                st.params, st.opt_state, batch)
         if self._mesh_gnn:
             degrees = None if self.graph is None else self.graph.degrees
             st.opt_state, loss, overflow = self._mesh_update(
@@ -519,6 +507,9 @@ class LinkPredictionTrainer:
         src = torch.where(mask_b, edges_b[:, 0], num_nodes)
         dst = torch.where(mask_b, edges_b[:, -1], num_nodes)
         rel = edges_b[:, 1]
+        if self._mesh_update is not None:
+            return self._mesh_batch_step({"src": src, "dst": dst, "mask": mask_b, "rel": rel,
+                                          "neg_rels": neg_rel_ids})
         all_ids = torch.cat([src, dst])
         if self.dense_accum:
             gather_ids, pos = all_ids, None

@@ -17,6 +17,8 @@ in-memory trainers' tolerance: float32 sums and gradient scatters run in
 another order).
 """
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -379,8 +381,13 @@ def test_unported_options_raise():
         TEdgeDecoder("DISTMULT", 3, 8))
     rel = Model("LINK_PREDICTION", tmodel.encoder,
                 TEdgeDecoder("DISTMULT", 3, 8, decoder_method="CORRUPT_REL"))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        TTrainer(tmodel, 40, 3, edges, neg, **kw, mesh=object())
+    # meshes are ported (tests/test_torch_mesh_buffer.py): a one-rank mesh
+    # shards nothing and turns sparse writeback off, as JAX does under a mesh
+    one = types.SimpleNamespace(shape={"data": 1, "node": 1}, axis_index=lambda axis: 0,
+                                device=torch.device("cpu"))
+    meshed = TTrainer(tmodel, 40, 3, edges, neg, **kw, mesh=one)
+    assert not meshed.sparse_writeback and meshed.buffer.dirty is None
+    assert meshed.buffer.shard_size == meshed.buffer.buffer_rows
     # CORRUPT_REL is ported (tests/test_torch_corrupt_rel.py); it needs typed edges
     assert TTrainer(rel, 40, 3, edges, neg, **kw).decoder_method == "CORRUPT_REL"
     with pytest.raises(ValueError, match="typed"):

@@ -150,19 +150,22 @@ def test_trainer_rejects_later_slices(monkeypatch):
                    TEncoderConfig(((TLayerConfig("EMBEDDING", output_dim=D),),)),
                    TEdgeDecoder("DISTMULT", R, D))
     edges, cfg = _edges(True), TNegConfig(C, NEG)
-    # meshes are ported (tests/test_torch_mesh.py) but for the cases JAX trains
-    # only through GSPMD, here a batch the data axis does not divide
-    mesh = types.SimpleNamespace(shape={"data": 3, "node": 1})
-    with pytest.raises(NotImplementedError, match="GSPMD-only"):
-        TTrainer(model, N, R, edges, cfg, batch_size=B, device="cpu", mesh=mesh)
-    mesh.shape["data"] = 1
+    # meshes are ported (tests/test_torch_mesh.py), the cases JAX trains only
+    # through GSPMD among them: a batch the data axis does not divide,
+    # relation corruption, a FEATURE-only encoder; each builds the explicit step
+    def mesh(data):
+        return types.SimpleNamespace(shape={"data": data, "node": 1}, axis_index=lambda a: 0,
+                                     device=torch.device("cpu"), broadcast=lambda t, **_: t)
+
     rel = dataclasses.replace(model, decoder=TEdgeDecoder("DISTMULT", R, D,
                                                           decoder_method="CORRUPT_REL"))
     feature_only = dataclasses.replace(model, encoder=TEncoderConfig(
         ((TLayerConfig("FEATURE", output_dim=D),),)))
-    for unported in (rel, feature_only):
-        with pytest.raises(NotImplementedError, match="GSPMD-only"):
-            TTrainer(unported, N, R, edges, cfg, batch_size=B, device="cpu", mesh=mesh)
+    for m, data in ((model, 3), (rel, 1), (feature_only, 1)):
+        tr = TTrainer(m, N, R, edges, cfg, batch_size=B, device="cpu", mesh=mesh(data),
+                      features=np.zeros((N, D), np.float32))
+        assert tr.sharding_mode == "explicit" and tr._mesh_update is not None
+        assert (tr.state.table is None) == (m is feature_only)
     # GNN encoders are ported (tests/test_torch_lp_gnn.py); they sample a graph
     with pytest.raises(ValueError, match="DeviceGraph"):
         TTrainer(model, N, R, edges, cfg, batch_size=B, device="cpu", nbr_configs=(object(),))

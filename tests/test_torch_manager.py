@@ -403,13 +403,10 @@ def test_unported_paths_raise(tmp_path, what):
         "buffer_mesh": {"storage.embeddings": PB, "training.mesh": {"data": 1, "node": 2}},
     }[what]
     raw = _lp_config(tmp_path, what, **overrides)
-    if what == "mesh":
-        # an in-memory LP mesh is ported (tests/test_torch_mesh.py): it needs
-        # the ranks of a process group, which this process has not joined
-        with pytest.raises(ValueError, match="process group"):
-            marius_init(load_config(raw), device="cpu")
-        return
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # an LP mesh is ported, in memory (tests/test_torch_mesh.py) and over the
+    # partition buffer (tests/test_torch_mesh_buffer.py): it needs the ranks
+    # of a process group, which this process has not joined
+    with pytest.raises(ValueError, match="process group"):
         marius_init(load_config(raw), device="cpu")
 
 
@@ -731,7 +728,7 @@ def test_nc_config_variants_set_up_as_jax(tmp_path, variant):
 
 
 def test_nc_refuses_unported(tmp_path):
-    """Meshes wait for a later slice; GAT and RGCN stages are ported
+    """Out-of-core meshes wait for a later slice; GAT and RGCN stages are ported
     (tests/test_torch_gat_rgcn_e2e.py trains them through the managers) and
     set up as the JAX package sets them up, and so are bf16 features and
     parameters (tests/test_torch_bf16.py)."""
@@ -744,9 +741,16 @@ def test_nc_refuses_unported(tmp_path):
         jtr = j_marius_init(j_load_config(raw)).trainer
         assert trainer.model.encoder.stages[1][0].gnn_type == gnn
         assert trainer.hop_caps == tuple(jtr.hop_caps)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # a data-parallel NC mesh is ported (tests/test_torch_mesh_nc.py): it needs
+    # a process group; out-of-core NC on a mesh waits for a later slice
+    with pytest.raises(ValueError, match="process group"):
         marius_init(load_config(_nc_raw(tmp_path, "gat", **{
             "training.mesh": {"data": 2, "node": 1}})), device="cpu")
+    with pytest.raises(NotImplementedError, match="mesh"):
+        marius_init(load_config(_nc_raw(tmp_path, "gat", **{
+            "training.mesh": {"data": 2, "node": 1},
+            "storage.features": {"type": "PARTITION_BUFFER"},
+            "storage.embeddings": {"options": copy.deepcopy(PB["options"])}})), device="cpu")
     raw = _nc_raw(tmp_path, "gat", **{"storage.embeddings": {
         "type": "DEVICE_MEMORY", "options": {"dtype": "bfloat16"}}})
     trainer = marius_init(load_config(raw), device="cpu").trainer

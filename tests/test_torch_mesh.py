@@ -15,9 +15,14 @@ process runs the JAX package on the 8 virtual CPU devices of
   with the local DEG filter, MEAN with train filter keys and a partly masked
   last batch, a GraphSAGE encoder under ALL sampling (deterministic,
   ``test_sharding.py:195``), and EMBEDDING + FEATURE with MEAN through the
-  deep-encoder step without hops (``test_sharding.py:287``). Two batches per
-  epoch: losses and tables agree to rtol 1e-4 / atol 1e-5 after the first
-  epoch, the losses to rtol 5e-3 after the second. Each mesh run also
+  deep-encoder step without hops (``test_sharding.py:287``); and the cases
+  JAX leaves to GSPMD (``sharding_mode="auto"``), which the port runs on its
+  explicit step: CORRUPT_REL at 2 x 2 (JAX's relation negatives replayed), a
+  FEATURE-only encoder with a GraphSAGE layer under ALL at 2 x 2 (every
+  rank's parameters equal: the node axis holds replicas), and a batch of 30
+  in 3 chunks at ``data: 4`` (parts of 10, 10, 10 and 0 edges, MEAN). Two
+  batches per epoch: losses and every leaf agree to rtol 1e-4 / atol 1e-5
+  after the first epoch, the losses to rtol 5e-3 after the second. Each mesh run also
   matches the port's single-device run (rtol 1e-4 / atol 1e-5 throughout),
   as do three more: a table the node axis does not divide (63 rows and a
   padding row), a bf16 table (ROADMAP C10: the loss to rtol 2^-4, each leaf
@@ -32,6 +37,7 @@ process runs the JAX package on the 8 virtual CPU devices of
   single-process run's test metrics, rank 1 prints none.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -46,6 +52,7 @@ import yaml
 from jax.sharding import Mesh as JMesh
 from jax.sharding import PartitionSpec as P
 
+import jax.numpy as jnp
 import marius_tpu.train.trainer as jtrainer_mod
 import torch_mesh_worker as worker
 from marius_tpu.data.graph import build_device_graph as j_graph
@@ -67,6 +74,7 @@ from marius_tpu.parallel.mesh import make_mesh as j_make_mesh
 from marius_tpu_torch.config import load_config
 from marius_tpu_torch.manager import marius_eval, marius_train
 from marius_tpu_torch.tools.preprocess.generate import generate_random_dataset_lp
+from tests.test_torch_corrupt_rel import RelKeyReplay
 from tests.test_torch_lp_trainer import _np_state, fake_negatives_jax
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
@@ -93,13 +101,23 @@ TRAINER_CASES = {
     "mean_filtered": (2, B + 22, N, "MEAN", 0.0, True, "embedding"),   # last batch 22 of 32
     "gnn_all": (3, 2 * B, N, "SUM", 0.25, False, "gnn"),
     "feature_mean": (5, B + 22, N, "MEAN", 0.25, False, "feature"),   # the no-hop deep step
+    # the cases JAX trains through GSPMD: relation corruption, a table-less
+    # encoder, and 3 chunks of a batch of 30 over 4 data indices (10, 10, 10, 0)
+    "corrupt_rel": (8, 2 * B, N, "SUM", 0.0, False, "embedding"),
+    "feature_only": (9, 2 * B, N, "SUM", 0.25, False, "feature_only"),
+    "uneven_data": (10, 50, N, "MEAN", 0.25, False, "embedding"),   # last batch 20 of 30
     # port against port: a table the node axis does not divide, bf16, host-streamed edges
     "padded_rows": (4, 2 * B, N - 1, "SUM", 0.25, False, "embedding"),
     "bf16_table": (6, B + 22, N, "SUM", 0.25, False, "embedding"),
     "host_edges": (7, 3 * B, N, "SUM", 0.25, False, "embedding"),
 }
-JAX_CASES = ("sum_deg", "mean_filtered", "gnn_all", "feature_mean")
-PORT_OPTIONS = {"bf16_table": {"dtype": "bfloat16"}, "host_edges": {"edges_backend": "HOST_MEMORY"}}
+JAX_CASES = ("sum_deg", "mean_filtered", "gnn_all", "feature_mean", "corrupt_rel",
+             "feature_only", "uneven_data")
+GSPMD_CASES = ("corrupt_rel", "feature_only", "uneven_data")
+PORT_OPTIONS = {"bf16_table": {"dtype": "bfloat16"}, "host_edges": {"edges_backend": "HOST_MEMORY"},
+                # Adam at 0.01 with random relations: tests/test_torch_corrupt_rel.py says why
+                "corrupt_rel": {"decoder_method": "CORRUPT_REL", "dense_opt": ("ADAM", 0.01)},
+                "uneven_data": {"batch_size": 30, "chunks": 3, "mesh": (4, 1)}}
 # bf16 sums in another order (ROADMAP C10): the loss to rtol 2^-4, each leaf
 # within 2^-3 of its norm (an Adagrad first step lr * g / |g| turns a near-zero
 # sum's sign into +-lr, as on the card against the CPU)
@@ -109,48 +127,73 @@ F = 6
 
 def _trainer_case(name):
     seed, e, n, reduction, deg, filtered, encoder = TRAINER_CASES[name]
+    opts = PORT_OPTIONS.get(name, {})
+    b = opts.get("batch_size", B)
     edges = _edges(seed, e, n)
     features = (np.random.default_rng(seed).standard_normal((n, F)).astype(np.float32)
-                if encoder == "feature" else None)
-    nb = -(-e // B)
+                if encoder in ("feature", "feature_only") else None)
+    nb = -(-e // b)
     perms = [np.asarray(jax.random.permutation(jax.random.fold_in(jax.random.key(12345), ep),
-                                               nb * B)) for ep in range(2)]
+                                               nb * b)) for ep in range(2)]
     return {"kind": "trainer", "edges": edges, "num_nodes": n, "num_rels": R, "dim": D,
             "batch_size": B, "chunks": C, "negatives": NEG, "degree_fraction": deg,
-            "filtered": filtered, "reduction": reduction, "gnn": encoder == "gnn",
-            "features": features, "epochs": 2, "perms": perms, "mesh": MESH,
-            **PORT_OPTIONS.get(name, {})}
+            "filtered": filtered, "reduction": reduction,
+            "gnn": encoder in ("gnn", "feature_only"), "feature_only": encoder == "feature_only",
+            "features": features, "epochs": 2, "perms": perms, "mesh": MESH, **opts}
 
 
 def _jax_trainer(case):
-    """JAX's explicit trainer at the same mesh, from its own initial state."""
+    """JAX's trainer at the same mesh, from its own initial state: the
+    explicit step, or for the GSPMD cases whatever ``auto`` chooses."""
     stages = ((JLayerConfig("EMBEDDING", output_dim=D),),)
     kw, model_kw = {}, {}
     edges = case["edges"]
-    if case["gnn"]:
-        stages += ((JLayerConfig("GNN", input_dim=D, output_dim=D, gnn_type="GRAPH_SAGE",
-                                 aggregator="MEAN", bias=True),),)
-        kw = dict(graph=j_graph(edges, N, R),
-                  nbr_configs=j_all_caps((JNbr("ALL"),), edges, N))
-        model_kw = dict(dense_optimizer=JOpt("ADAGRAD", learning_rate=0.1), sparse_lr=0.02)
+    d = D
     if case["features"] is not None:
         stages = ((JLayerConfig("EMBEDDING", output_dim=D - F),
                    JLayerConfig("FEATURE", output_dim=F)),)
+        if case["feature_only"]:
+            d = F
+            stages = ((JLayerConfig("FEATURE", output_dim=F),),)
         kw["features"] = case["features"]
+    if case["gnn"]:
+        stages += ((JLayerConfig("GNN", input_dim=d, output_dim=d, gnn_type="GRAPH_SAGE",
+                                 aggregator="MEAN", bias=True),),)
+        kw.update(graph=j_graph(edges, N, R), nbr_configs=j_all_caps((JNbr("ALL"),), edges, N))
+        model_kw = dict(dense_optimizer=JOpt("ADAGRAD", learning_rate=0.1), sparse_lr=0.02)
+    if case.get("dense_opt"):
+        model_kw["dense_optimizer"] = JOpt(*case["dense_opt"])
     if case["filtered"]:
         kw["train_filter_keys"] = (j_keys(edges, corrupt_dst=True),
                                    j_keys(edges, corrupt_dst=False))
-    model = JModel("LINK_PREDICTION", JEncoderConfig(stages), JEdgeDecoder("DISTMULT", R, D),
+    decoder = JEdgeDecoder("DISTMULT", R, d,
+                           decoder_method=case.get("decoder_method", "CORRUPT_NODE"))
+    model = JModel("LINK_PREDICTION", JEncoderConfig(stages), decoder,
                    loss_reduction=case["reduction"], **model_kw)
-    mesh = j_make_mesh(num_data=MESH[0], num_node=MESH[1], devices=jax.devices()[:WORLD])
-    neg = JNeg(C, NEG, case["degree_fraction"], filtered=case["filtered"])
-    return jtrainer_mod.LinkPredictionTrainer(model, N, R, edges, neg, batch_size=B, seed=0,
-                                              mesh=mesh, sharding_mode="explicit", **kw)
+    data, node = case["mesh"]
+    mesh = j_make_mesh(num_data=data, num_node=node, devices=jax.devices()[:data * node])
+    neg = JNeg(case["chunks"], NEG, case["degree_fraction"], filtered=case["filtered"])
+    jtr = jtrainer_mod.LinkPredictionTrainer(
+        model, N, R, edges, neg, batch_size=case["batch_size"], seed=0, mesh=mesh,
+        sharding_mode="auto" if case.get("gspmd") else "explicit", **kw)
+    if case.get("decoder_method") == "CORRUPT_REL":
+        # random relations: DistMult's ones score every relation negative as
+        # its positive (tests/test_torch_corrupt_rel.py), and the relation
+        # negatives of the four batches replayed from JAX's key schedule
+        rng = np.random.default_rng(11)
+        dec = {k: jnp.asarray(rng.uniform(0.5, 1.5, v.shape).astype(np.float32))
+               for k, v in jtr.state.params["decoder"].items()}
+        jtr.state = dataclasses.replace(jtr.state, params={**jtr.state.params, "decoder": dec})
+        replay = RelKeyReplay(jax.random.wrap_key_data(
+            np.array(jax.random.key_data(jtr.state.key))), case["chunks"], NEG, R, False)
+        case["rel_negs"] = [replay.negatives().numpy() for _ in range(4)]
+    return jtr
 
 
 def _plain_state(js):
     """JAX's numpy state as plain dicts: no JAX type is pickled to the ranks."""
-    return {"table": {"values": js.table.values, "state": js.table.state},
+    table = None if js.table is None else {"values": js.table.values, "state": js.table.state}
+    return {"table": table,
             "params": js.params, "epoch": np.asarray(js.epoch),
             "opt_state": {"step": np.asarray(js.opt_state.step), "slots": js.opt_state.slots}}
 
@@ -263,6 +306,7 @@ def runs(tmp_path_factory):
     with pytest.MonkeyPatch.context() as mp_:
         mp_.setattr(jtrainer_mod, "sample_negatives", fake_negatives_jax)
         for name in JAX_CASES:
+            cases[name]["gspmd"] = name in GSPMD_CASES
             jtrainers[name] = _jax_trainer(cases[name])
             cases[name]["jax_state"] = _plain_state(_np_state(jtrainers[name].state))
         cases["collectives_node2"] = _collectives_case(2, 5)
@@ -283,9 +327,13 @@ def runs(tmp_path_factory):
                 for _ in range(2):
                     loss = jtr.train_epoch()["loss"]
                     js = _np_state(jtr.state)
-                    jax_out[name].append({"loss": loss, "values": js.table.values,
-                                          "state": js.table.state,
-                                          "relations": js.params["decoder"]["relations"]})
+                    table = js.table
+                    jax_out[name].append({
+                        "loss": loss, "values": None if table is None else table.values,
+                        "state": None if table is None else table.state,
+                        "relations": js.params["decoder"]["relations"],
+                        "encoder": jax.tree.leaves(js.params["encoder"]),
+                        "mode": jtr.sharding_mode})
             for name in ("collectives_node2", "collectives_node4"):
                 jax_out[name] = _jax_collectives(cases[name])
             single = {name: worker.run_trainer(cases[name]) for name in TRAINER_CASES}
@@ -342,19 +390,42 @@ def test_collectives_match_jax(runs, node):
         _close(got["relations"], want["relations"])
 
 
+def _close_leaves(got, want, rtol=RTOL, atol=ATOL):
+    """The table (when there is one), the relations and the encoder's leaves."""
+    for key in ("values", "state", "relations"):
+        assert (got[key] is None) == (want[key] is None), key
+        if want[key] is not None:
+            _close(got[key], want[key], rtol, atol)
+    assert len(got["encoder"]) == len(want["encoder"])
+    for g, w in zip(got["encoder"], want["encoder"]):
+        _close(g, w, rtol, atol)
+
+
+def _collectives(name):
+    # a table-less encoder makes no gather: only the data axis's all_reduce
+    return 1.0 if name == "feature_only" else 2.0
+
+
 @pytest.mark.parametrize("name", JAX_CASES)
 def test_explicit_trainer_matches_jax(runs, name):
     ref = runs["jax"][name]
+    # JAX's auto leaves these cases to GSPMD; the port runs its explicit step
+    assert ref[0]["mode"] == ("gspmd" if name in GSPMD_CASES else "explicit")
     for rank in runs["ranks"]:
         got = rank[name]
-        # epoch 1 (two batches): losses, tables and relations
+        # epoch 1 (two batches): losses and every leaf
         _close(got[0]["loss"], ref[0]["loss"])
-        _close(got[0]["values"], ref[0]["values"])
-        _close(got[0]["state"], ref[0]["state"])
-        _close(got[0]["relations"], ref[0]["relations"])
+        _close_leaves(got[0], ref[0])
         # the loss over both epochs
         _close([e["loss"] for e in got], [e["loss"] for e in ref], rtol=EPOCH_LOSS_RTOL)
-        assert [e["collectives_per_batch"] for e in got] == [2.0, 2.0]
+        assert [e["collectives_per_batch"] for e in got] == [_collectives(name)] * 2
+    if name == "feature_only":
+        # the ranks of a node row are replicas: every rank's parameters equal
+        for rank in runs["ranks"][1:]:
+            for got, want in zip(rank[name], runs["ranks"][0][name]):
+                for g, w in zip(got["encoder"] + [got["relations"]],
+                                want["encoder"] + [want["relations"]]):
+                    np.testing.assert_array_equal(g, w)
 
 
 @pytest.mark.parametrize("name", list(TRAINER_CASES))
@@ -364,18 +435,42 @@ def test_mesh_trainer_matches_single_device(runs, name):
     for rank in runs["ranks"]:
         for got, want in zip(rank[name], single):
             _close(got["loss"], want["loss"], *((BF16_LOSS_RTOL, 0.0) if bf16 else (RTOL, ATOL)))
-            for key in ("values", "state", "relations"):
-                if bf16:
+            if bf16:
+                for key in ("values", "state", "relations"):
                     assert (np.linalg.norm(got[key] - want[key])
                             <= BF16_NORMWISE * np.linalg.norm(want[key])), key
-                else:
-                    _close(got[key], want[key])
+            else:
+                _close_leaves(got, want)
         # float32 needs one all_reduce over data; bf16 two (bf16 G and grads, the f32 loss)
-        want = 3.0 if name == "bf16_table" else 2.0
+        want = 3.0 if name == "bf16_table" else _collectives(name)
         assert [e["collectives_per_batch"] for e in rank[name]] == [want, want]
     if name == "padded_rows":
         # the mesh table has 64 rows; its single-device layout the first 63
         assert runs["ranks"][0][name][-1]["values"].shape == (N - 1, D)
+
+
+def test_data_parts_split_at_chunk_boundaries():
+    """Unequal parts: whole chunks, the first C mod D indices one more; the
+    parts tile the batch, and an index may get none."""
+    from marius_tpu_torch.parallel.collectives import data_part, largest_part
+
+    class Data:
+        def __init__(self, n, i):
+            self.shape, self.i = {"data": n}, i
+
+        def axis_index(self, axis):
+            return self.i
+
+    for b, c, n in ((30, 3, 4), (1000, 10, 3), (32, 4, 2), (12, 12, 5)):
+        parts = [data_part(b, c, Data(n, i), "data") for i in range(n)]
+        assert [p[1].start for p in parts[1:]] == [p[1].stop for p in parts[:-1]]
+        assert parts[0][1].start == 0 and parts[-1][1].stop == c
+        assert all(r.stop - r.start == (k.stop - k.start) * (b // c) for r, k in parts)
+        sizes = [k.stop - k.start for _, k in parts]
+        assert max(sizes) - min(sizes) <= 1 and sorted(sizes, reverse=True) == sizes
+        assert largest_part(b, c, n) == (max(sizes) * (b // c), max(sizes))
+    assert [data_part(30, 3, Data(4, i), "data")[0] for i in range(4)] == [
+        slice(0, 10), slice(10, 20), slice(20, 30), slice(30, 30)]
 
 
 def test_padding_row_stays_zero():

@@ -17,6 +17,7 @@ agrees the same way, its table and Adagrad state included.
 """
 
 import dataclasses
+import types
 
 import jax
 import numpy as np
@@ -145,9 +146,16 @@ def test_nc_trainer_rejects_later_slices():
     gat = dataclasses.replace(model, encoder=TEncoderConfig(
         model.encoder.stages[:1] + ((TLayerConfig("GNN", input_dim=F, output_dim=CLASSES,
                                                   gnn_type="GAT"),),)))
-    with pytest.raises(NotImplementedError):
-        tnc.NodeClassificationTrainer(model, graph, feats, labels, train, [TNbr("UNIFORM", 4)],
-                                      batch_size=B, device="cpu", full_graph=adj, mesh=object())
+    # on a mesh the linear collapse is ported (tests/test_torch_mesh_nc.py); a
+    # non-LINEAR full-graph encoder needs the node-sharded ring of a later slice
+    mesh = types.SimpleNamespace(shape={"data": 2, "node": 1}, axis_index=lambda a: 0,
+                                 device=torch.device("cpu"))
+    assert tnc.NodeClassificationTrainer(model, graph, feats, labels, train,
+                                         [TNbr("UNIFORM", 4)], batch_size=B, device="cpu",
+                                         full_graph=adj, mesh=mesh)._fg_collapse is not None
+    with pytest.raises(NotImplementedError, match="ring"):
+        tnc.NodeClassificationTrainer(gat, graph, feats, labels, train, [TNbr("UNIFORM", 4)],
+                                      batch_size=B, device="cpu", full_graph=adj, mesh=mesh)
     # bf16 is ported (tests/test_torch_bf16.py): features, parameters and sums in bf16
     bf16 = tnc.NodeClassificationTrainer(model, graph, feats, labels, train, [TNbr("UNIFORM", 4)],
                                          batch_size=B, device="cpu", full_graph=adj,

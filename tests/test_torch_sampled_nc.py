@@ -21,6 +21,7 @@ one trained state the same encodings to the layers' tolerance.
 """
 
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -355,9 +356,19 @@ def test_sampled_trainer_rejects_later_slices():
     graph = t_graph(edges, N)
     with pytest.raises(ValueError, match="neighbour config"):
         tnc.NodeClassificationTrainer(model, graph, feats, labels, train, device="cpu")
-    with pytest.raises(NotImplementedError):
+    # data-parallel meshes are ported (tests/test_torch_mesh_nc.py): the data
+    # axis must divide the batch, and each index's hop caps cover its share
+    mesh = types.SimpleNamespace(shape={"data": 3, "node": 1}, axis_index=lambda a: 0,
+                                 device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="data axis"):
         tnc.NodeClassificationTrainer(model, graph, feats, labels, train,
-                                      [TNbr("UNIFORM", 4)] * 2, device="cpu", mesh=object())
+                                      [TNbr("UNIFORM", 4)] * 2, device="cpu", mesh=mesh,
+                                      batch_size=32)
+    mesh.shape["data"] = 2
+    dp = tnc.NodeClassificationTrainer(model, graph, feats, labels, train,
+                                       [TNbr("UNIFORM", 4)] * 2, device="cpu", mesh=mesh,
+                                       batch_size=32)
+    assert dp.hop_caps[0] == 16
     # bf16 is ported (tests/test_torch_bf16.py)
     bf16 = tnc.NodeClassificationTrainer(model, graph, feats, labels, train,
                                          [TNbr("UNIFORM", 4)] * 2, device="cpu",

@@ -32,9 +32,10 @@ def fake_negatives_torch(cfg, edges, num_nodes, inverse):
 
 
 def lp_model(case):
-    """The case's port model: DistMult over EMBEDDING, EMBEDDING + FEATURE, or
+    """The case's port model: DistMult over EMBEDDING, EMBEDDING + FEATURE,
     EMBEDDING and a GraphSAGE MEAN layer (dense Adagrad at lr 0.1 and the
-    table at 0.02: ROADMAP C5)."""
+    table at 0.02: ROADMAP C5), or FEATURE and a GraphSAGE MEAN layer (no
+    table); corrupting nodes or, with ``decoder_method``, relations."""
     from marius_tpu_torch.nn.decoders.edge import EdgeDecoder
     from marius_tpu_torch.nn.encoder import EncoderConfig
     from marius_tpu_torch.nn.layers import LayerConfig
@@ -48,17 +49,24 @@ def lp_model(case):
         f = case["features"].shape[1]
         stages = ((LayerConfig("EMBEDDING", output_dim=d - f),
                    LayerConfig("FEATURE", output_dim=f)),)
+        if case.get("feature_only"):
+            d = f
+            stages = ((LayerConfig("FEATURE", output_dim=f),),)
     if case.get("gnn"):
         stages += ((LayerConfig("GNN", input_dim=d, output_dim=d, gnn_type="GRAPH_SAGE",
                                 aggregator="MEAN", bias=True),),)
         kw = dict(dense_optimizer=OptimizerConfig("ADAGRAD", learning_rate=0.1), sparse_lr=0.02)
-    model = Model("LINK_PREDICTION", EncoderConfig(stages), EdgeDecoder("DISTMULT", r, d), **kw)
+    if case.get("dense_opt"):
+        kw["dense_optimizer"] = OptimizerConfig(*case["dense_opt"])
+    decoder = EdgeDecoder("DISTMULT", r, d,
+                          decoder_method=case.get("decoder_method", "CORRUPT_NODE"))
+    model = Model("LINK_PREDICTION", EncoderConfig(stages), decoder, **kw)
     return dataclasses.replace(model, loss_reduction=case["reduction"])
 
 
 def lp_trainer(case, mesh=None):
-    """The case's trainer, its negatives and permutations injected, from the
-    JAX initial state when the case carries one."""
+    """The case's trainer, its negatives (node or relation) and permutations
+    injected, from the JAX initial state when the case carries one."""
     from marius_tpu_torch.convert import train_state_from_jax
     from marius_tpu_torch.data.graph import build_device_graph
     from marius_tpu_torch.data.samplers.negative import NegativeSamplingConfig
@@ -88,6 +96,9 @@ def lp_trainer(case, mesh=None):
                                     **kw)
     trainer._sample_negatives = lambda edges_b, inverse: fake_negatives_torch(
         neg, edges_b, n, inverse)
+    if case.get("rel_negs") is not None:
+        rel_negs = iter(case["rel_negs"])
+        trainer._sample_rel_negatives = lambda: torch.from_numpy(next(rel_negs))
     perms = case["perms"]
     trainer._epoch_permutation = lambda e: torch.tensor(perms[e], dtype=torch.long)
     if case.get("jax_state") is not None:
@@ -97,17 +108,25 @@ def lp_trainer(case, mesh=None):
 
 def run_trainer(case, mesh=None):
     """Per epoch: the loss, the table (values, Adagrad state) in the
-    single-device layout, the relations, and the collectives per batch."""
+    single-device layout (None without one), the relations, the encoder's
+    parameters and the collectives per batch."""
     trainer = lp_trainer(case, mesh)
     out = []
     for _ in range(case["epochs"]):
         stats = trainer.train_epoch()
         full = trainer.gathered_state()
-        # copies: on one device these are the trainer's own tensors
-        out.append({"loss": stats["loss"], "values": full.table.values.float().numpy().copy(),
-                    "state": full.table.state.float().numpy().copy(),
-                    "relations": full.params["decoder"]["relations"].detach().float()
-                    .numpy().copy(),
+        table = full.table
+
+        def host(t):
+            # copies: on one device these are the trainer's own tensors
+            return None if t is None else t.detach().float().numpy().copy()
+
+        out.append({"loss": stats["loss"], "values": host(table and table.values),
+                    "state": host(table and table.state),
+                    "relations": host(full.params["decoder"]["relations"]),
+                    # JAX's leaf order: each layer's entries by name
+                    "encoder": [host(layer[k]) for stage in full.params["encoder"]
+                                for layer in stage for k in sorted(layer)],
                     "collectives_per_batch": stats.get("collectives_per_batch")})
     return out
 
@@ -192,6 +211,213 @@ def run_manager(case):
             "mesh": (trainer.mesh.shape, trainer.sharding_mode, trainer.mesh.backend)}
 
 
+def run_buffer_manager(case):
+    """marius_train of a PARTITION_BUFFER config on this process group's
+    mesh: the test metrics, the epochs' losses and the trainer's mesh."""
+    from marius_tpu_torch.config import load_config
+    from marius_tpu_torch.manager import marius_train
+
+    result = marius_train(load_config(case["raw"]), device="cpu")
+    trainer = result["runtime"].trainer
+    return {"test": {k: v for k, v in result["test"].items() if k != "eval_time_s"},
+            "losses": [e["loss"] for e in result["epochs"]],
+            "host_values": trainer.buffer.host_values.copy(),
+            "mesh": (trainer.mesh.shape, type(trainer).__name__)}
+
+
+def buffer_model(case):
+    """The buffer case's port model: ComplEx or DistMult over EMBEDDING,
+    corrupting nodes or relations, or EMBEDDING and a GraphSAGE MEAN layer
+    (gs_1_layer); dense and table Adagrad."""
+    from marius_tpu_torch.nn.decoders.edge import EdgeDecoder
+    from marius_tpu_torch.nn.encoder import EncoderConfig
+    from marius_tpu_torch.nn.layers import LayerConfig
+    from marius_tpu_torch.nn.model import Model
+    from marius_tpu_torch.nn.optimizers import OptimizerConfig
+
+    d = case["dim"]
+    stages = ((LayerConfig("EMBEDDING", output_dim=d),),)
+    if case["nbr"]:
+        stages += ((LayerConfig("GNN", input_dim=d, output_dim=d, gnn_type="GRAPH_SAGE",
+                                aggregator="MEAN", bias=True),),)
+    return Model("LINK_PREDICTION", EncoderConfig(stages),
+                 EdgeDecoder(case["decoder"], case["num_rels"], d,
+                             decoder_method=case["decoder_method"]),
+                 dense_optimizer=OptimizerConfig("ADAGRAD", learning_rate=0.1),
+                 sparse_lr=case["sparse_lr"])
+
+
+def replayed_draws(table):
+    """A Draws function that gives back recorded sampler numbers."""
+    def draw(depth, direction, n, fanout, dropout):
+        return tuple(None if a is None else torch.from_numpy(a)
+                     for a in table[(depth, direction, n, fanout, dropout)])
+
+    return draw
+
+
+def buffer_trainer(case, mesh=None):
+    """The buffer case's trainer from the JAX trainer's weights, its draws
+    (in-buffer negatives, relation negatives, sampler numbers) replayed from
+    the single-device run's record."""
+    from marius_tpu_torch.convert import copy_buffer_trainer_from_jax_
+    from marius_tpu_torch.data.samplers.negative import NegativeSamplingConfig
+    from marius_tpu_torch.data.samplers.neighbor import NeighborSamplingConfig
+    from marius_tpu_torch.train.buffer_trainer import PartitionBufferLPTrainer
+
+    trainer = PartitionBufferLPTrainer(
+        buffer_model(case), case["num_nodes"], case["num_rels"], case["edges"],
+        NegativeSamplingConfig(case["chunks"], case["negatives"], case["degree_fraction"]),
+        batch_size=case["batch_size"], num_partitions=case["parts"],
+        buffer_capacity=case["capacity"], seed=0, ordering="BETA",
+        nbr_configs=[NeighborSamplingConfig(*c) for c in case["nbr"]], mesh=mesh,
+        device="cpu")
+    w = case["weights"]
+    copy_buffer_trainer_from_jax_(trainer, w["host_values"], w["host_state"], w["params"],
+                                  w["opt_state"], 0)
+    rec = case["draws"]
+    t = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
+    trainer._in_buffer_draws = lambda step, inverse: tuple(
+        t(a) for a in rec["neg"][(step, inverse)])
+    trainer._rel_negatives = lambda step: t(rec["rel"][step])
+    trainer._gnn_draws = lambda step: replayed_draws(rec["gnn"][step])
+    return trainer
+
+
+def run_buffer(case, mesh):
+    """The buffer trainer's first ``states`` states on the mesh: the loss,
+    the device shard's rows, the flushed host table, the dense state, the
+    collectives and the all_gathered bytes; then a checkpoint from rank 0."""
+    from marius_tpu_torch.storage import checkpoint as ckpt
+
+    trainer = buffer_trainer(case, mesh)
+    stats = trainer.train_epoch(max_states=case["states"], final_flush=False)
+    shard = tuple(trainer.buffer.device_values.shape)
+    state = trainer.gathered_state()
+    out = {"loss": stats["loss"], "shard": shard, "buffer_rows": trainer.buffer.buffer_rows,
+           "host_values": trainer.buffer.host_values.copy(),
+           "host_state": trainer.buffer.host_state.copy(),
+           "params": {k: [[{n: p.detach().numpy().copy() for n, p in layer.items()}
+                           for layer in stage] for stage in v] if k == "encoder"
+                      else {n: p.detach().numpy().copy() for n, p in v.items()}
+                      for k, v in trainer.params.items()},
+           "collectives_per_batch": stats["collectives_per_batch"],
+           "gathered_bytes": stats["gathered_bytes"], "states_run": stats["states_run"],
+           "batches_run": stats["batches_run"]}
+    ckpt.save_state(f"{case['out']}/ckpt", state, metadata={"epochs_processed": 1}, mesh=mesh)
+    return out
+
+
+def nc_model(case):
+    """The NC case's port model: ogbn_arxiv.yaml's FEATURE + GraphSAGE MEAN
+    stages, FEATURE beside EMBEDDING with a RELU and a GCN stage, or the
+    linear collapse's FEATURE + 2 GraphSAGE (tests/test_sharding.py:487)."""
+    from marius_tpu_torch.nn.encoder import EncoderConfig
+    from marius_tpu_torch.nn.layers import LayerConfig as L
+    from marius_tpu_torch.nn.model import Model
+    from marius_tpu_torch.nn.optimizers import OptimizerConfig
+
+    f, c = case["features"].shape[1], case["classes"]
+    sage = dict(gnn_type="GRAPH_SAGE", aggregator="MEAN", bias=True)
+    if case["variant"] == "embedding":
+        stages = [(L("FEATURE", output_dim=f), L("EMBEDDING", output_dim=4)),
+                  (L("GNN", input_dim=f + 4, output_dim=12, activation="RELU", **sage),),
+                  (L("GNN", input_dim=12, output_dim=c, gnn_type="GCN", bias=True),)]
+    elif case["variant"] == "collapse":
+        stages = [(L("FEATURE", output_dim=f, bias=True),),
+                  (L("GNN", input_dim=f, output_dim=8, gnn_type="GRAPH_SAGE", bias=True),),
+                  (L("GNN", input_dim=8, output_dim=c, gnn_type="GRAPH_SAGE", bias=True),)]
+    else:
+        stages = [(L("FEATURE", output_dim=f, bias=True),),
+                  (L("GNN", input_dim=f, output_dim=16, **sage),),
+                  (L("GNN", input_dim=16, output_dim=c, **sage),)]
+    return Model("NODE_CLASSIFICATION", EncoderConfig(tuple(stages)), None,
+                 loss_type="CROSS_ENTROPY", loss_reduction=case["reduction"],
+                 dense_optimizer=OptimizerConfig("ADAM", learning_rate=0.01), sparse_lr=0.1)
+
+
+def nc_trainer(case, mesh=None):
+    """The NC case's trainer from JAX's initial state, its permutations and
+    (sampled) this data index's recorded draws injected."""
+    from marius_tpu_torch.convert import train_state_from_jax
+    from marius_tpu_torch.data.full_graph import build_full_graph_adjacency
+    from marius_tpu_torch.data.graph import build_device_graph
+    from marius_tpu_torch.data.samplers.neighbor import NeighborSamplingConfig
+    from marius_tpu_torch.parallel.mesh import DATA_AXIS
+    from marius_tpu_torch.train.nc import NodeClassificationTrainer
+
+    edges, n = case["edges"], case["num_nodes"]
+    collapse = case["variant"] == "collapse"
+    trainer = NodeClassificationTrainer(
+        nc_model(case), build_device_graph(edges, n, device="cpu"), case["features"],
+        case["labels"], case["train"], [NeighborSamplingConfig(*c) for c in case["nbr"]],
+        batch_size=case["batch_size"], seed=0, mesh=mesh, device="cpu",
+        full_graph=build_full_graph_adjacency(edges, n) if collapse else None)
+    perms = case["perms"]
+    trainer._epoch_permutation = lambda p: torch.from_numpy(perms[p]).long()
+    trainer.load_gathered_state(train_state_from_jax(case["jax_state"]))
+    if case.get("draws") is not None:
+        mine = iter(case["draws"][0 if mesh is None else mesh.axis_index(DATA_AXIS)])
+        trainer._batch_draws = lambda data_index=0: replayed_draws(next(mine))
+    return trainer
+
+
+def run_nc(case, mesh):
+    """Per epoch: the loss, the encoder's parameters (JAX's leaf order), the
+    table and the collectives per batch; the last epoch's evaluation."""
+    from marius_tpu_torch.train.nc import NodeClassificationEvaluator
+
+    trainer = nc_trainer(case, mesh)
+    out = []
+    for _ in range(case["epochs"]):
+        stats = trainer.train_epoch()
+        st = trainer.gathered_state()
+        out.append({"loss": stats["loss"], "collectives_per_batch": stats["collectives_per_batch"],
+                    "encoder": [layer[k].detach().numpy().copy()
+                                for stage in st.params["encoder"] for layer in stage
+                                for k in sorted(layer)],
+                    "table": None if st.table is None else
+                    (st.table.values.numpy().copy(), st.table.state.numpy().copy())})
+    ev = NodeClassificationEvaluator(trainer, case["eval_nodes"], batch_size=40)
+    # one process's trainer holding the mesh-trained state evaluates alike
+    one = nc_trainer({**case, "draws": None}, None)
+    one.load_gathered_state(trainer.gathered_state())
+    ev_one = NodeClassificationEvaluator(one, case["eval_nodes"], batch_size=40)
+    return {"epochs": out, "eval": ev.evaluate(trainer.state),
+            "eval_one": ev_one.evaluate(one.state), "hop_caps": trainer.hop_caps}
+
+
+def run_nc_routes(case):
+    """``nc_table_grad``'s two routes on this data index's ids and row
+    gradients, each densified to the (N, d) accumulator G."""
+    from marius_tpu_torch.parallel.collectives import nc_table_grad
+    from marius_tpu_torch.parallel.mesh import DATA_AXIS, make_mesh
+
+    mesh = make_mesh(torch.distributed.get_world_size(), 1, device="cpu", timeout=TIMEOUT)
+    i, n = mesh.axis_index(DATA_AXIS), case["num_rows"]
+    out = {}
+    for route in ("gather", "reduce"):
+        rows, G = nc_table_grad(n, torch.from_numpy(case["ids"][i]),
+                                torch.from_numpy(case["grads"][i]), mesh, route=route)
+        dense = torch.zeros((n + 1, G.shape[1]))
+        dense[rows] = G
+        out[route] = dense[:n].numpy()
+    out["auto"] = nc_table_grad(n, torch.from_numpy(case["ids"][i]),
+                                torch.from_numpy(case["grads"][i]), mesh)[0].shape[0] < n
+    return out
+
+
+def run_nc_manager(case):
+    """marius_train of an NC config on this process group's mesh."""
+    from marius_tpu_torch.config import load_config
+    from marius_tpu_torch.manager import marius_train
+
+    result = marius_train(load_config(case["raw"]), device="cpu")
+    trainer = result["runtime"].trainer
+    return {"test": result["test"], "losses": [e["loss"] for e in result["epochs"]],
+            "collapse": trainer._fg_collapse is not None, "mesh": trainer.mesh.shape}
+
+
 def main(rank, world, init_file, cases, out_dir):
     from marius_tpu_torch.parallel import multihost
     from marius_tpu_torch.parallel.mesh import make_mesh
@@ -205,6 +431,19 @@ def main(rank, world, init_file, cases, out_dir):
                 results[name] = run_collectives(case)
             elif case["kind"] == "manager":
                 results[name] = run_manager(case)
+            elif case["kind"] == "buffer":
+                mesh = make_mesh(case["mesh"][0], case["mesh"][1], device="cpu",
+                                 timeout=TIMEOUT)
+                results[name] = run_buffer(case, mesh)
+            elif case["kind"] == "buffer_manager":
+                results[name] = run_buffer_manager(case)
+            elif case["kind"] == "nc":
+                results[name] = run_nc(case, make_mesh(case["mesh"][0], case["mesh"][1],
+                                                       device="cpu", timeout=TIMEOUT))
+            elif case["kind"] == "nc_routes":
+                results[name] = run_nc_routes(case)
+            elif case["kind"] == "nc_manager":
+                results[name] = run_nc_manager(case)
             else:
                 mesh = make_mesh(case["mesh"][0], case["mesh"][1], device="cpu",
                                  timeout=TIMEOUT)
