@@ -268,6 +268,20 @@ paths' new shapes (the owner-local gather into a buffer shard, the
 unique-row Adagrad on it, the gather-sum of one data index's arxiv batch)
 bit for bit, timed.
 
+Then the node-sharded full-graph ring, last: ``nc_ring`` starts two gloo
+rank processes sharing the card on {data: 1, node: 2}; each trains three
+models at the arxiv shape on the ring (ogbn_arxiv.yaml's FEATURE + 3 x
+GraphSAGE MEAN with ``fg_linear_collapse=False``, gat8 and RGCN over 8
+relations) for 3 batches and evaluates them, printing s per batch, hops and
+ring bytes per batch, the share of each step spent posting and waiting for
+hops, peak device bytes and launches; this process then runs one card's
+full-graph trainer of each over the same batches: the ranks' losses equal
+each other and one card's within rtol 2e-4 (GAT 5e-4), their accuracies
+within 5e-4. ``ring_shapes`` holds the kernels at the ring's per-step
+shapes (the SAGE step sums, GAT's slot gathers of the R and value blocks
+and its sums over slot positions, RGCN's cell gather and anchor sum) bit for
+bit, timed.
+
 Small runs on the card are compared with the same runs on the CPU (plain
 versions, which tests/test_torch_*.py hold against the JAX package).
 
@@ -375,6 +389,12 @@ MESH_TIMEOUT_S, MESH_RANKS_LIMIT_S = 300, 600
 GSPMD_EPOCHS, GSPMD_UNEVEN = 1, (3, 1)
 OOC_MESH_EPOCHS, OOC_MESH_STATES = 1, 2
 NC_MESH, NC_MESH_EPOCHS = (2, 1), 1
+# the node-sharded ring (nc_ring): its mesh (gloo ranks sharing the card), its models
+# (ogbn_arxiv.yaml's SAGE forced onto the ring, gat8, RGCN over 8 relations), the
+# training batches each runs against one card's trainer, and the loss tolerances
+NC_RING, NC_RING_BATCHES = (1, 2), 3
+NC_RING_MODELS = ("sage", "gat", "rgcn")
+NC_RING_RTOL = {"sage": 2e-4, "gat": 5e-4, "rgcn": 2e-4}
 # the edges of the gather-sum kernel's 128-byte column slabs (32 f32 or 64 bf16 columns)
 SLAB_EDGE_DIMS = (15, 16, 17, 31, 32, 63, 64, 65)
 # single buckets: caps from one slot to the 13k-slot hub, with the hub split's edges
@@ -6195,6 +6215,309 @@ def mesh_dp_shapes(rates, card, data) -> dict:
     return {"gather_rows": gat, "sparse_adagrad_update_": ada, "gather_sum": sums}
 
 
+# -- the node-sharded full-graph ring ---------------------------------------------
+
+
+def ring_model(name: str):
+    """nc_ring's models at full width: ogbn_arxiv.yaml's FEATURE + 3 x
+    GraphSAGE MEAN (``nc_model``), gat8 and RGCN (``arxiv_gnn_model``)."""
+    if name == "sage":
+        return nc_model(ARXIV_FEATS, (NC_DIM, NC_DIM, ARXIV_CLASSES))
+    return arxiv_gnn_model(name.upper())
+
+
+def ring_edges(name: str, edges: np.ndarray) -> np.ndarray:
+    """RGCN's edges carry 8 relations drawn from a seed (nc_full_graph_gnn's)."""
+    if name != "rgcn":
+        return edges
+    r = np.random.default_rng(8).integers(0, ARXIV_RELS, len(edges)).astype(np.int32)
+    return np.stack([edges[:, 0], r, edges[:, 1]], 1)
+
+
+def ring_trainer(name: str, data, dev, mesh=None):
+    """The model's full-graph trainer at arxiv shape (never the collapse): on
+    ``mesh`` the node-sharded ring, else one card's (seed-restricted final
+    stage, the default)."""
+    from marius_tpu_torch.data.full_graph import build_full_graph_adjacency
+    from marius_tpu_torch.data.graph import build_device_graph
+    from marius_tpu_torch.train.nc import NodeClassificationTrainer
+
+    edges, features, labels, train_nodes = data
+    e, rels = ring_edges(name, edges), name == "rgcn"
+    adj = build_full_graph_adjacency(e, ARXIV_NODES, with_relations=rels)
+    graph = build_device_graph(e, ARXIV_NODES, ARXIV_RELS if rels else 1, device=dev)
+    return NodeClassificationTrainer(ring_model(name), graph, features, labels, train_nodes,
+                                     batch_size=BATCH, seed=0, full_graph=adj, mesh=mesh,
+                                     fg_linear_collapse=False, device=dev)
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _peak_reset(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _peak(dev):
+    return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+
+
+def ring_run(trainer, data, dev) -> dict:
+    """NC_RING_BATCHES batches of epoch 0's permutation, each timed (synced)
+    with its ring hops, bytes and waits; then one evaluation over the
+    non-train nodes. The three kernels' counts are set to 0 before each part
+    and read after it."""
+    from marius_tpu_torch.ops.cuda import adagrad, gather, nbr_sum
+    from marius_tpu_torch.train.nc import NodeClassificationEvaluator
+
+    kernels = {"gather_rows": gather, "sparse_adagrad_update_": adagrad, "gather_sum": nbr_sum}
+    nb, mesh = NC_RING_BATCHES, trainer.mesh
+    perm = trainer._epoch_permutation(0)[:nb * BATCH].to(dev)
+    seeds = trainer.train_nodes[perm].reshape(nb, BATCH)
+    masks = (perm < trainer.num_train).reshape(nb, BATCH)
+    slots = (trainer._batch_slot_counts(seeds, masks) if trainer._fg_seed_restrict
+             else [None] * nb)
+    out = {"losses": [], "seconds": [], "hops": [], "ring_bytes": [], "wait_s": [],
+           "post_s": [], "device_wait_s": []}
+    for m in kernels.values():
+        m.launches = 0
+    for i in range(nb):
+        if mesh is not None:
+            before = (mesh.collectives, mesh.ring_bytes, mesh.ring_wait_s, mesh.ring_post_s)
+            mesh.ring_wait_device_s()
+        _sync(dev)
+        t0 = time.perf_counter()
+        loss = float(trainer._batch_step(seeds[i], masks[i], slots[i]))
+        _sync(dev)
+        out["seconds"].append(time.perf_counter() - t0)
+        out["losses"].append(loss)
+        if mesh is not None:
+            out["hops"].append(mesh.collectives - before[0])
+            out["ring_bytes"].append(mesh.ring_bytes - before[1])
+            out["wait_s"].append(mesh.ring_wait_s - before[2])
+            out["post_s"].append(mesh.ring_post_s - before[3])
+            out["device_wait_s"].append(mesh.ring_wait_device_s())
+    out["train_launches"] = {k: m.launches for k, m in kernels.items()}
+    if not all(math.isfinite(x) for x in out["losses"]):
+        raise AssertionError(f"{trainer.model.encoder} losses are not finite: {out['losses']}")
+    eval_nodes = np.setdiff1d(np.arange(ARXIV_NODES), data[3])
+    for m in kernels.values():
+        m.launches = 0
+    _sync(dev)
+    t0 = time.perf_counter()
+    acc = NodeClassificationEvaluator(trainer, eval_nodes).evaluate(trainer.state)
+    out["eval_s"] = time.perf_counter() - t0
+    out["eval_launches"] = {k: m.launches for k, m in kernels.items()}
+    out["accuracy"], out["num_evaluated"] = acc["accuracy"], acc["num_evaluated"]
+    return out
+
+
+def ring_data(path: str):
+    """The arxiv-shaped (edges, features, labels, train nodes) saved by nc_ring."""
+    f = np.load(path)
+    return f["edges"], f["features"], f["labels"], f["train"]
+
+
+def nc_ring_rank(config_path: str, device=None) -> int:
+    """One rank of nc_ring, in a process of its own: joins the process group
+    of MESH_CHECK_COORDINATOR, lays the config's mesh over it, and for each
+    model builds the ring trainer (set-up seconds), runs ``ring_run`` and
+    reads the card's peak bytes. Prints ``MESH_RANK {...}``."""
+    from marius_tpu_torch.parallel import multihost
+    from marius_tpu_torch.parallel.mesh import make_mesh
+
+    with open(config_path) as f:
+        cfg = yaml.safe_load(f)
+    dev = _check_group(device)
+    try:
+        mesh = make_mesh(*cfg["mesh"], device=dev)
+        mesh.ring_timing = True
+        data = ring_data(cfg["data"])
+        record = {"rank": mesh.rank, "coords": mesh.coords, "backend": mesh.backend,
+                  "device": str(dev), "shape": mesh.shape, "models": {}}
+        for name in cfg["models"]:
+            _peak_reset(dev)
+            t0 = time.perf_counter()
+            trainer = ring_trainer(name, data, dev, mesh)
+            setup_s = time.perf_counter() - t0
+            if trainer._ring_axis != "node" or trainer._fg_collapse is not None:
+                raise AssertionError(f"nc_ring {name} is not on the node ring")
+            out = ring_run(trainer, data, dev)
+            out.update(setup_s=setup_s, peak_bytes=_peak(dev),
+                       n_loc=trainer._ring_rows[1])
+            record["models"][name] = out
+            del trainer
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        multihost.shutdown()
+    print("MESH_RANK " + json.dumps(record), flush=True)
+    return 0
+
+
+def nc_ring(card: str, data, device=None, models=NC_RING_MODELS, shape=NC_RING) -> dict:
+    """The node-sharded full-graph ring at arxiv shape: rank processes of
+    ``nc_ring_rank`` on a {data: 1, node: S} mesh (two gloo ranks sharing
+    this card; one NCCL rank per card where each rank has one) train each
+    model NC_RING_BATCHES batches and evaluate, then this process runs one
+    card's trainer of each over the same batches: the losses held at
+    NC_RING_RTOL, the accuracies side by side, s per batch, hops and ring
+    bytes per batch, the wait shares and peak bytes printed."""
+    tag = "nc_ring"
+    dev = torch.device(device or "cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        edges, features, labels, train_nodes = data
+        np.savez(f"{tmp}/arxiv.npz", edges=edges, features=features, labels=labels,
+                 train=train_nodes)
+        raw = {"data": f"{tmp}/arxiv.npz", "mesh": list(shape), "models": list(models)}
+        print(f"{tag}: {', '.join(models)} at arxiv shape on {{data: {shape[0]}, node: "
+              f"{shape[1]}}}, {NC_RING_BATCHES} training batches of {BATCH} each and one "
+              f"evaluation; one card's trainer of each after it  [{card}]", flush=True)
+        records = run_mesh_ranks(tag, raw, tmp, card, device, fn="nc_ring_rank", shape=shape)
+    counts = {"gather_rows": {}, "sparse_adagrad_update_": {}, "gather_sum": {}}
+    summary = {}
+    for name in models:
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        _peak_reset(dev)
+        t0 = time.perf_counter()
+        one_tr = ring_trainer(name, data, dev)
+        setup_s = time.perf_counter() - t0
+        one = ring_run(one_tr, data, dev)
+        one_peak = _peak(dev)
+        del one_tr
+        rtol = NC_RING_RTOL[name]
+        ranks = [rec["models"][name] for rec in records]
+        for rec, got in zip(records, ranks):
+            if got["losses"] != ranks[0]["losses"]:
+                raise AssertionError(f"{tag} {name}: rank {rec['rank']}'s losses "
+                                     f"{got['losses']} differ from rank 0's")
+            np.testing.assert_allclose(got["losses"], one["losses"], rtol=rtol,
+                                       err_msg=f"{tag} {name}: ring against one card")
+            if got["accuracy"] != ranks[0]["accuracy"] or \
+                    abs(got["accuracy"] - one["accuracy"]) > 5e-4:
+                raise AssertionError(f"{tag} {name}: accuracy {got['accuracy']} against one "
+                                     f"card's {one['accuracy']}")
+            if got["num_evaluated"] != one["num_evaluated"]:
+                raise AssertionError(f"{tag} {name}: evaluated {got['num_evaluated']} nodes")
+            for part in ("train", "eval"):
+                launched = got[f"{part}_launches"]
+                if launched["sparse_adagrad_update_"] or not launched["gather_sum"] or (
+                        name != "sage" and not launched["gather_rows"]):
+                    raise AssertionError(f"{tag} {name}: rank {rec['rank']} {part} launched "
+                                         f"{launched}")
+                for k, n in launched.items():
+                    if n:
+                        counts[k][f"{tag} {name} rank {rec['rank']} {part}"] = n
+            step = got["seconds"]
+            waits = [w / t for w, t in zip(got["wait_s"], step)]
+            posts = [w / t for w, t in zip(got["post_s"], step)]
+            dwaits = [w / t for w, t in zip(got["device_wait_s"], step)]
+            print(f"{tag} {name} rank {rec['rank']}: backend {rec['backend']} on "
+                  f"{rec['device']} at {rec['coords']}, n_loc {got['n_loc']}; set-up "
+                  f"{got['setup_s']:.2f} s; s per batch {[round(x, 4) for x in step]}; losses "
+                  f"{got['losses']}; hops per batch {got['hops']}; ring MB sent per batch "
+                  f"{[round(b / 1e6, 2) for b in got['ring_bytes']]}; share of the step in the "
+                  f"hops' waits (host) {[round(x, 4) for x in waits]}, posting them (host; "
+                  f"gloo's staging copy included) {[round(x, 4) for x in posts]}, the device's "
+                  f"wait for card-to-card hops "
+                  f"{[round(x, 4) for x in dwaits]}; peak device bytes {got['peak_bytes']}; "
+                  f"accuracy {got['accuracy']:.6f} over {got['num_evaluated']:.0f} nodes in "
+                  f"{got['eval_s']:.2f} s; launches training {got['train_launches']}, "
+                  f"evaluation {got['eval_launches']}  [{card}]", flush=True)
+        print(f"{tag} {name} one card: set-up {setup_s:.2f} s; s per batch "
+              f"{[round(x, 4) for x in one['seconds']]}; losses {one['losses']} (the ring's "
+              f"within rtol {rtol}); peak device bytes {one_peak}; accuracy "
+              f"{one['accuracy']:.6f}; launches training {one['train_launches']}  [{card}]",
+              flush=True)
+        summary[name] = {"s_per_batch": ranks[0]["seconds"], "one_card_s": one["seconds"],
+                         "peak_bytes": [r["peak_bytes"] for r in ranks],
+                         "one_card_peak": one_peak}
+    return {**counts, "summary": summary}
+
+
+def ring_shapes(rates, card, data) -> dict:
+    """The two kernels at the ring's per-step shapes on shard 0 of nc_ring's
+    {data: 1, node: 2} mesh, each bit for bit against its plain version and
+    timed beside its bound and one-call PyTorch equivalent: the SAGE ring's
+    step sums (the visiting block's rows into the local rows, d = 128),
+    GAT's per-slot gathers of the visiting R (d = 8) and value (d = 8 x 128)
+    blocks and its numerator and visiting-gradient sums over slot positions
+    (d = 1024), RGCN's cell gather (d = 128) and anchor sum of step 0."""
+    from marius_tpu_torch.data.full_graph import (
+        build_full_graph_adjacency,
+        host_csr_from_adjacency,
+    )
+    from marius_tpu_torch.data.full_graph_rel import _RingCells, build_sharded_rel_graph
+    from marius_tpu_torch.data.full_graph_sharded import (
+        _place,
+        build_sharded_from_csr,
+        csr_layout,
+    )
+    from marius_tpu_torch.ops.cuda import gather
+
+    dev = torch.device("cuda")
+    s = NC_RING[1]
+    edges = data[0]
+    sg = _place(build_sharded_from_csr(*host_csr_from_adjacency(
+        build_full_graph_adjacency(edges, ARXIV_NODES)), ARXIV_NODES, s), 0, dev)
+    n_loc = sg.n_loc
+    sums, rows = {}, {}
+    g = torch.Generator(device=dev).manual_seed(17)
+    for k in range(s):
+        nbr, seg = sg.flat_nbr[k][0], sg.flat_seg[k][0]
+        nbr_h, seg_h = nbr.cpu().numpy(), seg.cpu().numpy()
+        pos = np.arange(len(seg_h))
+        sums[f"nc_ring_sage_step{k}"] = time_layout_sum(
+            csr_layout(seg_h, nbr_h, n_loc, n_loc, dev), n_loc, NC_DIM, rates,
+            f"nc_ring SAGE step {k} (shard 0's rows, the visiting block's {n_loc} rows)", card)
+        if k:
+            continue
+        h, width = GAT_HEADS, GAT_HEADS * NC_DIM
+        sums["nc_ring_gat_numerator"] = time_layout_sum(
+            csr_layout(seg_h, pos, n_loc, len(pos), dev), len(pos), width, rates,
+            f"nc_ring GAT step {k} numerator over slot positions", card)
+        sums["nc_ring_gat_visiting_grad"] = time_layout_sum(
+            csr_layout(nbr_h, pos, n_loc, len(pos), dev), len(pos), width, rates,
+            f"nc_ring GAT step {k} the visiting block's dt over slot positions", card)
+        for name, d in (("nc_ring_gat_value_slots", width), ("nc_ring_gat_r_slots", h)):
+            table = torch.randn(n_loc, d, device=dev, generator=g)
+            err = gather_max_err(gather, table, nbr)
+            r = rows[name] = time_gather(gather, table, [nbr], rates)
+            r["max_abs_err"] = err
+            print(f"gather_rows, {name} (K={r['k']} int32 slot ids of step {k} into the "
+                  f"visiting ({n_loc}, {d}) block, {r['distinct_rows']:.0f} distinct rows, "
+                  f"{r['bound_bytes'] / 1e6:.4f} MB): max_abs_err {err}  kernel "
+                  f"{r['ms'] * 1e3:.2f} us  plain {r['plain_ms'] * 1e3:.2f} us  index_select "
+                  f"{r['library_ms'] * 1e3:.2f} us  bound {r['bound_ms'] * 1e3:.2f} us "
+                  f"({r['bound_by']})  [{card}]", flush=True)
+            del table
+    cells = _RingCells(_place(build_sharded_rel_graph(ring_edges("rgcn", edges), ARXIV_NODES,
+                                                      s).fwd, 0, dev), n_loc, dev)
+    ids = torch.cat([b[0] for b in cells.buckets[0]])
+    table = torch.randn(n_loc + 1, NC_DIM, device=dev, generator=g)
+    table[n_loc] = 0
+    err = gather_max_err(gather, table, ids)
+    r = rows["nc_ring_rgcn_cell_gather"] = time_gather(gather, table, [ids], rates)
+    r["max_abs_err"] = err
+    print(f"gather_rows, nc_ring_rgcn_cell_gather (K={r['k']} int32 ids of step 0's "
+          f"{len(cells.buckets[0])} relation buckets into the visiting ({n_loc + 1}, {NC_DIM}) "
+          f"block, {r['distinct_rows']:.0f} distinct rows, {r['bound_bytes'] / 1e6:.4f} MB): "
+          f"max_abs_err {err}  kernel {r['ms'] * 1e3:.2f} us  plain {r['plain_ms'] * 1e3:.2f} us"
+          f"  index_select {r['library_ms'] * 1e3:.2f} us  bound {r['bound_ms'] * 1e3:.2f} us "
+          f"({r['bound_by']})  [{card}]", flush=True)
+    del table
+    sums["nc_ring_rgcn_anchor_sum"] = time_layout_sum(
+        cells.layouts[0], ids.shape[0], NC_DIM, rates,
+        "nc_ring RGCN step 0 anchor sum (ids perm, rows seg)", card)
+    return {"gather_rows": rows, "gather_sum": sums}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a GPU",
@@ -6343,6 +6666,15 @@ def main() -> int:
     for k in kernels:
         k["mesh_dp"] = shapes[k["name"]]
     print(f"data-parallel mesh phases: {time.perf_counter() - t0:.1f} s in all", flush=True)
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ring = nc_ring(card, nc)
+    ring.pop("summary")
+    shapes = ring_shapes(rates, card, nc)
+    kernels[0].update(shapes["gather_rows"])
+    kernels[2].update(shapes["gather_sum"])
+    print(f"node-sharded ring phases: {time.perf_counter() - t0:.1f} s in all", flush=True)
 
     # each row's launches: the sum over the paths it runs on, each part's beside it
     by_part = {
@@ -6357,7 +6689,7 @@ def main() -> int:
                         **oocore16["gather_rows"], **tools["gather_rows"],
                         **mesh1["gather_rows"], **ranks["gather_rows"],
                         **gspmd["gather_rows"], **oocore_mesh["gather_rows"],
-                        **ncm["gather_rows"]},
+                        **ncm["gather_rows"], **ring["gather_rows"]},
         "sparse_adagrad_update_": {"lp flagship": flagship["sparse_adagrad_update_"],
                                    "lp_manager train": manager["sparse_adagrad_update_"],
                                    **sampled["sparse_adagrad_update_"],
@@ -6380,14 +6712,16 @@ def main() -> int:
                                    **ranks["sparse_adagrad_update_"],
                                    **gspmd["sparse_adagrad_update_"],
                                    **oocore_mesh["sparse_adagrad_update_"],
-                                   **ncm["sparse_adagrad_update_"]},
+                                   **ncm["sparse_adagrad_update_"],
+                                   **ring["sparse_adagrad_update_"]},
         "gather_sum": {**nc_counts, **sampled["gather_sum"], **gat["gather_sum"],
                        **rgcn_full["gather_sum"], **gat_full["gather_sum"], **gnn["gather_sum"],
                        **gnn_oocore["gather_sum"], **locality["gather_sum"],
                        **emb_full["gather_sum"], **nc_reload["gather_sum"],
                        **nc_ooc["gather_sum"], **nc16["gather_sum"], **tools["gather_sum"],
                        **ranks["gather_sum"], **gspmd["gather_sum"],
-                       **oocore_mesh["gather_sum"], **ncm["gather_sum"]},
+                       **oocore_mesh["gather_sum"], **ncm["gather_sum"],
+                       **ring["gather_sum"]},
     }
     for k in kernels:
         k["launches"] = sum(by_part[k["name"]].values())

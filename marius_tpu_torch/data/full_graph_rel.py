@@ -24,7 +24,17 @@ runs for every node at once:
   anchor sum's backward is a plain gather (each slot feeds one anchor), and
   the only scatter is the W rows' backward, over relations.
 
-The ring-sharded twins (:294-531) wait for ROADMAP A4, item 5.
+The ring-sharded twins (:294-531: ``_RingRelCells``, ``ShardedRelGraph``,
+``_build_ring_cells``, ``build_sharded_rel_graph``, ``make_rel_sum_sharded``)
+run the node-sharded RGCN over ``torch.distributed``, in the row layout of
+``data/full_graph_sharded.py``, with two ring schedules: **fwd** (anchor =
+src) rotates x; **bwd** (anchor = dst: the directional operator is not
+symmetric) rotates x and the cotangent u together. Per cell the visiting
+rows come through the row-gather kernel, each relation bucket is one
+batched matmul, and ``t_pad[perm]`` + the sorted segment sum is one
+gather-sum launch (ids ``perm``, rows ``seg``). The relation weights'
+gradient accumulates per relation bucket on each rank; its sum over the
+ring axis is the trainer's one all_reduce of the batch's dense gradients.
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ import numpy as np
 import torch
 
 from marius_tpu_torch.data.full_graph import _greedy_buckets
+from marius_tpu_torch.data.full_graph_sharded import csr_layout
 from marius_tpu_torch.ops.cuda import nbr_sum as nbr_sum_kernel
 from marius_tpu_torch.ops.cuda.gather import gather_rows
 
@@ -274,3 +285,240 @@ def device_seed_flat_lists_rel(csr_dev, seeds: Tensor, mask: Tensor, budget: int
     return (torch.where(valid, nbrs[idx].long(), num_nodes),
             torch.where(valid, rels[idx].long(), 0),
             torch.where(valid, seg_c, b))
+
+
+# --------------------------------------------------------------------------
+# Ring-sharded RGCN: node-sharded exact-ALL relational aggregation
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class _RingRelCells:
+    """One direction's ring schedule. For ring step k, shard s owns the
+    ANCHOR side of the cell's edges and gathers values from the visiting
+    block (originally shard (s-k) mod S), relation-bucketed per step with
+    shapes uniform across shards.
+
+    nbr[k][b]:  (S, n_b, cap) gathered node's LOCAL row in the visiting
+                block, pad = n_loc (reads the block's zero row)
+    rel[k][b]:  (n_b,) relation ids (the same on every shard)
+    anch[k][b]: (S, n_b, cap) anchor's LOCAL row, pad = n_loc
+    perm[k]:    (S, T_k) anchor-sorted position -> flat (bucket-major) slot,
+                pad = T_k
+    seg[k]:     (S, T_k) anchor local row at each sorted position, sorted
+                ascending, pad = n_loc
+    """
+
+    nbr: Tuple[Tuple[Tensor, ...], ...]
+    rel: Tuple[Tuple[Tensor, ...], ...]
+    anch: Tuple[Tuple[Tensor, ...], ...]
+    perm: Tuple[Tensor, ...]
+    seg: Tuple[Tensor, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedRelGraph:
+    """Ring schedules for both flow directions of the RGCN operator: fwd
+    (anchor = src: out_i sums its out-edges' transformed dst rows) and bwd
+    (anchor = dst: the x-cotangent sums u[src] @ W^T per dst)."""
+
+    fwd: _RingRelCells
+    bwd: _RingRelCells
+    num_nodes: int
+    num_shards: int
+    n_loc: int
+
+
+def _build_ring_cells(anchor: np.ndarray, gathered: np.ndarray, rel: np.ndarray,
+                      num_rels: int, num_shards: int, n_loc: int) -> _RingRelCells:
+    s = num_shards
+    a_own, a_loc = anchor // n_loc, anchor % n_loc
+    g_own, g_loc = gathered // n_loc, gathered % n_loc
+    step = ((a_own - g_own) % s).astype(np.int64)
+    # one global stable sort by (step, anchor shard, relation): every cell is
+    # then a contiguous run
+    key = (step * s + a_own) * num_rels + rel
+    order = np.argsort(key, kind="stable")
+    off = np.searchsorted(key[order], np.arange(s * s * num_rels + 1))
+    g_l, a_l = g_loc[order], a_loc[order]
+
+    nbr_all, rel_all, anch_all, perm_all, seg_all = [], [], [], [], []
+    for k in range(s):
+        o0 = k * s * num_rels
+        cnt = (off[o0 + 1:o0 + s * num_rels + 1] - off[o0:o0 + s * num_rels]).reshape(
+            s, num_rels)
+        maxcnt = cnt.max(axis=0)
+        active = np.flatnonzero(maxcnt > 0)
+        if len(active) == 0:
+            nbr_all.append(())
+            rel_all.append(())
+            anch_all.append(())
+            perm_all.append(torch.zeros((s, 0), dtype=torch.int32))
+            seg_all.append(torch.zeros((s, 0), dtype=torch.int32))
+            continue
+        rows_order = active[np.argsort(maxcnt[active], kind="stable")]
+        bounds = _greedy_buckets(maxcnt[rows_order])
+        nbr_k, rel_k, anch_k = [], [], []
+        slot_lists = [[] for _ in range(s)]   # (flat slot, anchor local row)
+        base = 0
+        for lo, hi in zip(bounds[:-1], bounds[1:]):
+            rows = rows_order[lo:hi]
+            cap = max(int(maxcnt[rows].max()), 1)
+            n_b = len(rows)
+            nbr_b = np.full((s, n_b, cap), n_loc, np.int32)
+            anch_b = np.full((s, n_b, cap), n_loc, np.int32)
+            for sh in range(s):
+                for i, r in enumerate(rows):
+                    c = int(cnt[sh, r])
+                    if c == 0:
+                        continue
+                    e0 = off[o0 + sh * num_rels + r]
+                    nbr_b[sh, i, :c] = g_l[e0:e0 + c]
+                    anch_b[sh, i, :c] = a_l[e0:e0 + c]
+                    slots = base + i * cap + np.arange(c, dtype=np.int64)
+                    slot_lists[sh].append((slots, a_l[e0:e0 + c].astype(np.int64)))
+            nbr_k.append(torch.from_numpy(nbr_b))
+            anch_k.append(torch.from_numpy(anch_b))
+            rel_k.append(torch.from_numpy(rows.astype(np.int32)))
+            base += n_b * cap
+        t_k = base
+        perm_k = np.full((s, t_k), t_k, np.int32)
+        seg_k = np.full((s, t_k), n_loc, np.int32)
+        for sh in range(s):
+            if not slot_lists[sh]:
+                continue
+            slots = np.concatenate([p[0] for p in slot_lists[sh]])
+            anchs = np.concatenate([p[1] for p in slot_lists[sh]])
+            o = np.lexsort((slots, anchs))
+            perm_k[sh, :len(slots)] = slots[o]
+            seg_k[sh, :len(slots)] = anchs[o]
+        nbr_all.append(tuple(nbr_k))
+        rel_all.append(tuple(rel_k))
+        anch_all.append(tuple(anch_k))
+        perm_all.append(torch.from_numpy(perm_k))
+        seg_all.append(torch.from_numpy(seg_k))
+    return _RingRelCells(nbr=tuple(nbr_all), rel=tuple(rel_all), anch=tuple(anch_all),
+                         perm=tuple(perm_all), seg=tuple(seg_all))
+
+
+def build_sharded_rel_graph(edges: np.ndarray, num_nodes: int,
+                            num_shards: int) -> ShardedRelGraph:
+    """Both ring schedules from an (E, 3) [src, rel, dst] array, in the row
+    layout of ShardedFullGraph (node i on shard i // n_loc at local row
+    i % n_loc, n_loc = ceil(N/S)). Host tensors; ``place_on_mesh`` keeps a
+    rank's rows."""
+    e = np.asarray(edges)
+    src = e[:, 0].astype(np.int64)
+    dst = e[:, -1].astype(np.int64)
+    rel = e[:, 1].astype(np.int64) if e.shape[1] >= 3 else np.zeros(len(e), np.int64)
+    num_rels = int(rel.max()) + 1 if len(rel) else 1
+    n_loc = -(-num_nodes // num_shards)
+    return ShardedRelGraph(
+        fwd=_build_ring_cells(src, dst, rel, num_rels, num_shards, n_loc),
+        bwd=_build_ring_cells(dst, src, rel, num_rels, num_shards, n_loc),
+        num_nodes=int(num_nodes), num_shards=int(num_shards), n_loc=int(n_loc))
+
+
+class _RingCells:
+    """One schedule's cells for this rank (a placed _RingRelCells): per
+    step, per bucket (flat gathered rows, flat anchor rows, relation ids,
+    n_b, cap), and the anchor sum's layout."""
+
+    def __init__(self, cells: _RingRelCells, n_loc: int, device):
+        self.buckets, self.layouts = [], []
+        for k in range(len(cells.perm)):
+            self.buckets.append([
+                (nbr[0].reshape(-1).contiguous(), anch[0].reshape(-1).contiguous(),
+                 rel.long(), int(nbr.shape[1]), int(nbr.shape[2]))
+                for nbr, anch, rel in zip(cells.nbr[k], cells.anch[k], cells.rel[k])])
+            perm = cells.perm[k][0].cpu().numpy()
+            self.layouts.append(csr_layout(cells.seg[k][0].cpu().numpy(), perm, n_loc,
+                                           len(perm), device))
+
+
+class ShardedRelSum:
+    """``rel_sum(x_loc, w_stack) -> (n_loc, d_out)``: this rank's rows' sums
+    over their out-edges of x[dst] @ W[rel], as the ring (JAX
+    ``make_rel_sum_sharded``). Differentiable in both; the gradient of the
+    replicated ``w_stack`` is this rank's part."""
+
+    def __init__(self, srg: ShardedRelGraph, mesh, axis: str):
+        self.mesh, self.axis = mesh, axis
+        self.num_shards, self.n_loc = srg.num_shards, srg.n_loc
+        self.fwd = _RingCells(srg.fwd, srg.n_loc, mesh.device)
+        self.bwd = _RingCells(srg.bwd, srg.n_loc, mesh.device)
+
+    def _start(self, tensors, k: int):
+        return self.mesh.ring_start(tensors, self.axis) if k + 1 < self.num_shards else None
+
+    def cell_sums(self, cells: _RingCells, k: int, blk_pad: Tensor, w: Tensor,
+                  transpose: bool) -> Optional[Tensor]:
+        """Step k's per-anchor sums: the visiting rows gathered, transformed
+        by W (or W^T) per relation bucket, summed per anchor in one
+        gather-sum launch; None for a step without edges."""
+        d = blk_pad.shape[1]
+        parts = []
+        for ids, _, rel, n_b, cap in cells.buckets[k]:
+            rows = gather_rows(blk_pad, ids).view(n_b, cap, d)
+            wb = w[rel]
+            parts.append(torch.bmm(rows, wb.transpose(1, 2) if transpose else wb)
+                         .reshape(n_b * cap, -1))
+        if not parts:
+            return None
+        t_flat = parts[0] if len(parts) == 1 else torch.cat(parts)
+        return nbr_sum_kernel.nbr_sum(t_flat.contiguous(), cells.layouts[k])
+
+    def __call__(self, x: Tensor, w_stack: Tensor) -> Tensor:
+        return _RingRelSum.apply(x, w_stack, self)
+
+
+def _pad_row(x: Tensor) -> Tensor:
+    """``x`` with a zero row appended (the row padding ids read)."""
+    return torch.cat([x, x.new_zeros((1, x.shape[1]))]).contiguous()
+
+
+class _RingRelSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, ring):
+        ctx.save_for_backward(x, w)
+        ctx.ring = ring
+        w = w.contiguous()
+        acc = x.new_zeros((ring.n_loc, w.shape[-1]), dtype=torch.float32)
+        xb = _pad_row(x)
+        for k in range(ring.num_shards):
+            pending = ring._start([xb], k)
+            part = ring.cell_sums(ring.fwd, k, xb, w, False)
+            if part is not None:
+                acc = acc + part
+            if pending is not None:
+                xb = pending.wait()[0]
+        return acc.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, u):
+        x, w = ctx.saved_tensors
+        ring = ctx.ring
+        d_in, d_out = w.shape[-2], w.shape[-1]
+        u_pad = _pad_row(u.to(x.dtype))
+        xb, ub = _pad_row(x), u_pad
+        dx = x.new_zeros((ring.n_loc, d_in), dtype=torch.float32)
+        dw = torch.zeros_like(w)
+        for k in range(ring.num_shards):
+            pending = ring._start([xb, ub], k)
+            # W's gradient from the forward schedule: x visiting, u local
+            for ids, anch, rel, n_b, cap in ring.fwd.buckets[k]:
+                xs = gather_rows(xb, ids).view(n_b, cap, d_in)
+                us = gather_rows(u_pad, anch).view(n_b, cap, d_out)
+                dw.index_add_(0, rel, torch.bmm(xs.transpose(1, 2), us))
+            # x's gradient from the transposed schedule: u visiting, anchor = dst
+            part = ring.cell_sums(ring.bwd, k, ub, w, True)
+            if part is not None:
+                dx = dx + part
+            if pending is not None:
+                xb, ub = pending.wait()
+        return dx.to(x.dtype), dw, None
+
+
+def make_rel_sum_sharded(srg: ShardedRelGraph, mesh, axis: str) -> ShardedRelSum:
+    """The ring-sharded relational sum over the placed ``srg``."""
+    return ShardedRelSum(srg, mesh, axis)

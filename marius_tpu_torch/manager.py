@@ -54,9 +54,11 @@ ALL fanouts with a LINEAR-collapsible encoder take the collapse; sampled
 configs the sampled step). The evaluators see the whole model, and rank 0
 writes checkpoints in the single-device layout. A model is evaluated
 (``marius_eval``, ``train=False``) on one device, whatever mesh trained it.
-The node-sharded full-graph ring (a non-LINEAR full-graph encoder on one
-mesh axis) and out-of-core node classification on a mesh raise
-``NotImplementedError`` naming the slice that brings them.
+A full-graph encoder the collapse does not take (``full_graph: ON`` with a
+nonlinear GraphSAGE/GCN, GAT or RGCN) trains on the node-sharded ring over
+the mesh's one non-trivial axis; its export re-prepares one device's ops
+(JAX :581-585). Out-of-core node classification on a mesh raises
+``NotImplementedError`` naming the slice that brings it.
 """
 
 from __future__ import annotations
@@ -102,7 +104,7 @@ from marius_tpu_torch.train.buffer_trainer import PartitionBufferLPTrainer
 from marius_tpu_torch.train.evaluator import LinkPredictionEvaluator
 from marius_tpu_torch.train.graph_encoder import encode_all_nodes, encode_all_nodes_host
 from marius_tpu_torch.train.nc import (
-    NC_RING_SLICE,
+    OOCORE_NC_MESH_SLICE,
     NodeClassificationEvaluator,
     NodeClassificationTrainer,
 )
@@ -163,7 +165,8 @@ def _refuse_unported(cfg: MariusConfig) -> None:
     if _wants_mesh(cfg) and cfg.learning_task == NODE_CLASSIFICATION and (
             s.features_backend == "PARTITION_BUFFER"
             or (cfg.model.has_embeddings and s.embeddings_backend == "PARTITION_BUFFER")):
-        raise _later_slice("mesh training of out-of-core node classification", NC_RING_SLICE)
+        raise _later_slice("mesh training of out-of-core node classification",
+                           OOCORE_NC_MESH_SLICE)
 
 
 def _build_mesh(cfg: MariusConfig, dev):
@@ -673,12 +676,17 @@ def encode_and_export(rt: MariusRuntime, path: Optional[str] = None) -> np.ndarr
                                         features_host=tr._features_host, batch_size=batch_size)
     else:
         # a full-graph NC trainer keeps its ALL configs unresolved: export
-        # rides the same exact-ALL pass, not the sampler
+        # rides the same exact-ALL pass, not the sampler; a ring trainer's
+        # host adjacency and features re-prepare one device's ops
+        full_graph, fg_ops = getattr(tr, "full_graph", None), getattr(tr, "_fg_ops", None)
+        features = tr.features
+        if getattr(tr, "_ring_axis", None) is not None:
+            full_graph, fg_ops = full_graph.to(tr.device), None
+            features = features.to(tr.device)
         encoded = encode_all_nodes(
             rt.config.model, state.params, table_values, graph=tr.graph,
-            nbr_configs=tr.nbr_configs, features=tr.features, batch_size=batch_size,
-            full_graph=getattr(tr, "full_graph", None),
-            fg_ops=getattr(tr, "_fg_ops", None)).detach().cpu().float().numpy()
+            nbr_configs=tr.nbr_configs, features=features, batch_size=batch_size,
+            full_graph=full_graph, fg_ops=fg_ops).detach().cpu().float().numpy()
     out = path or (os.path.join(rt.config.storage.model_dir, "encoded_nodes.bin")
                    if rt.config.storage.model_dir else None)
     mesh = _mesh_of(rt)

@@ -6,7 +6,10 @@ final_stage_has_rgcn :57-108, prepare_full_graph :127-169, AffineConst
 :45-54, _const_first_agg and _resolve_const :229-302, _full_graph_sage,
 _full_graph_gcn and _full_graph_rgcn :305-339, _full_graph_gat :391-505,
 _seed_sage, _seed_gcn, _seed_rgcn and _seed_gat :508-616,
-full_graph_encoder_forward :619-745). Each GNN stage aggregates over the
+full_graph_encoder_forward :619-745; the node-sharded ring's
+_ShardedAdjView, supports_sharded_full_graph and
+prepare_sharded_full_graph :173-220 and _sharded_gat :342-386). Each GNN
+stage aggregates over the
 whole adjacency, so a node's output equals the sampled path's under
 unbounded ALL sampling:
 
@@ -29,6 +32,15 @@ exact-ALL evaluation) and REDUCTION layers run as in the sampled encoder.
 Dropout keys follow JAX's: ``fold(i x 101 + j)`` per GAT layer, then
 ``fold(0)`` for input dropout and ``fold(1000 + b)`` per bucket (all-N) or
 ``fold(1)`` / ``fold(2)`` for the slots and the seeds (seed-restricted).
+
+**On a node-sharded mesh** (``prepare_sharded_full_graph``) the forward
+runs on this rank's n_loc rows of every activation: the neighbour sum is
+the ring of ``data/full_graph_sharded.py``, GAT its two-pass ring
+(``_sharded_gat``: L, R and the values computed on local rows, only R and
+the values rotating), RGCN the two-schedule ring of
+``data/full_graph_rel.py``; the degree vectors are this rank's padded rows
+(``_ShardedAdjView``). GAT's input and self-attention dropout masks have
+the global (S x n_loc, .) shape, of which each rank takes its own rows.
 """
 
 from __future__ import annotations
@@ -93,6 +105,47 @@ def _gnn_layers(config: EncoderConfig):
 
 def _has_gnn(config: EncoderConfig, gnn_type: str) -> bool:
     return any(l.gnn_type.upper() == gnn_type for l in _gnn_layers(config))
+
+
+class _ShardedAdjView:
+    """The adjacency fields the forward reads on a node-sharded mesh: this
+    rank's (n_loc,) in- and out-degree rows (padding rows 0)."""
+
+    def __init__(self, in_deg: Tensor, out_deg: Tensor, num_nodes: int):
+        self.in_deg, self.out_deg, self.num_nodes = in_deg, out_deg, num_nodes
+
+
+def supports_sharded_full_graph(config: EncoderConfig) -> bool:
+    """The ring covers GraphSAGE/GCN (the neighbour-sum ring), GAT (the
+    two-pass attention ring) and RGCN (the two-schedule relational ring)."""
+    return supports_full_graph(config)
+
+
+def prepare_sharded_full_graph(sharded_graph, config: EncoderConfig, in_deg: Tensor,
+                               out_deg: Tensor, mesh, axis: str,
+                               features: Optional[Tensor] = None, rel_sharded=None):
+    """(adj_view, ops) for ``full_graph_encoder_forward`` on this rank's rows
+    of a node-sharded mesh: ``ops["nbr_sum"]`` is the ring over the placed
+    ``sharded_graph``, GAT stages add ``ops["gat_ring"]``, RGCN stages
+    ``ops["rel_sum"]`` over ``rel_sharded`` (a placed ShardedRelGraph).
+    ``features`` (this rank's rows) enable the constant first-stage
+    aggregation, run once through the ring."""
+    from marius_tpu_torch.data.full_graph_sharded import make_gat_ring, make_nbr_sum_sharded
+
+    if not supports_sharded_full_graph(config):
+        raise ValueError("sharded full-graph mode supports GraphSAGE/GCN/GAT/RGCN stages only")
+    adj = _ShardedAdjView(in_deg, out_deg, sharded_graph.num_nodes)
+    ops = {"nbr_sum": make_nbr_sum_sharded(sharded_graph, mesh, axis)}
+    if _has_gnn(config, "GAT"):
+        ops["gat_ring"] = make_gat_ring(sharded_graph, mesh, axis)
+    if encoder_has_rgcn(config):
+        if rel_sharded is None:
+            raise ValueError("sharded RGCN needs a ShardedRelGraph: build it with "
+                             "build_sharded_rel_graph")
+        from marius_tpu_torch.data.full_graph_rel import make_rel_sum_sharded
+        ops["rel_sum"] = make_rel_sum_sharded(rel_sharded, mesh, axis)
+    ops["const_agg"] = _const_first_agg(adj, config, features, ops["nbr_sum"], ops)
+    return adj, ops
 
 
 def supports_full_graph(config: EncoderConfig) -> bool:
@@ -189,7 +242,8 @@ def _const_first_agg(adj, config: EncoderConfig, features, nbr_sum, ops):
                 const[(1, j)] = AffineConst(base, nbr_sum(inv_sqrt[:, None])[:, 0])
             else:
                 const[(1, j)] = base
-        elif g == "RGCN" and not bias0:
+        elif g == "RGCN" and not bias0 and hasattr(ops["rel_sum"], "gather_blocks"):
+            # (the ring's relational sum has no cached slot gather)
             if rgcn_blocks is None:
                 rgcn_blocks = RgcnBlocks(ops["rel_sum"].gather_blocks(current0))
             const[(1, j)] = rgcn_blocks
@@ -242,6 +296,46 @@ def _full_graph_rgcn(layer: LayerConfig, p, x, ops, adj, const=None) -> Tensor:
         s = rel_sum(x, p["relation_matrices"])
     deg = adj.out_deg.to(x.dtype).clamp(min=1.0)
     return post_hook(layer, p, s / deg[:, None] + x @ p["self_matrix"])
+
+
+def _ring_keep(ring, key, shape, q: float, device) -> Tensor:
+    """This rank's rows of a keep-mask of the global (S x n_loc, ...) shape."""
+    full = key.keep((ring.num_shards * ring.n_loc,) + tuple(shape[1:]), q, device)
+    return full[ring.shard * ring.n_loc:(ring.shard + 1) * ring.n_loc]
+
+
+def _sharded_gat(layer: LayerConfig, p, x, ops, train: bool, key) -> Tensor:
+    """GAT over the ring-sharded full graph (JAX ``_sharded_gat``): logits
+    decompose as leaky(L_i + R_j), so L, R and the values are computed on
+    this rank's rows and only R and the values rotate. The shift m is
+    stopped: softmax's shift invariance keeps the gradient exact without the
+    max pass's backward."""
+    ring = ops["gat_ring"]
+    h, hd = layer.num_heads, gat_head_dim(layer)
+    if train and layer.input_dropout > 0 and key is not None:
+        q = 1.0 - layer.input_dropout
+        x = torch.where(_ring_keep(ring, key.fold(0), x.shape, q, x.device), x / q, 0.0)
+    w = p["w"].reshape(x.shape[-1], h, hd)
+    t3 = torch.einsum("nd,dhk->nhk", x, w)
+    l_vec = torch.einsum("nhk,hk->nh", t3, p["a_l"])
+    r_vec = torch.einsum("nhk,hk->nh", t3, p["a_r"])
+    t = t3.reshape(x.shape[0], h * hd)
+    slope = layer.negative_slope
+    m_nbr = ring.max(l_vec.detach(), r_vec.detach(), slope)
+    self_logit = torch.nn.functional.leaky_relu(l_vec + r_vec, slope)
+    m = torch.maximum(m_nbr, self_logit).detach()
+    att_drop = layer.attention_dropout if train and key is not None else 0.0
+    denom_nbr, numer_nbr = ring.sum(l_vec, r_vec, t, m, slope, att_drop,
+                                    key.fold(1) if att_drop > 0 else None)
+    e_self = torch.exp(self_logit - m)
+    denom = denom_nbr + e_self
+    alpha_self = e_self / denom
+    if att_drop > 0:
+        q = 1.0 - att_drop
+        alpha_self = torch.where(_ring_keep(ring, key.fold(2), alpha_self.shape, q,
+                                            x.device), alpha_self / q, 0.0)
+    out = numer_nbr.view(-1, h, hd) / denom[:, :, None] + alpha_self[:, :, None] * t3
+    return post_hook(layer, p, gat_heads_out(layer, out))
 
 
 def _full_graph_gat(layer: LayerConfig, p, x, adj, ops, train: bool, key) -> Tensor:
@@ -443,6 +537,8 @@ def full_graph_encoder_forward(
                     seed_fn = _seed_sage if g == "GRAPH_SAGE" else _seed_gcn
                     stage_outputs.append(seed_fn(layer, p, current, seeds, flat_nbr,
                                                  flat_seg, num_nbrs, nseeds, c_seed))
+            elif g == "GAT" and "gat_ring" in ops:
+                stage_outputs.append(_sharded_gat(layer, p, current, ops, train, key))
             elif g == "GAT":
                 stage_outputs.append(_full_graph_gat(layer, p, current, adj, ops, train, key))
             elif g == "RGCN":

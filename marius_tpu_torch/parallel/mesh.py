@@ -14,6 +14,17 @@ Every rank creates all of them with ``dist.new_group``, in the same order,
 as ``torch.distributed`` requires. Its collectives count themselves in
 :attr:`Mesh.collectives`, so callers can read the collectives per batch.
 
+:meth:`Mesh.ring_start` is the one point-to-point call, the counterpart of
+``lax.ppermute(block, axis, [(i, (i + 1) % S)])``: each rank sends its
+tensors to the next rank of an axis and receives the previous rank's, one
+``isend``/``irecv`` pair posted together (``batch_isend_irecv``, which NCCL
+groups), so the ring cannot deadlock; the caller computes while the block
+travels and waits after. The transport follows the backend: under NCCL a
+CUDA tensor goes card to card; gloo's backend table has no CUDA
+``send``/``recv``, so under gloo a CUDA tensor is copied to pinned host
+memory, sent, and copied back (the ranks that share one card; logged once
+and counted in :attr:`Mesh.ring_bytes_staged`). A failed transfer raises.
+
 ``shard_train_state`` puts rows ``[i * S, (i + 1) * S)`` of the table and
 its Adagrad state on every rank of node index i (S = rows / num_node), read
 from the whole table on the host, so no card ever holds more than its shard,
@@ -31,7 +42,9 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
-from typing import Optional
+import logging
+import time
+from typing import List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -63,6 +76,18 @@ class Mesh:
         self.device = torch.device(device)
         self.backend = dist.get_backend()
         self.collectives = 0
+        # ring rotations: bytes this rank sent, bytes of them staged through
+        # host memory (gloo and a CUDA tensor), host seconds spent posting
+        # them (the staging copy included) and waiting for them
+        self.ring_bytes = 0
+        self.ring_bytes_staged = 0
+        self.ring_post_s = 0.0
+        self.ring_wait_s = 0.0
+        # ring_timing: each card-to-card wait also records a pair of CUDA
+        # events, the device's wait for the hop (ring_wait_device_s)
+        self.ring_timing = False
+        self._ring_events = []
+        self._staging_logged = False
         rows = [dist.new_group([d * num_node + s for s in range(num_node)], timeout=timeout)
                 for d in range(num_data)]
         cols = [dist.new_group([d * num_node + s for d in range(num_data)], timeout=timeout)
@@ -101,6 +126,88 @@ class Mesh:
 
     def barrier(self) -> None:
         dist.barrier()
+
+    def ring_start(self, tensors: Sequence[torch.Tensor], axis: str) -> "PendingShift":
+        """Post one hop of the ring along ``axis``: ``tensors`` (one dtype, on
+        one device) go to the next rank of the axis, the previous rank's come
+        in. Returns at once; :meth:`PendingShift.wait` gives the received
+        tensors, shaped as ``tensors``. Several tensors travel as one flat
+        message."""
+        t0 = time.perf_counter()
+        s, i, group = self.shape[axis], self.axis_index(axis), self._groups[axis]
+
+        def global_rank(j):
+            return j if group is None else dist.get_global_rank(group, j)
+
+        flat = (tensors[0] if len(tensors) == 1
+                else torch.cat([t.reshape(-1) for t in tensors])).contiguous()
+        staged = self.backend == "gloo" and flat.device.type == "cuda"
+        if staged:
+            if not self._staging_logged:
+                logging.getLogger("marius_tpu_torch").info(
+                    "ring rotations over gloo stage CUDA tensors through pinned host memory "
+                    "(gloo has no CUDA send/recv)")
+                self._staging_logged = True
+            send = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+            send.copy_(flat)
+            recv = torch.empty_like(send, pin_memory=True)
+            self.ring_bytes_staged += flat.numel() * flat.element_size()
+        else:
+            send, recv = flat, torch.empty_like(flat)
+        works = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, send, global_rank((i + 1) % s), group),
+            dist.P2POp(dist.irecv, recv, global_rank((i - 1) % s), group)])
+        self.collectives += 1
+        self.ring_bytes += flat.numel() * flat.element_size()
+        self.ring_post_s += time.perf_counter() - t0
+        return PendingShift(self, works, send, recv, [t.shape for t in tensors], flat.device)
+
+    def ring_wait_device_s(self) -> float:
+        """Seconds the device waited for card-to-card hops since the last
+        call (``ring_timing``): between each wait's event after the step's
+        local work and its event after the hop. Synchronizes."""
+        events, self._ring_events = self._ring_events, []
+        if events:
+            events[-1][1].synchronize()
+        return sum(a.elapsed_time(b) for a, b in events) / 1e3
+
+    def ring_shift(self, tensors: Sequence[torch.Tensor], axis: str) -> List[torch.Tensor]:
+        """:meth:`ring_start` and wait: the previous rank's ``tensors``."""
+        return self.ring_start(tensors, axis).wait()
+
+
+class PendingShift:
+    """A posted ring hop (:meth:`Mesh.ring_start`)."""
+
+    def __init__(self, mesh: Mesh, works, send: torch.Tensor, recv: torch.Tensor, shapes,
+                 device):
+        # the send buffer stays referenced until the hop has arrived
+        self._mesh, self._works, self._send, self._recv = mesh, works, send, recv
+        self._shapes, self._device = shapes, device
+
+    def wait(self) -> List[torch.Tensor]:
+        """Block until the hop has arrived (under NCCL: order the current
+        stream after it); raises if a send or receive failed."""
+        mesh, flat = self._mesh, self._recv
+        timed = mesh.ring_timing and flat.device.type == "cuda"
+        if timed:
+            before = torch.cuda.Event(enable_timing=True)
+            before.record()
+        t0 = time.perf_counter()
+        for w in self._works:
+            if w.wait() is False:
+                raise RuntimeError("a ring send or receive failed")
+        mesh.ring_wait_s += time.perf_counter() - t0
+        if timed:
+            after = torch.cuda.Event(enable_timing=True)
+            after.record()
+            mesh._ring_events.append((before, after))
+        if flat.device != self._device:
+            flat = flat.to(self._device, non_blocking=True)
+        if len(self._shapes) == 1:
+            return [flat.view(self._shapes[0])]
+        sizes = [int(torch.Size(sh).numel()) for sh in self._shapes]
+        return [p.view(sh) for p, sh in zip(flat.split(sizes), self._shapes)]
 
 
 def make_mesh(num_data: Optional[int] = None, num_node: int = 1, device=None,

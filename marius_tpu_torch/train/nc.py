@@ -68,8 +68,21 @@ and every rank draws the same permutation:
   its seeds through the collapsed form, one all_reduce sums the gradients
   and the loss; the trajectory is one device's.
 
-A non-LINEAR full-graph encoder on a mesh needs the node-sharded ring,
-which raises ``NotImplementedError`` naming the slice that brings it.
+- **the node-sharded ring** (JAX :116-135, :159-214, :366-461): a
+  full-graph encoder the collapse does not take (GraphSAGE/GCN with a
+  nonlinearity, GAT, RGCN, or any with ``fg_linear_collapse=False``) on a
+  mesh whose one non-trivial axis (``node`` or ``data``) shards the node
+  rows: rank i of the axis holds rows [i n_loc, (i + 1) n_loc) of the
+  features and of every activation, and each layer's aggregation is an
+  S-step ring of block rotations (``data/full_graph_sharded.py``,
+  ``data/full_graph_rel.py``). Every rank takes the whole batch and scores
+  the seeds it owns (``seed // n_loc == shard``); MEAN keeps the whole
+  batch's count; one all_reduce over the axis sums the loss and the dense
+  gradients. It needs features (an EMBEDDING table is refused) and trains
+  the whole graph (``fg_seed_restrict=True`` is refused). Every rank draws
+  the same dropout masks of the global shape and uses its own rows. The
+  evaluator rides the same sharded forward and sums its counts over the
+  axis.
 """
 
 from __future__ import annotations
@@ -103,9 +116,11 @@ from marius_tpu_torch.data.full_graph_rel import (
     host_out_csr,
 )
 from marius_tpu_torch.nn.full_graph_encoder import (
+    encoder_has_rgcn,
     final_stage_has_rgcn,
     full_graph_encoder_forward,
     prepare_full_graph,
+    prepare_sharded_full_graph,
     supports_seed_restrict,
 )
 from marius_tpu_torch.nn.layers import DropoutKey
@@ -123,13 +138,12 @@ from marius_tpu_torch.parallel.embedding_table import (
 from marius_tpu_torch.parallel.mesh import DATA_AXIS
 from marius_tpu_torch.reporting.metrics import categorical_accuracy_statistics
 from marius_tpu_torch.reporting.reporters import NodeClassificationReporter
-from marius_tpu_torch.train.trainer import TrainState, _later_slice, resolve_device
+from marius_tpu_torch.train.trainer import TrainState, resolve_device
 
 Tensor = torch.Tensor
 
-# the mesh paths of node classification still to come (ROADMAP A4, items 4-6)
-NC_RING_SLICE = ("the next node-classification mesh slice (ROADMAP A4, items 4-6: the "
-                 "node-sharded ring, its GAT and RGCN forms, out-of-core NC on a mesh)")
+# the mesh path of node classification still to come
+OOCORE_NC_MESH_SLICE = "out-of-core node classification on a mesh (ROADMAP A, item 4)"
 
 
 def _pad_ids(ids: np.ndarray, batch_size: int):
@@ -168,12 +182,8 @@ class NodeClassificationTrainer:
             raise ValueError(f"NodeClassificationTrainer needs a {NODE_CLASSIFICATION} model")
         self.mesh = mesh
         self._n_data = 1
-        if mesh is not None:
-            self._n_data = mesh.shape[DATA_AXIS]
-            if batch_size % self._n_data:
-                raise ValueError(f"batch_size {batch_size} % data axis {self._n_data} != 0")
-            if device is None:
-                device = mesh.device
+        if mesh is not None and device is None:
+            device = mesh.device
         if full_graph is not None:
             if features is None and not model.has_embeddings:
                 raise ValueError("full-graph training needs node features or an EMBEDDING "
@@ -190,12 +200,13 @@ class NodeClassificationTrainer:
         self.nbr_configs = tuple(nbr_configs)
         self.epochs_per_shuffle = max(1, int(epochs_per_shuffle))
         # sentinel row N, so clamped padded ids read zero features and label 0;
-        # in the compute dtype (bf16 gathers move half the bytes)
+        # in the compute dtype (bf16 gathers move half the bytes). On the host
+        # until the mode is known: the ring moves only a rank's rows
         self.features = None
         if features is not None:
             f = np.zeros((n + 1, features.shape[1]), np.float32)
             f[:n] = features
-            self.features = torch.as_tensor(f, device=self.device).to(dtype)
+            self.features = torch.as_tensor(f).to(dtype)
         lab = np.zeros(n + 1, np.int64)
         lab[:n] = np.asarray(labels, np.int64)
         self.labels = torch.as_tensor(lab, device=self.device)
@@ -203,11 +214,17 @@ class NodeClassificationTrainer:
         self.full_graph = None
         self._fg_collapse = self._fg_ops = None
         self._fg_seed_restrict = False
+        self._ring_axis = None
         self.hop_caps = None
         if full_graph is not None:
-            self._init_full_graph(full_graph.to(self.device), fg_seed_restrict,
-                                  fg_linear_collapse)
-        else:
+            self._init_full_graph(full_graph, fg_seed_restrict, fg_linear_collapse)
+        if self.features is not None and self._ring_axis is None:
+            self.features = self.features.to(self.device)
+        if mesh is not None and self._ring_axis is None:
+            self._n_data = mesh.shape[DATA_AXIS]
+            if batch_size % self._n_data:
+                raise ValueError(f"batch_size {batch_size} % data axis {self._n_data} != 0")
+        if full_graph is None:
             # a data index samples its own share of the batch
             self.hop_caps = tuple(hop_caps or estimate_hop_caps(batch_size // self._n_data,
                                                                 self.nbr_configs, n))
@@ -229,8 +246,9 @@ class NodeClassificationTrainer:
                          if table is not None and self.full_graph is not None else None)
         self.state = TrainState(table=table, params=params,
                                 opt_state=init_optimizer(model.dense_optimizer, params), epoch=0)
-        if mesh is not None:
+        if mesh is not None and self._ring_axis is None:
             # a data index's own numbers, as JAX folds the index into its key
+            # (the ring's ranks share one generator: its masks are global)
             seed = int(np.random.SeedSequence((seed, mesh.axis_index(DATA_AXIS)))
                        .generate_state(1)[0])
         generator = torch.Generator(device=self.device).manual_seed(seed)
@@ -238,13 +256,17 @@ class NodeClassificationTrainer:
         self._dropout = DropoutKey(generator)
 
     def _init_full_graph(self, adj: FullGraphAdjacency, fg_seed_restrict, fg_linear_collapse):
-        model, feats = self.model, self._all_features()
+        model = self.model
         want_collapse = ((fg_linear_collapse if fg_linear_collapse is not None
                           else fg_seed_restrict is None)
-                         and linear_collapse_eligible(model.encoder, feats is not None))
+                         and linear_collapse_eligible(model.encoder, self.features is not None))
         if self.mesh is not None and not want_collapse:
-            raise _later_slice("full-graph training of a non-LINEAR encoder on a mesh",
-                               NC_RING_SLICE)
+            self._init_ring(adj, fg_seed_restrict)
+            return
+        if self.features is not None:
+            self.features = self.features.to(self.device)
+        feats = self._all_features()
+        adj = adj.to(self.device)
         self.full_graph = adj
         if want_collapse:
             self._fg_collapse = build_linear_collapse(adj, model.encoder, feats)
@@ -264,6 +286,54 @@ class NodeClassificationTrainer:
                 # the directional out-CSR with each slot's relation
                 self._fg_rel_csr = host_out_csr(self.full_graph.rel)
                 self._fg_rel_csr_dev = device_rel_csr(self._fg_rel_csr, self.device)
+
+    def _init_ring(self, adj: FullGraphAdjacency, fg_seed_restrict) -> None:
+        """The node-sharded ring (JAX :116-135, :159-214): this rank's rows of
+        the features and degrees, the placed ring schedules and their ops.
+        The whole adjacency stays on the host (export re-prepares one
+        device's ops from it)."""
+        from marius_tpu_torch.data.full_graph_rel import (
+            build_sharded_rel_graph,
+            edges_from_rel_graph,
+        )
+        from marius_tpu_torch.data.full_graph_sharded import (
+            build_sharded_from_csr,
+            place_on_mesh,
+            shard_rows,
+        )
+
+        mesh, model, n = self.mesh, self.model, self.num_nodes
+        axes = [name for name, size in mesh.shape.items() if size > 1]
+        if len(axes) != 1:
+            raise ValueError(f"sharded full-graph mode uses ONE mesh axis (got shape "
+                             f"{dict(mesh.shape)})")
+        if self.features is None or model.has_embeddings:
+            raise ValueError("sharded full-graph mode needs feature inputs (sharded embedding "
+                             "tables: use the sampled path)")
+        if fg_seed_restrict:
+            raise ValueError("seed_restrict is a single-device optimization")
+        axis = self._ring_axis = axes[0]
+        s, shard = mesh.shape[axis], mesh.axis_index(axis)
+        adj = adj.to("cpu")
+        self.full_graph = adj
+        sg = place_on_mesh(build_sharded_from_csr(*host_csr_from_adjacency(adj), n, s), mesh,
+                           axis)
+        self._ring_rows = (shard, sg.n_loc)
+        dev = self.device
+        # the whole feature block stays on the host; this rank's rows go to its device
+        self._fg_x = shard_rows(self.features[:-1], sg.n_loc, shard, dev)
+        in_deg = shard_rows(adj.in_deg, sg.n_loc, shard, dev, torch.int32)
+        out_deg = shard_rows(adj.out_deg, sg.n_loc, shard, dev, torch.int32)
+        rel = None
+        if encoder_has_rgcn(model.encoder):
+            if adj.rel is None:
+                raise ValueError("sharded RGCN needs the relational companion: build the "
+                                 "adjacency with with_relations=True")
+            rel = place_on_mesh(build_sharded_rel_graph(edges_from_rel_graph(adj.rel), n, s),
+                                mesh, axis)
+        self._fg_view, self._fg_ops = prepare_sharded_full_graph(
+            sg, model.encoder, in_deg, out_deg, mesh, axis, features=self._fg_x,
+            rel_sharded=rel)
 
     def _all_features(self) -> Optional[Tensor]:
         """The (N, F) feature block without its sentinel row, or None."""
@@ -388,15 +458,16 @@ class NodeClassificationTrainer:
         grads = torch.autograd.grad(loss, tree_leaves(state.params), allow_unused=True)
         return self._mesh_step_end(grads, loss)[0]
 
-    def _mesh_step_end(self, grads, *scalars):
-        """The data-parallel steps' epilogue: the dense gradients (None
-        where unused) and ``scalars`` summed over the data axis in one
-        all_reduce, then the dense optimizer. Returns the summed scalars."""
+    def _mesh_step_end(self, grads, *scalars, axis: str = DATA_AXIS):
+        """The mesh steps' epilogue: the dense gradients (None where unused)
+        and ``scalars`` summed over ``axis`` (the data axis, or the ring's)
+        in one all_reduce, then the dense optimizer. Returns the summed
+        scalars."""
         state = self.state
         leaves = tree_leaves(state.params)
         dense = [torch.zeros_like(t) if g is None else g for g, t in zip(grads, leaves)]
         sums = [t.detach().reshape(1).clone() for t in scalars]
-        sum_over_data(sums + dense, self.mesh, DATA_AXIS)
+        sum_over_data(sums + dense, self.mesh, axis)
         it = iter(dense)
         _, state.opt_state = apply_optimizer(self.model.dense_optimizer, state.params,
                                              state.opt_state,
@@ -404,6 +475,38 @@ class NodeClassificationTrainer:
         return [t[0] for t in sums]
 
     # -- full graph -------------------------------------------------------------
+
+    def _ring_forward(self, params, train: bool) -> Tensor:
+        """This rank's (n_loc, d_out) rows of the encoder's output."""
+        return full_graph_encoder_forward(
+            self.model.encoder, params["encoder"], None, self._fg_x, self._fg_view,
+            ops=self._fg_ops, train=train, dropout_key=self._dropout_key() if train else None)
+
+    def _ring_seeds(self, nodes: Tensor):
+        """(local rows, owned) of global node ids: their rows in this rank's
+        block and whether this rank owns them."""
+        shard, n_loc = self._ring_rows
+        nodes = nodes.clamp(max=self.num_nodes - 1)
+        return nodes % n_loc, nodes // n_loc == shard
+
+    def _ring_batch_step(self, seeds: Tensor, mask_b: Tensor) -> Tensor:
+        """One batch on the node-sharded ring (JAX _batch_step_full_graph
+        :388-461 under GSPMD, written out): the seeds this rank owns are
+        scored, MEAN keeps the whole batch's count, and one all_reduce over
+        the ring axis sums the loss and the dense gradients. Returns the
+        whole batch's loss."""
+        model, state = self.model, self.state
+        rows, mine = self._ring_seeds(seeds)
+        mine = mine & mask_b
+        labels_b = self.labels[seeds.clamp(max=self.num_nodes - 1)]
+        logits = self._ring_forward(state.params, True)[rows]
+        w = 1.0
+        if model.loss_reduction.upper() == "MEAN":
+            # every rank holds the whole batch's mask: no collective
+            w = mine.float().sum() / mask_b.float().sum().clamp_min(1.0)
+        loss = nc_batch_loss(model, logits, labels_b, mine) * w
+        grads = torch.autograd.grad(loss, tree_leaves(state.params), allow_unused=True)
+        return self._mesh_step_end(grads, loss, axis=self._ring_axis)[0]
 
     def _batch_step(self, seeds: Tensor, mask_b: Tensor, num_slots) -> Tensor:
         """One full-graph batch (JAX _batch_step_full_graph :388-464); returns
@@ -413,6 +516,8 @@ class NodeClassificationTrainer:
         table-shaped: the JAX package applies Adagrad densely over it, which
         is the row-sparse Adagrad kernel over every id (rows with a zero
         gradient do not move)."""
+        if self._ring_axis is not None:
+            return self._ring_batch_step(seeds, mask_b)
         if self.mesh is not None:
             return self._mesh_collapse_batch_step(seeds, mask_b)
         model, state = self.model, self.state
@@ -477,6 +582,7 @@ class NodeClassificationTrainer:
         total = torch.zeros((), dtype=torch.float32, device=self.device)
         overflow = torch.zeros((), dtype=torch.int64, device=self.device)
         collectives = 0 if self.mesh is None else self.mesh.collectives
+        ring = (0, 0.0) if self.mesh is None else (self.mesh.ring_bytes, self.mesh.ring_wait_s)
         if self.full_graph is None:
             step = (self._sampled_batch_step if self.mesh is None
                     else self._mesh_sampled_batch_step)
@@ -504,6 +610,9 @@ class NodeClassificationTrainer:
                "truncated_frontier_ids": truncated}
         if self.mesh is not None:
             out["collectives_per_batch"] = (self.mesh.collectives - collectives) / nb
+        if self._ring_axis is not None:
+            out["ring_bytes_per_batch"] = (self.mesh.ring_bytes - ring[0]) / nb
+            out["ring_wait_s"] = self.mesh.ring_wait_s - ring[1]
         return out
 
     def train(self, num_epochs: int):
@@ -549,6 +658,11 @@ class NodeClassificationEvaluator:
         a full-graph trainer."""
         tr = self.trainer
         nodes = self.eval_nodes[:self.num_eval]
+        if tr._ring_axis is not None:
+            # this rank's rows of the sharded forward: the nodes it owns
+            rows, mine = tr._ring_seeds(nodes)
+            yield tr._ring_forward(state.params, False)[rows], nodes, mine
+            return
         if tr.full_graph is not None:
             rows = nodes.clamp(max=tr.num_nodes - 1)
             if tr._fg_collapse is not None:
@@ -580,7 +694,10 @@ class NodeClassificationEvaluator:
                 logits, tr.labels[seeds.clamp(max=tr.num_nodes)], mask)
             correct += stats["correct"]
             count += stats["count"]
-        c, n = torch.stack([correct, count]).tolist()
+        both = torch.stack([correct, count])
+        if tr._ring_axis is not None:
+            tr.mesh.all_reduce(both, tr._ring_axis)
+        c, n = both.tolist()
         reporter = NodeClassificationReporter()
         reporter.add_statistics({"correct": c, "count": n})
         reporter.report()
@@ -588,5 +705,11 @@ class NodeClassificationEvaluator:
 
     def predict_labels(self, state: TrainState) -> np.ndarray:
         """Predicted class per eval node (marius_predict's NC labels export)."""
+        tr = self.trainer
+        if tr._ring_axis is not None:
+            # each node's owner gives its class, the others 0: one sum over the axis
+            (logits, _, mine), = self._logits(state)
+            preds = torch.where(mine, torch.argmax(logits, dim=-1), 0)
+            return tr.mesh.all_reduce(preds, tr._ring_axis).to(torch.int32).cpu().numpy()
         preds = [torch.argmax(logits, dim=-1) for logits, _, _ in self._logits(state)]
         return torch.cat(preds)[:self.num_eval].to(torch.int32).cpu().numpy()

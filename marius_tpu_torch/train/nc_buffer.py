@@ -79,7 +79,7 @@ from marius_tpu_torch.storage.partition_buffer import (
 )
 from marius_tpu_torch.tools.preprocess.partitioner import partition_edges
 from marius_tpu_torch.train.buffer_trainer import state_graph
-from marius_tpu_torch.train.nc import NC_RING_SLICE
+from marius_tpu_torch.train.nc import OOCORE_NC_MESH_SLICE
 from marius_tpu_torch.train.trainer import TrainState, _later_slice, resolve_device
 
 Tensor = torch.Tensor
@@ -116,7 +116,7 @@ class PartitionBufferNCTrainer:
             raise ValueError(f"PartitionBufferNCTrainer needs a {NODE_CLASSIFICATION} model")
         if mesh is not None:
             raise _later_slice("mesh training of out-of-core node classification",
-                               NC_RING_SLICE)
+                               OOCORE_NC_MESH_SLICE)
         if model.encoder.num_gnn_stages and len(nbr_configs) != model.encoder.num_gnn_stages:
             raise ValueError("a GNN encoder needs one neighbour config per GNN stage")
         self.device = resolve_device(device)

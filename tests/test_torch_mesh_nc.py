@@ -23,9 +23,9 @@ from JAX's initial state with its permutations injected:
   epochs (``tests/test_sharding.py:487-544``), rtol 1e-4 / atol 1e-5;
 - ``marius_train`` of ogbn_arxiv.yaml's model cut small on the mesh, sampled
   and (every hop ALL) through the collapse;
-- the meshes of a later slice raise ``NotImplementedError``: the
-  node-sharded ring (a non-LINEAR full-graph encoder, GAT, RGCN) and
-  out-of-core NC.
+- out-of-core NC on a mesh, the next slice, raises ``NotImplementedError``.
+  (The node-sharded ring, a full-graph encoder the collapse does not take,
+  is ``tests/test_torch_mesh_ring.py``'s.)
 """
 
 import dataclasses
@@ -50,7 +50,6 @@ from marius_tpu.nn.model import Model as JModel
 from marius_tpu.nn.optimizers import OptimizerConfig as JOpt
 from marius_tpu.parallel.mesh import DATA_AXIS, make_mesh as j_make_mesh
 from marius_tpu.train import nc as jnc
-from marius_tpu_torch.data.full_graph import build_full_graph_adjacency
 from marius_tpu_torch.data.graph import build_device_graph as t_graph
 from marius_tpu_torch.data.samplers.neighbor import NeighborSamplingConfig as TNbr
 from marius_tpu_torch.data.samplers.neighbor import estimate_hop_caps, sample_neighbor_batch
@@ -58,7 +57,6 @@ from marius_tpu_torch.nn.encoder import EncoderConfig as TEncoderConfig
 from marius_tpu_torch.nn.layers import LayerConfig as TL
 from marius_tpu_torch.nn.model import Model as TModel
 from marius_tpu_torch.tools.preprocess.generate import generate_random_dataset_nc
-from marius_tpu_torch.train import nc as tnc
 from marius_tpu_torch.train.nc_buffer import PartitionBufferNCTrainer
 from tests.test_torch_neighbor_sampler import jax_draws
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
@@ -333,32 +331,13 @@ def _fake_mesh():
                                  device=torch.device("cpu"))
 
 
-@pytest.mark.parametrize("gnn", ["GRAPH_SAGE_RELU", "GAT", "RGCN"])
-def test_the_ring_still_raises(gnn):
-    """A full-graph encoder the collapse cannot take needs the node-sharded
-    ring (a non-LINEAR SAGE, GAT, RGCN): the next slice."""
-    edges, feats, labels, train, _ = _collapse_data()
-    n = feats.shape[0]
-    kw = dict(gnn_type=gnn, activation="RELU") if gnn == "GRAPH_SAGE_RELU" else dict(
-        gnn_type=gnn)
-    kw["gnn_type"] = kw["gnn_type"].replace("_RELU", "")
-    model = TModel("NODE_CLASSIFICATION", TEncoderConfig((
-        (TL("FEATURE", output_dim=8),), (TL("GNN", input_dim=8, output_dim=4, **kw),))), None,
-        loss_type="CROSS_ENTROPY")
-    adj = build_full_graph_adjacency(edges, n)
-    with pytest.raises(NotImplementedError, match="ring"):
-        tnc.NodeClassificationTrainer(model, t_graph(edges, n, device="cpu"), feats, labels,
-                                      train, [TNbr("ALL")], batch_size=40, device="cpu",
-                                      full_graph=adj, mesh=_fake_mesh())
-
-
 def test_out_of_core_nc_on_a_mesh_still_raises():
     edges, feats, labels, train, _ = _collapse_data()
     model = TModel("NODE_CLASSIFICATION", TEncoderConfig((
         (TL("FEATURE", output_dim=8),),
         (TL("GNN", input_dim=8, output_dim=4, gnn_type="GRAPH_SAGE"),))), None,
         loss_type="CROSS_ENTROPY")
-    with pytest.raises(NotImplementedError, match="ring"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A, item 4"):
         PartitionBufferNCTrainer(model, edges, feats, labels, train, [TNbr("UNIFORM", 4)],
                                  num_nodes=feats.shape[0], batch_size=40, num_partitions=4,
                                  buffer_capacity=2, mesh=_fake_mesh(), device="cpu")

@@ -147,15 +147,26 @@ def test_nc_trainer_rejects_later_slices():
         model.encoder.stages[:1] + ((TLayerConfig("GNN", input_dim=F, output_dim=CLASSES,
                                                   gnn_type="GAT"),),)))
     # on a mesh the linear collapse is ported (tests/test_torch_mesh_nc.py); a
-    # non-LINEAR full-graph encoder needs the node-sharded ring of a later slice
+    # non-LINEAR full-graph encoder takes the node-sharded ring over the mesh's
+    # one non-trivial axis (tests/test_torch_mesh_ring.py), which trains the
+    # whole graph and needs one such axis
     mesh = types.SimpleNamespace(shape={"data": 2, "node": 1}, axis_index=lambda a: 0,
                                  device=torch.device("cpu"))
     assert tnc.NodeClassificationTrainer(model, graph, feats, labels, train,
                                          [TNbr("UNIFORM", 4)], batch_size=B, device="cpu",
                                          full_graph=adj, mesh=mesh)._fg_collapse is not None
-    with pytest.raises(NotImplementedError, match="ring"):
+    ring = tnc.NodeClassificationTrainer(gat, graph, feats, labels, train, [TNbr("UNIFORM", 4)],
+                                         batch_size=B, device="cpu", full_graph=adj, mesh=mesh)
+    assert ring._ring_axis == "data" and "gat_ring" in ring._fg_ops
+    with pytest.raises(ValueError, match="seed_restrict"):
         tnc.NodeClassificationTrainer(gat, graph, feats, labels, train, [TNbr("UNIFORM", 4)],
-                                      batch_size=B, device="cpu", full_graph=adj, mesh=mesh)
+                                      batch_size=B, device="cpu", full_graph=adj, mesh=mesh,
+                                      fg_seed_restrict=True)
+    square = types.SimpleNamespace(shape={"data": 2, "node": 2}, axis_index=lambda a: 0,
+                                   device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="ONE mesh axis"):
+        tnc.NodeClassificationTrainer(gat, graph, feats, labels, train, [TNbr("UNIFORM", 4)],
+                                      batch_size=B, device="cpu", full_graph=adj, mesh=square)
     # bf16 is ported (tests/test_torch_bf16.py): features, parameters and sums in bf16
     bf16 = tnc.NodeClassificationTrainer(model, graph, feats, labels, train, [TNbr("UNIFORM", 4)],
                                          batch_size=B, device="cpu", full_graph=adj,

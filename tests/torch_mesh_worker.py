@@ -1,5 +1,5 @@
-"""One rank of the gloo process group that ``tests/test_torch_mesh.py``
-spawns: it runs the port's side of every mesh case on the CPU and saves its
+"""One rank of the gloo process group that ``tests/test_torch_mesh*.py``
+spawn: it runs the port's side of every mesh case on the CPU and saves its
 results for the test process, which holds them against the JAX package.
 
 Imports torch and the port only (no JAX), so each rank starts in seconds.
@@ -418,6 +418,206 @@ def run_nc_manager(case):
             "collapse": trainer._fg_collapse is not None, "mesh": trainer.mesh.shape}
 
 
+def ring_meshes(world):
+    """The ring's meshes over ``world`` ranks, each with its ring axis:
+    ``{data: 1, node: world}`` and ``{data: world, node: 1}``."""
+    from marius_tpu_torch.parallel.mesh import DATA_AXIS, NODE_AXIS, make_mesh
+
+    for shape in ((1, world), (world, 1)):
+        yield shape, make_mesh(*shape, device="cpu", timeout=TIMEOUT), (
+            NODE_AXIS if shape[1] > 1 else DATA_AXIS)
+
+
+class ReplayKey:
+    """A ``DropoutKey`` whose masks come from a dict keyed by the fold path
+    (the test process computes JAX's ``bernoulli(fold_in(...))`` for each)."""
+
+    def __init__(self, masks, path=()):
+        self.masks, self.path = masks, path
+
+    def fold(self, data):
+        return ReplayKey(self.masks, self.path + (int(data),))
+
+    def keep(self, shape, q, device):
+        mask = torch.from_numpy(self.masks[self.path])
+        assert tuple(mask.shape) == tuple(shape), (self.path, mask.shape, shape)
+        return mask.to(device)
+
+
+def run_ring_ops(case):
+    """The three rings' ops on this rank's rows, on both meshes: the SAGE sum
+    and its vjp, RGCN's sum with dx and dW (this rank's dW summed over the
+    axis), GAT's max pass and its sum pass with the gradients in l, r and t,
+    without and with dropout."""
+    from marius_tpu_torch.data import full_graph_rel as fr
+    from marius_tpu_torch.data import full_graph_sharded as fs
+
+    out = {}
+
+    def rows(a, n_loc, i):
+        return fs.shard_rows(a, n_loc, i, "cpu")
+
+    for shape, mesh, axis in ring_meshes(torch.distributed.get_world_size()):
+        i, s = mesh.axis_index(axis), mesh.shape[axis]
+        res = {}
+        sg = fs.place_on_mesh(fs.build_sharded_full_graph(case["edges"], case["n"], s), mesh,
+                              axis)
+        x = rows(case["x"], sg.n_loc, i).requires_grad_(True)
+        y = fs.make_nbr_sum_sharded(sg, mesh, axis)(x)
+        g, = torch.autograd.grad(y, x, rows(case["u"], sg.n_loc, i))
+        res["sage"] = (y.detach().numpy(), g.numpy())
+
+        srg = fs.place_on_mesh(fr.build_sharded_rel_graph(case["rel_edges"], case["rel_n"], s),
+                               mesh, axis)
+        xr = rows(case["rel_x"], srg.n_loc, i).requires_grad_(True)
+        w = torch.from_numpy(case["rel_w"]).requires_grad_(True)
+        out_r = fr.make_rel_sum_sharded(srg, mesh, axis)(xr, w)
+        dx, dw = torch.autograd.grad(out_r, (xr, w), rows(case["rel_cot"], srg.n_loc, i))
+        mesh.all_reduce(dw, axis)
+        res["rgcn"] = (out_r.detach().numpy(), dx.numpy(), dw.numpy())
+
+        ring = fs.make_gat_ring(sg, mesh, axis)
+        l_vec, r_vec, t = (rows(case[k], sg.n_loc, i).requires_grad_(True)
+                           for k in ("l", "r", "t"))
+        m = rows(case["m"], sg.n_loc, i)
+        res["gat_max"] = (ring.max(l_vec, r_vec, case["slope"]).numpy(),)
+        for name, key in (("gat_sum", None), ("gat_sum_drop", ReplayKey(case["masks"]))):
+            denom, numer = ring.sum(l_vec, r_vec, t, m, case["slope"], case["drop"], key)
+            grads = torch.autograd.grad((denom, numer), (l_vec, r_vec, t),
+                                        (rows(case["g_denom"], sg.n_loc, i),
+                                         rows(case["g_numer"], sg.n_loc, i)))
+            res[name] = tuple(a.detach().numpy() for a in (denom, numer) + grads)
+        res["collectives"], res["ring_bytes"] = mesh.collectives, mesh.ring_bytes
+        out[shape] = res
+    return out
+
+
+def run_ring_gat_layer(case):
+    """The sharded GAT layer in training with input, attention and
+    self-attention dropout (JAX's masks replayed): this rank's output rows
+    and input gradient, and the parameters' gradients summed over the axis."""
+    from marius_tpu_torch.data import full_graph_sharded as fs
+    from marius_tpu_torch.nn.full_graph_encoder import _sharded_gat
+    from marius_tpu_torch.nn.layers import LayerConfig
+
+    out = {}
+    for shape, mesh, axis in ring_meshes(torch.distributed.get_world_size()):
+        i, s = mesh.axis_index(axis), mesh.shape[axis]
+        sg = fs.place_on_mesh(fs.build_sharded_full_graph(case["edges"], case["n"], s), mesh,
+                              axis)
+        ops = {"gat_ring": fs.make_gat_ring(sg, mesh, axis)}
+        x = fs.shard_rows(case["x"], sg.n_loc, i, "cpu").requires_grad_(True)
+        p = {k: torch.from_numpy(v).requires_grad_(True) for k, v in case["params"].items()}
+        y = _sharded_gat(LayerConfig(**case["layer"]), p, x, ops, True,
+                         ReplayKey(case["masks"]))
+        names = sorted(p)
+        grads = torch.autograd.grad(y, [x] + [p[k] for k in names],
+                                    fs.shard_rows(case["cot"], sg.n_loc, i, "cpu"))
+        for g in grads[1:]:
+            mesh.all_reduce(g, axis)
+        out[shape] = {"rows": (y.detach().numpy(), grads[0].numpy()),
+                      "params": {k: g.numpy() for k, g in zip(names, grads[1:])}}
+    return out
+
+
+def ring_model(case):
+    """The case's port model from its stage specs (LayerConfig keywords)."""
+    from marius_tpu_torch.nn.encoder import EncoderConfig
+    from marius_tpu_torch.nn.layers import LayerConfig
+    from marius_tpu_torch.nn.model import Model
+
+    stages = tuple(tuple(LayerConfig(**spec) for spec in stage) for stage in case["stages"])
+    return Model("NODE_CLASSIFICATION", EncoderConfig(stages), None,
+                 loss_type="CROSS_ENTROPY", loss_reduction=case["reduction"])
+
+
+def ring_trainer(case, mesh=None):
+    """The case's full-graph trainer from JAX's initial state (on ``mesh``:
+    the ring; else one device's all-N trainer)."""
+    from marius_tpu_torch.convert import train_state_from_jax
+    from marius_tpu_torch.data.full_graph import build_full_graph_adjacency
+    from marius_tpu_torch.data.graph import build_device_graph
+    from marius_tpu_torch.train.nc import NodeClassificationTrainer
+
+    edges, n, r = case["edges"], case["num_nodes"], case["num_rels"]
+    kw = {"fg_seed_restrict": False} if mesh is None else {"fg_linear_collapse": False}
+    trainer = NodeClassificationTrainer(
+        ring_model(case), build_device_graph(edges, n, r, device="cpu"), case["features"],
+        case["labels"], case["train"], [], batch_size=case["batch_size"], seed=0, mesh=mesh,
+        device="cpu", full_graph=build_full_graph_adjacency(edges, n, with_relations=r > 1),
+        **kw)
+    trainer.load_gathered_state(train_state_from_jax(case["jax_state"]))
+    return trainer
+
+
+def ring_batches(trainer, case):
+    """Per batch of the case's permutation: the loss, and after the first
+    the encoder's leaves (JAX's order)."""
+    b, nb = case["batch_size"], trainer.num_batches
+    perm = torch.from_numpy(case["perm"]).long()
+    shuffled = trainer.train_nodes[perm].reshape(nb, b)
+    masks = (perm < trainer.num_train).reshape(nb, b)
+    losses, leaves = [], None
+    for i in range(case["batches"]):
+        losses.append(float(trainer._batch_step(shuffled[i], masks[i], None)))
+        if i == 0:
+            leaves = [layer[k].detach().numpy().copy()
+                      for stage in trainer.state.params["encoder"] for layer in stage
+                      for k in sorted(layer)]
+    return losses, leaves
+
+
+def run_ring_trainer(case):
+    """The ring trainer on both meshes and one device's trainer: losses,
+    leaves after the first batch, accuracy and predicted labels after the
+    batches, the ring's collectives and bytes per batch."""
+    from marius_tpu_torch.train.nc import NodeClassificationEvaluator
+
+    out = {}
+    for shape, mesh, axis in ring_meshes(torch.distributed.get_world_size()):
+        trainer = ring_trainer(case, mesh)
+        c0, b0 = mesh.collectives, mesh.ring_bytes
+        losses, leaves = ring_batches(trainer, case)
+        ev = NodeClassificationEvaluator(trainer, case["eval_nodes"])
+        out[shape] = {"losses": losses, "leaves": leaves, "axis": trainer._ring_axis,
+                      "ops": sorted(trainer._fg_ops),
+                      "collectives_per_batch": (mesh.collectives - c0) / case["batches"],
+                      "ring_bytes_per_batch": (mesh.ring_bytes - b0) / case["batches"],
+                      "accuracy": ev.evaluate(trainer.state)["accuracy"],
+                      "labels": ev.predict_labels(trainer.state)}
+    one = ring_trainer(case)
+    losses, leaves = ring_batches(one, case)
+    ev = NodeClassificationEvaluator(one, case["eval_nodes"])
+    out["one"] = {"losses": losses, "accuracy": ev.evaluate(one.state)["accuracy"],
+                  "labels": ev.predict_labels(one.state)}
+    return out
+
+
+def run_ring_manager(case):
+    """marius_train on this process group's {data: 1, node: 4} mesh, then
+    marius_eval of the checkpoint rank 0 wrote; rank 0 also trains the
+    config without the mesh in this one process."""
+    import copy
+
+    from marius_tpu_torch.config import load_config
+    from marius_tpu_torch.manager import marius_eval, marius_train
+
+    result = marius_train(load_config(case["raw"]), device="cpu")
+    trainer = result["runtime"].trainer
+    out = {"test": result["test"], "losses": [e["loss"] for e in result["epochs"]],
+           "ring_axis": trainer._ring_axis, "gat": "gat_ring" in trainer._fg_ops,
+           "mesh": trainer.mesh.shape}
+    torch.distributed.barrier()
+    out["eval"] = marius_eval(load_config(case["raw"]), device="cpu")["test"]
+    if torch.distributed.get_rank() == 0:
+        raw = copy.deepcopy(case["raw"])
+        del raw["training"]["mesh"]
+        raw["storage"]["model_dir"] += "_one"
+        one = marius_train(load_config(raw), device="cpu")
+        out["one"] = {"test": one["test"], "losses": [e["loss"] for e in one["epochs"]]}
+    return out
+
+
 def main(rank, world, init_file, cases, out_dir):
     from marius_tpu_torch.parallel import multihost
     from marius_tpu_torch.parallel.mesh import make_mesh
@@ -444,6 +644,14 @@ def main(rank, world, init_file, cases, out_dir):
                 results[name] = run_nc_routes(case)
             elif case["kind"] == "nc_manager":
                 results[name] = run_nc_manager(case)
+            elif case["kind"] == "ring_ops":
+                results[name] = run_ring_ops(case)
+            elif case["kind"] == "ring_gat_layer":
+                results[name] = run_ring_gat_layer(case)
+            elif case["kind"] == "ring_trainer":
+                results[name] = run_ring_trainer(case)
+            elif case["kind"] == "ring_manager":
+                results[name] = run_ring_manager(case)
             else:
                 mesh = make_mesh(case["mesh"][0], case["mesh"][1], device="cpu",
                                  timeout=TIMEOUT)
