@@ -227,7 +227,7 @@ s/epoch, edges/s, collectives per batch and launches; ``lp_mesh_ranks``
 starts four ``python -c`` rank processes of ``mesh_rank`` with
 ``MARIUS_COORDINATOR`` (gloo: they share the one card, and NCCL refuses two
 ranks on one device) that run the command line's ``train`` of the YAML with
-``training.mesh: {data: 2, node: 2}`` for 2 epochs (the cut): every rank's
+``training.mesh: {data: 2, node: 2}`` for 1 epoch (the cut): every rank's
 losses equal, held to one process's run of the same YAML (rtol 5e-3) and its
 test MRR (within 20%), rank 0 alone printing the metrics, ``marius_eval`` in
 this process reproducing them from rank 0's checkpoint, then gs_1_layer on the
@@ -281,6 +281,30 @@ within 5e-4. ``ring_shapes`` holds the kernels at the ring's per-step
 shapes (the SAGE step sums, GAT's slot gathers of the R and value blocks
 and its sums over slot positions, RGCN's cell gather and anchor sum) bit for
 bit, timed.
+
+Then out-of-core node classification on a data-parallel mesh and the
+examples, last: ``nc_oocore_mesh`` writes ``nc_oocore_reload``'s
+1,000,000-node cut of the papers100M-shaped dataset (edges and splits in
+proportion) and starts two gloo rank processes sharing the card that run
+the command line's ``train`` of ``nc_oocore``'s config (ogbn_arxiv.yaml's
+model at full width, 16 partitions, capacity 8, DISPERSED, batch 1000)
+with ``training.mesh: {data: 2, node: 1}`` for 1 epoch, the model saved:
+every rank holds its own replica of the feature cache and scores its 500
+seeds of each batch, one all_reduce per batch. Both ranks' losses and test
+accuracy must be equal, the accuracy above 4x chance and reproduced exactly
+by ``marius_eval`` in this process, and each rank's launches per batch
+exactly 1 row gather, 3 gather-sums and no Adagrad; each rank prints s/epoch
+and train nodes/s (beside one process's run of the same config in this
+call), swap seconds per state, collectives per batch and peak device bytes,
+then holds one state's first batch on the mesh against one card's
+computation of the same (each index's share with its own draws) at rtol 1e-4
+/ atol 1e-5. ``nc_oocore_mesh_shapes`` holds the row gather and the
+layer-0 gather-sum at one rank's real batch shape (its 500 seeds under hop
+caps for them over the buffer rows) bit for bit, timed. ``examples_torch``
+runs the five one-process ``examples/python_torch`` twins on the card at
+their test sizes (tests/test_torch_examples.py's data; 2 epochs) and
+``fb15k_237_mesh.py`` on two gloo rank processes under torchrun's
+environment, and prints each twin's seconds and launches.
 
 Small runs on the card are compared with the same runs on the CPU (plain
 versions, which tests/test_torch_*.py hold against the JAX package).
@@ -376,7 +400,7 @@ PAPERS_DISK_BYTES = 32 << 30
 # the one card (gloo) as a data x node mesh, its cut of fb15k_237.yaml's 10 epochs, and
 # the gs_1_layer run on a learnable KG (make_realizable_kg at 1,000 nodes; its epochs); the
 # process groups' timeout and the ranks' own time limit (seconds)
-LP_MESH_EPOCHS, MESH_DATA, MESH_NODE, MESH_EPOCHS = 3, 2, 2, 2
+LP_MESH_EPOCHS, MESH_DATA, MESH_NODE, MESH_EPOCHS = 3, 2, 2, 1
 MESH_KG_NODES, MESH_KG_EPOCHS = 1000, 4
 # an Adagrad accumulator below this (a gradient below 1e-8) makes the step's
 # size a function of its rounding (ROADMAP C5)
@@ -389,6 +413,9 @@ MESH_TIMEOUT_S, MESH_RANKS_LIMIT_S = 300, 600
 GSPMD_EPOCHS, GSPMD_UNEVEN = 1, (3, 1)
 OOC_MESH_EPOCHS, OOC_MESH_STATES = 1, 2
 NC_MESH, NC_MESH_EPOCHS = (2, 1), 1
+# nc_oocore_mesh's cut of ogbn_arxiv.yaml's 10 epochs (nc_oocore_reload's 1,000,000 nodes,
+# on NC_MESH); the examples' epochs (their test size)
+NC_OOC_MESH_EPOCHS, EXAMPLE_EPOCHS = 1, 2
 # the node-sharded ring (nc_ring): its mesh (gloo ranks sharing the card), its models
 # (ogbn_arxiv.yaml's SAGE forced onto the ring, gat8, RGCN over 8 relations), the
 # training batches each runs against one card's trainer, and the loss tolerances
@@ -3535,7 +3562,8 @@ def compare_nc_oocore_with_cpu():
                                              buffer_capacity=4, ordering=ordering, seed=2,
                                              device=dev) for dev in ("cpu", "cuda")]
             for t in pair:
-                t._batch_draws = lambda ep, step, _t=t: _cpu_draws(_t.device, 9, ep, step)
+                t._batch_draws = (lambda ep, step, data_index=0, _t=t:
+                                  _cpu_draws(_t.device, 9, ep, step))
                 t._eval_draws = lambda count, _t=t: _cpu_draws(_t.device, 10, count)
             cpu, gpu = pair
             if emb_dim and not np.array_equal(cpu.emb_buffer.host_values,
@@ -3623,7 +3651,7 @@ def write_papers_shaped(directory: str, num_nodes: int, num_edges: int, splits) 
     return time.perf_counter() - t0
 
 
-def papers_config(tmp: str, epochs: int, save_model: bool, grouped: bool = False):
+def papers_raw(tmp: str, epochs: int, save_model: bool, grouped: bool = False) -> dict:
     """examples/configuration/ogbn_arxiv.yaml's model (FEATURE 128, 3 x
     GraphSAGE MEAN, bias, CE SUM, Adam lr 0.01, batch 1000) over the
     papers100M-shaped dataset in ``tmp``: 172 classes, UNIFORM 8 per
@@ -3631,9 +3659,7 @@ def papers_config(tmp: str, epochs: int, save_model: bool, grouped: bool = False
     dropped (the buffer trainer sizes them over its buffer rows), node
     features in a PARTITION_BUFFER of 16 partitions, capacity 8, DISPERSED
     (the reference's defaults); ``grouped`` gives the second GNN layer its
-    own optimizer block."""
-    from marius_tpu_torch.config import load_config
-
+    own optimizer block. The raw dict, the model in ``tmp``/model."""
     path = Path(__file__).resolve().parent / "examples" / "configuration" / "ogbn_arxiv.yaml"
     with open(path) as f:
         raw = yaml.safe_load(f)
@@ -3650,8 +3676,16 @@ def papers_config(tmp: str, epochs: int, save_model: bool, grouped: bool = False
         "num_partitions": PAPERS_PARTITIONS, "buffer_capacity": PAPERS_BUFFER,
         "node_partition_ordering": "DISPERSED"}}
     raw["storage"]["save_model"] = save_model
+    raw["storage"]["model_dir"] = f"{tmp}/model"
     raw["training"]["num_epochs"] = epochs
-    return load_config(raw, model_dir=f"{tmp}/model")
+    return raw
+
+
+def papers_config(tmp: str, epochs: int, save_model: bool, grouped: bool = False):
+    """``papers_raw`` loaded."""
+    from marius_tpu_torch.config import load_config
+
+    return load_config(papers_raw(tmp, epochs, save_model, grouped), model_dir=f"{tmp}/model")
 
 
 class RssSampler:
@@ -6518,6 +6552,448 @@ def ring_shapes(rates, card, data) -> dict:
     return {"gather_rows": rows, "gather_sum": sums}
 
 
+# -- out-of-core node classification on a data-parallel mesh, and the examples ------
+
+
+def _state_batch(trainer, st, size: int):
+    """(buffer-local seeds, labels, mask) of the first ``size`` train seeds
+    of state ``st``, padded as the trainer pads a state's last batch."""
+    seeds_g = np.concatenate([trainer.train_by_part[p] for p in st])[:size]
+    seeds, labels = trainer._local_seeds(seeds_g)
+    pad = size - len(seeds_g)
+    mask = torch.arange(size, device=trainer.device) < len(seeds_g)
+    return (torch.cat([seeds, seeds.new_full((pad,), trainer._ref.buffer_rows)]),
+            torch.cat([labels, labels.new_zeros(pad)]), mask)
+
+
+def _nc_buffer_dp_reference(single, graph, seeds, mask, labels, draws):
+    """One data-parallel out-of-core batch computed on one card: each data
+    index's share of ``seeds`` sampled with its own ``draws`` under hop caps
+    for that share over the buffer rows and scored, the shares' SUM losses
+    added, one backward, one dense optimizer step. Returns (loss, dense
+    gradients)."""
+    from marius_tpu_torch.data.samplers.neighbor import estimate_hop_caps, sample_neighbor_batch
+    from marius_tpu_torch.nn.encoder import encoder_forward
+    from marius_tpu_torch.nn.model import nc_batch_loss
+    from marius_tpu_torch.nn.optimizers import apply_optimizer, tree_leaves, tree_map
+
+    model = single.model
+    if model.loss_reduction.upper() != "SUM":
+        raise AssertionError("the reference adds the shares' losses: SUM only")
+    bl = seeds.shape[0] // len(draws)
+    caps = estimate_hop_caps(bl, single.nbr_configs, single._ref.buffer_rows)
+    total = 0.0
+    for i, draw in enumerate(draws):
+        part = slice(i * bl, (i + 1) * bl)
+        nb = sample_neighbor_batch(draw, graph, seeds[part], mask[part], single.nbr_configs,
+                                   caps)
+        feats, emb = single._outer_rows(nb.node_ids[0])
+        logits = encoder_forward(model.encoder, single.params["encoder"], emb, feats, nb,
+                                 degrees=graph.degrees, train=True, dropout_key=single._dropout)
+        total = total + nc_batch_loss(model, logits, labels[part], mask[part] & nb.seed_mask)
+    grads = torch.autograd.grad(total, tree_leaves(single.params))
+    it = iter(grads)
+    _, single.opt_state = apply_optimizer(model.dense_optimizer, single.params,
+                                          single.opt_state,
+                                          tree_map(lambda _: next(it), single.params))
+    return float(total), grads
+
+
+def nc_oocore_mesh_rank(config_path: str, device=None) -> int:
+    """One rank of nc_oocore_mesh: the command line's ``train`` of the cut
+    papers config on the data-parallel mesh (per-state timings on), then, in
+    a second process group, one state's first batch on the mesh against one
+    card's computation of the same, each data index's share with its own
+    injected draws (``_nc_buffer_dp_reference``). Prints ``MESH_RANK {...}``."""
+    from marius_tpu_torch.config import load_config
+    from marius_tpu_torch.data.samplers.neighbor import seeded_draws
+    from marius_tpu_torch.nn.optimizers import tree_leaves
+    from marius_tpu_torch.ops.cuda import adagrad, gather, nbr_sum
+    from marius_tpu_torch.parallel import multihost
+    from marius_tpu_torch.parallel.mesh import DATA_AXIS, make_mesh
+    from marius_tpu_torch.storage.dataset import (
+        load_features,
+        load_labels,
+        load_node_split,
+        load_split,
+        load_stats,
+    )
+    from marius_tpu_torch.train.nc_buffer import PartitionBufferNCTrainer
+
+    cls, train_epoch, timings = PartitionBufferNCTrainer, PartitionBufferNCTrainer.train_epoch, []
+
+    def timed(self, *args, **kwargs):
+        self.profile_states = True
+        out = train_epoch(self, *args, **kwargs)
+        timings.append([list(t) for t in self.last_state_timings])
+        return out
+
+    cls.train_epoch = timed
+    try:
+        result, train, launches, peaks = _train_in_group(config_path, device, cls)
+    finally:
+        cls.train_epoch = train_epoch
+    tr = result["runtime"].trainer
+    record = {**_rank_record(result, train, launches, "nodes_per_sec"), "mode": "explicit",
+              "batches": [e["batches_run"] for e in result["epochs"]],
+              "padded": [e["masked_batches"] for e in result["epochs"]],
+              "hop_caps": list(tr.hop_caps), "eval_caps": list(tr._eval_caps),
+              "cache_rows": tr.cache.buffer_rows, "peak_bytes": peaks,
+              "state_timings": timings, "valid": [e["accuracy"] for e in result["evals"]]}
+    del result, tr
+    gc.collect()
+
+    cfg = load_config(config_path)
+    ds, s = cfg.storage.dataset.dataset_dir, cfg.storage
+    stats = load_stats(ds)
+    edges, feats = load_split(ds, "train", stats), load_features(ds, stats, mmap=True)
+    labels, train_nodes = load_labels(ds), load_node_split(ds, "train")
+    kernels = {"gather_rows": gather, "sparse_adagrad_update_": adagrad, "gather_sum": nbr_sum}
+    dev = _check_group(device)
+    try:
+        mesh = make_mesh(NC_MESH[0], NC_MESH[1], device=dev)
+
+        def trainer(m):
+            return PartitionBufferNCTrainer(
+                load_config(config_path).model, edges, feats, labels, train_nodes,
+                cfg.train_neighbor_sampling, num_nodes=stats.num_nodes,
+                batch_size=cfg.training.batch_size, num_partitions=s.num_partitions,
+                buffer_capacity=s.buffer_capacity, ordering=s.node_partition_ordering,
+                seed=cfg.training.seed, mesh=m, device=dev)
+
+        meshed, single = trainer(mesh), trainer(None)
+        st = meshed._plan_epoch()[0]
+        for t in (meshed, single):
+            t._swap_state(st)
+        graph = meshed._state_graph(1 << (meshed._state_edges(st) - 1).bit_length())
+        seeds, batch_labels, mask = _state_batch(meshed, st, cfg.training.batch_size)
+        draws = [seeded_draws(77, i, dev) for i in range(NC_MESH[0])]
+        before = {k: km.launches for k, km in kernels.items()}
+        collectives = mesh.collectives
+        loss, _ = meshed._batch_step(graph, seeds, mask, batch_labels,
+                                     draws[mesh.axis_index(DATA_AXIS)], meshed._dropout)
+        batch_launches = {k: km.launches - before[k] for k, km in kernels.items()}
+        collectives = mesh.collectives - collectives
+        ref_loss, grads = _nc_buffer_dp_reference(
+            single, graph, seeds, mask, batch_labels,
+            [seeded_draws(77, i, dev) for i in range(NC_MESH[0])])
+        _assert_close(loss.reshape(1), torch.tensor([ref_loss]), "the batch's loss")
+        worst = unheld = 0
+        for j, (g, w, grad) in enumerate(zip(tree_leaves(meshed.params),
+                                             tree_leaves(single.params), grads)):
+            wj, uj = _held_close(g, w, grad, f"leaf {j}")
+            worst, unheld = max(worst, wj), unheld + uj
+        record["batch_check"] = {"loss": [float(loss), ref_loss], "worst": worst,
+                                 "unheld": unheld, "launches": batch_launches,
+                                 "collectives": collectives,
+                                 "elements": sum(int(g.numel()) for g in grads)}
+    finally:
+        multihost.shutdown()
+    print("MESH_RANK " + json.dumps(record), flush=True)
+    return 0
+
+
+def nc_oocore_mesh_shapes(trainer, rates, card) -> dict:
+    """One rank's real training batch on nc_oocore_mesh's mesh: a one-card
+    trainer of the same config, its resident state's first ``batch /
+    n_data`` train seeds sampled under hop caps for them over the buffer rows
+    (the mesh trainer's local caps); the row gather at the outer hop's shape
+    and the gather-sum at layer 0's, each bit for bit against its plain
+    version and timed beside its bound and its library call."""
+    from marius_tpu_torch.data.samplers.neighbor import estimate_hop_caps, sample_neighbor_batch
+    from marius_tpu_torch.ops.cuda import gather
+
+    dev = trainer.device
+    st = [int(p) for p in trainer.cache.resident if p >= 0]
+    graph = trainer._state_graph(1 << (trainer._state_edges(st) - 1).bit_length())
+    bl = trainer.batch_size // NC_MESH[0]
+    caps = tuple(estimate_hop_caps(bl, trainer.nbr_configs, trainer.cache.buffer_rows))
+    seeds, _, mask = _state_batch(trainer, st, bl)
+    nb = sample_neighbor_batch(trainer._batch_draws(trainer.epoch, 0), graph, seeds, mask,
+                               trainer.nbr_configs, caps)
+    outer = nb.node_ids[0]
+    table = trainer.cache.device_rows
+    rows = time_gather(gather, table, [outer], rates)
+    rows["max_abs_err"] = gather_max_err(gather, table, outer)
+    rows["hop_caps"] = list(caps)
+    print(f"gather_rows, nc_oocore_mesh_outer (one rank's {bl} seeds under local caps {caps}: "
+          f"K={rows['k']} into {table.shape[0]} x {rows['d']}, {rows['distinct_rows']:.1f} "
+          f"distinct rows, {rows['bound_bytes'] / 1e6:.4f} MB): max_abs_err "
+          f"{rows['max_abs_err']}  kernel {rows['ms'] * 1e3:.2f} us  plain "
+          f"{rows['plain_ms'] * 1e3:.2f} us  index_select {rows['library_ms'] * 1e3:.2f} us  "
+          f"bound {rows['bound_ms'] * 1e3:.2f} us ({rows['bound_by']})  [{card}]", flush=True)
+    sums = time_layer_sum(nb.layers[0], outer.shape[0], NC_DIM, rates, dev)
+    print(f"gather_sum, nc_oocore_mesh layer 0 ({sums['targets']} targets x {sums['width']} "
+          f"slots, {sums['valid_slots']} real, {sums['distinct_rows']} distinct rows of "
+          f"{outer.shape[0]}, d={NC_DIM}, {sums['bound_bytes'] / 1e6:.4f} MB): max_abs_err "
+          f"{sums['max_abs_err']}  kernel {sums['ms'] * 1e3:.2f} us (with the layout built: "
+          f"{sums['with_layout_ms'] * 1e3:.2f} us)  plain {sums['plain_ms'] * 1e3:.2f} us  "
+          f"embedding_bag {sums['library_ms'] * 1e3:.2f} us  bound {sums['bound_ms'] * 1e3:.2f} "
+          f"us ({sums['bound_by']})  [{card}]", flush=True)
+    return {"gather_rows": rows, "gather_sum": sums}
+
+
+def nc_oocore_mesh(card: str, rates, device=None) -> dict:
+    """nc_oocore's config (ogbn_arxiv.yaml's model at papers100M's shape,
+    features in a PARTITION_BUFFER) cut to NC_RELOAD_NODES nodes, on a
+    data-parallel {data: 2, node: 1} mesh of two rank processes through the
+    command line (``nc_oocore_mesh_rank``), NC_OOC_MESH_EPOCHS epoch with the
+    model saved: both ranks' losses and test accuracy equal, the accuracy
+    above 4x chance and reproduced exactly by ``marius_eval`` here, exactly 1
+    row gather, 3 gather-sums and no Adagrad per batch on each rank, one
+    collective per batch; beside one process's run of the same config in
+    this call. Then the kernels at one rank's batch shape
+    (``nc_oocore_mesh_shapes``)."""
+    from marius_tpu_torch.config import load_config
+    from marius_tpu_torch.manager import marius_eval, marius_train
+
+    tag = "nc_oocore_mesh"
+    n = NC_RELOAD_NODES
+    edges = int(round(PAPERS_NC_EDGES * n / PAPERS_NODES))
+    counts = {"gather_rows": {}, "sparse_adagrad_update_": {}, "gather_sum": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        secs = write_papers_shaped(f"{tmp}/dataset", n, edges, papers_splits(n))
+        raw = papers_raw(tmp, NC_OOC_MESH_EPOCHS, save_model=True)
+        single_raw = copy.deepcopy(raw)
+        single_raw["storage"]["model_dir"] = f"{tmp}/model_single"
+        single_raw["storage"]["save_model"] = False
+        raw["training"]["mesh"] = {"data": NC_MESH[0], "node": NC_MESH[1]}
+        print(f"{tag}: nc_oocore's config cut to {n} nodes, {edges} edges, splits "
+              f"{papers_splits(n)} (nc_oocore_reload's cut), num_epochs 10 -> "
+              f"{NC_OOC_MESH_EPOCHS}, the model saved, training.mesh {raw['training']['mesh']}; "
+              f"dataset written in {secs:.2f} s", flush=True)
+        records = run_mesh_ranks(tag, raw, tmp, card, device, fn="nc_oocore_mesh_rank",
+                                 shape=NC_MESH)
+        again = marius_eval(load_config(raw), device=device)
+        t0 = time.perf_counter()
+        single = marius_train(load_config(single_raw), device=device)
+        single_s = time.perf_counter() - t0
+        shapes = nc_oocore_mesh_shapes(single.pop("runtime").trainer, rates, card)
+    test = records[0]["printed"][0]
+    layers = NC_GNN_STAGES
+    for rec in records:
+        if rec["shape"] != {"data": NC_MESH[0], "node": NC_MESH[1]} or \
+                rec["losses"] != records[0]["losses"] or rec["test"] != records[0]["test"]:
+            raise AssertionError(f"{tag}: rank {rec['rank']} is off the mesh or differs from "
+                                 f"rank 0: {rec}")
+        if (len(rec["printed"]) == 1) != (rec["rank"] == 0):
+            raise AssertionError(f"{tag}: rank {rec['rank']} printed {rec['printed']}")
+        batches = sum(rec["batches"])
+        want = {"gather_rows": batches, "sparse_adagrad_update_": 0,
+                "gather_sum": layers * batches}
+        if rec["train_launches"] != want or not batches:
+            raise AssertionError(f"{tag}: rank {rec['rank']} launched {rec['train_launches']} "
+                                 f"in training, expected {want}")
+        if any(c != 1.0 for c in rec["collectives_per_batch"]):
+            raise AssertionError(f"{tag}: {rec['collectives_per_batch']} collectives per batch "
+                                 f"(one all_reduce under SUM)")
+        bc = rec["batch_check"]
+        if bc["launches"] != {"gather_rows": 1, "sparse_adagrad_update_": 0,
+                              "gather_sum": layers} or bc["collectives"] != 1:
+            raise AssertionError(f"{tag}: the checked batch launched {bc['launches']} with "
+                                 f"{bc['collectives']} collectives")
+        for k, v in rec["train_launches"].items():
+            if v:
+                counts[k][f"{tag} rank {rec['rank']} train"] = v
+        for k, v in bc["launches"].items():
+            if v:
+                counts[k][f"{tag} rank {rec['rank']} batch check"] = v
+        swaps = [round(t[0], 4) for ep in rec["state_timings"] for t in ep]
+        print(f"{tag} rank {rec['rank']}: backend {rec['backend']} on {rec['device']} at "
+              f"{rec['coords']}; cache {rec['cache_rows']} rows per rank (replicated); local hop "
+              f"caps {rec['hop_caps']} (evaluation {rec['eval_caps']}); losses {rec['losses']}; "
+              f"s/epoch {rec['seconds']}; train nodes/s {[round(x, 1) for x in rec['rates']]}; "
+              f"batches {rec['batches']} + {rec['padded']} padded; swap s per state {swaps}; "
+              f"collectives per batch {rec['collectives_per_batch']}; peak device bytes "
+              f"{rec['peak_bytes']}; valid accuracy {rec['valid']}; launches in training "
+              f"{rec['train_launches']}, in all {rec['launches']}  [{card}]", flush=True)
+        print(f"{tag} rank {rec['rank']} batch check (one state's first batch on the mesh "
+              f"against one card's computation of it, each index's share with its own draws): "
+              f"loss {bc['loss'][0]:.6f} vs {bc['loss'][1]:.6f}; parameters within rtol 1e-4 / "
+              f"atol 1e-5 (largest difference {bc['worst']:.3f} of atol past rtol; "
+              f"{bc['unheld']} of {bc['elements']} elements with a gradient below 1e-6 not "
+              f"held, ROADMAP C5); launches {bc['launches']}, collectives {bc['collectives']}  "
+              f"[{card}]", flush=True)
+    print(f"{tag} against one process in this call: losses {records[0]['losses']} vs "
+          f"{[e['loss'] for e in single['epochs']]}; s/epoch per rank {records[0]['seconds']} "
+          f"vs one process {[round(e['epoch_time_s'], 4) for e in single['epochs']]} "
+          f"({single_s:.1f} s with its evaluations); train nodes/s per rank "
+          f"{[round(x, 1) for x in records[0]['rates']]} vs "
+          f"{[round(e['nodes_per_sec'], 1) for e in single['epochs']]}; test accuracy "
+          f"{test['accuracy']:.6f} (one process {single['test']['accuracy']:.6f}, chance "
+          f"{1 / PAPERS_CLASSES:.6f}); marius_eval of rank 0's checkpoint "
+          f"{again['test']['accuracy']:.6f}  [{card}]", flush=True)
+    if not test["accuracy"] > 4.0 / PAPERS_CLASSES:
+        raise AssertionError(f"{tag} test accuracy {test['accuracy']} is not above 4x chance "
+                             f"({4.0 / PAPERS_CLASSES:.6f})")
+    if any(test[k] != again["test"][k] for k in ("accuracy", "num_evaluated")):
+        raise AssertionError(f"{tag}: marius_eval of rank 0's checkpoint gave {again['test']}, "
+                             f"rank 0 printed {test}")
+    return {**counts, "shapes": shapes, "s_per_epoch": records[0]["seconds"]}
+
+
+TWIN_LAUNCH_CODE = (
+    "import importlib.util, json, sys\n"
+    "from marius_tpu_torch.ops.cuda import adagrad, gather, nbr_sum\n"
+    "sys.argv = sys.argv[1:]\n"
+    "spec = importlib.util.spec_from_file_location('twin', sys.argv[0])\n"
+    "mod = importlib.util.module_from_spec(spec)\n"
+    "spec.loader.exec_module(mod)\n"
+    "mod.NUM_EPOCHS = {epochs}\n"
+    "gather.launches = adagrad.launches = nbr_sum.launches = 0\n"
+    "mod.main({device!r})\n"
+    "print('TWIN_LAUNCHES ' + json.dumps({{'gather_rows': gather.launches, "
+    "'sparse_adagrad_update_': adagrad.launches, 'gather_sum': nbr_sum.launches}}), "
+    "flush=True)\n")
+
+
+def _fake_cora(directory: Path, class_names) -> None:
+    """tests/test_torch_examples.py's CORA-shaped raw files: 80 papers of 12
+    0/1 words, 300 citations, from seed 0."""
+    rng = np.random.default_rng(0)
+    n, f = 80, 12
+    directory.mkdir(parents=True)
+    ids = rng.choice(10_000, size=n, replace=False)
+    with open(directory / "cora.content", "w") as fh:
+        for i in range(n):
+            words = rng.integers(0, 2, size=f)
+            cls = class_names[rng.integers(len(class_names))]
+            fh.write(f"{ids[i]}\t" + "\t".join(map(str, words)) + f"\t{cls}\n")
+    with open(directory / "cora.cites", "w") as fh:
+        for _ in range(300):
+            a, b = rng.choice(ids, size=2, replace=False)
+            fh.write(f"{a}\t{b}\n")
+
+
+def examples_torch(card: str, device=None) -> dict:
+    """The examples/python_torch twins on the card at their test sizes
+    (tests/test_torch_examples.py's data, EXAMPLE_EPOCHS epochs): the five
+    one-process twins in this process, their downloads replaced by
+    fabricated raw files, then fb15k_237_mesh.py on two gloo rank processes
+    under torchrun's environment. Each twin's seconds and launches (set to 0
+    just before it, read just after); every twin's metrics must be finite
+    and each must launch the kernels its path runs."""
+    import ast
+    import importlib.util
+
+    from marius_tpu_torch.ops.cuda import adagrad, gather, nbr_sum
+    from marius_tpu_torch.tools.preprocess.generate import (
+        generate_random_dataset_lp,
+        generate_random_dataset_nc,
+    )
+
+    here = Path(__file__).resolve().parent
+    twins = here / "examples" / "python_torch"
+    kernels = {"gather_rows": gather, "sparse_adagrad_update_": adagrad, "gather_sum": nbr_sum}
+    counts = {k: {} for k in kernels}
+
+    def load(name, argv):
+        spec = importlib.util.spec_from_file_location(f"twin_{name}", twins / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        saved = sys.argv
+        sys.argv = [str(twins / f"{name}.py"), *argv]
+        try:
+            spec.loader.exec_module(mod)
+        finally:
+            sys.argv = saved
+        mod.NUM_EPOCHS = EXAMPLE_EPOCHS
+        return mod
+
+    def record(name, seconds, launches, metrics, want):
+        print(f"examples_torch {name}: {seconds:.2f} s; launches {launches}; metrics "
+              f"{ {k: round(float(v), 6) for k, v in metrics.items()} }  [{card}]", flush=True)
+        if not all(math.isfinite(float(v)) for v in metrics.values()):
+            raise AssertionError(f"examples_torch {name}: metrics are not finite: {metrics}")
+        if any(bool(launches[k]) != on for k, on in want.items()):
+            raise AssertionError(f"examples_torch {name}: launches {launches}, expected "
+                                 f"{'/'.join(k for k, on in want.items() if on)} only")
+        for k, v in launches.items():
+            if v:
+                counts[k][f"examples_torch {name}"] = v
+
+    lp_path = {"gather_rows": True, "sparse_adagrad_update_": True, "gather_sum": False}
+    nc_path = {"gather_rows": True, "sparse_adagrad_update_": False, "gather_sum": True}
+    t_all = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        lp_ds, nc_ds = f"{tmp}/lp", f"{tmp}/nc"
+        generate_random_dataset_lp(lp_ds, num_nodes=60, num_edges=600, num_relations=4)
+        generate_random_dataset_nc(nc_ds, num_nodes=200, num_edges=800, num_classes=5,
+                                   feature_dim=8)
+        csv = Path(tmp) / "edge.csv"
+        rng = np.random.default_rng(1)
+        csv.write_text("".join(f"{1000 + a},{1000 + b}\n"
+                               for a, b in rng.integers(0, 70, (700, 2))))
+        runs = (("fb15k_237", [lp_ds], lp_path), ("ogbn_arxiv_nc", [nc_ds], nc_path),
+                # the registered layer sums with plain torch ops: no gather-sum
+                ("custom_layer", [], lp_path), ("custom_lp", [f"{tmp}/custom_lp"], lp_path),
+                ("custom_nc_graphsage", [f"{tmp}/cora"], nc_path))
+        for name, argv, want in runs:
+            mod = load(name, argv)
+            if name == "custom_lp":
+                mod.MyDataset.download = lambda self, overwrite=False: setattr(
+                    self, "input_train_edges_file", csv)
+            elif name == "custom_nc_graphsage":
+                raw = Path(tmp) / "cora_raw"
+                _fake_cora(raw, mod.CLASS_NAMES)
+
+                def fake(self, overwrite=False, raw=raw):
+                    self.content_file, self.cites_file = raw / "cora.content", raw / "cora.cites"
+
+                mod.Cora.download = fake
+            for m in kernels.values():
+                m.launches = 0
+            if device is None:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = mod.main(device)
+            if device is None:
+                torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = {k: m.launches for k, m in kernels.items()}
+            metrics = res["test"] if "test" in res else res
+            metrics = {k: v for k, v in metrics.items() if isinstance(v, (int, float))}
+            record(name, dt, launches, metrics, want)
+
+        code = TWIN_LAUNCH_CODE.format(epochs=EXAMPLE_EPOCHS, device=device)
+        env = {**os.environ, "MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port()),
+               "WORLD_SIZE": "2", "LOCAL_WORLD_SIZE": "2"}
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, "-c", code, str(twins / "fb15k_237_mesh.py"),
+                                   lp_ds], cwd=here, text=True,
+                                  env={**env, "RANK": str(r), "LOCAL_RANK": str(r)},
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+                 for r in range(2)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=MESH_RANKS_LIMIT_S)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        dt = time.perf_counter() - t0
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            print(out[-6000:], flush=True)
+            raise AssertionError(f"examples_torch fb15k_237_mesh: rank {r} exited "
+                                 f"{p.returncode}")
+        lines = out.splitlines()
+        launches = json.loads([ln for ln in lines if ln.startswith("TWIN_LAUNCHES ")][-1][14:])
+        mesh_line = [ln for ln in lines if ln.startswith("mesh: ")]
+        metrics = [ln for ln in lines if ln.startswith("{")]
+        if (bool(mesh_line) and bool(metrics)) != (r == 0):
+            raise AssertionError(f"examples_torch fb15k_237_mesh: rank {r} printed "
+                                 f"{mesh_line + metrics}")
+        if r == 0:
+            print(f"examples_torch fb15k_237_mesh: {mesh_line[0]}", flush=True)
+        record(f"fb15k_237_mesh rank {r}", dt, launches,
+               ast.literal_eval(metrics[-1]) if metrics else {}, lp_path)
+    print(f"examples_torch: {time.perf_counter() - t_all:.1f} s in all (fb15k_237_mesh's two "
+          f"rank processes {dt:.1f} s from start to the last exit)", flush=True)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a GPU",
@@ -6675,6 +7151,17 @@ def main() -> int:
     kernels[0].update(shapes["gather_rows"])
     kernels[2].update(shapes["gather_sum"])
     print(f"node-sharded ring phases: {time.perf_counter() - t0:.1f} s in all", flush=True)
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ooc_mesh = nc_oocore_mesh(card, rates)
+    shapes = ooc_mesh.pop("shapes")
+    kernels[0]["nc_oocore_mesh_outer"] = shapes["gather_rows"]
+    kernels[2]["nc_oocore_mesh_layer0"] = shapes["gather_sum"]
+    print(f"out-of-core NC mesh phases: {time.perf_counter() - t0:.1f} s in all", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    examples = examples_torch(card)
 
     # each row's launches: the sum over the paths it runs on, each part's beside it
     by_part = {
@@ -6689,7 +7176,8 @@ def main() -> int:
                         **oocore16["gather_rows"], **tools["gather_rows"],
                         **mesh1["gather_rows"], **ranks["gather_rows"],
                         **gspmd["gather_rows"], **oocore_mesh["gather_rows"],
-                        **ncm["gather_rows"], **ring["gather_rows"]},
+                        **ncm["gather_rows"], **ring["gather_rows"],
+                        **ooc_mesh["gather_rows"], **examples["gather_rows"]},
         "sparse_adagrad_update_": {"lp flagship": flagship["sparse_adagrad_update_"],
                                    "lp_manager train": manager["sparse_adagrad_update_"],
                                    **sampled["sparse_adagrad_update_"],
@@ -6713,7 +7201,9 @@ def main() -> int:
                                    **gspmd["sparse_adagrad_update_"],
                                    **oocore_mesh["sparse_adagrad_update_"],
                                    **ncm["sparse_adagrad_update_"],
-                                   **ring["sparse_adagrad_update_"]},
+                                   **ring["sparse_adagrad_update_"],
+                                   **ooc_mesh["sparse_adagrad_update_"],
+                                   **examples["sparse_adagrad_update_"]},
         "gather_sum": {**nc_counts, **sampled["gather_sum"], **gat["gather_sum"],
                        **rgcn_full["gather_sum"], **gat_full["gather_sum"], **gnn["gather_sum"],
                        **gnn_oocore["gather_sum"], **locality["gather_sum"],
@@ -6721,7 +7211,8 @@ def main() -> int:
                        **nc_ooc["gather_sum"], **nc16["gather_sum"], **tools["gather_sum"],
                        **ranks["gather_sum"], **gspmd["gather_sum"],
                        **oocore_mesh["gather_sum"], **ncm["gather_sum"],
-                       **ring["gather_sum"]},
+                       **ring["gather_sum"], **ooc_mesh["gather_sum"],
+                       **examples["gather_sum"]},
     }
     for k in kernels:
         k["launches"] = sum(by_part[k["name"]].values())

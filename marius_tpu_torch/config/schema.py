@@ -3,7 +3,7 @@
 Port of ``marius_tpu/config/schema.py`` (:32-470): the same dataclasses,
 defaults and YAML spellings, filled with the port's typed objects. It parses
 every configuration the JAX loader parses (NC, PARTITION_BUFFER and mesh
-configurations too); the manager refuses what is not ported yet.
+configurations too), and the manager runs each as the JAX manager does.
 ``resolve_dtype`` returns torch dtypes. An unknown decoder type leaves
 ``model.decoder`` None and is reported by validation (the port's
 ``EdgeDecoder`` owns parameter tensors, so it cannot be built for an unknown

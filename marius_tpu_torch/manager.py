@@ -51,14 +51,15 @@ them), the partition buffer its node-sharded device buffer, and node
 classification data parallelism (JAX :293-300: a mesh with more than one
 non-trivial axis, or an EMBEDDING stage, never takes the full-graph route;
 ALL fanouts with a LINEAR-collapsible encoder take the collapse; sampled
-configs the sampled step). The evaluators see the whole model, and rank 0
+configs the sampled step; PARTITION_BUFFER configs the out-of-core trainer's
+data-parallel step over a replicated feature cache). The evaluators see the
+whole model, and rank 0
 writes checkpoints in the single-device layout. A model is evaluated
 (``marius_eval``, ``train=False``) on one device, whatever mesh trained it.
 A full-graph encoder the collapse does not take (``full_graph: ON`` with a
 nonlinear GraphSAGE/GCN, GAT or RGCN) trains on the node-sharded ring over
 the mesh's one non-trivial axis; its export re-prepares one device's ops
-(JAX :581-585). Out-of-core node classification on a mesh raises
-``NotImplementedError`` naming the slice that brings it.
+(JAX :581-585).
 """
 
 from __future__ import annotations
@@ -103,13 +104,9 @@ from marius_tpu_torch.storage.dataset import (
 from marius_tpu_torch.train.buffer_trainer import PartitionBufferLPTrainer
 from marius_tpu_torch.train.evaluator import LinkPredictionEvaluator
 from marius_tpu_torch.train.graph_encoder import encode_all_nodes, encode_all_nodes_host
-from marius_tpu_torch.train.nc import (
-    OOCORE_NC_MESH_SLICE,
-    NodeClassificationEvaluator,
-    NodeClassificationTrainer,
-)
+from marius_tpu_torch.train.nc import NodeClassificationEvaluator, NodeClassificationTrainer
 from marius_tpu_torch.train.nc_buffer import PartitionBufferNCTrainer
-from marius_tpu_torch.train.trainer import LinkPredictionTrainer, _later_slice, resolve_device
+from marius_tpu_torch.train.trainer import LinkPredictionTrainer, resolve_device
 
 
 @dataclasses.dataclass
@@ -155,18 +152,6 @@ def _load_lp_data(cfg: MariusConfig):
 def _wants_mesh(cfg: MariusConfig) -> bool:
     t = cfg.training
     return t.mesh_data not in (0, 1) or t.mesh_node not in (0, 1)
-
-
-def _refuse_unported(cfg: MariusConfig) -> None:
-    """Raise for every part of ``cfg`` the port does not run yet."""
-    s = cfg.storage
-    if cfg.learning_task not in (LINK_PREDICTION, NODE_CLASSIFICATION):
-        raise ValueError(f"Unknown learning task: {cfg.learning_task}")
-    if _wants_mesh(cfg) and cfg.learning_task == NODE_CLASSIFICATION and (
-            s.features_backend == "PARTITION_BUFFER"
-            or (cfg.model.has_embeddings and s.embeddings_backend == "PARTITION_BUFFER")):
-        raise _later_slice("mesh training of out-of-core node classification",
-                           OOCORE_NC_MESH_SLICE)
 
 
 def _build_mesh(cfg: MariusConfig, dev):
@@ -238,10 +223,12 @@ def _async_nc_batch(cfg: MariusConfig, model, log):
     return batch_size, model
 
 
-def _init_nc_buffer(cfg: MariusConfig, dev, log):
+def _init_nc_buffer(cfg: MariusConfig, dev, log, mesh=None):
     """(trainer, valid evaluator, test evaluator) of a PARTITION_BUFFER
     node-classification config (JAX :271-279, :326-329, :350-375): the graph
-    stays on the host; the features file is mapped, not read."""
+    stays on the host; the features file is mapped, not read. Data parallel
+    on ``mesh``, where an EMBEDDING co-buffer is refused by the trainer, as
+    in JAX."""
     ds, s, model = cfg.storage.dataset, cfg.storage, cfg.model
     stats = load_stats(ds.dataset_dir)
     edges = load_split(ds.dataset_dir, "train", stats)
@@ -258,7 +245,7 @@ def _init_nc_buffer(cfg: MariusConfig, dev, log):
         model, edges, features, labels, train_nodes, train_nbr, num_nodes=ds.num_nodes,
         batch_size=batch_size, num_partitions=s.num_partitions,
         buffer_capacity=s.buffer_capacity, ordering=s.node_partition_ordering,
-        seed=cfg.training.seed, epochs_per_shuffle=cfg.training.epochs_per_shuffle,
+        seed=cfg.training.seed, mesh=mesh, epochs_per_shuffle=cfg.training.epochs_per_shuffle,
         device=dev)
 
     def make_eval(split):
@@ -279,7 +266,7 @@ def _init_nc(cfg: MariusConfig, dev, log, mesh=None):
     # or the optional learnable embedding table (io.cpp:347-433)
     if s.features_backend == "PARTITION_BUFFER" or (
             model.has_embeddings and s.embeddings_backend == "PARTITION_BUFFER"):
-        return _init_nc_buffer(cfg, dev, log)
+        return _init_nc_buffer(cfg, dev, log, mesh)
     stats = load_stats(ds.dataset_dir)
     edges = load_split(ds.dataset_dir, "train", stats)
     features = load_features(ds.dataset_dir) if model.encoder.has_features else None
@@ -348,7 +335,8 @@ def _init_nc(cfg: MariusConfig, dev, log, mesh=None):
 
 
 def marius_init(cfg: MariusConfig, train: bool = True, device=None) -> MariusRuntime:
-    _refuse_unported(cfg)
+    if cfg.learning_task not in (LINK_PREDICTION, NODE_CLASSIFICATION):
+        raise ValueError(f"Unknown learning task: {cfg.learning_task}")
     dev = resolve_device(device)
     log = get_logger(cfg.storage.model_dir or None, console_level=cfg.storage.log_level)
     mesh = _build_mesh(cfg, dev) if train else None

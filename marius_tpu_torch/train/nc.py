@@ -142,10 +142,6 @@ from marius_tpu_torch.train.trainer import TrainState, resolve_device
 
 Tensor = torch.Tensor
 
-# the mesh path of node classification still to come
-OOCORE_NC_MESH_SLICE = "out-of-core node classification on a mesh (ROADMAP A, item 4)"
-
-
 def _pad_ids(ids: np.ndarray, batch_size: int):
     ids = np.asarray(ids, np.int64)
     num = ids.shape[0]

@@ -1,7 +1,7 @@
 """Out-of-core node classification over partitioned node features.
 
 Port of ``PartitionBufferNCTrainer`` from ``marius_tpu/train/nc_buffer.py``
-(:50-495 without the mesh branches; reference getNodePartitionOrdering,
+(:50-495; reference getNodePartitionOrdering,
 data/ordering.cpp:294-410, and the dataloader's nodeSample). The node
 features stay in host RAM (or in a memory-mapped file), partitioned over the
 node dimension; a DISPERSED or SEQUENTIAL ordering brings ``capacity``
@@ -38,6 +38,26 @@ seed shuffle are numpy, as in JAX, and equal it by construction. As in JAX,
 ``state`` holds no table: a checkpoint does not save the co-buffer
 (ROADMAP C7). Evaluation starts from a fresh load of its first state
 (ROADMAP C8).
+
+With ``mesh`` (a (data x node) ``parallel.mesh.Mesh``, JAX :67-104,
+:186-270) training is data parallel over the data axis; the ranks of a node
+row are replicas. Every rank holds its own ``ReadOnlyPartitionCache`` of the
+same resident partitions and swaps the same states (the plan and the seed
+shuffle are numpy, equal on every rank). Each data index takes its
+``batch_size / n_data`` share of every batch (JAX's ``P(None, data)``
+seeds), samples it with its own numbers (``_batch_draws(epoch, step,
+data_index)``; on the card a generator seeded from (seed, data index), as
+JAX folds the index into the step's key) under hop caps sized for that
+local batch, and scores it; MEAN losses are weighted by local over total
+valid seeds (an all_reduce of the count). One all_reduce over the data axis
+sums the dense gradients, the loss and the overflow count, and every rank
+steps the dense optimizer alike. A batch runs on every rank when the whole
+batch holds a valid seed, so an index whose share is all padding still
+joins the batch's collectives with zero gradients. An EMBEDDING co-buffer
+is refused on a mesh, as JAX refuses it. Evaluation runs the whole split on
+every rank with no collective, under hop caps sized for the evaluation's
+whole batch (JAX keeps the local ones there, ROADMAP C12), so a mesh-trained
+model scores as one process's.
 """
 
 from __future__ import annotations
@@ -69,7 +89,9 @@ from marius_tpu_torch.nn.optimizers import (
     tree_leaves,
     tree_map,
 )
+from marius_tpu_torch.parallel.collectives import sum_over_data
 from marius_tpu_torch.parallel.embedding_table import gather_rows
+from marius_tpu_torch.parallel.mesh import DATA_AXIS
 from marius_tpu_torch.reporting.metrics import categorical_accuracy_statistics
 from marius_tpu_torch.reporting.reporters import NodeClassificationReporter
 from marius_tpu_torch.storage.partition_buffer import (
@@ -79,8 +101,7 @@ from marius_tpu_torch.storage.partition_buffer import (
 )
 from marius_tpu_torch.tools.preprocess.partitioner import partition_edges
 from marius_tpu_torch.train.buffer_trainer import state_graph
-from marius_tpu_torch.train.nc import OOCORE_NC_MESH_SLICE
-from marius_tpu_torch.train.trainer import TrainState, _later_slice, resolve_device
+from marius_tpu_torch.train.trainer import TrainState, resolve_device
 
 Tensor = torch.Tensor
 
@@ -114,9 +135,16 @@ class PartitionBufferNCTrainer:
     ):
         if model.learning_task != NODE_CLASSIFICATION:
             raise ValueError(f"PartitionBufferNCTrainer needs a {NODE_CLASSIFICATION} model")
+        self.mesh = mesh
+        self._n_data, self._data_index = 1, 0
         if mesh is not None:
-            raise _later_slice("mesh training of out-of-core node classification",
-                               OOCORE_NC_MESH_SLICE)
+            if model.has_embeddings:
+                raise ValueError("embedding-table NC over the buffer is single-controller")
+            self._n_data, self._data_index = mesh.shape[DATA_AXIS], mesh.axis_index(DATA_AXIS)
+            if batch_size % self._n_data:
+                raise ValueError(f"batch_size {batch_size} % data axis {self._n_data} != 0")
+            if device is None:
+                device = mesh.device
         if model.encoder.num_gnn_stages and len(nbr_configs) != model.encoder.num_gnn_stages:
             raise ValueError("a GNN encoder needs one neighbour config per GNN stage")
         self.device = resolve_device(device)
@@ -163,27 +191,35 @@ class PartitionBufferNCTrainer:
         tn = np.asarray(train_nodes, np.int32)
         self.train_by_part = [tn[tn // psize == p] for p in range(num_partitions)]
         self.num_train = len(tn)
-        self.hop_caps = tuple(estimate_hop_caps(batch_size, self.nbr_configs,
+        # training caps for a data index's share of the batch; evaluation
+        # scores whole batches
+        self.hop_caps = tuple(estimate_hop_caps(batch_size // self._n_data, self.nbr_configs,
                                                 self._ref.buffer_rows))
+        self._eval_caps = tuple(estimate_hop_caps(batch_size, self.nbr_configs,
+                                                  self._ref.buffer_rows))
 
         # initial parameters are drawn on the CPU, so they do not depend on the device
         params = init_model_params(torch.Generator().manual_seed(seed), model)
         self.params = tree_map(lambda t: t.detach().to(self.device).requires_grad_(True), params)
         self.opt_state = init_optimizer(model.dense_optimizer, self.params)
         self.epoch = 0
+        if mesh is not None:
+            # a data index's own numbers, as JAX folds the index into its key
+            seed = int(np.random.SeedSequence((seed, self._data_index)).generate_state(1)[0])
         generator = torch.Generator(device=self.device).manual_seed(seed)
         self._draws = generator_draws(generator)
         self._dropout = DropoutKey(generator)
 
     # -- seams a test may replace -----------------------------------------------
 
-    def _batch_draws(self, epoch: int, step: int) -> Draws:
+    def _batch_draws(self, epoch: int, step: int, data_index: int = 0) -> Draws:
         """The sampler's numbers for training step ``step`` of ``epoch``
-        (steps count the padded batches of earlier states too)."""
+        (steps count the padded batches of earlier states too), on a mesh
+        for this rank's ``data_index``."""
         return self._draws
 
-    def _dropout_key(self, epoch: int, step: int):
-        """The dropout key of the same step (GAT's masks)."""
+    def _dropout_key(self, epoch: int, step: int, data_index: int = 0):
+        """The dropout key of the same step and data index (GAT's masks)."""
         return self._dropout
 
     def _eval_draws(self, count: int) -> Draws:
@@ -261,16 +297,28 @@ class PartitionBufferNCTrainer:
     def _batch_step(self, graph: DeviceGraph, seeds: Tensor, mask: Tensor, labels: Tensor,
                     draws: Draws, dropout_key):
         """One batch (JAX batch_step :190-243); returns (detached loss,
-        overflow) on the device."""
-        model = self.model
+        overflow) on the device. On a mesh ``seeds``, ``mask`` and ``labels``
+        are the whole batch's: this rank scores its data index's share, and
+        the loss and overflow returned are the whole batch's."""
+        model, mesh = self.model, self.mesh
+        if mesh is not None:
+            bl = self.batch_size // self._n_data
+            part = slice(self._data_index * bl, (self._data_index + 1) * bl)
+            seeds, mask, labels = seeds[part], mask[part], labels[part]
         nb = sample_neighbor_batch(draws, graph, seeds, mask, self.nbr_configs, self.hop_caps)
         outer = nb.node_ids[0]
         feats, emb = self._outer_rows(outer)
         if emb is not None:
             emb.requires_grad_(True)
+        loss_mask = mask & nb.seed_mask
+        w = 1.0
+        if mesh is not None and model.loss_reduction.upper() == "MEAN":
+            # the local over the total valid seeds, so the summed MEAN is the batch's
+            local = loss_mask.float().sum()
+            w = local / mesh.all_reduce(local.clone(), DATA_AXIS).clamp_min(1.0)
         logits = encoder_forward(model.encoder, self.params["encoder"], emb, feats, nb,
                                  degrees=graph.degrees, train=True, dropout_key=dropout_key)
-        loss = nc_batch_loss(model, logits, labels, mask & nb.seed_mask)
+        loss = nc_batch_loss(model, logits, labels, loss_mask) * w
         leaves = tree_leaves(self.params)
         grads = torch.autograd.grad(loss, leaves + ([emb] if emb is not None else []),
                                     allow_unused=True)
@@ -280,10 +328,18 @@ class PartitionBufferNCTrainer:
             sparse_adagrad_update_buffer(self.emb_buffer.device_values,
                                          self.emb_buffer.device_state, outer, g_emb,
                                          model.sparse_lr)
-        dense = iter(grads[:len(leaves)])
+        dense = [torch.zeros_like(t) if g is None else g
+                 for g, t in zip(grads[:len(leaves)], leaves)]
+        loss, overflow = loss.detach(), nb.overflow
+        if mesh is not None:
+            # one all_reduce: the loss, the overflow count and the dense gradients
+            sums = [loss.reshape(1).clone(), overflow.float().reshape(1)]
+            sum_over_data(sums + dense, mesh, DATA_AXIS)
+            loss, overflow = sums[0][0], sums[1][0].long()
+        it = iter(dense)
         _, self.opt_state = apply_optimizer(model.dense_optimizer, self.params, self.opt_state,
-                                            tree_map(lambda _: next(dense), self.params))
-        return loss.detach(), nb.overflow
+                                            tree_map(lambda _: next(it), self.params))
+        return loss, overflow
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -301,6 +357,7 @@ class PartitionBufferNCTrainer:
         overflow = torch.zeros((), dtype=torch.int64, device=self.device)
         state_losses = []
         batches_run = 0
+        collectives = 0 if self.mesh is None else self.mesh.collectives
         self.last_state_timings = []
         for s_idx, st in enumerate(states):
             t_s0 = time.perf_counter()
@@ -317,6 +374,8 @@ class PartitionBufferNCTrainer:
             rng.shuffle(seeds_g)
             seeds, labels = self._local_seeds(seeds_g)
             n = len(seeds_g)
+            # the batches that hold a valid seed, counted over the whole batch
+            # (equal on every rank of a mesh)
             nb = -(-n // b)
             pad = nb * b - n
             seeds = torch.cat([seeds, seeds.new_full((pad,), fill)])
@@ -326,9 +385,10 @@ class PartitionBufferNCTrainer:
             for i in range(nb):
                 step = s_idx * max_batches + i
                 sl = slice(i * b, (i + 1) * b)
-                loss, ov = self._batch_step(graph, seeds[sl], masks[sl], labels[sl],
-                                            self._batch_draws(self.epoch, step),
-                                            self._dropout_key(self.epoch, step))
+                loss, ov = self._batch_step(
+                    graph, seeds[sl], masks[sl], labels[sl],
+                    self._batch_draws(self.epoch, step, self._data_index),
+                    self._dropout_key(self.epoch, step, self._data_index))
                 state_loss += loss
                 overflow += ov
             state_losses.append(state_loss)
@@ -346,7 +406,7 @@ class PartitionBufferNCTrainer:
             [l.double() for l in state_losses] + [overflow.double()]).tolist()
         self.epoch += 1
         dt = time.perf_counter() - t0
-        return {
+        out = {
             "loss": float(np.sum(np.asarray(per_state, np.float32))),
             "state_losses": per_state,
             "epoch_time_s": dt,
@@ -359,6 +419,10 @@ class PartitionBufferNCTrainer:
             "masked_batches": len(states) * max_batches - batches_run,
             "truncated_frontier_ids": int(truncated),
         }
+        if self.mesh is not None:
+            out["collectives_per_batch"] = (self.mesh.collectives - collectives) / max(
+                batches_run, 1)
+        return out
 
     def train(self, num_epochs: int):
         return [self.train_epoch() for _ in range(num_epochs)]
@@ -372,7 +436,7 @@ class PartitionBufferNCTrainer:
         starts from a fresh load of its first state (JAX's starts from
         whatever slots the previous pass left, ROADMAP C8), so the accuracy
         depends on the model alone: ``marius_eval`` after a reload gives
-        ``marius_train``'s."""
+        ``marius_train``'s. On a mesh every rank scores the whole split."""
         states = self._plan_epoch()
         psize = self._ref.psize
         en = np.asarray(eval_nodes, np.int32)
@@ -402,7 +466,7 @@ class PartitionBufferNCTrainer:
             for i in range(nb):
                 sl = slice(i * b, (i + 1) * b)
                 nbatch = sample_neighbor_batch(self._eval_draws(i * b), graph, seeds[sl],
-                                               masks[sl], self.nbr_configs, self.hop_caps)
+                                               masks[sl], self.nbr_configs, self._eval_caps)
                 feats, emb = self._outer_rows(nbatch.node_ids[0])
                 logits = encoder_forward(self.model.encoder, self.params["encoder"], emb,
                                          feats, nbatch, degrees=graph.degrees, train=False)
@@ -437,3 +501,11 @@ class PartitionBufferNCTrainer:
             tree_map(lambda d, v: d.copy_(v), self.opt_state.slots, s.opt_state.slots)
         self.opt_state = OptState(s.opt_state.step, self.opt_state.slots)
         self.epoch = int(s.epoch)
+
+    def gathered_state(self) -> TrainState:
+        """The state in the single-device layout: every rank of a mesh holds
+        it whole (replicated)."""
+        return self.state
+
+    def load_gathered_state(self, full: TrainState) -> None:
+        self.state = full

@@ -169,10 +169,6 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _later_slice(what: str, where: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet; it comes with {where}")
-
-
 class LinkPredictionTrainer:
     """Shallow-encoder (embedding table) link-prediction training."""
 

@@ -728,7 +728,7 @@ def test_nc_config_variants_set_up_as_jax(tmp_path, variant):
 
 
 def test_nc_refuses_unported(tmp_path):
-    """Out-of-core meshes wait for a later slice; GAT and RGCN stages are ported
+    """Every NC mesh needs a process group; GAT and RGCN stages are ported
     (tests/test_torch_gat_rgcn_e2e.py trains them through the managers) and
     set up as the JAX package sets them up, and so are bf16 features and
     parameters (tests/test_torch_bf16.py)."""
@@ -741,12 +741,13 @@ def test_nc_refuses_unported(tmp_path):
         jtr = j_marius_init(j_load_config(raw)).trainer
         assert trainer.model.encoder.stages[1][0].gnn_type == gnn
         assert trainer.hop_caps == tuple(jtr.hop_caps)
-    # a data-parallel NC mesh is ported (tests/test_torch_mesh_nc.py): it needs
-    # a process group; out-of-core NC on a mesh waits for a later slice
+    # a data-parallel NC mesh is ported (tests/test_torch_mesh_nc.py), and so
+    # is out-of-core NC on one (tests/test_torch_mesh_nc_buffer.py): both need
+    # a process group
     with pytest.raises(ValueError, match="process group"):
         marius_init(load_config(_nc_raw(tmp_path, "gat", **{
             "training.mesh": {"data": 2, "node": 1}})), device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="process group"):
         marius_init(load_config(_nc_raw(tmp_path, "gat", **{
             "training.mesh": {"data": 2, "node": 1},
             "storage.features": {"type": "PARTITION_BUFFER"},

@@ -22,15 +22,15 @@ from JAX's initial state with its permutations injected:
 - the LINEAR collapse at ``data: 2`` against JAX's mesh collapse over 2
   epochs (``tests/test_sharding.py:487-544``), rtol 1e-4 / atol 1e-5;
 - ``marius_train`` of ogbn_arxiv.yaml's model cut small on the mesh, sampled
-  and (every hop ALL) through the collapse;
-- out-of-core NC on a mesh, the next slice, raises ``NotImplementedError``.
-  (The node-sharded ring, a full-graph encoder the collapse does not take,
-  is ``tests/test_torch_mesh_ring.py``'s.)
+  and (every hop ALL) through the collapse.
+
+(The node-sharded ring, a full-graph encoder the collapse does not take, is
+``tests/test_torch_mesh_ring.py``'s; out-of-core NC on a mesh is
+``tests/test_torch_mesh_nc_buffer.py``'s.)
 """
 
 import dataclasses
 import os
-import types
 
 import jax
 import numpy as np
@@ -53,11 +53,7 @@ from marius_tpu.train import nc as jnc
 from marius_tpu_torch.data.graph import build_device_graph as t_graph
 from marius_tpu_torch.data.samplers.neighbor import NeighborSamplingConfig as TNbr
 from marius_tpu_torch.data.samplers.neighbor import estimate_hop_caps, sample_neighbor_batch
-from marius_tpu_torch.nn.encoder import EncoderConfig as TEncoderConfig
-from marius_tpu_torch.nn.layers import LayerConfig as TL
-from marius_tpu_torch.nn.model import Model as TModel
 from marius_tpu_torch.tools.preprocess.generate import generate_random_dataset_nc
-from marius_tpu_torch.train.nc_buffer import PartitionBufferNCTrainer
 from tests.test_torch_neighbor_sampler import jax_draws
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
@@ -324,20 +320,3 @@ def test_marius_train_of_nc_on_a_mesh(runs, variant):
         assert got["collapse"] == (variant == "collapse")
         assert got["test"] == ranks[0]["test"] and got["losses"] == ranks[0]["losses"]
         assert np.isfinite(got["losses"]).all() and 0.0 <= got["test"]["accuracy"] <= 1.0
-
-
-def _fake_mesh():
-    return types.SimpleNamespace(shape={"data": 1, "node": 2}, axis_index=lambda a: 0,
-                                 device=torch.device("cpu"))
-
-
-def test_out_of_core_nc_on_a_mesh_still_raises():
-    edges, feats, labels, train, _ = _collapse_data()
-    model = TModel("NODE_CLASSIFICATION", TEncoderConfig((
-        (TL("FEATURE", output_dim=8),),
-        (TL("GNN", input_dim=8, output_dim=4, gnn_type="GRAPH_SAGE"),))), None,
-        loss_type="CROSS_ENTROPY")
-    with pytest.raises(NotImplementedError, match="ROADMAP A, item 4"):
-        PartitionBufferNCTrainer(model, edges, feats, labels, train, [TNbr("UNIFORM", 4)],
-                                 num_nodes=feats.shape[0], batch_size=40, num_partitions=4,
-                                 buffer_capacity=2, mesh=_fake_mesh(), device="cpu")

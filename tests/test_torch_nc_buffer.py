@@ -134,8 +134,9 @@ def pair(tiers=("features",), ordering="DISPERSED", opt="ADAM", seed=0, parts=6,
         ttr.emb_buffer.host_values[:] = np.asarray(jtr.emb_buffer.host_values)
         ttr.emb_buffer.host_state[:] = np.asarray(jtr.emb_buffer.host_state)
     keys = KeySchedule(seed)
-    ttr._batch_draws = lambda epoch, step: jax_draws(keys.k_s(epoch, step))
-    ttr._dropout_key = lambda epoch, step: JaxKey(jax.random.fold_in(keys.k_s(epoch, step), 99))
+    ttr._batch_draws = lambda epoch, step, data_index=0: jax_draws(keys.k_s(epoch, step))
+    ttr._dropout_key = lambda epoch, step, data_index=0: JaxKey(
+        jax.random.fold_in(keys.k_s(epoch, step), 99))
     ttr._eval_draws = lambda count: jax_draws(jax.random.fold_in(jax.random.key(3), count))
     # JAX's per-state losses: the state function's last output
     jtr.state_losses = []
@@ -306,12 +307,15 @@ def test_co_buffer_is_not_checkpointed():
 
 def test_nc_buffer_trainer_refuses():
     jmodel, tmodel = _models(("features",), "ADAM")
+    emb_model = _models(("features", "embedding"), "ADAM")[1]
     rng = np.random.default_rng(0)
     edges, feats, labels = _community_graph(rng, N, CLASSES, FD)
     kw = dict(num_nodes=N, device="cpu")
     nbr = [TNbr("UNIFORM", 3)] * 2
-    with pytest.raises(NotImplementedError, match="mesh"):
-        TTrainer(tmodel, edges, feats, labels, np.arange(10), nbr, mesh=object(), **kw)
+    # an EMBEDDING co-buffer on a mesh, as JAX refuses it (nc_buffer.py:79-80;
+    # tests/test_torch_mesh_nc_buffer.py holds both packages' refusals on a real mesh)
+    with pytest.raises(ValueError, match="embedding-table NC over the buffer is single-controller"):
+        TTrainer(emb_model, edges, feats, labels, np.arange(10), nbr, mesh=object(), **kw)
     with pytest.raises(ValueError, match="features and/or an embedding"):
         TTrainer(tmodel, edges, None, labels, np.arange(10), nbr, **kw)
     with pytest.raises(ValueError, match="neighbour config"):

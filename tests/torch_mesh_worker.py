@@ -418,6 +418,103 @@ def run_nc_manager(case):
             "collapse": trainer._fg_collapse is not None, "mesh": trainer.mesh.shape}
 
 
+def nc_buffer_model(case):
+    """The out-of-core case's port model: FEATURE, GraphSAGE MEAN with a
+    RELU, then GraphSAGE MEAN or (``gcn``) GCN; Adam."""
+    from marius_tpu_torch.nn.encoder import EncoderConfig
+    from marius_tpu_torch.nn.layers import LayerConfig as L
+    from marius_tpu_torch.nn.model import Model
+    from marius_tpu_torch.nn.optimizers import OptimizerConfig
+
+    f, c = case["features"].shape[1], case["classes"]
+    sage = dict(gnn_type="GRAPH_SAGE", aggregator="MEAN", bias=True)
+    last = (dict(gnn_type="GCN", bias=True) if case["gcn"] else sage)
+    stages = ((L("FEATURE", output_dim=f),),
+              (L("GNN", input_dim=f, output_dim=12, activation="RELU", **sage),),
+              (L("GNN", input_dim=12, output_dim=c, **last),))
+    return Model("NODE_CLASSIFICATION", EncoderConfig(stages), None,
+                 loss_type="CROSS_ENTROPY", loss_reduction=case["reduction"],
+                 dense_optimizer=OptimizerConfig("ADAM", learning_rate=0.01))
+
+
+def nc_buffer_trainer(case, mesh, model=None, **changes):
+    """The out-of-core case's trainer on ``mesh``, ``changes`` over its
+    keyword arguments."""
+    from marius_tpu_torch.data.samplers.neighbor import NeighborSamplingConfig
+    from marius_tpu_torch.train.nc_buffer import PartitionBufferNCTrainer
+
+    kw = dict(num_nodes=case["num_nodes"], batch_size=case["batch_size"],
+              num_partitions=case["parts"], buffer_capacity=case["capacity"],
+              ordering=case["ordering"], seed=0, mesh=mesh, device="cpu")
+    kw.update(changes)
+    return PartitionBufferNCTrainer(model or nc_buffer_model(case), case["edges"],
+                                    case["features"], case["labels"], case["train"],
+                                    [NeighborSamplingConfig(*c) for c in case["nbr"]], **kw)
+
+
+def run_nc_buffer(case, mesh):
+    """The out-of-core trainer on the mesh from JAX's initial state, this
+    data index's recorded draws replayed: per epoch the state losses, the
+    dense leaves, Adam's slots and step; then the evaluation of the split."""
+    from marius_tpu_torch.convert import train_state_from_jax
+    from marius_tpu_torch.nn.optimizers import tree_map
+    from marius_tpu_torch.parallel.mesh import DATA_AXIS
+
+    trainer = nc_buffer_trainer(case, mesh)
+    trainer.state = train_state_from_jax(case["jax_state"])
+    mine = case["draws"][mesh.axis_index(DATA_AXIS)]
+    trainer._batch_draws = lambda epoch, step, data_index=0: replayed_draws(mine[(epoch, step)])
+    evals = iter(case["eval_draws"])
+    trainer._eval_draws = lambda count: replayed_draws(next(evals))
+    out = []
+    for _ in range(case["epochs"]):
+        stats = trainer.train_epoch()
+        out.append({k: stats[k] for k in ("loss", "state_losses", "collectives_per_batch",
+                                          "batches_run", "max_batches")}
+                   | {"params": tree_map(lambda t: t.detach().numpy().copy(), trainer.params),
+                      "slots": tree_map(lambda t: t.numpy().copy(), trainer.opt_state.slots),
+                      "step": trainer.opt_state.step})
+    return {"epochs": out, "eval": trainer.evaluate_nodes(case["eval_nodes"]),
+            "hop_caps": trainer.hop_caps, "eval_caps": trainer._eval_caps}
+
+
+def run_nc_buffer_refusals(case, mesh):
+    """The messages of the trainer's two mesh refusals: an EMBEDDING
+    co-buffer, and a batch the data axis does not divide."""
+    from marius_tpu_torch.nn.encoder import EncoderConfig
+    from marius_tpu_torch.nn.layers import LayerConfig as L
+
+    out = {}
+    model = nc_buffer_model(case)
+    emb = dataclasses.replace(model, encoder=EncoderConfig(
+        ((L("FEATURE", output_dim=8), L("EMBEDDING", output_dim=4)),)
+        + model.encoder.stages[1:]))
+    for name, changes in (("embedding", {"model": emb}),
+                          ("batch", {"batch_size": case["batch_size"] + 1})):
+        try:
+            nc_buffer_trainer(case, mesh, **changes)
+        except ValueError as e:
+            out[name] = str(e)
+    return out
+
+
+def run_nc_buffer_manager(case):
+    """marius_train of a PARTITION_BUFFER NC config on this process group's
+    mesh (rank 0 writes the model), then marius_eval of that checkpoint."""
+    from marius_tpu_torch.config import load_config
+    from marius_tpu_torch.manager import marius_eval, marius_train
+
+    result = marius_train(load_config(case["raw"]), device="cpu")
+    trainer = result["runtime"].trainer
+    out = {"test": result["test"], "losses": [e["loss"] for e in result["epochs"]],
+           "collectives_per_batch": [e["collectives_per_batch"] for e in result["epochs"]],
+           "mesh": trainer.mesh.shape, "trainer": type(trainer).__name__,
+           "hop_caps": trainer.hop_caps}
+    torch.distributed.barrier()
+    out["eval"] = marius_eval(load_config(case["raw"]), device="cpu")["test"]
+    return out
+
+
 def ring_meshes(world):
     """The ring's meshes over ``world`` ranks, each with its ring axis:
     ``{data: 1, node: world}`` and ``{data: world, node: 1}``."""
@@ -640,6 +737,14 @@ def main(rank, world, init_file, cases, out_dir):
             elif case["kind"] == "nc":
                 results[name] = run_nc(case, make_mesh(case["mesh"][0], case["mesh"][1],
                                                        device="cpu", timeout=TIMEOUT))
+            elif case["kind"] == "nc_buffer":
+                results[name] = run_nc_buffer(case, make_mesh(*case["mesh"], device="cpu",
+                                                              timeout=TIMEOUT))
+            elif case["kind"] == "nc_buffer_refusals":
+                results[name] = run_nc_buffer_refusals(case, make_mesh(
+                    *case["mesh"], device="cpu", timeout=TIMEOUT))
+            elif case["kind"] == "nc_buffer_manager":
+                results[name] = run_nc_buffer_manager(case)
             elif case["kind"] == "nc_routes":
                 results[name] = run_nc_routes(case)
             elif case["kind"] == "nc_manager":
