@@ -1,0 +1,6 @@
+"""The gather_sum kernel's traced launches as a percent of their roofline."""
+from benchmark.harness import readers
+
+
+def read(ctx):
+    return readers.roofline(ctx, "gather_sum")
