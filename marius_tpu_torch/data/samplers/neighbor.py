@@ -37,6 +37,7 @@ from marius_tpu_torch.ops.unique import (
     prefix_unique_padded,
     unique_padded_auto,
 )
+from marius_tpu_torch.reporting.profiling import span
 
 Tensor = torch.Tensor
 
@@ -208,6 +209,18 @@ def sample_neighbor_batch(
     prefix (cap >= n), and sorted (cap < n, or graphs beyond the prefix
     bitmap limit: worst-case caps only, as a tight cap there truncates the
     sorted set)."""
+    with span("sample"):
+        return _sample_neighbor_batch(draws, graph, seeds, seed_mask, configs, hop_caps)
+
+
+def _sample_neighbor_batch(
+    draws: Draws,
+    graph: DeviceGraph,
+    seeds: Tensor,            # (B,) already deduplicated target nodes
+    seed_mask: Tensor,        # (B,) bool
+    configs: Sequence[NeighborSamplingConfig],  # one per GNN layer, outermost first
+    hop_caps: Sequence[int],  # len == num_layers + 1, innermost (B) to outermost
+) -> NeighborBatch:
     num_layers = len(configs)
     if len(hop_caps) != num_layers + 1:
         raise ValueError(f"{len(hop_caps)} hop caps for {num_layers} layers")

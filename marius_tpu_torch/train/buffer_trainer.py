@@ -81,6 +81,7 @@ host table, whole on every rank (``gathered_state``).
 from __future__ import annotations
 
 import concurrent.futures as cf
+import contextlib
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -131,6 +132,7 @@ from marius_tpu_torch.parallel.embedding_table import (
     gather_rows,
     sparse_adagrad_update_dense_accum,
 )
+from marius_tpu_torch.reporting.profiling import count, recording, span
 from marius_tpu_torch.storage.partition_buffer import (
     PartitionBuffer,
     ReadOnlyPartitionCache,
@@ -559,8 +561,10 @@ class PartitionBufferLPTrainer:
         slot_parts = torch.from_numpy(self.buffer.resident.astype(np.int64)).to(self.device)
         total = torch.zeros((), dtype=torch.float32, device=self.device)
         for i in range(nb):
-            total += self._batch_step(edges[i * b:(i + 1) * b], masks[i * b:(i + 1) * b],
-                                      first_step + i, slot_valid, slot_parts, graph)
+            with span("train.batch", (self.epoch, first_step + i)):
+                total += self._batch_step(edges[i * b:(i + 1) * b], masks[i * b:(i + 1) * b],
+                                          first_step + i, slot_valid, slot_parts, graph)
+                count("train.batches")
         self.opt_state = apply_zero_grad_steps(self.model.dense_optimizer, self.params,
                                                self.opt_state, max_batches - nb)
         return total
@@ -573,7 +577,18 @@ class PartitionBufferLPTrainer:
         seconds (the states that ran are exact: evictions and the flush land
         every update). ``final_flush=False`` skips the end-of-epoch writeback
         of the resident set, whose updates the next ``load`` then drops.
-        After a flush the buffer's device tensors are freed."""
+        After a flush the buffer's device tensors are freed. With
+        ``profile_states`` the epoch records its spans (without counting
+        synchronisations, which would add to the times), and each state's
+        ``state.prep``, ``state.swap`` and ``state.train`` durations (each
+        ending in a synchronisation) become ``last_state_timings``."""
+        with (recording(sync_debug=False) if self.profile_states
+              else contextlib.nullcontext()), \
+                span("train.epoch"):
+            return self._train_epoch(max_states, time_budget_s, final_flush)
+
+    def _train_epoch(self, max_states: Optional[int], time_budget_s: Optional[float],
+                     final_flush: bool) -> Dict[str, float]:
         t0 = time.perf_counter()
         states, assignment = self._plan_epoch()
         P = self.num_partitions
@@ -627,40 +642,42 @@ class PartitionBufferLPTrainer:
             submit = pool.submit if self.prefetching else (lambda f, *a: _Immediate(f, *a))
             fut = submit(prep, 0)
             for s_idx, st in enumerate(states):
-                t_s0 = time.perf_counter()
-                local, graph_upload = fut.result()
-                if s_idx + 1 < len(states):
-                    fut = submit(prep, s_idx + 1)
-                t_s1 = time.perf_counter()
-                self.buffer.swap_to_state(st)
-                if not np.array_equal(self.buffer.resident, layouts[s_idx]):
-                    raise RuntimeError("the buffer's slots differ from the planned layout")
-                if self.feature_cache is not None:
-                    # local ids must index both tiers alike
-                    self.feature_cache.mirror_layout(self.buffer.resident)
-                graph = (None if graph_upload is None
-                         else self._device_graph(graph_upload, max_graph_edges))
+                with span("state.prep") as prep_span:
+                    local, graph_upload = fut.result()
+                    if s_idx + 1 < len(states):
+                        fut = submit(prep, s_idx + 1)
+                with span("state.swap") as swap_span:
+                    self.buffer.swap_to_state(st)
+                    if not np.array_equal(self.buffer.resident, layouts[s_idx]):
+                        raise RuntimeError("the buffer's slots differ from the planned layout")
+                    if self.feature_cache is not None:
+                        # local ids must index both tiers alike
+                        self.feature_cache.mirror_layout(self.buffer.resident)
+                    graph = (None if graph_upload is None
+                             else self._device_graph(graph_upload, max_graph_edges))
+                    if self.profile_states:
+                        sync()   # the admits' copies land in the swap bucket
+                with span("state.train") as train_span:
+                    for col in (0, cols - 1):
+                        local[:, col] = native.global_to_local(
+                            local[:, col], self.buffer.part_to_slot, self.buffer.psize,
+                            self.buffer.buffer_rows)[0]
+                    losses.append(self._train_state(local, states_run * max_batches,
+                                                    max_batches, graph))
+                    edges_trained += len(local)
+                    batches_run += -(-len(local) // self.batch_size)
+                    states_run += 1
+                    if self.profile_states:
+                        sync()
                 if self.profile_states:
-                    sync()   # the admits' copies land in the swap bucket
-                t_s2 = time.perf_counter()
-                for col in (0, cols - 1):
-                    local[:, col] = native.global_to_local(
-                        local[:, col], self.buffer.part_to_slot, self.buffer.psize,
-                        self.buffer.buffer_rows)[0]
-                losses.append(self._train_state(local, states_run * max_batches, max_batches,
-                                                graph))
-                edges_trained += len(local)
-                batches_run += -(-len(local) // self.batch_size)
-                states_run += 1
-                if self.profile_states:
-                    sync()
-                    self.last_state_timings.append(
-                        (t_s1 - t_s0, t_s2 - t_s1, time.perf_counter() - t_s2))
+                    self.last_state_timings.append(tuple(
+                        s.duration_ns * 1e-9 for s in (prep_span, swap_span, train_span)))
                 if (max_states is not None and states_run >= max_states) or \
                         (time_budget_s is not None and time.perf_counter() - t0 > time_budget_s):
                     break
 
-        total_loss = float(torch.stack(losses).sum())   # the epoch's one read-back
+        with span("train.readback"):
+            total_loss = float(torch.stack(losses).sum())   # the epoch's one read-back
         if final_flush:
             self.buffer.flush()
             self.buffer.release()

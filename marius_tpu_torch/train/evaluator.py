@@ -72,6 +72,7 @@ from marius_tpu_torch.ops.edge_keys import (
 from marius_tpu_torch.parallel.embedding_table import gather_rows
 from marius_tpu_torch.parallel.mesh import gather_table, gather_table_to_host
 from marius_tpu_torch.reporting.metrics import compute_ranks, rank_statistics
+from marius_tpu_torch.reporting.profiling import count, span
 from marius_tpu_torch.reporting.reporters import LinkPredictionReporter
 from marius_tpu_torch.storage import transfer
 from marius_tpu_torch.train.graph_encoder import encode_all_nodes, encode_all_nodes_host
@@ -544,17 +545,22 @@ class LinkPredictionEvaluator:
                  for k in _STAT_NAMES}
         positions = torch.arange(self.batch_size, device=self.device)
         for idx, edges_b in self._batches():
-            mask_b = positions + idx * self.batch_size < self.num_edges
-            for ranks, _ in self._batch_directions(encoded, params, edges_b, idx):
-                s = rank_statistics(ranks, mask_b, HITS_KS)
-                stats = {k: stats[k] + s[k] for k in _STAT_NAMES}
-        return dict(zip(_STAT_NAMES, torch.stack([stats[k] for k in _STAT_NAMES]).tolist()))
+            with span("eval.batch"):
+                mask_b = positions + idx * self.batch_size < self.num_edges
+                for ranks, _ in self._batch_directions(encoded, params, edges_b, idx):
+                    s = rank_statistics(ranks, mask_b, HITS_KS)
+                    stats = {k: stats[k] + s[k] for k in _STAT_NAMES}
+                count("eval.batches")
+        with span("eval.readback"):
+            return dict(zip(_STAT_NAMES,
+                            torch.stack([stats[k] for k in _STAT_NAMES]).tolist()))
 
     def evaluate(self, state: TrainState, encoded: Optional[Tensor] = None) -> Dict[str, float]:
         t0 = time.perf_counter()
-        if encoded is None:
-            encoded = self._encode(state)
-        stats = self._rank_sums(encoded, state.params)
+        with span("eval.evaluate"):
+            if encoded is None:
+                encoded = self._encode(state)
+            stats = self._rank_sums(encoded, state.params)
         dt = time.perf_counter() - t0
         reporter = LinkPredictionReporter(HITS_KS)
         reporter.add_statistics(stats)

@@ -30,6 +30,7 @@ from marius_tpu_torch.nn.encoder import encoder_forward
 from marius_tpu_torch.nn.full_graph_encoder import full_graph_encoder_forward, prepare_full_graph
 from marius_tpu_torch.nn.model import Model
 from marius_tpu_torch.parallel.embedding_table import gather_rows
+from marius_tpu_torch.reporting.profiling import count, span
 
 Tensor = torch.Tensor
 
@@ -68,14 +69,19 @@ def encode_all_nodes(
     ids[:num_nodes] = torch.arange(num_nodes, device=dev)
     outs = []
     for i in range(nb):
-        seeds = ids[i * batch_size:(i + 1) * batch_size]
-        batch = sample_neighbor_batch(seeded_draws(ENCODE_SEED, i, dev), graph, seeds,
-                                      seeds < num_nodes, nbr_configs, caps)
-        outer = batch.node_ids[0]
-        emb = None if table_values is None else gather_rows(table_values, outer)
-        f = None if features is None else gather_rows(features, outer)
-        outs.append(encoder_forward(model.encoder, params["encoder"], emb, f, batch,
-                                    degrees=graph.degrees))
+        # one node tile: an evaluation batch
+        with span("eval.batch"):
+            seeds = ids[i * batch_size:(i + 1) * batch_size]
+            batch = sample_neighbor_batch(seeded_draws(ENCODE_SEED, i, dev), graph, seeds,
+                                          seeds < num_nodes, nbr_configs, caps)
+            outer = batch.node_ids[0]
+            with span("gather"):
+                emb = None if table_values is None else gather_rows(table_values, outer)
+                f = None if features is None else gather_rows(features, outer)
+            with span("forward"):
+                outs.append(encoder_forward(model.encoder, params["encoder"], emb, f, batch,
+                                            degrees=graph.degrees))
+            count("eval.batches")
     return torch.cat(outs)[:num_nodes]
 
 

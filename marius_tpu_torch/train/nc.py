@@ -137,6 +137,7 @@ from marius_tpu_torch.parallel.embedding_table import (
 )
 from marius_tpu_torch.parallel.mesh import DATA_AXIS
 from marius_tpu_torch.reporting.metrics import categorical_accuracy_statistics
+from marius_tpu_torch.reporting.profiling import count, span
 from marius_tpu_torch.reporting.reporters import NodeClassificationReporter
 from marius_tpu_torch.train.trainer import TrainState, resolve_device
 
@@ -363,8 +364,9 @@ class NodeClassificationTrainer:
         nb = sample_neighbor_batch(draws, self.graph, seeds, seed_mask, self.nbr_configs,
                                    hop_caps)
         outer = nb.node_ids[0]
-        feats = None if self.features is None else gather_rows(self.features, outer)
-        emb = None if table_values is None else gather_rows(table_values, outer)
+        with span("gather"):
+            feats = None if self.features is None else gather_rows(self.features, outer)
+            emb = None if table_values is None else gather_rows(table_values, outer)
         return nb, feats, emb
 
     def _sampled_logits(self, params, nb, feats, emb, train: bool) -> Tensor:
@@ -379,22 +381,26 @@ class NodeClassificationTrainer:
         table = state.table
         nb, feats, emb = self._encode_batch(None if table is None else table.values,
                                             self._batch_draws(), seeds, mask_b, self.hop_caps)
-        labels_b = self.labels[seeds.clamp(max=self.num_nodes)]
-        loss_mask = mask_b & nb.seed_mask
-        if emb is not None:
-            emb.requires_grad_(True)
-        logits = self._sampled_logits(state.params, nb, feats, emb, True)
-        loss = nc_batch_loss(model, logits, labels_b, loss_mask)
+        with span("forward"):
+            labels_b = self.labels[seeds.clamp(max=self.num_nodes)]
+            loss_mask = mask_b & nb.seed_mask
+            if emb is not None:
+                emb.requires_grad_(True)
+            logits = self._sampled_logits(state.params, nb, feats, emb, True)
+            loss = nc_batch_loss(model, logits, labels_b, loss_mask)
         leaves = tree_leaves(state.params)
-        grads = torch.autograd.grad(loss, leaves + ([emb] if emb is not None else []),
-                                    allow_unused=True)
+        with span("backward"):
+            grads = torch.autograd.grad(loss, leaves + ([emb] if emb is not None else []),
+                                        allow_unused=True)
         if emb is not None:
-            g_emb = grads[-1] if grads[-1] is not None else torch.zeros_like(emb)
-            sparse_adagrad_update(table, nb.node_ids[0], g_emb, model.sparse_lr)
-        dense = iter(grads[:len(leaves)])
-        _, state.opt_state = apply_optimizer(model.dense_optimizer, state.params,
-                                             state.opt_state,
-                                             tree_map(lambda _: next(dense), state.params))
+            with span("sparse_update"):
+                g_emb = grads[-1] if grads[-1] is not None else torch.zeros_like(emb)
+                sparse_adagrad_update(table, nb.node_ids[0], g_emb, model.sparse_lr)
+        with span("dense_update"):
+            dense = iter(grads[:len(leaves)])
+            _, state.opt_state = apply_optimizer(model.dense_optimizer, state.params,
+                                                 state.opt_state,
+                                                 tree_map(lambda _: next(dense), state.params))
         return loss.detach(), nb.overflow
 
     def _data_part(self, seeds: Tensor, mask_b: Tensor):
@@ -569,6 +575,10 @@ class NodeClassificationTrainer:
     # ---------------------------------------------------------------------------
 
     def train_epoch(self) -> Dict[str, float]:
+        with span("train.epoch"):
+            return self._train_epoch()
+
+    def _train_epoch(self) -> Dict[str, float]:
         t0 = time.perf_counter()
         nb, b = self.num_batches, self.batch_size
         perm = self._epoch_permutation(self.state.epoch // self.epochs_per_shuffle)
@@ -583,17 +593,22 @@ class NodeClassificationTrainer:
             step = (self._sampled_batch_step if self.mesh is None
                     else self._mesh_sampled_batch_step)
             for i in range(nb):
-                loss, ov = step(shuffled[i], masks[i])
-                total += loss
-                overflow += ov
+                with span("train.batch", (self.state.epoch, i)):
+                    loss, ov = step(shuffled[i], masks[i])
+                    total += loss
+                    overflow += ov
+                    count("train.batches")
         else:
             slots = (self._batch_slot_counts(shuffled, masks) if self._fg_seed_restrict
                      else [None] * nb)
             for i in range(nb):
-                total += self._batch_step(shuffled[i], masks[i], slots[i])
+                with span("train.batch", (self.state.epoch, i)):
+                    total += self._batch_step(shuffled[i], masks[i], slots[i])
+                    count("train.batches")
         self.state.epoch += 1
         # the epoch's one device-to-host read, both numbers at once
-        total_loss, truncated = torch.stack([total.double(), overflow.double()]).tolist()
+        with span("train.readback"):
+            total_loss, truncated = torch.stack([total.double(), overflow.double()]).tolist()
         truncated = int(truncated)
         if truncated:
             logging.getLogger("marius_tpu_torch").warning(
@@ -656,44 +671,57 @@ class NodeClassificationEvaluator:
         nodes = self.eval_nodes[:self.num_eval]
         if tr._ring_axis is not None:
             # this rank's rows of the sharded forward: the nodes it owns
-            rows, mine = tr._ring_seeds(nodes)
-            yield tr._ring_forward(state.params, False)[rows], nodes, mine
+            with span("eval.batch"):
+                rows, mine = tr._ring_seeds(nodes)
+                yield tr._ring_forward(state.params, False)[rows], nodes, mine
+                count("eval.batches")
             return
         if tr.full_graph is not None:
-            rows = nodes.clamp(max=tr.num_nodes - 1)
-            if tr._fg_collapse is not None:
-                logits = tr._fg_collapse.logits(state.params["encoder"], rows)
-            else:
-                logits = full_graph_encoder_forward(
-                    tr.model.encoder, state.params["encoder"],
-                    None if state.table is None else state.table.values, tr._all_features(),
-                    tr.full_graph, ops=tr._fg_ops)[rows]
-            yield logits, nodes, None
+            with span("eval.batch"):
+                rows = nodes.clamp(max=tr.num_nodes - 1)
+                if tr._fg_collapse is not None:
+                    logits = tr._fg_collapse.logits(state.params["encoder"], rows)
+                else:
+                    logits = full_graph_encoder_forward(
+                        tr.model.encoder, state.params["encoder"],
+                        None if state.table is None else state.table.values,
+                        tr._all_features(), tr.full_graph, ops=tr._fg_ops)[rows]
+                yield logits, nodes, None
+                count("eval.batches")
             return
         table_values = state.table.values if state.table is not None else None
         b = self.batch_size
         valid = torch.arange(self.num_batches * b, device=tr.device) < self.num_eval
         for i in range(self.num_batches):
-            seeds, mask = self.eval_nodes[i * b:(i + 1) * b], valid[i * b:(i + 1) * b]
-            nb, feats, emb = tr._encode_batch(table_values, self._batch_draws(i), seeds, mask,
-                                              self.hop_caps)
-            yield tr._sampled_logits(state.params, nb, feats, emb, False), seeds, \
-                mask & nb.seed_mask
+            # the span stays open while the caller scores the batch
+            with span("eval.batch"):
+                seeds, mask = self.eval_nodes[i * b:(i + 1) * b], valid[i * b:(i + 1) * b]
+                nb, feats, emb = tr._encode_batch(table_values, self._batch_draws(i), seeds,
+                                                  mask, self.hop_caps)
+                with span("forward"):
+                    logits = tr._sampled_logits(state.params, nb, feats, emb, False)
+                yield logits, seeds, mask & nb.seed_mask
+                count("eval.batches")
 
     def evaluate(self, state: TrainState) -> Dict[str, float]:
         """{"num_evaluated", "accuracy"}, the JAX evaluator's keys."""
+        with span("eval.evaluate"):
+            return self._evaluate(state)
+
+    def _evaluate(self, state: TrainState) -> Dict[str, float]:
         tr = self.trainer
         correct = torch.zeros((), dtype=torch.float32, device=tr.device)
-        count = torch.zeros((), dtype=torch.float32, device=tr.device)
+        total = torch.zeros((), dtype=torch.float32, device=tr.device)
         for logits, seeds, mask in self._logits(state):
             stats = categorical_accuracy_statistics(
                 logits, tr.labels[seeds.clamp(max=tr.num_nodes)], mask)
             correct += stats["correct"]
-            count += stats["count"]
-        both = torch.stack([correct, count])
+            total += stats["count"]
+        both = torch.stack([correct, total])
         if tr._ring_axis is not None:
             tr.mesh.all_reduce(both, tr._ring_axis)
-        c, n = both.tolist()
+        with span("eval.readback"):
+            c, n = both.tolist()
         reporter = NodeClassificationReporter()
         reporter.add_statistics({"correct": c, "count": n})
         reporter.report()

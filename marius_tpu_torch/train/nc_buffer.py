@@ -62,6 +62,7 @@ model scores as one process's.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Dict, List, Optional, Sequence
 
@@ -93,6 +94,7 @@ from marius_tpu_torch.parallel.collectives import sum_over_data
 from marius_tpu_torch.parallel.embedding_table import gather_rows
 from marius_tpu_torch.parallel.mesh import DATA_AXIS
 from marius_tpu_torch.reporting.metrics import categorical_accuracy_statistics
+from marius_tpu_torch.reporting.profiling import count, recording, span
 from marius_tpu_torch.reporting.reporters import NodeClassificationReporter
 from marius_tpu_torch.storage.partition_buffer import (
     PartitionBuffer,
@@ -346,6 +348,17 @@ class PartitionBufferNCTrainer:
             torch.cuda.synchronize(self.device)
 
     def train_epoch(self) -> Dict[str, float]:
+        """One epoch over the buffer's states. With ``profile_states`` the
+        epoch records its spans (without counting synchronisations, which
+        would add to the times), and each state's ``state.swap``,
+        ``state.graph`` and ``state.train`` durations (each ending in a
+        synchronisation) become ``last_state_timings``."""
+        with (recording(sync_debug=False) if self.profile_states
+              else contextlib.nullcontext()), \
+                span("train.epoch"):
+            return self._train_epoch()
+
+    def _train_epoch(self) -> Dict[str, float]:
         t0 = time.perf_counter()
         states = self._plan_epoch()
         rng = np.random.default_rng(self.seed * 131 + self.epoch // self.epochs_per_shuffle)
@@ -360,50 +373,54 @@ class PartitionBufferNCTrainer:
         collectives = 0 if self.mesh is None else self.mesh.collectives
         self.last_state_timings = []
         for s_idx, st in enumerate(states):
-            t_s0 = time.perf_counter()
-            self._swap_state(st)
+            with span("state.swap") as swap_span:
+                self._swap_state(st)
+                if self.profile_states:
+                    self._sync()
+            with span("state.graph") as graph_span:
+                graph = self._state_graph(max_edges)
+                if self.profile_states:
+                    self._sync()
+            with span("state.train") as train_span:
+                seeds_g = (np.concatenate([self.train_by_part[p] for p in st]) if len(st)
+                           else np.zeros(0, np.int32))
+                rng.shuffle(seeds_g)
+                seeds, labels = self._local_seeds(seeds_g)
+                n = len(seeds_g)
+                # the batches that hold a valid seed, counted over the whole batch
+                # (equal on every rank of a mesh)
+                nb = -(-n // b)
+                pad = nb * b - n
+                seeds = torch.cat([seeds, seeds.new_full((pad,), fill)])
+                labels = torch.cat([labels, labels.new_zeros(pad)])
+                masks = torch.arange(nb * b, device=self.device) < n
+                state_loss = torch.zeros((), dtype=torch.float32, device=self.device)
+                for i in range(nb):
+                    step = s_idx * max_batches + i
+                    sl = slice(i * b, (i + 1) * b)
+                    with span("train.batch", (self.epoch, step)):
+                        loss, ov = self._batch_step(
+                            graph, seeds[sl], masks[sl], labels[sl],
+                            self._batch_draws(self.epoch, step, self._data_index),
+                            self._dropout_key(self.epoch, step, self._data_index))
+                        state_loss += loss
+                        overflow += ov
+                        count("train.batches")
+                state_losses.append(state_loss)
+                # the padded batches: zero gradients, the dense optimizer still steps
+                self.opt_state = apply_zero_grad_steps(self.model.dense_optimizer, self.params,
+                                                       self.opt_state, max_batches - nb)
+                batches_run += nb
+                del graph
+                if self.profile_states:
+                    self._sync()
             if self.profile_states:
-                self._sync()
-            t_s1 = time.perf_counter()
-            graph = self._state_graph(max_edges)
-            if self.profile_states:
-                self._sync()
-            t_s2 = time.perf_counter()
-            seeds_g = (np.concatenate([self.train_by_part[p] for p in st]) if len(st)
-                       else np.zeros(0, np.int32))
-            rng.shuffle(seeds_g)
-            seeds, labels = self._local_seeds(seeds_g)
-            n = len(seeds_g)
-            # the batches that hold a valid seed, counted over the whole batch
-            # (equal on every rank of a mesh)
-            nb = -(-n // b)
-            pad = nb * b - n
-            seeds = torch.cat([seeds, seeds.new_full((pad,), fill)])
-            labels = torch.cat([labels, labels.new_zeros(pad)])
-            masks = torch.arange(nb * b, device=self.device) < n
-            state_loss = torch.zeros((), dtype=torch.float32, device=self.device)
-            for i in range(nb):
-                step = s_idx * max_batches + i
-                sl = slice(i * b, (i + 1) * b)
-                loss, ov = self._batch_step(
-                    graph, seeds[sl], masks[sl], labels[sl],
-                    self._batch_draws(self.epoch, step, self._data_index),
-                    self._dropout_key(self.epoch, step, self._data_index))
-                state_loss += loss
-                overflow += ov
-            state_losses.append(state_loss)
-            # the padded batches: zero gradients, the dense optimizer still steps
-            self.opt_state = apply_zero_grad_steps(self.model.dense_optimizer, self.params,
-                                                   self.opt_state, max_batches - nb)
-            batches_run += nb
-            del graph
-            if self.profile_states:
-                self._sync()
-                self.last_state_timings.append(
-                    (t_s1 - t_s0, t_s2 - t_s1, time.perf_counter() - t_s2))
+                self.last_state_timings.append(tuple(
+                    s.duration_ns * 1e-9 for s in (swap_span, graph_span, train_span)))
         # the epoch's one device-to-host read
-        *per_state, truncated = torch.stack(
-            [l.double() for l in state_losses] + [overflow.double()]).tolist()
+        with span("train.readback"):
+            *per_state, truncated = torch.stack(
+                [l.double() for l in state_losses] + [overflow.double()]).tolist()
         self.epoch += 1
         dt = time.perf_counter() - t0
         out = {

@@ -2,9 +2,8 @@
 
 ``op_breakdown`` reads the same trace layout (``*.trace.json.gz`` anywhere
 under the log directory) and gives the same list from one hand-written
-trace; ``EpochTimer`` is the same arithmetic; ``trace(device="cpu")`` writes
-a torch profiler trace that ``op_breakdown`` reads, and ``trace()`` needs a
-card.
+trace; ``trace(device="cpu")`` writes a torch profiler trace that
+``op_breakdown`` reads, and ``trace()`` needs a card.
 """
 
 import gzip
@@ -55,23 +54,6 @@ def test_op_breakdown_by_category(traces):
         assert 0 < r["total_us"] <= everything[r["op"]]
     assert sum(r["total_us"] for r in kernels) == sum(
         1.5 * i + 0.25 for i in range(1, 30, 2)) + 3.0
-
-
-def test_epoch_timer_matches_jax(monkeypatch):
-    clock = iter([10.0, 12.5, 20.0, 20.0, 30.0, 31.0, 40.0, 44.0] * 2)
-    monkeypatch.setattr(jprof.time, "perf_counter", lambda: next(clock))
-    results = []
-    for mod in (jprof, tprof):
-        timer = mod.EpochTimer("nodes")
-        assert timer.summary() == {}
-        stats = []
-        for n in (1000, 500, 300, 800):
-            timer.start()
-            stats.append(timer.stop(n))
-        results.append((stats, timer.summary()))
-    assert results[0] == results[1]
-    assert results[1][1] == {"num_epochs": 4, "mean_epoch_time_s": (2.5 + 0 + 1 + 4) / 4,
-                             "best_epoch_time_s": 0.0, "best_nodes_per_sec": 400.0}
 
 
 def test_trace_on_the_cpu_writes_a_trace_op_breakdown_reads(tmp_path, monkeypatch):
