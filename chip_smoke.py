@@ -49,10 +49,18 @@ counters set to 0 just before it and read just after:
    the valid accuracy; the test accuracy and peak device memory), then
    ``marius_eval``, which must reproduce the test metrics exactly. Training
    and each evaluation are counted apart: the row gather once per batch, the
-   gather-sum three times per batch, Adagrad never. ``sampled_shapes`` then
+   gather-sum three times per batch, Adagrad never; the sampler's hop kernels
+   must have run. ``sampled_shapes`` then
    times both kernels at one real training batch's shapes (the outer hop's
    169,344-row feature gather, the first layer's 65,536 x 64-slot neighbour
-   sum and its index_add_ backward) and ``compare_sampled_nc_with_cpu`` holds
+   sum and its index_add_ backward); ``sampler_shapes`` holds the neighbour
+   sampler's kernels (``csrc/sampler.cu``) against its plain version bit for
+   bit over every field of the batch at each of ``SAMPLER_CASES`` (the NC
+   cell's batch, a tight cap with overflow, padded seeds, DROPOUT, ALL with
+   relations, one direction, the GNN LP hop, the sorted branch), times both,
+   times each kernel at the NC cell's shapes under the profiler, and counts
+   no host synchronisation inside ``sample`` for the sampler alone and for
+   one NC training batch; ``compare_sampled_nc_with_cpu`` holds
    small sampled runs, with and without an EMBEDDING stage (the Adagrad
    kernel), against the CPU.
 
@@ -2066,6 +2074,7 @@ def nc_sampled(card: str, data, tag: str = "nc_sampled", edit=None,
     from marius_tpu_torch.manager import marius_eval, marius_train
     from marius_tpu_torch.ops.cuda import adagrad, gather
     from marius_tpu_torch.ops.cuda import nbr_sum as ns
+    from marius_tpu_torch.ops.cuda import sampler as sampler_kernels
     from marius_tpu_torch.train import nc as nc_mod
 
     config = Path(__file__).resolve().parent / "examples" / "configuration" / "ogbn_arxiv.yaml"
@@ -2094,9 +2103,10 @@ def nc_sampled(card: str, data, tag: str = "nc_sampled", edit=None,
         nc_mod.NodeClassificationEvaluator.evaluate = counted
         try:
             torch.cuda.reset_peak_memory_stats()
-            gather.launches = ns.launches = adagrad.launches = 0
+            gather.launches = ns.launches = adagrad.launches = sampler_kernels.launches = 0
             out = marius_train(cfg)   # device=None: the GPU
             totals = (gather.launches, ns.launches, adagrad.launches)
+            hops = sampler_kernels.launches
             peak = torch.cuda.max_memory_allocated()
             train_evals = list(evals)
             gather.launches = ns.launches = adagrad.launches = 0
@@ -2152,11 +2162,15 @@ def nc_sampled(card: str, data, tag: str = "nc_sampled", edit=None,
                                  f"and gather_sum {s} times (expected 1 and 3 per batch)")
     if reload_totals[2] != 0 or len(evals) != len(train_evals) + 1:
         raise AssertionError("marius_eval must evaluate once, without Adagrad")
+    if hops < train_batches:
+        raise AssertionError(f"the sampler's kernels launched {hops} times for {train_batches} "
+                             "training batches")
     rows = {f"{tag} train": train_rows, f"{tag} eval": eval_batches,
             f"{tag} marius_eval": reload_totals[0]}
     sums = {f"{tag} train": train_sums, f"{tag} eval": 3 * eval_batches,
             f"{tag} marius_eval": reload_totals[1]}
-    print(f"{tag} launches: gather_rows {rows}, gather_sum {sums}, Adagrad 0 "
+    print(f"{tag} launches: gather_rows {rows}, gather_sum {sums}, Adagrad 0, the sampler's "
+          f"hop kernels {hops} in marius_train "
           f"({trainer.num_batches} train batches per epoch, {len(train_evals)} valid "
           f"evaluations of {train_evals[0][0]} batches, test {evals[-1][0]} batches)", flush=True)
     return {"gather_rows": rows, "gather_sum": sums, "trainer": trainer, "test": test,
@@ -2255,6 +2269,266 @@ def time_layer_sum(adj, n_x: int, d: int, rates, dev, dtype=torch.float32) -> di
             "library_ms": lib_ms,
             "backward_index_add_ms": time_ms(
                 lambda: torch.autograd.grad(y, xg, gy, retain_graph=True), reps=5, samples=5)}
+
+
+# The neighbour sampler's kernels (sampler_shapes) against its plain version:
+# name -> (what it exercises, graph, seeds (count, padded, masked real ones),
+# frontier id dtype, configs outermost first as (kind, fanout, rate, in, out),
+# hop caps innermost first)
+SAMPLER_CASES = {
+    "nc_cell": ("arxiv_sage.sampled's batch", "arxiv", (1000, 0, 0), torch.int64,
+                [("UNIFORM", 32, 0.0, True, True)] * 3, (1000, 16384, 65536, ARXIV_NODES + 1)),
+    "tight_cap": ("caps below the hops' ids: overflow", "arxiv", (1000, 0, 0), torch.int64,
+                  [("UNIFORM", 32, 0.0, True, True)] * 2, (1000, 8192, 16384)),
+    "padded_seeds": ("300 padding seeds and 100 masked real ones: holes in the frontier",
+                     "arxiv", (1000, 300, 100), torch.int64,
+                     [("UNIFORM", 32, 0.0, True, True)] * 3,
+                     (1000, 16384, 65536, ARXIV_NODES + 1)),
+    "dropout": ("DROPOUT 16 at rate 0.7, every 7th uniform at float32(0.7)", "arxiv",
+                (1000, 0, 0), torch.int64, [("DROPOUT", 16, 0.7, True, True)] * 2,
+                (1000, 8192, 65536)),
+    "all_rels": ("ALL 64 over 8 relations (RGCN's inputs)", "arxiv_rels", (1000, 0, 0),
+                 torch.int64, [("ALL", 64, 0.0, True, True)] * 2,
+                 (1000, 65536, ARXIV_NODES + 1)),
+    "one_direction": ("outgoing only, then incoming only; int32 seeds", "arxiv", (1000, 50, 0),
+                      torch.int32, [("UNIFORM", 20, 0.0, True, False),
+                                    ("UNIFORM", 20, 0.0, False, True)], (1000, 16384, 65536)),
+    "lp_gs1": ("fb15k237_gs1's hop: 12,000 unique ids, saturated, UNIFORM 10", "fb15k",
+               (12000, 0, 0), torch.int64, [("UNIFORM", 10, 0.0, True, True)],
+               (12000, NUM_NODES + 1)),
+    "sorted": ("caps below the frontier: the sorted branch (sort)", "arxiv", (2000, 0, 0),
+               torch.int64, [("UNIFORM", 8, 0.0, True, True)] * 2, (2000, 1500, 1200)),
+    "sorted_bitmap": ("caps below the frontier: the sorted branch (bitmap)", "arxiv",
+                      (20000, 0, 0), torch.int64, [("UNIFORM", 8, 0.0, True, True)],
+                      (20000, 15000)),
+}
+SAMPLER_DROPOUT_STEP = 7
+
+
+def sampler_graphs(dev) -> dict:
+    """The graphs of SAMPLER_CASES on ``dev``: chip_smoke's arxiv-shaped
+    graph, the same with 8 relations, and FB15K-237's shape (uniform edges,
+    237 relations)."""
+    from marius_tpu_torch.data.graph import build_device_graph
+
+    e = arxiv_edges()
+    rels = np.random.default_rng(1).integers(0, 8, len(e)).astype(np.int32)
+    return {"arxiv": (build_device_graph(e, ARXIV_NODES, device=dev), ARXIV_NODES),
+            "arxiv_rels": (build_device_graph(np.stack([e[:, 0], rels, e[:, 1]], 1),
+                                              ARXIV_NODES, 8, device=dev), ARXIV_NODES),
+            "fb15k": (build_device_graph(synthetic_edges(0, NUM_NODES, NUM_RELS, NUM_EDGES),
+                                         NUM_NODES, NUM_RELS, device=dev), NUM_NODES)}
+
+
+def sampler_case(name: str, graphs: dict, seed: int = 0):
+    """(graph, seeds, seed mask, configs, hop caps, draws) of SAMPLER_CASES[name]
+    on the graphs' device. Seeds are distinct, padded with num_nodes where
+    masked off (LP's are sorted, as unique_padded gives them); the draws come
+    from a generator seeded with ``seed`` on that device."""
+    from marius_tpu_torch.data.samplers.neighbor import NeighborSamplingConfig, generator_draws
+
+    _, gname, (b, padded, masked), dtype, spec, caps = SAMPLER_CASES[name]
+    graph, n = graphs[gname]
+    dev = graph.in_offsets.device
+    rng = np.random.default_rng(seed)
+    ids = rng.permutation(n)[:b]
+    if name == "lp_gs1":
+        ids = np.sort(rng.permutation(n)[:b - 500])
+        ids = np.concatenate([ids, np.full(500, n)])
+    mask = np.ones(b, bool)
+    mask[b - padded:] = False
+    ids[b - padded:] = n
+    mask[rng.choice(b - padded, masked, replace=False)] = False
+    mask &= ids < n
+    draws = generator_draws(torch.Generator(device=dev).manual_seed(seed))
+    rate = spec[0][2]
+
+    def boundary_draws(depth, direction, count, fanout, dropout):
+        rand, uni = draws(depth, direction, count, fanout, dropout)
+        if uni is not None:
+            uni.view(-1)[::SAMPLER_DROPOUT_STEP] = float(np.float32(rate))
+        return rand, uni
+
+    return (graph, torch.as_tensor(ids, dtype=dtype, device=dev),
+            torch.as_tensor(mask, device=dev), [NeighborSamplingConfig(*s) for s in spec],
+            caps, boundary_draws if spec[0][0] == "DROPOUT" else draws)
+
+
+def recorded_draws(draws):
+    """(recording draws, replaying draws): the second hands back, in turn and
+    round again, what the first returned."""
+    calls = []
+    turn = [0]
+
+    def record(*a):
+        calls.append(draws(*a))
+        return calls[-1]
+
+    def replay(*a):
+        out = calls[turn[0] % len(calls)]
+        turn[0] += 1
+        return out
+
+    return record, replay
+
+
+def batch_mismatch(a, b) -> list:
+    """The fields of two NeighborBatches that differ in presence, dtype, shape
+    or any element."""
+    bad = []
+
+    def same(what, x, y):
+        if (x is None) != (y is None):
+            bad.append(f"{what}: None against a tensor")
+        elif x is not None and (x.dtype != y.dtype or x.shape != y.shape
+                                or not torch.equal(x, y)):
+            bad.append(f"{what}: {x.dtype} {tuple(x.shape)} against {y.dtype} {tuple(y.shape)}")
+
+    for h, (x, y) in enumerate(zip(a.node_ids, b.node_ids)):
+        same(f"node_ids[{h}]", x, y)
+    for h, (x, y) in enumerate(zip(a.node_masks, b.node_masks)):
+        same(f"node_masks[{h}]", x, y)
+    for h, (x, y) in enumerate(zip(a.layers, b.layers)):
+        for f in ("self_idx", "in_nbr_idx", "in_mask", "out_nbr_idx", "out_mask", "node_mask",
+                  "in_rel", "out_rel"):
+            same(f"layers[{h}].{f}", getattr(x, f), getattr(y, f))
+    same("overflow", a.overflow, b.overflow)
+    if len(a.node_ids) != len(b.node_ids) or len(a.layers) != len(b.layers):
+        bad.append("hop counts differ")
+    return bad
+
+
+def sampler_hop_bytes(n: int, fan: int, used: int, id_bytes: int, cap: int, width: int,
+                      mode: str, rels: bool) -> dict:
+    """Dense bytes each kernel of one hop must read or write once (the scattered
+    marks and new-id writes are left out, so these are lower bounds): frontier
+    ids and masks, two offsets a node and direction, a draw and a column a
+    slot, the (2, n, F) indices and masks out (and relations), the per-node
+    and next-hop-set outputs; for a prefix hop the id-space arrays (positions,
+    marks, ranks: 4 bytes an id each) as each kernel reads or writes them."""
+    slots = used * n * fan
+    hop = (n * (id_bytes + 1) + used * n * 8 + slots * 8 + 2 * n * fan * (5 + 4 * rels)
+           + n * 4)
+    if mode == "saturated":
+        return {"hop": hop + cap * 5}
+    return {"hop": hop + cap * id_bytes + n * 4,
+            "rank": width * 12,
+            "totals": n * 5 + 8 * (-(-width // 4096)),
+            "place": width * 12 + n * 4,
+            "map": slots * 10 + width * 8 + cap * (id_bytes + 1)}
+
+
+def sampler_shapes(card: str, trainer=None) -> dict:
+    """The sampler's kernel path against its plain version on the card, bit
+    for bit over every field of the NeighborBatch (dtypes included), at each
+    of SAMPLER_CASES, with the same draws; both timed (device ms a call from
+    CUDA events behind a sleep kernel, and host ms a call). At the NC cell's
+    case, each kernel's device time a launch under torch.profiler beside its
+    dense bytes; then the sampler under ``recording()`` counts no host
+    synchronisation inside its ``sample`` span, as does one NC training
+    batch of ``trainer`` where given."""
+    from marius_tpu_torch.data.samplers.neighbor import (
+        sample_neighbor_batch,
+        sample_neighbor_batch_plain,
+    )
+    from marius_tpu_torch.ops.cuda import sampler as sampler_kernels
+    from marius_tpu_torch.reporting import profiling
+
+    dev = torch.device("cuda")
+    graphs = sampler_graphs(dev)
+    out = {}
+    for name in SAMPLER_CASES:
+        graph, seeds, mask, cfgs, caps, draws = sampler_case(name, graphs)
+        record, replay = recorded_draws(draws)
+        before = sampler_kernels.launches
+        got = sample_neighbor_batch(record, graph, seeds, mask, cfgs, caps)
+        launches = sampler_kernels.launches - before
+        want = sample_neighbor_batch_plain(replay, graph, seeds, mask, cfgs, caps)
+        torch.cuda.synchronize()
+        bad = batch_mismatch(got, want)
+        if bad:
+            raise AssertionError(f"sampler {name}: the kernels differ from the plain version: "
+                                 + "; ".join(bad))
+        timing = {}
+        for path, fn in (("kernels", sample_neighbor_batch), ("plain", sample_neighbor_batch_plain)):
+            call = (lambda fn=fn: fn(replay, graph, seeds, mask, cfgs, caps))
+            timing[f"{path}_ms"] = time_ms(call, reps=10, samples=5)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                call()
+            timing[f"{path}_host_ms"] = (time.perf_counter() - t0) / 10 * 1e3
+            torch.cuda.synchronize()
+        out[name] = {"overflow": int(got.overflow), "launches": launches, **timing}
+        print(f"sampler, {name} ({SAMPLER_CASES[name][0]}): bit for bit over every field; "
+              f"overflow {int(got.overflow)}; kernel launches {launches}; kernels "
+              f"{timing['kernels_ms']:.3f} ms (host {timing['kernels_host_ms']:.3f} ms) a batch, "
+              f"plain {timing['plain_ms']:.3f} ms (host {timing['plain_host_ms']:.3f} ms)  "
+              f"[{card}]", flush=True)
+
+    # each kernel at the NC cell's shapes, under the profiler
+    graph, seeds, mask, cfgs, caps, draws = sampler_case("nc_cell", graphs)
+    record, replay = recorded_draws(draws)
+    sample_neighbor_batch(record, graph, seeds, mask, cfgs, caps)
+    torch.cuda.synchronize()
+    reps = 20
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            sample_neighbor_batch(replay, graph, seeds, mask, cfgs, caps)
+        torch.cuda.synchronize()
+    # each kernel's launches in batch order: launch i of a batch is hop i of that kernel
+    names = ("sampler_hop_kernel", "sampler_rank_kernel", "sampler_totals_kernel",
+             "sampler_place_kernel", "sampler_map_kernel", "Memset")
+    runs = {k: [] for k in names}
+    device_ops = 0
+    for e in sorted(prof.events(), key=lambda e: e.time_range.start):
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        device_ops += 1
+        for k in names:
+            if k in e.name:
+                runs[k].append(e.time_range.elapsed_us())
+    idb = seeds.element_size()
+    width = ARXIV_NODES + 1
+    bytes_by_hop = [sampler_hop_bytes(1000, 32, 2, idb, 16384, width, "prefix", False),
+                    sampler_hop_bytes(16384, 32, 2, idb, 65536, width, "prefix", False),
+                    sampler_hop_bytes(65536, 32, 2, idb, width, width, "saturated", False)]
+    rates = card_rates(torch.cuda.get_device_name(0))
+    kernels = {}
+    for k, times in runs.items():
+        per_batch = len(times) // reps
+        if not per_batch:
+            continue
+        for i in range(per_batch):
+            us = float(np.median(times[i::per_batch]))
+            nbytes = bytes_by_hop[i].get(k.split("_")[1]) if k != "Memset" else None
+            kernels[f"{k}[{i}]"] = us
+            line = f"sampler, nc_cell {k} launch {i} of {per_batch} a batch: {us:.2f} us"
+            if nbytes:
+                line += (f"; dense bytes {nbytes / 1e6:.3f} MB, bound "
+                         f"{nbytes / rates[0] * 1e6:.2f} us")
+            print(line + f"  [{card}]", flush=True)
+    print(f"sampler, nc_cell: {device_ops / reps:.1f} device operations a batch (the draws "
+          f"replayed, so none drawn)  [{card}]", flush=True)
+    out["nc_cell"]["kernels_us"] = kernels
+
+    # no host synchronisation inside the sample span
+    with profiling.recording() as log:
+        sample_neighbor_batch(draws, graph, seeds, mask, cfgs, caps)
+        if trainer is not None:
+            b = trainer.batch_size
+            trainer._sampled_batch_step(trainer.train_nodes[:b],
+                                        torch.ones(b, dtype=torch.bool, device=dev))
+        torch.cuda.synchronize()
+    spans = [s for s in log.spans if s.name == "sample"]
+    syncs = sum((s.counts or {}).get("host_syncs", 0) for s in spans)
+    print(f"sampler: {len(spans)} sample spans under recording(), {syncs} host syncs inside "
+          f"them (the sampler alone{', then one NC training batch' if trainer else ''})  "
+          f"[{card}]", flush=True)
+    if syncs:
+        raise AssertionError(f"the sampler synchronised with the host {syncs} times")
+    return out
 
 
 def compare_sampled_nc_with_cpu():
@@ -7063,7 +7337,10 @@ def main() -> int:
     nc_counts = train_nc(card, adj, nc)
     compare_nc_with_cpu()
     sampled = nc_sampled(card, nc)
-    shapes = sampled_shapes(sampled.pop("trainer"), rates, card)
+    nc_trainer = sampled.pop("trainer")
+    shapes = sampled_shapes(nc_trainer, rates, card)
+    sampler_shapes(card, nc_trainer)
+    del nc_trainer
     kernels[0]["sampled_nc_outer"] = shapes["gather_rows"]
     kernels[2]["sampled_layer0"] = shapes["gather_sum"]
     torch.cuda.empty_cache()

@@ -32,6 +32,7 @@ import torch
 
 from marius_tpu_torch.data.batch import LayerAdjacency, NeighborBatch
 from marius_tpu_torch.data.graph import DeviceGraph
+from marius_tpu_torch.ops.cuda import sampler as sampler_kernels
 from marius_tpu_torch.ops.unique import (
     PREFIX_BITMAP_LIMIT,
     prefix_unique_padded,
@@ -208,12 +209,76 @@ def sample_neighbor_batch(
     (cap == num_nodes + 1: the hop set is every id, no dedup), frontier
     prefix (cap >= n), and sorted (cap < n, or graphs beyond the prefix
     bitmap limit: worst-case caps only, as a tight cap there truncates the
-    sorted set)."""
+    sorted set).
+
+    On CPU tensors this is :func:`sample_neighbor_batch_plain`; on CUDA
+    tensors each hop runs as the kernels of ``csrc/sampler.cu``
+    (``ops/cuda/sampler.py``), which give the same batch bit for bit for the
+    same draws and make no host synchronisation."""
     with span("sample"):
-        return _sample_neighbor_batch(draws, graph, seeds, seed_mask, configs, hop_caps)
+        if seeds.device.type == "cpu":
+            return sample_neighbor_batch_plain(draws, graph, seeds, seed_mask, configs, hop_caps)
+        return _sample_neighbor_batch_kernels(draws, graph, seeds, seed_mask, configs, hop_caps)
 
 
-def _sample_neighbor_batch(
+def _check_caps(configs, hop_caps) -> None:
+    if len(hop_caps) != len(configs) + 1:
+        raise ValueError(f"{len(hop_caps)} hop caps for {len(configs)} layers")
+
+
+def _sample_neighbor_batch_kernels(draws: Draws, graph: DeviceGraph, seeds: Tensor,
+                                   seed_mask: Tensor, configs, hop_caps) -> NeighborBatch:
+    """The CUDA path: one :func:`~marius_tpu_torch.ops.cuda.sampler.sample_hop`
+    a hop, the draws taken in the plain version's order."""
+    _check_caps(configs, hop_caps)
+    fill = graph.num_nodes
+    use_prefix = fill <= PREFIX_BITMAP_LIMIT
+    ids_per_hop, masks_per_hop = [seeds], [seed_mask]
+    layers: List[LayerAdjacency] = []
+    overflow = torch.empty((), dtype=torch.int32, device=seeds.device)
+    if not configs:
+        overflow.zero_()
+    cur_ids, cur_mask = seeds, seed_mask
+    for depth, cfg in enumerate(reversed(list(configs))):
+        n, fan = cur_ids.shape[0], cfg.max_neighbors
+        kind = cfg.sampling_type.upper()
+        used = (cfg.use_incoming, cfg.use_outgoing)
+        d = [draws(depth, direction, n, fan, kind == "DROPOUT")
+             if use and kind != "ALL" else None for direction, use in enumerate(used)]
+        cap = int(hop_caps[depth + 1])
+        mode = (sampler_kernels.SATURATED if cap == fill + 1 else
+                sampler_kernels.PREFIX if use_prefix and cap >= n else sampler_kernels.SORTED)
+        hop = sampler_kernels.sample_hop(graph, cur_ids, cur_mask, d[0], d[1], fan, kind,
+                                         cfg.rate, *used, mode, cap, overflow, depth == 0)
+        idx = hop.idx
+        if mode == sampler_kernels.SORTED:
+            # the plain sort or bitmap dedup over the hop kernel's candidates
+            uniq = unique_padded_auto(hop.candidates, size=cap, fill_value=fill)
+            inverse = uniq.inverse.to(torch.int32)
+            nf, off, idx = n * fan, n, list(hop.idx)   # an unused direction keeps its zeros
+            for direction in range(2):
+                if used[direction]:
+                    idx[direction] = inverse[off:off + nf].reshape(n, fan)
+                    off += nf
+            self_idx, next_ids = inverse[:n], uniq.ids
+            next_mask = next_ids < fill
+        else:
+            self_idx, next_ids, next_mask = hop.self_idx, hop.next_ids, hop.next_mask
+        rel = hop.rel
+        layers.append(LayerAdjacency(
+            self_idx=self_idx, in_nbr_idx=idx[0], in_mask=hop.mask[0], out_nbr_idx=idx[1],
+            out_mask=hop.mask[1], node_mask=cur_mask,
+            in_rel=rel[0] if rel is not None and used[0] else None,
+            out_rel=rel[1] if rel is not None and used[1] else None))
+        cur_ids, cur_mask = next_ids, next_mask
+        ids_per_hop.append(cur_ids)
+        masks_per_hop.append(cur_mask)
+    return NeighborBatch(node_ids=tuple(reversed(ids_per_hop)),
+                         node_masks=tuple(reversed(masks_per_hop)),
+                         layers=tuple(reversed(layers)), overflow=overflow)
+
+
+def sample_neighbor_batch_plain(
     draws: Draws,
     graph: DeviceGraph,
     seeds: Tensor,            # (B,) already deduplicated target nodes
@@ -221,9 +286,9 @@ def _sample_neighbor_batch(
     configs: Sequence[NeighborSamplingConfig],  # one per GNN layer, outermost first
     hop_caps: Sequence[int],  # len == num_layers + 1, innermost (B) to outermost
 ) -> NeighborBatch:
-    num_layers = len(configs)
-    if len(hop_caps) != num_layers + 1:
-        raise ValueError(f"{len(hop_caps)} hop caps for {num_layers} layers")
+    """Plain PyTorch version of :func:`sample_neighbor_batch`: the CPU path,
+    and the yardstick the CUDA kernels are held to."""
+    _check_caps(configs, hop_caps)
     fill = graph.num_nodes
     dev = seeds.device
     use_prefix = fill <= PREFIX_BITMAP_LIMIT

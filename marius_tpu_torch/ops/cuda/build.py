@@ -25,7 +25,7 @@ CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("gather", "adagrad", "nbr_sum")
+SOURCES = ("gather", "adagrad", "nbr_sum", "sampler")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 #: per (source, device index): (SM count, blocks of its kernels one SM keeps resident)

@@ -9,7 +9,9 @@ batch. They are integer code and give the JAX functions' results exactly.
 
 JAX's ``.at[idx].set(v, mode="drop")`` drops out-of-range writes; PyTorch
 raises on them. Each such scatter here writes into a buffer with one extra
-row that takes the dropped indices, and that row is sliced off.
+row that takes the dropped indices, and that row is sliced off. A constant
+goes in with ``fill_`` or ``index_fill_``: assigning a Python number by
+index copies it from the host and synchronises a CUDA caller.
 """
 
 from __future__ import annotations
@@ -71,8 +73,8 @@ def unique_padded_bitmap(ids: Tensor, size: int, fill_value: int) -> UniqueResul
     flat = ids.reshape(-1).long()
     dev = flat.device
     mark = torch.zeros(fill_value + 1, dtype=torch.int32, device=dev)
-    mark[flat] = 1
-    mark[fill_value] = 0
+    mark.index_fill_(0, flat, 1)
+    mark[fill_value:].zero_()
     slot = torch.cumsum(mark, 0) - 1                # 0-based slots
     count = (slot[-1] + 1).to(torch.int32)
     target = torch.where((mark == 1) & (slot < size), slot, size)
@@ -111,10 +113,10 @@ def prefix_unique_padded(cur_ids: Tensor, cur_mask: Tensor, candidates: Tensor,
     # reclaim — without this, worst-case caps would spuriously overflow)
     pos_cur = torch.full((fill_value + 1,), -1, dtype=i64, device=dev)
     pos_cur[torch.where(cur_mask, cur_ids.long(), fill_value)] = torch.arange(n, device=dev)
-    pos_cur[fill_value] = -1
+    pos_cur[fill_value:].fill_(-1)
     is_new = torch.zeros(fill_value + 1, dtype=i64, device=dev)
-    is_new[flat] = 1
-    is_new[fill_value] = 0
+    is_new.index_fill_(0, flat, 1)
+    is_new[fill_value:].zero_()
     is_new = torch.where(pos_cur >= 0, 0, is_new)   # already resident in cur
     rank = torch.cumsum(is_new, 0)                   # 1-based ranks of new ids
     new_count = rank[-1]

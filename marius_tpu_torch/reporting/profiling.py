@@ -161,12 +161,12 @@ class Log:
 def counters(mesh=None) -> Dict[str, int]:
     """One snapshot: the active (else the last) recording's counters, the
     kernels' launch counters and, given a mesh, its collectives."""
-    from marius_tpu_torch.ops.cuda import adagrad, gather, nbr_sum
+    from marius_tpu_torch.ops.cuda import adagrad, gather, nbr_sum, sampler
 
     log = _log if _log is not None else _last
     out = dict(log.counts) if log is not None else {}
     out.update({"gather.launches": gather.launches, "nbr_sum.launches": nbr_sum.launches,
-                "adagrad.launches": adagrad.launches})
+                "adagrad.launches": adagrad.launches, "sampler.launches": sampler.launches})
     if mesh is not None:
         out["mesh.collectives"] = mesh.collectives
     return out

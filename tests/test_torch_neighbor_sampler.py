@@ -236,3 +236,57 @@ def test_generator_draws_shapes_and_range():
     a, _ = tn.seeded_draws(11, 3, "cpu")(0, 0, 4, 4, False)
     b, _ = tn.seeded_draws(11, 3, "cpu")(0, 0, 4, 4, False)
     assert torch.equal(a, b)
+
+
+# -- the CUDA path's wrapper ------------------------------------------------------
+
+def _meta_inputs(case):
+    """(graph, seeds, mask, draws) that take the kernel path (not the CPU) and
+    are wrong in one way; on the meta device nothing can launch."""
+    _, _, tg = _graphs(False)
+    meta = torch.device("meta")
+    graph = tg if case == "mixed_devices" else tg.to(meta)
+    seeds = torch.empty((B,), dtype=torch.int64, device=meta)
+    if case == "dtype":
+        seeds = seeds.float()
+    if case == "non_contiguous":
+        seeds = torch.empty((2 * B,), dtype=torch.int64, device=meta)[::2]
+    draw_dtype = torch.int64 if case == "draws_dtype" else torch.int32
+
+    def draws(depth, direction, n, fanout, dropout):
+        return torch.empty((n, fanout), dtype=draw_dtype, device=meta), None
+
+    return graph, seeds, torch.ones((B,), dtype=torch.bool, device=meta), draws
+
+
+def test_sampler_takes_the_plain_path_for_cpu_tensors(monkeypatch):
+    def no_kernels(*args, **kwargs):
+        raise AssertionError("a CPU tensor reached the kernel path")
+
+    monkeypatch.setattr(tn.sampler_kernels, "sample_hop", no_kernels)
+    _, _, tg = _graphs(True)
+    cfg = [T("UNIFORM", 6, 0.0, True, True)] * 2
+    caps = tn.estimate_hop_caps(B, cfg, N)
+    seeds, mask = torch.arange(B, dtype=torch.int64) * 7, torch.ones(B, dtype=torch.bool)
+    got = tn.sample_neighbor_batch(tn.generator_draws(torch.Generator().manual_seed(3)), tg,
+                                   seeds, mask, cfg, caps)
+    want = tn.sample_neighbor_batch_plain(tn.generator_draws(torch.Generator().manual_seed(3)),
+                                          tg, seeds, mask, cfg, caps)
+    assert_batches_equal(got, want)
+
+
+@pytest.mark.parametrize("case,error", [("device", ValueError), ("dtype", TypeError),
+                                        ("non_contiguous", ValueError),
+                                        ("mixed_devices", ValueError),
+                                        ("draws_dtype", TypeError)])
+def test_sampler_kernel_path_raises_on_inputs_it_does_not_take(monkeypatch, case, error):
+    """A tensor off the CPU always takes the kernel path, which raises, before
+    building or launching anything, on an input the kernels do not take."""
+    def no_build(name):
+        raise AssertionError("the kernels were built for a bad input")
+
+    monkeypatch.setattr(tn.sampler_kernels.build, "library", no_build)
+    graph, seeds, mask, draws = _meta_inputs(case)
+    cfg = [T("UNIFORM", 6, 0.0, True, True)] * 2
+    with pytest.raises(error):
+        tn.sample_neighbor_batch(draws, graph, seeds, mask, cfg, [B, 100, N + 1])

@@ -24,7 +24,7 @@ import torch
 from marius_tpu_torch.config import load_config
 from marius_tpu_torch.manager import marius_init
 from marius_tpu_torch.nn.optimizers import tree_leaves
-from marius_tpu_torch.ops.cuda import adagrad, gather, nbr_sum
+from marius_tpu_torch.ops.cuda import adagrad, gather, nbr_sum, sampler
 from marius_tpu_torch.reporting import profiling
 from marius_tpu_torch.tools.preprocess.generate import (
     generate_random_dataset_lp,
@@ -125,6 +125,7 @@ def test_counters_read_the_kernels_launches(monkeypatch):
     monkeypatch.setattr(gather, "launches", 7)
     monkeypatch.setattr(nbr_sum, "launches", 5)
     monkeypatch.setattr(adagrad, "launches", 3)
+    monkeypatch.setattr(sampler, "launches", 9)
 
     class FakeMesh:
         collectives = 11
@@ -133,7 +134,7 @@ def test_counters_read_the_kernels_launches(monkeypatch):
         profiling.count("train.batches", 4)
         snap = profiling.counters(mesh=FakeMesh())
     assert snap == {"train.batches": 4, "gather.launches": 7, "nbr_sum.launches": 5,
-                    "adagrad.launches": 3, "mesh.collectives": 11}
+                    "adagrad.launches": 3, "sampler.launches": 9, "mesh.collectives": 11}
     # the last recording's counters stay readable after it ends
     assert profiling.counters()["train.batches"] == 4
 
