@@ -43,6 +43,7 @@ from marius_tpu_torch.ops.segment import (
     slot_gather,
     slot_ids,
 )
+from marius_tpu_torch.reporting.profiling import count, span
 
 Tensor = torch.Tensor
 
@@ -267,7 +268,16 @@ def gat_layer(config: LayerConfig, params, inputs: Tensor, adj: LayerAdjacency,
     Where h x head_dim <= d_in every input row is projected once and the
     projected rows are gathered; otherwise the softmax runs on per-slot
     scalar logits gathered from x @ (w a_r) and the (n, h, d_in) weighted
-    aggregate is projected: the same function (linearity), fewer flops."""
+    aggregate is projected: the same function (linearity), fewer flops.
+
+    The layer runs inside a ``gat.layer`` span; a training forward counts
+    the bytes of the slot blocks it gathers as ``gat.slot_bytes``."""
+    with span("gat.layer"):
+        return _gat_layer(config, params, inputs, adj, train, dropout_key)
+
+
+def _gat_layer(config: LayerConfig, params, inputs: Tensor, adj: LayerAdjacency,
+               train: bool, dropout_key: Optional[DropoutKey]) -> Tensor:
     h, k = config.num_heads, gat_head_dim(config)
     key = dropout_key if train else None
     if key is not None and config.input_dropout > 0:
@@ -283,6 +293,7 @@ def gat_layer(config: LayerConfig, params, inputs: Tensor, adj: LayerAdjacency,
 
     if h * k <= d_in:
         t = slot_gather(inputs @ params["w"], ids).view(n, -1, h, k)   # (n, S + 1, h, k)
+        blocks = (t,)
         self_t = t[:, -1]
         logits = torch.einsum("nhk,hk->nh", self_t, params["a_l"])[:, None, :] + \
             torch.einsum("nshk,hk->nsh", t, params["a_r"])
@@ -296,12 +307,15 @@ def gat_layer(config: LayerConfig, params, inputs: Tensor, adj: LayerAdjacency,
         war = torch.einsum("dhk,hk->dh", w, params["a_r"])
         slots = slot_gather(inputs, ids)                                 # (n, S + 1, d_in)
         logit_r = slot_gather(inputs @ war, ids)                         # (n, S + 1, h)
+        blocks = (slots, logit_r)
         logits = (slots[:, -1] @ wal)[:, None, :] + logit_r
         alpha = masked_softmax(torch.nn.functional.leaky_relu(logits, slope),
                                mask.expand_as(logits), dim=1)
         alpha = attention_dropout(config, alpha, None if key is None else key.fold(1), train)
         agg = torch.einsum("nsh,nsd->nhd", alpha, slots)                 # (n, h, d_in)
         out = torch.einsum("nhd,dhk->nhk", agg, w)
+    if train:
+        count("gat.slot_bytes", sum(b.numel() * b.element_size() for b in blocks))
     return post_hook(config, params, gat_heads_out(config, out))
 
 
